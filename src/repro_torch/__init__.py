@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of ``repro``, written for one NVIDIA H100.
+
+It imports ``torch``, numpy and the standard library only, never JAX or
+the ``repro`` package.  Public layouts match the reference's, so params
+cross between the two through numpy (``weights.params_from_numpy``).
+Kernels route by tensor device: a CUDA tensor launches the hand-written
+kernel in ``kernels/csrc``, a CPU tensor takes its plain PyTorch version.
+
+This slice serves the dense LM decoders (``serving``, ``launch.serve``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,43 @@
+"""Registry of the architectures the port serves: ``get_config(name)`` /
+``get_reduced(name)``, as in ``repro/configs/__init__.py``."""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.core.types import ModelConfig
+
+__all__ = ["ARCH_NAMES", "get_config", "get_reduced"]
+
+_MODULES = {
+    "yi-6b": "yi_6b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+}
+
+ARCH_NAMES = tuple(_MODULES)
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; choose from {ARCH_NAMES}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str, variant: str = "") -> ModelConfig:
+    cfg = _module(name).CONFIG
+    if variant == "swa":
+        # sliding-window variant for dense archs' long-context decode
+        cfg = dataclasses.replace(cfg, sliding_window=4096, window_pattern=0,
+                                  global_layers=())
+    elif variant == "opt":
+        # seq-sharded attention + banded window skipping
+        cfg = dataclasses.replace(
+            cfg, attn_kv_gather=True,
+            attn_block_skip=cfg.sliding_window > 0)
+    elif variant:
+        raise ValueError(f"unknown variant {variant!r}")
+    return cfg
+
+
+def get_reduced(name: str) -> ModelConfig:
+    return _module(name).reduced()

@@ -1,0 +1,202 @@
+"""Decoder-only language model for serving: init / forward / prefill /
+decode, from ``repro/models/lm.py``.
+
+The reference's ``lax.scan`` over stacked layer params is a Python loop
+here; every leaf of ``params["layers"]`` keeps the leading ``L`` axis.
+The decode cache is updated in place (``decode_step``, ``cache_insert``
+and ``cache_evict`` return the same tensors they were given), where the
+reference builds new arrays; the values are the same.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.core.device import resolve_device
+
+from .blocks import (block_decode, block_forward, check_supported,
+                     init_block, init_block_cache, layer_windows)
+from .layers import embed, init_embedding, init_rms_norm, rms_norm
+
+__all__ = ["init_params", "forward", "DecodeCache", "init_cache", "prefill",
+           "cache_insert", "cache_evict", "decode_step", "compute_params",
+           "layer_params"]
+
+
+def _dtype(cfg):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def init_params(cfg, generator, device="cuda"):
+    """Random params in the reference's tree layout, drawn from
+    ``generator`` on ``device`` (``"meta"`` builds shapes only and takes
+    ``generator=None``)."""
+    check_supported(cfg)
+    if torch.device(device).type == "meta":
+        dev = torch.device("meta")
+    else:
+        dev = resolve_device(device)
+        if not isinstance(generator, torch.Generator):
+            raise TypeError("init_params needs an explicit torch.Generator")
+        if generator.device.type != dev.type:
+            raise ValueError(f"generator on {generator.device} cannot draw "
+                             f"params on {dev}")
+    pdt = torch.float32 if cfg.param_dtype == "float32" else torch.bfloat16
+    kw = dict(dtype=pdt, device=dev)
+    params = {
+        "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model, **kw),
+        "layers": init_block(generator, cfg, stack=(cfg.num_layers,), **kw),
+        "final_norm": init_rms_norm(cfg.d_model, **kw),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_embedding(generator, cfg.vocab_size,
+                                           cfg.d_model, **kw)
+    return params
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def layer_params(layers, i: int):
+    """Layer ``i`` of a stacked layer tree (views, no copies)."""
+    return _tree_map(lambda t: t[i], layers)
+
+
+def compute_params(params, cfg):
+    """``params`` with every floating leaf of >= 2 dims cast once to the
+    activation dtype.  ``ops.dense``, the embedding and the lm-head cast
+    to that dtype at every call, so the values are the same; holding the
+    copy saves re-reading the f32 weights each step.  1-D leaves (norm
+    scales) stay as they are."""
+    dt = _dtype(cfg)
+
+    def cast(t):
+        return t.to(dt) if t.is_floating_point() and t.ndim >= 2 else t
+    return _tree_map(cast, params)
+
+
+def _head_table(params):
+    return params.get("lm_head", params["embed"])["table"]
+
+
+def _logits(params, x, cfg):
+    return (x @ _head_table(params).to(_dtype(cfg)).T).float()
+
+
+# ----------------------------------------------------------------------
+def forward(params, tokens, cfg, collect_cache=False,
+            cache_dtype=torch.bfloat16):
+    """tokens: (B, S) int.  Returns (hidden (B, S, d), per-layer decode
+    caches stacked on a leading L axis or None, aux_loss)."""
+    check_supported(cfg)
+    dt = _dtype(cfg)
+    x = embed(params["embed"], tokens).to(dt)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ks, vs = [], []
+    for i, win in enumerate(layer_windows(cfg)):
+        lp = layer_params(params["layers"], i)
+        x, kv, a = block_forward(lp, x, positions, cfg, window=win,
+                                 collect_cache=collect_cache,
+                                 cache_dtype=cache_dtype)
+        aux = aux + a
+        if collect_cache:
+            ks.append(kv["kv"]["k"])
+            vs.append(kv["kv"]["v"])
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    caches = ({"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+              if collect_cache else None)
+    return x, caches, aux
+
+
+# ----------------------------------------------------------------------
+# Serving
+# ----------------------------------------------------------------------
+@dataclasses.dataclass
+class DecodeCache:
+    """Slot-major decode cache.
+
+    ``layers``: ``{"kv": {"k", "v"}}`` with leaves (L, slots, S, KH, D).
+    ``lengths``: (slots,) int32 valid-token counts; 0 marks a free slot.
+    """
+    layers: Any
+    lengths: torch.Tensor
+
+
+def init_cache(batch, max_seq, cfg, dtype=torch.bfloat16, device="cpu"):
+    """Slot-major decode cache for ``batch`` slots of ``max_seq`` tokens
+    (cfg last, as the reference's current signature)."""
+    check_supported(cfg)
+    layers = init_block_cache(batch, max_seq, cfg, stack=(cfg.num_layers,),
+                              dtype=dtype, device=device)
+    return DecodeCache(layers=layers,
+                       lengths=torch.zeros((batch,), dtype=torch.int32,
+                                           device=device))
+
+
+def prefill(params, tokens, cfg, cache_dtype=torch.bfloat16):
+    """Whole-prompt prefill as one forward pass.
+
+    tokens: (B, P) int.  Returns (last-position logits (B, 1, V) f32,
+    DecodeCache whose kv seq dim is P and whose lengths are all P).
+    """
+    hidden, layers, _ = forward(params, tokens, cfg, collect_cache=True,
+                                cache_dtype=cache_dtype)
+    B, P = tokens.shape
+    logits = _logits(params, hidden[:, -1:], cfg)
+    return logits, DecodeCache(
+        layers=layers, lengths=torch.full((B,), P, dtype=torch.int32,
+                                          device=tokens.device))
+
+
+def cache_insert(cache, slice_, slot, row=0):
+    """Copy row ``row`` of a prefill ``slice_`` into ``slot`` of a serving
+    cache, in place.  Kv leaves land at positions [0, P); past them the
+    stale payload is masked out by ``lengths``."""
+    def upd(big, small):
+        big[:, slot, :small.shape[2]] = small[:, row].to(big.dtype)
+        return big
+
+    for name, leaf in cache.layers["kv"].items():
+        upd(leaf, slice_.layers["kv"][name])
+    cache.lengths[slot] = slice_.lengths[row]
+    return cache
+
+
+def cache_evict(cache, slot):
+    """Free ``slot``: zero its length so decode masks it out entirely."""
+    cache.lengths[slot] = 0
+    return cache
+
+
+def decode_step(params, cache, cache_len, tokens, cfg):
+    """tokens: (B, 1) int; cache: DecodeCache, updated in place.
+
+    ``cache_len=None`` uses ``cache.lengths``: every occupied slot decodes
+    at its own position and its length auto-increments (free slots stay
+    0).  Otherwise a scalar or (B,) count is used as-is and the lengths
+    pass through unchanged.  Returns (logits (B, 1, V) f32, cache).
+    """
+    if not isinstance(cache, DecodeCache):
+        raise TypeError("decode_step takes a DecodeCache")
+    check_supported(cfg)
+    auto = cache_len is None
+    if auto:
+        cache_len = cache.lengths
+    x = embed(params["embed"], tokens).to(_dtype(cfg))
+    for i, win in enumerate(layer_windows(cfg)):
+        lp = layer_params(params["layers"], i)
+        lc = layer_params(cache.layers, i)
+        x, _ = block_decode(lp, x, lc, cache_len, cfg, window=win)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    logits = _logits(params, x, cfg)
+    if auto:
+        lengths = cache.lengths
+        lengths += (lengths > 0).to(lengths.dtype)
+    return logits, cache

@@ -1,0 +1,56 @@
+"""Params across the package boundary, through numpy.
+
+``params_from_numpy`` takes a tree of numpy arrays in the reference's
+layout (``jax.tree_util.tree_map(np.asarray, repro.models.lm.init_params(
+key, cfg))``) and returns the port's params with the same structure,
+shapes and dtypes, on ``device``.  No transposes: both packages keep
+dense weights (Din, Dout), tables (V, d) and layer leaves stacked on a
+leading L axis.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.models import lm
+
+__all__ = ["params_from_numpy", "params_to_numpy"]
+
+
+def _to_torch(a: np.ndarray) -> torch.Tensor:
+    a = np.array(a, order="C")            # a writable copy
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _convert(tree, template, device, path):
+    if isinstance(template, dict):
+        if not isinstance(tree, dict) or set(tree) != set(template):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"params{path}: expected keys "
+                             f"{sorted(template)}, got {got}")
+        return {k: _convert(tree[k], template[k], device, f"{path}[{k!r}]")
+                for k in template}
+    t = _to_torch(np.asarray(tree))
+    if tuple(t.shape) != tuple(template.shape) or t.dtype != template.dtype:
+        raise ValueError(f"params{path}: expected {template.dtype} "
+                         f"{tuple(template.shape)}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    return t.to(device)
+
+
+def params_from_numpy(tree, cfg, device="cuda"):
+    """The port's params for ``cfg`` from a numpy tree in the reference's
+    layout; raises on a missing key, a wrong shape or a wrong dtype."""
+    dev = resolve_device(device)
+    template = lm.init_params(cfg, None, device="meta")
+    return _convert(tree, template, dev, "")
+
+
+def params_to_numpy(params):
+    """The inverse: a numpy tree (float32 leaves stay float32)."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    return params.detach().cpu().numpy()

@@ -1,0 +1,77 @@
+"""The PyTorch port stands alone: it never imports JAX or the ``repro``
+package, at run time (subprocess guard) or in its source (AST scan)."""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+SCANNED = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+SLICE_MODULES = (
+    "repro_torch", "repro_torch.core.types", "repro_torch.core.device",
+    "repro_torch.configs", "repro_torch.configs.yi_6b",
+    "repro_torch.configs.phi3_mini_3_8b", "repro_torch.kernels.ref",
+    "repro_torch.kernels.build", "repro_torch.kernels.dense",
+    "repro_torch.kernels.ops", "repro_torch.models.layers",
+    "repro_torch.models.attention", "repro_torch.models.blocks",
+    "repro_torch.models.lm", "repro_torch.serving",
+    "repro_torch.serving.scheduler", "repro_torch.serving.engine",
+    "repro_torch.launch.serve", "repro_torch.launch.profile_decode",
+    "repro_torch.weights",
+)
+BANNED = ("jax", "jaxlib", "repro")
+
+
+def test_import_leaves_jax_and_repro_out():
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {SLICE_MODULES!r}:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in {BANNED!r})
+        print(",".join(bad))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", f"imported: {proc.stdout.strip()}"
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)):
+            yield node.args[0].value.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", SCANNED,
+                         ids=[str(p.relative_to(REPO)) for p in SCANNED])
+def test_source_imports_no_jax_or_repro(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(root, line) for root, line in _imported_roots(tree)
+           if root in BANNED]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_scan_covers_the_slice():
+    rel = {str(p.relative_to(PORT)) for p in SCANNED if PORT in p.parents}
+    for mod in SLICE_MODULES[1:]:
+        parts = mod.split(".")[1:]
+        assert ("/".join(parts) + ".py" in rel
+                or "/".join(parts) + "/__init__.py" in rel), mod
