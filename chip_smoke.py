@@ -13,12 +13,23 @@ from the root of a checkout.  Phases, each of which raises on failure
    at every Yi-6B projection shape at M = 4 and 24 in bf16, plus ragged
    cases; kernel, plain and ``torch.matmul`` times by CUDA events, beside
    the least time the card could take;
+2b. K2-K8 (and K1 in f32) against their plain versions at every shape of
+   a Table-2 case7 training step at B = 64, plus ragged and tied cases;
+   per kernel, its time, the plain version's, the library call's and the
+   bound, summed over one step's launches; K6 reruns bit for bit;
 3. reduced Yi-6B in f32 served on the card and on the CPU from the same
    weights and request stream: identical token streams, logits within
    1e-4;
+3b. a reduced CNN and case1 trained 4 AdamW steps on the card and on the
+   CPU from the same numpy params and batches: losses and params agree;
 4. the slice: full-width Yi-6B from a seed, 8 Poisson requests through the
    continuous-batching engine with measured timing; every request
    completes, logits are finite and K1 ran 224 times per forward call;
+4b. the training slice: case7 (20.4 M params) at 32 px, B = 64, 20 AdamW
+   steps through ``make_node_round``: finite losses, every grad leaf
+   nonzero (at the initial params),
+   exactly 56 launches a step (K1-K8: 7 7 7 10 9 10 3 3), step time,
+   device time per kernel, busy share and peak memory;
 5. the serving CLI once on the reduced config;
 6. a JSON line with every ported kernel, then the card again, then the
    result line ``{"ok": true, "device": {...}}``.
@@ -35,6 +46,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -62,15 +74,26 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(M, N, K, dtype) -> tuple[float, str]:
-    """Least time for act(x @ w): each input read once, the output written
-    once, or the flops at the tensor cores' (bf16) or FMA (f32) peak."""
-    itemsize = 2 if dtype == "bfloat16" else 4
-    nbytes = (M * K + K * N + M * N) * itemsize
+def roof_ms(nbytes, flops, dtype="float32") -> tuple[float, str]:
+    """Least time for work that moves ``nbytes`` (each input read once,
+    each output written once) and does ``flops`` at the tensor cores'
+    (bf16) or FMA (f32) peak, and which of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2.0 * M * N * K / PEAK_FLOPS[dtype]
+    t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def bound_ms(M, N, K, dtype) -> tuple[float, str]:
+    """Least time for act(x @ w) with x (M, K) and w (K, N)."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    return roof_ms((M * K + K * N + M * N) * itemsize, 2.0 * M * N * K,
+                   dtype)
+
+
+def dominant(bound_by_ms: dict) -> str:
+    """"bytes" or "operations": whichever bounds more of a summed bound."""
+    return max(bound_by_ms, key=bound_by_ms.get)
 
 
 def time_ms(torch, fn, arg_sets, iters=50, warmup=5) -> float:
@@ -96,7 +119,7 @@ def phase_kernel(torch, dense_mod, ref):
     gen = torch.Generator("cuda").manual_seed(1)
     dense_cuda = dense_mod.dense_cuda
     step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-            "bound_by": set()}
+            "bound_by": {}}
     worst = {"err": 0.0, "ratio": 0.0, "tol": 0.0}
     log(f"[k1] {'shape':<19} {'M':>3}  {'max_abs_err':<12} {'tol':<10} "
         f"{'kernel_ms':<10} {'plain_ms':<10} {'library_ms':<10} "
@@ -131,7 +154,8 @@ def phase_kernel(torch, dense_mod, ref):
                 step["plain_ms"] += L * p_ms
                 step["library_ms"] += L * l_ms
                 step["bound_ms"] += L * b_ms
-                step["bound_by"].add(by)
+                by_ms = step["bound_by"]
+                by_ms[by] = by_ms.get(by, 0.0) + L * b_ms
                 if err / tol > worst["ratio"]:
                     worst = {"err": err, "ratio": err / tol, "tol": tol}
             del x, ws, sets, got, want
@@ -158,8 +182,472 @@ def phase_kernel(torch, dense_mod, ref):
     log(f"[k1] one decode step (224 launches, M=4): kernel "
         f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, "
         f"torch.matmul {step['library_ms']:.4f} ms, bound "
-        f"{step['bound_ms']:.4f} ms ({'/'.join(sorted(step['bound_by']))})")
+        f"{step['bound_ms']:.4f} ms ({dominant(step['bound_by'])})")
     return step, worst
+
+
+# ----------------------------------------------------------------------
+# The CNN training slice: K2-K8 and K1 at the case7 shapes
+# ----------------------------------------------------------------------
+TRAIN_KERNELS = (  # (key, JSON name, source, the TPU kernel it replaces)
+    ("K1", "dense_fwd (K1)", "dense_fwd.cu", "src/repro/kernels/dense.py:46"),
+    ("K2", "dense_dx (K2)", "dense_bwd.cu", "src/repro/kernels/dense.py:59"),
+    ("K3", "dense_dwdb (K3)", "dense_bwd.cu",
+     "src/repro/kernels/dense.py:69"),
+    ("K4", "conv2d_fwd (K4)", "conv2d.cu", "src/repro/kernels/conv2d.py:72"),
+    ("K5", "conv2d_dx (K5)", "conv2d.cu", "src/repro/kernels/conv2d.py:86"),
+    ("K6", "conv2d_dw (K6)", "conv2d.cu", "src/repro/kernels/conv2d.py:98"),
+    ("K7", "max_pool2d_fwd (K7)", "pool2d.cu",
+     "src/repro/kernels/pool2d.py:45"),
+    ("K8", "max_pool2d_bwd (K8)", "pool2d.cu",
+     "src/repro/kernels/pool2d.py:57"),
+)
+STEP_LAUNCHES = {"K1": 7, "K2": 7, "K3": 7, "K4": 10, "K5": 9, "K6": 10,
+                 "K7": 3, "K8": 3}   # one case7 training step
+GRAD_TOL = 1e-4                    # x max(max|ref|, 1): the reference's gate
+TRAIN_BATCH = 64
+
+
+def conv_flops(B, H, W, Cin, Cout, k, padding, ref):
+    """2 x the multiply-adds a stride-1 conv needs: taps that land in the
+    padding are not counted."""
+    top, _, left, _ = ref.conv_pads(k, k, padding)
+    Ho, Wo = (H, W) if padding == "SAME" else (H - k + 1, W - k + 1)
+    th = sum(1 for h in range(Ho) for i in range(k) if 0 <= h + i - top < H)
+    tw = sum(1 for w in range(Wo) for j in range(k) if 0 <= w + j - left < W)
+    return 2.0 * B * th * tw * Cin * Cout
+
+
+def case7_step_shapes(cnn):
+    """The shapes one case7 training step at B = 64 hands each kernel, as
+    (shape, launches per step)."""
+    cfg = cnn.make_case("case7")
+    shapes, final = cnn._conv_shapes(cfg)
+    B, k = TRAIN_BATCH, cfg.filter_size
+    dims = ([final * final * cfg.filters] + [cfg.fc_neurons]
+            * (cfg.fc_layers - 1) + [cfg.num_classes])
+    fc = {}
+    for j in range(cfg.fc_layers):
+        key = (B, dims[j], dims[j + 1], j < cfg.fc_layers - 1)
+        fc[key] = fc.get(key, 0) + 1
+    conv, conv_dx, pool = {}, {}, {}
+    for i, (cin, cout, s, pooled) in enumerate(shapes):
+        key = (B, s, s, cin, cout, k, "SAME")
+        conv[key] = conv.get(key, 0) + 1
+        if i > 0:                  # the images need no gradient
+            conv_dx[key] = conv_dx.get(key, 0) + 1
+        if pooled:
+            pool[(B, s, s, cout)] = pool.get((B, s, s, cout), 0) + 1
+    return {"K1": fc, "K2": fc, "K3": fc, "K4": conv, "K5": conv_dx,
+            "K6": conv, "K7": pool, "K8": pool}
+
+
+RAGGED = {   # correctness only: odd B, Cin = 3, k = 2/4/7, VALID, ragged tiles
+    "dense": ((37, 100, 77, True), (5, 3, 130, False), (64, 192, 70, True)),
+    "conv": ((3, 9, 7, 3, 5, 2, "SAME"), (3, 9, 7, 3, 5, 4, "SAME"),
+             (3, 9, 7, 3, 5, 7, "SAME"), (3, 9, 7, 4, 20, 3, "VALID"),
+             (1, 8, 8, 12, 12, 7, "VALID"), (5, 6, 6, 12, 12, 7, "SAME")),
+    "pool": ((3, 9, 7, 5), (2, 8, 8, 12)),
+}
+
+
+def _train_specs(torch, ref, mods):
+    """Per kernel: make(gen, shape) -> args, the kernel and its plain
+    version (on args), the library call (on lib_args(*args), made outside
+    the timing: layout views and, for K8, the forward graph), bytes, flops
+    and whether it is a gradient (tolerance)."""
+    F = torch.nn.functional
+    dn, cv, pl = mods["dense"], mods["conv2d"], mods["pool2d"]
+
+    def rnd(gen, shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def relu_out(gen, shape):      # a post-relu map: about half zeros
+        return torch.relu(rnd(gen, shape))
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    def oihw(w):                   # HWIO -> OIHW view, channels-last strides
+        return w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
+
+    def fc_args(gen, s, with_x):
+        M, Din, Dout, relu = s
+        g = rnd(gen, (M, Dout))
+        first = rnd(gen, (M, Din)) if with_x else \
+            rnd(gen, (Din, Dout)) / math.sqrt(Din)
+        return (g, first, relu_out(gen, (M, Dout)) if relu else None)
+
+    def conv_geom(s):
+        B, H, W, Cin, Cout, k, pad = s
+        Ho, Wo = (H, W) if pad == "SAME" else (H - k + 1, W - k + 1)
+        return B, H, W, Cin, Cout, k, pad, Ho, Wo
+
+    def pool_x(gen, s):
+        B, H, W, C = s
+        if H % 2 == 0 and W % 2 == 0 and B == 2:   # the tied-window case
+            x = torch.relu(torch.round(rnd(gen, s)))
+            x[0, :2, :2, :] = 0.0                   # an all-zero window
+            return x
+        return relu_out(gen, s)
+
+    def k1(gen, s):
+        M, Din, Dout, relu = s
+        return (rnd(gen, (M, Din)), rnd(gen, (Din, Dout)) / math.sqrt(Din),
+                rnd(gen, (Dout,)), "relu" if relu else "none")
+
+    def k4(gen, s):
+        B, H, W, Cin, Cout, k, pad, _, _ = conv_geom(s)
+        return (rnd(gen, (B, H, W, Cin)),
+                rnd(gen, (k, k, Cin, Cout)) / math.sqrt(k * k * Cin),
+                rnd(gen, (Cout,)), pad)
+
+    def k5(gen, s):
+        B, H, W, Cin, Cout, k, pad, Ho, Wo = conv_geom(s)
+        return (rnd(gen, (B, Ho, Wo, Cout)),
+                rnd(gen, (k, k, Cin, Cout)) / math.sqrt(k * k * Cin),
+                (B, H, W, Cin), pad, relu_out(gen, (B, Ho, Wo, Cout)))
+
+    def k6(gen, s):
+        B, H, W, Cin, Cout, k, pad, Ho, Wo = conv_geom(s)
+        return (rnd(gen, (B, H, W, Cin)), rnd(gen, (B, Ho, Wo, Cout)),
+                (k, k, Cin, Cout), pad, relu_out(gen, (B, Ho, Wo, Cout)))
+
+    def k8(gen, s):
+        x = pool_x(gen, s)
+        out = ref.max_pool2d_ref(x, 2, 2)
+        return (x, out, rnd(gen, tuple(out.shape)), 2)
+
+    def pool_bwd_graph(x, out, g, k):   # the forward, outside the timing
+        xg = nchw(x).detach().requires_grad_()
+        return F.max_pool2d(xg, k), xg, nchw(g)
+
+    def conv_bytes(s, bias, mask):
+        """x (or dx), out (or g), the filter (or dw), bias (or db), mask."""
+        B, H, W, Cin, Cout, k, pad, Ho, Wo = conv_geom(s)
+        return 4 * (B * H * W * Cin + B * Ho * Wo * Cout * (1 + mask)
+                    + k * k * Cin * Cout + Cout * bias)
+
+    def cflops(s):
+        B, H, W, Cin, Cout, k, pad = s
+        return conv_flops(B, H, W, Cin, Cout, k, pad, ref)
+
+    return {
+        "K1": dict(make=k1, kern=lambda x, w, b, a: dn.dense_cuda(
+                       x, w, b, activation=a),
+                   plain=lambda x, w, b, a: ref.dense_ref(x, w, b, a),
+                   lib=torch.matmul, lib_args=lambda x, w, b, a: (x, w),
+                   nbytes=lambda s: 4 * (s[0] * s[1] + s[1] * s[2] + s[2]
+                                         + s[0] * s[2]),
+                   flops=lambda s: 2.0 * s[0] * s[1] * s[2], grad=False),
+        "K2": dict(make=lambda gen, s: fc_args(gen, s, False),
+                   kern=dn.dense_dx_cuda, plain=ref.dense_dx_ref,
+                   lib=lambda g, w, o: torch.matmul(g, w.t()),
+                   nbytes=lambda s: 4 * (s[0] * s[2] * (2 if s[3] else 1)
+                                         + s[1] * s[2] + s[0] * s[1]),
+                   flops=lambda s: 2.0 * s[0] * s[1] * s[2], grad=True),
+        "K3": dict(make=lambda gen, s: (lambda g, x, o: (x, g, o))(
+                       *fc_args(gen, s, True)),
+                   kern=dn.dense_dwdb_cuda, plain=ref.dense_dwdb_ref,
+                   lib=lambda x, g, o: (torch.matmul(x.t(), g), g.sum(0)),
+                   nbytes=lambda s: 4 * (s[0] * s[1] + s[0] * s[2]
+                                         * (2 if s[3] else 1) + s[1] * s[2]
+                                         + s[2]),
+                   flops=lambda s: 2.0 * s[0] * s[1] * s[2] + s[0] * s[2],
+                   grad=True),
+        "K4": dict(make=k4, kern=lambda x, w, b, p: cv.conv2d_cuda(
+                       x, w, b, padding=p, activation="relu"),
+                   plain=lambda x, w, b, p: ref.conv2d_fused_ref(
+                       x, w, b, padding=p, activation="relu"),
+                   lib=lambda x, w, b: F.conv2d(x, w, b, padding="same"),
+                   lib_args=lambda x, w, b, p: (nchw(x), oihw(w), b),
+                   nbytes=lambda s: conv_bytes(s, 1, 0), flops=cflops,
+                   grad=False),
+        "K5": dict(make=k5, kern=cv.conv2d_dx_cuda, plain=ref.conv2d_dx_ref,
+                   lib=lambda size, w, g: torch.nn.grad.conv2d_input(
+                       size, w, g, padding=w.shape[2] // 2),
+                   lib_args=lambda g, w, xs, p, o: (
+                       (xs[0], xs[3], xs[1], xs[2]), oihw(w), nchw(g)),
+                   nbytes=lambda s: conv_bytes(s, 0, 1), flops=cflops,
+                   grad=True),
+        "K6": dict(make=k6, kern=cv.conv2d_dw_cuda, plain=ref.conv2d_dw_ref,
+                   lib=lambda x, size, g: torch.nn.grad.conv2d_weight(
+                       x, size, g, padding=size[2] // 2),
+                   lib_args=lambda x, g, ws, p, o: (
+                       nchw(x), (ws[3], ws[2], ws[0], ws[1]), nchw(g)),
+                   nbytes=lambda s: conv_bytes(s, 1, 1),
+                   flops=lambda s: cflops(s) + s[0] * s[1] * s[2] * s[4],
+                   grad=True),
+        "K7": dict(make=lambda gen, s: (pool_x(gen, s), 2),
+                   kern=pl.max_pool2d_cuda,
+                   plain=lambda x, k: ref.max_pool2d_ref(x, k, k),
+                   lib=F.max_pool2d, lib_args=lambda x, k: (nchw(x), k),
+                   nbytes=lambda s: 4 * (s[0] * s[1] * s[2] * s[3] * 5 // 4),
+                   flops=lambda s: float(s[0] * s[1] * s[2] * s[3]),
+                   grad=False),
+        "K8": dict(make=k8, kern=pl.max_pool2d_bwd_cuda,
+                   plain=ref.max_pool2d_bwd_ref,
+                   lib=lambda y, xg, g: torch.autograd.grad(
+                       y, xg, g, retain_graph=True),
+                   lib_args=pool_bwd_graph,
+                   nbytes=lambda s: 4 * (s[0] * s[1] * s[2] * s[3] * 5 // 2),
+                   flops=lambda s: float(2 * s[0] * s[1] * s[2] * s[3]),
+                   grad=True),
+    }
+
+
+def _flat(torch, out):
+    if isinstance(out, (tuple, list)):
+        return torch.cat([t.reshape(-1) for t in out])
+    return out.reshape(-1)
+
+
+def _compare(torch, key, spec, args):
+    got = _flat(torch, spec["kern"](*args))
+    want = _flat(torch, spec["plain"](*args))
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    tol = GRAD_TOL * max(scale, 1.0) if spec["grad"] else F32_TOL * scale
+    return err, tol
+
+
+def phase_train_kernels(torch, ref, mods, cnn):
+    """K2-K8 (and K1 at the FC shapes) against their plain versions on the
+    card, at every case7 B = 64 shape and the ragged and tied cases; per
+    kernel, times summed over one training step's launches."""
+    specs = _train_specs(torch, ref, mods)
+    step = case7_step_shapes(cnn)
+    gen = torch.Generator("cuda").manual_seed(2)
+    rows = {}
+    log(f"[train-k] {'kernel':<4} {'shape':<34} {'x':>2}  {'max_abs_err':<11} "
+        f"{'tol':<10} {'kernel_ms':<10} {'plain_ms':<10} {'library_ms':<10} "
+        "bound_ms")
+    for key, spec in specs.items():
+        row = {"err": 0.0, "tol": 0.0, "ratio": -1.0, "ms": 0.0,
+               "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+               "bound_by": {}}
+        kind = {"K1": "dense", "K2": "dense", "K3": "dense", "K7": "pool",
+                "K8": "pool"}.get(key, "conv")
+        cases = [(s, n) for s, n in step[key].items()]
+        if key != "K1":
+            cases += [(s, 0) for s in RAGGED[kind]]
+        for s, n in cases:
+            args = spec["make"](gen, s)
+            err, tol = _compare(torch, key, spec, args)
+            if not err <= tol:
+                raise AssertionError(f"{key} {s}: max_abs_err {err} > tol "
+                                     f"{tol}")
+            ratio = err / tol if tol > 0 else 0.0
+            if ratio > row["ratio"]:
+                row.update(err=err, tol=tol, ratio=ratio)
+            if n == 0:
+                log(f"[train-k] {key:<4} {str(s):<34} {'-':>2}  "
+                    f"{err:<11.4g} {tol:<10.4g}")
+                continue
+            nbytes = spec["nbytes"](s)
+            copies = max(2, min(64, math.ceil(256e6 / nbytes)))
+            sets = [args] + [spec["make"](gen, s) for _ in range(copies - 1)]
+            k_ms = time_ms(torch, spec["kern"], sets)
+            p_ms = time_ms(torch, spec["plain"], sets, iters=20)
+            lib_args = spec.get("lib_args", lambda *a: a)
+            l_ms = time_ms(torch, spec["lib"], [lib_args(*a) for a in sets])
+            b_ms, by = roof_ms(nbytes, spec["flops"](s))
+            log(f"[train-k] {key:<4} {str(s):<34} {n:>2}  {err:<11.4g} "
+                f"{tol:<10.4g} {k_ms:<10.5f} {p_ms:<10.5f} {l_ms:<10.5f} "
+                f"{b_ms:.5f}")
+            row["ms"] += n * k_ms
+            row["plain_ms"] += n * p_ms
+            row["library_ms"] += n * l_ms
+            row["bound_ms"] += n * b_ms
+            row["bound_by"][by] = row["bound_by"].get(by, 0.0) + n * b_ms
+            del sets
+        if key == "K6":            # fixed-order partial sums: identical bits
+            x, g, ws, p, o = spec["make"](gen, next(iter(step["K6"])))
+            a, b = mods["conv2d"].conv2d_dw_cuda(x, g, ws, p, o), \
+                mods["conv2d"].conv2d_dw_cuda(x, g, ws, p, o)
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError("K6 gave different bits on a rerun")
+        log(f"[train-k] {key} one case7 step ({STEP_LAUNCHES[key]} launches): "
+            f"kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, "
+            f"library {row['library_ms']:.5f} ms, bound {row['bound_ms']:.5f}"
+            f" ms ({dominant(row['bound_by'])}); worst max_abs_err "
+            f"{row['err']:.4g} at tol {row['tol']:.4g}")
+        rows[key] = row
+    return rows
+
+
+def _train_cfg(types, **kw):
+    return types.TrainConfig(optimizer="adamw", learning_rate=2e-3, **kw)
+
+
+def phase_train_reduced(torch, port):
+    """A reduced CNN and Table-2 case1 trained 4 AdamW steps on the card
+    and on the CPU from the same numpy params and batches."""
+    import numpy as np
+    cnn, weights, trainer = port.cnn, port.weights, port.trainer
+    inner = cnn.CNNConfig(name="inner", image_size=8, conv_layers=1,
+                          filters=4, fc_layers=2, fc_neurons=16)
+    tc = _train_cfg(port.types, warmup_steps=5, total_steps=100)
+    for cfg, B in ((inner, 16), (cnn.make_case("case1"), 8)):
+        host = cnn.init_cnn(cfg, torch.Generator("cpu").manual_seed(0),
+                            device="cpu")
+        tree = weights.params_to_numpy(host)
+        xs, ys = port.synthetic.image_dataset(4 * B, size=cfg.image_size, seed=0)
+
+        def loss_fn(p, b, cfg=cfg):
+            return cnn.cnn_loss(p, b, cfg), {}
+
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            params = weights.params_from_numpy(tree, cfg, dev)
+            step = trainer.make_step_body(loss_fn, tc)
+            opt = port.optim.make_optimizer(tc.optimizer).init(params)
+            losses = []
+            for i in range(4):
+                batch = {"images": torch.as_tensor(xs[i * B:(i + 1) * B],
+                                                   device=dev),
+                         "labels": torch.as_tensor(ys[i * B:(i + 1) * B],
+                                                   device=dev)}
+                params, opt, loss = step(params, opt, batch, i + 1)
+                losses.append(float(loss))
+            runs[dev] = (losses, weights.params_to_numpy(params))
+        np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0],
+                                   rtol=1e-4, atol=1e-6)
+        diff = 0.0
+        for a, b in zip(port.tree.tree_leaves(runs["cuda"][1]),
+                        port.tree.tree_leaves(runs["cpu"][1]), strict=True):
+            np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-5)
+            diff = max(diff, float(np.abs(a - b).max()))
+        log(f"[train-reduced] {cfg.name} B={B}: 4 AdamW steps, card losses "
+            f"{runs['cuda'][0]} vs cpu {runs['cpu'][0]}; final params "
+            f"max_abs_diff {diff:.3g} (rtol 1e-3, atol 1e-5)")
+
+
+KERNEL_NAMES = (   # device kernel name -> the port's kernel, for the profile
+    ("dense_fwd_f32_kernel", "K1"), ("dense_dx_kernel", "K2"),
+    ("dense_dwdb_kernel", "K3"), ("conv_igemm_kernel<false>", "K4"),
+    ("conv_igemm_kernel<true>", "K5"), ("conv_dw_", "K6"),
+    ("pool_fwd_kernel", "K7"), ("pool_bwd_kernel", "K8"))
+
+
+def _counts(mods):
+    dn, cv, pl = mods["dense"], mods["conv2d"], mods["pool2d"]
+    return {"K1": dn.dense_cuda.launches, "K2": dn.dense_dx_cuda.launches,
+            "K3": dn.dense_dwdb_cuda.launches, "K4": cv.conv2d_cuda.launches,
+            "K5": cv.conv2d_dx_cuda.launches,
+            "K6": cv.conv2d_dw_cuda.launches,
+            "K7": pl.max_pool2d_cuda.launches,
+            "K8": pl.max_pool2d_bwd_cuda.launches}
+
+
+def _zero_counts(mods):
+    dn, cv, pl = mods["dense"], mods["conv2d"], mods["pool2d"]
+    for fn in (dn.dense_cuda, dn.dense_dx_cuda, dn.dense_dwdb_cuda,
+               cv.conv2d_cuda, cv.conv2d_dx_cuda, cv.conv2d_dw_cuda,
+               pl.max_pool2d_cuda, pl.max_pool2d_bwd_cuda):
+        fn.launches = 0
+
+
+def phase_train_slice(torch, port, mods, card, steps=20):
+    """The slice: Table-2 case7 at 32 px, B = 64, f32, 20 AdamW steps
+    through make_node_round; exact launch counts per step."""
+    import numpy as np
+    cnn, trainer = port.cnn, port.trainer
+    cfg = cnn.make_case("case7")
+    B = TRAIN_BATCH
+    params = cnn.init_cnn(cfg, torch.Generator("cuda").manual_seed(0),
+                          device="cuda")
+    n_params = sum(p.numel() for p in port.tree.tree_leaves(params))
+    tc = _train_cfg(port.types, warmup_steps=10, total_steps=steps, grad_clip=1.0,
+                    local_steps=1)
+
+    def loss_fn(p, b):
+        return cnn.cnn_loss(p, b, cfg), {}
+
+    node_round = trainer.make_node_round(loss_fn, tc)
+    opt = port.optim.make_optimizer(tc.optimizer).init(params)
+    xs, ys = port.synthetic.image_dataset(steps * B, size=cfg.image_size, seed=0)
+    batches = [{"images": torch.as_tensor(xs[None, i * B:(i + 1) * B],
+                                          device="cuda"),
+                "labels": torch.as_tensor(ys[None, i * B:(i + 1) * B],
+                                          device="cuda")}
+               for i in range(steps)]
+    # every leaf's gradient reaches it through the kernels (checked at the
+    # initial params: with AdamW at lr 2e-3 the case7 softmax can saturate
+    # within 20 steps, after which Eq. 16's gradient is exactly 0)
+    one = {k: v[0] for k, v in batches[0].items()}
+    _, grads = trainer.value_and_grad(loss_fn, params, one)
+    zero = [i for i, g in enumerate(port.tree.tree_leaves(grads))
+            if not bool(g.abs().sum() > 0)]
+    if zero:
+        raise AssertionError(f"grad leaves {zero} are all zero")
+    del grads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    _zero_counts(mods)
+    for i, batch in enumerate(batches):
+        before = _counts(mods)
+        t0 = time.perf_counter()
+        params, opt, loss = node_round(params, opt, batch, i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per = {k: v - before[k] for k, v in _counts(mods).items()}
+        if per != STEP_LAUNCHES:
+            raise AssertionError(f"step {i}: launches {per} != "
+                                 f"{STEP_LAUNCHES}")
+        losses.append(loss)
+    launches = _counts(mods)
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).cpu()
+    log(f"[train] losses {losses.tolist()}")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"non-finite losses: {losses.tolist()}")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    prof_steps = 3
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(prof_steps):
+            params, opt, _ = node_round(params, opt, batches[i], steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / prof_steps
+    dev_ms = {k: 0.0 for k in STEP_LAUNCHES}
+    dev_ms["other"] = 0.0
+    other_launches = 0
+    for evt in prof.key_averages():
+        us = port.profile.device_us(evt)
+        if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = next((k for pat, k in KERNEL_NAMES if pat in evt.key), "other")
+        dev_ms[key] += us / 1e3 / prof_steps
+        if key == "other":
+            other_launches += evt.count
+    busy_ms = port.profile.busy_us(prof) / 1e3 / prof_steps
+    total = sum(dev_ms.values())
+    log(f"[train] case7 full width ({n_params} params f32), B={B}, {steps} "
+        f"AdamW steps, card: {card}")
+    log(f"[train] launches {launches} = {steps} x {STEP_LAUNCHES}; every "
+        "grad leaf nonzero at the initial params")
+    log(f"[train] step mean {np.mean(step_ms[1:]):.3f} ms over steps 2-"
+        f"{steps} (first {step_ms[0]:.3f} ms), p50 "
+        f"{np.percentile(step_ms[1:], 50):.3f} ms | max_memory_allocated "
+        f"{peak / 1e9:.3f} GB ({card})")
+    if total > 0:
+        log(f"[train] profiled {prof_steps} steps: {wall_ms:.3f} ms wall a "
+            f"step, device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}"
+            f"%), kernel time {total:.3f} ms a step: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in dev_ms.items()))
+        log(f"[train] device kernels a step: {sum(STEP_LAUNCHES.values())} "
+            f"of K1-K8 and {other_launches / prof_steps:.1f} others (PyTorch "
+            "elementwise and reductions: loss, clipping, AdamW)")
+    else:
+        log("[train] device time per kernel: not measured (the profiler "
+            "recorded no device time)")
+    return launches, {"step_ms": float(np.mean(step_ms[1:])),
+                      "device_ms": dev_ms if total > 0 else None}
 
 
 def _logit_diff(torch, a, b):
@@ -304,9 +792,20 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch import configs, serving, weights
+    from repro_torch.core import bpt_trainer, tree, types
+    from repro_torch.data import synthetic
     from repro_torch.kernels import build, ref
+    from repro_torch.kernels import conv2d as conv_mod
     from repro_torch.kernels import dense as dense_mod
-    from repro_torch.models import lm
+    from repro_torch.kernels import pool2d as pool_mod
+    from repro_torch.launch import profile_decode
+    from repro_torch.models import cnn, lm
+    from repro_torch.optim import optimizers
+
+    port = SimpleNamespace(cnn=cnn, weights=weights, trainer=bpt_trainer,
+                           synthetic=synthetic, types=types, optim=optimizers,
+                           tree=tree, profile=profile_decode)
+    mods = {"dense": dense_mod, "conv2d": conv_mod, "pool2d": pool_mod}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -320,22 +819,46 @@ def main() -> int:
             log(f"[build] {name}: {line}")
 
     step, worst = phase_kernel(torch, dense_mod, ref)
+    train_rows = phase_train_kernels(torch, ref, mods, cnn)
     phase_reduced(torch, configs, lm, serving, weights)
+    phase_train_reduced(torch, port)
     launches = phase_slice(torch, configs, lm, serving, dense_mod, card)
+    train_launches, train = phase_train_slice(torch, port, mods, card)
     phase_cli()
 
-    row = {
+    k1 = train_rows["K1"]
+    rows = [{
         "name": "dense_fwd (K1)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dense_fwd.cu",
         "replaces": "src/repro/kernels/dense.py:46",
         "launches": launches, "max_abs_err": worst["err"],
         "tolerance": worst["tol"], "ms": step["ms"],
         "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
-        "bound_by": "/".join(sorted(step["bound_by"])),
+        "bound_by": dominant(step["bound_by"]),
         "library_ms": step["library_ms"],
         "work": "one Yi-6B decode step: 224 bf16 launches at M=4",
-    }
-    log(json.dumps({"kernels": [row]}))
+        "train_launches": train_launches["K1"],
+        "train_max_abs_err": k1["err"], "train_tolerance": k1["tol"],
+        "train_ms": k1["ms"], "train_plain_ms": k1["plain_ms"],
+        "train_bound_ms": k1["bound_ms"],
+        "train_library_ms": k1["library_ms"],
+        "train_step_device_ms": (train["device_ms"] or {}).get("K1"),
+        "train_work": "one case7 training step: 7 f32 launches at M=64",
+    }]
+    for key, name, src, replaces in TRAIN_KERNELS[1:]:
+        r = train_rows[key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": train_launches[key],
+            "max_abs_err": r["err"], "tolerance": r["tol"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": dominant(r["bound_by"]),
+            "library_ms": r["library_ms"],
+            "step_device_ms": (train["device_ms"] or {}).get(key),
+            "work": f"one case7 training step at B=64: "
+                    f"{STEP_LAUNCHES[key]} f32 launches"})
+    log(json.dumps({"kernels": rows}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,17 @@
-"""Model configuration: a copy of ``ModelConfig`` from ``repro/core/types.py``.
+"""Configuration: copies of ``ModelConfig`` and ``TrainConfig`` (with its
+choice sets) from ``repro/core/types.py``.
 
-The port keeps its own copy so that it never imports the JAX package.
-Field names, defaults and the derived counts are the reference's, so a
-config built for one package describes the same model in the other.
+The port keeps its own copies so that it never imports the JAX package.
+Field names, defaults, validation and the derived counts are the
+reference's, so a config built for one package describes the same model
+or run in the other.
 """
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "TrainConfig", "OUTER_STRATEGIES", "PARTITIONINGS",
+           "OPTIMIZERS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,3 +123,78 @@ class ModelConfig:
         dense = self.param_count() - L * self.num_experts * 3 * d * \
             self.expert_d_ff
         return int(dense + L * self.top_k * 3 * d * self.expert_d_ff)
+
+
+OUTER_STRATEGIES = ("sgwu", "agwu", "sync")
+PARTITIONINGS = ("idpa", "udpa")
+OPTIMIZERS = ("sgd", "momentum", "adamw")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.01
+    optimizer: str = "adamw"       # sgd | momentum | adamw
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    seed: int = 0
+    # --- BPT outer layer ---
+    outer_strategy: str = "agwu"   # sgwu | agwu | sync (plain data parallel)
+    partitioning: str = "idpa"     # idpa | udpa
+    outer_nodes: int = 4           # virtual computing nodes (DP groups)
+    allocation_batches: int = 4    # A in Alg. 3.1
+    local_steps: int = 1           # h: inner steps between merges (agwu)
+    remat: bool = False
+    # Fuse the m-node outer layer into ONE vmapped+scanned jitted dispatch
+    # per SGWU round (node-stacked params/opt-states) instead of the
+    # sequential per-node Python loop.  False keeps the legacy loop — the
+    # numerical-equivalence regression tests and the outer_loop benchmark
+    # compare the two.  AGWU is unaffected (its event order IS the
+    # algorithm).
+    fused_outer: bool = True
+    # --- device-sharded outer layer ---
+    # Place the node axis on a real device mesh (launch/mesh.py `nodes`
+    # family): each computing node's params/opt-state/batches live on its
+    # own device, the nodes x local_steps grid runs under shard_map, and
+    # the SGWU merge is an on-device weighted all-reduce (psum).  Falls
+    # back transparently to the fused vmap emulation when fewer than
+    # ``outer_nodes`` devices exist.  AGWU places each node's weights on
+    # its device and pushes device-resident deltas.
+    device_outer: bool = False
+    # Named mesh from launch.mesh.MESHES to place the node axis on ("" =
+    # auto 1-D `nodes` mesh over the first ``outer_nodes`` devices).  The
+    # mesh must expose a `nodes` axis of size ``outer_nodes``.  A 2-D
+    # `nodesNxmodelK` hybrid mesh additionally turns on the per-layer
+    # inner-parallelism planner (core.planner) over the `model` axis.
+    mesh_name: str = ""
+    # IDPA heterogeneity in the round data: per-node effective batch sizes
+    # proportional to the current allocation, realized as padded+masked
+    # stripes so slow nodes/devices carry smaller effective loads while
+    # every stripe keeps the static (B, ...) shape the fused/sharded round
+    # needs.  The loss_fn must honour an optional batch["mask"].
+    uneven_batches: bool = False
+
+    def __post_init__(self):
+        """Choice-set validation: a typo'd strategy/partitioning/optimizer
+        fails at construction with one canonical message instead of
+        mid-train.  Flag-COMBINATION rules (uneven_batches x strategy,
+        device/mesh resolution, fallbacks) live in one place —
+        ``resolve_engine`` (the reference's ``core/engine.py``; the port's
+        comes with its engines) — so a config that needs
+        runtime context (device counts) still fails there, before any
+        training work, with the same message everywhere."""
+        for field, value, allowed in (
+                ("outer_strategy", self.outer_strategy, OUTER_STRATEGIES),
+                ("partitioning", self.partitioning, PARTITIONINGS),
+                ("optimizer", self.optimizer, OPTIMIZERS)):
+            if value not in allowed:
+                raise ValueError(
+                    f"TrainConfig.{field}={value!r}: choose one of "
+                    f"{allowed}")
+        if self.outer_nodes < 1:
+            raise ValueError(
+                f"TrainConfig.outer_nodes={self.outer_nodes}: need >= 1")
+        if self.local_steps < 1:
+            raise ValueError(
+                f"TrainConfig.local_steps={self.local_steps}: need >= 1")

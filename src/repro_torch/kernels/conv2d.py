@@ -1,0 +1,165 @@
+"""Stride-1 convolution: the wrappers around ``csrc/conv2d.cu`` (K4 forward,
+K5 input gradient, K6 weight/bias gradient) and its
+``torch.autograd.Function``.
+
+Counterpart of ``repro/kernels/conv2d.py``.  Layout NHWC x HWIO -> NHWC,
+f32.  ``ops.conv2d`` calls ``conv2d_cuda`` directly where no gradient is
+needed and ``Conv2dFunction`` otherwise; inside it a CUDA tensor launches
+the kernels and a CPU tensor takes their plain versions in ``ref.py``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from . import launch, ref
+
+__all__ = ["conv2d_cuda", "conv2d_dx_cuda", "conv2d_dw_cuda",
+           "Conv2dFunction", "dw_splits"]
+
+_SM_BLOCKS = 264        # two blocks on each of the H100's 132 SMs
+_MIN_ROWS = 256         # fewest B.H.W rows one K6 block reduces
+
+
+def _out_hw(H, W, kh, kw, padding):
+    if padding == "SAME":
+        return H, W
+    return H - kh + 1, W - kw + 1
+
+
+def _check_shapes(name, x_shape, w, padding):
+    if len(x_shape) != 4 or w.ndim != 4 or x_shape[3] != w.shape[2]:
+        raise ValueError(f"{name} takes x (B, H, W, Cin) and w (kh, kw, "
+                         f"Cin, Cout), got {tuple(x_shape)} and "
+                         f"{tuple(w.shape)}")
+    Ho, Wo = _out_hw(x_shape[1], x_shape[2], w.shape[0], w.shape[1], padding)
+    if Ho < 1 or Wo < 1:
+        raise ValueError(f"{name}: a {w.shape[0]}x{w.shape[1]} VALID filter "
+                         f"does not fit a {x_shape[1]}x{x_shape[2]} input")
+    return Ho, Wo
+
+
+def conv2d_cuda(x, w, b=None, padding: str = "SAME",
+                activation: str = "none"):
+    """K4 on the card: act(conv(x, w) + b), x (B, H, W, Cin), w (kh, kw,
+    Cin, Cout), b (Cout,) or None, f32, stride 1.  ``conv2d_cuda.launches``
+    counts the launches."""
+    dev = launch.check_f32_cuda("conv2d_cuda", x=x, w=w, b=b)
+    B, H, W, Cin = x.shape
+    Ho, Wo = _check_shapes("conv2d_cuda", x.shape, w, padding)
+    kh, kw, _, Cout = w.shape
+    if b is not None and tuple(b.shape) != (Cout,):
+        raise ValueError(f"conv2d_cuda: bias must be ({Cout},), got "
+                         f"{tuple(b.shape)}")
+    top, _, left, _ = ref.conv_pads(kh, kw, padding)
+    out = torch.empty((B, Ho, Wo, Cout), dtype=torch.float32, device=dev)
+    launch.run("conv2d", "conv2d_igemm_f32", dev, (x, w, b, None, out),
+               (B, H, W, Cin, Ho, Wo, Cout, kh, kw, top, left, 0,
+                activation == "relu"))
+    conv2d_cuda.launches += 1
+    return out
+
+
+def conv2d_dx_cuda(g, w, x_shape, padding: str = "SAME", out=None):
+    """K5 on the card: dL/dx (``x_shape``) of a stride-1 conv from its
+    cotangent g (B, Ho, Wo, Cout), masked by ``out > 0``; K4's kernel on
+    the cotangent with the mirrored padding and the flipped,
+    channel-swapped filter.  ``conv2d_dx_cuda.launches`` counts the
+    launches."""
+    dev = launch.check_f32_cuda("conv2d_dx_cuda", g=g, w=w, out=out)
+    Ho, Wo = _check_shapes("conv2d_dx_cuda", x_shape, w, padding)
+    B, H, W, Cin = x_shape
+    kh, kw, _, Cout = w.shape
+    if tuple(g.shape) != (B, Ho, Wo, Cout) or (
+            out is not None and out.shape != g.shape):
+        raise ValueError(f"conv2d_dx_cuda: cotangent {tuple(g.shape)} does "
+                         f"not match input {tuple(x_shape)} and filter "
+                         f"{tuple(w.shape)}")
+    top, _, left, _ = ref.conv_pads(kh, kw, padding)
+    dx = torch.empty((B, H, W, Cin), dtype=torch.float32, device=dev)
+    launch.run("conv2d", "conv2d_igemm_f32", dev, (g, w, None, out, dx),
+               (B, Ho, Wo, Cout, H, W, Cin, kh, kw, kh - 1 - top,
+                kw - 1 - left, 1, 0))
+    conv2d_dx_cuda.launches += 1
+    return dx
+
+
+def dw_splits(rows: int, taps: int, cout: int) -> int:
+    """How many chunks K6 splits its B.H.W reduction into: enough blocks
+    for two on every SM, at least ``_MIN_ROWS`` rows a block.  It depends
+    on the shapes only, so every run adds the same partials in the same
+    order."""
+    tiles = math.ceil((taps + 1) / 64) * math.ceil(cout / 16)
+    return max(1, min(math.ceil(rows / _MIN_ROWS),
+                      math.ceil(_SM_BLOCKS / tiles)))
+
+
+def conv2d_dw_cuda(x, g, w_shape, padding: str = "SAME", out=None):
+    """K6 on the card: (dw, db) of a stride-1 conv, f32, from its input x
+    and cotangent g masked by ``out > 0``.  Two passes (split partial sums,
+    then their fixed-order total) make one launch of the kernel:
+    ``conv2d_dw_cuda.launches`` counts them."""
+    dev = launch.check_f32_cuda("conv2d_dw_cuda", x=x, g=g, out=out)
+    kh, kw, Cin, Cout = w_shape
+    B, H, W, _ = x.shape
+    Ho, Wo = _out_hw(H, W, kh, kw, padding)
+    if x.ndim != 4 or x.shape[3] != Cin or tuple(g.shape) != (
+            B, Ho, Wo, Cout) or (out is not None and out.shape != g.shape):
+        raise ValueError(f"conv2d_dw_cuda: x {tuple(x.shape)} and cotangent "
+                         f"{tuple(g.shape)} do not match filter "
+                         f"{tuple(w_shape)}")
+    top, _, left, _ = ref.conv_pads(kh, kw, padding)
+    taps = kh * kw * Cin
+    splits = dw_splits(B * Ho * Wo, taps, Cout)
+    part = torch.empty((splits, taps + 1, Cout), dtype=torch.float32,
+                       device=dev)
+    dw = torch.empty(tuple(w_shape), dtype=torch.float32, device=dev)
+    db = torch.empty((Cout,), dtype=torch.float32, device=dev)
+    launch.run("conv2d", "conv2d_dw_f32", dev, (x, g, out, part, dw, db),
+               (B, H, W, Cin, Ho, Wo, Cout, kh, kw, top, left, splits))
+    conv2d_dw_cuda.launches += 1
+    return dw, db
+
+
+conv2d_cuda.launches = 0
+conv2d_dx_cuda.launches = 0
+conv2d_dw_cuda.launches = 0
+
+
+class Conv2dFunction(torch.autograd.Function):
+    """act(conv(x, w) + b), stride 1, with K4 forward and K5/K6 backward on
+    the card (the plain versions on the CPU).  The relu mask comes from the
+    saved output, as in the reference's ``_conv2d_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, padding, activation):
+        if x.device.type == "cpu":
+            out = ref.conv2d_fused_ref(x, w, b, padding=padding,
+                                       activation=activation)
+        else:
+            out = conv2d_cuda(x.detach(), w.detach(), launch.detached(b),
+                              padding=padding, activation=activation)
+        ctx.save_for_backward(x, w, out if activation == "relu" else None)
+        ctx.padding = padding
+        ctx.b_dtype = None if b is None else b.dtype
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w, out = (launch.detached(t) for t in ctx.saved_tensors)
+        g = g.contiguous()
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx = dw = db = None
+        cpu = x.device.type == "cpu"
+        if need_x:
+            dx = (ref.conv2d_dx_ref if cpu else conv2d_dx_cuda)(
+                g, w, x.shape, ctx.padding, out).to(x.dtype)
+        if need_w or need_b:
+            dw, db = (ref.conv2d_dw_ref if cpu else conv2d_dw_cuda)(
+                x, g, w.shape, ctx.padding, out)
+            dw = dw.to(w.dtype) if need_w else None
+            db = db.to(ctx.b_dtype) if need_b else None
+        return dx, dw, db, None, None

@@ -1,34 +1,24 @@
-"""Fused dense forward: the wrapper around ``csrc/dense_fwd.cu``.
+"""Fused dense layer: the wrappers around ``csrc/dense_fwd.cu`` (K1) and
+``csrc/dense_bwd.cu`` (K2, K3), and its ``torch.autograd.Function``.
 
-Counterpart of ``repro/kernels/dense.py`` (forward kernel only; its
-backward kernels come with training).  ``ops.dense`` calls ``dense_cuda``
-for CUDA tensors; CPU tensors take ``ref.dense_ref`` there.
+Counterpart of ``repro/kernels/dense.py``.  ``ops.dense`` calls
+``dense_cuda`` directly where no gradient is needed (serving), and
+``DenseFunction`` otherwise; inside it a CUDA tensor launches the kernels
+and a CPU tensor takes their plain versions in ``ref.py``.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
+from torch.autograd.function import once_differentiable
 
-from . import build
+from . import launch, ref
 
-__all__ = ["dense_cuda", "ACTIVATIONS"]
+__all__ = ["dense_cuda", "dense_dx_cuda", "dense_dwdb_cuda",
+           "DenseFunction", "ACTIVATIONS"]
 
 ACTIVATIONS = ("none", "relu")
 
 _ENTRY = {torch.bfloat16: "dense_fwd_bf16", torch.float32: "dense_fwd_f32"}
-_FNS: dict = {}
-
-
-def _entry(dtype):
-    fn = _FNS.get(dtype)
-    if fn is None:
-        fn = getattr(build.load("dense_fwd"), _ENTRY[dtype])
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FNS[dtype] = fn
-    return fn
 
 
 def dense_cuda(x, w, b=None, activation: str = "none"):
@@ -56,8 +46,9 @@ def dense_cuda(x, w, b=None, activation: str = "none"):
                          f"{b.dtype} {tuple(b.shape)}")
     if any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            "dense_cuda is forward-only (its backward kernels are not "
-            "ported yet); call it on tensors that do not require grad")
+            "dense_cuda is the forward-only launcher, outside autograd: "
+            "call it on tensors that do not require grad, or differentiate "
+            "through kernels.ops.dense")
     for t in tensors:
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError("dense_cuda takes tensors on one CUDA device, "
@@ -65,16 +56,89 @@ def dense_cuda(x, w, b=None, activation: str = "none"):
         if not t.is_contiguous():
             raise ValueError("dense_cuda takes contiguous tensors")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _entry(x.dtype)(x.data_ptr(), w.data_ptr(),
-                          None if b is None else b.data_ptr(),
-                          out.data_ptr(), M, N, K,
-                          int(activation == "relu"), stream)
-    if err != 0:
-        raise RuntimeError(f"dense_fwd launch failed: cudaError {err}")
+    launch.run("dense_fwd", _ENTRY[x.dtype], x.device, (x, w, b, out),
+               (M, N, K, activation == "relu"))
     dense_cuda.launches += 1
     return out
 
 
 dense_cuda.launches = 0
 
+
+def dense_dx_cuda(g, w, out=None):
+    """K2 on the card: dx = (g masked by ``out > 0``) @ w^T, f32; g and
+    ``out`` (M, Dout), w (Din, Dout).  ``dense_dx_cuda.launches`` counts
+    the launches."""
+    dev = launch.check_f32_cuda("dense_dx_cuda", g=g, w=w, out=out)
+    if g.ndim != 2 or w.ndim != 2 or g.shape[1] != w.shape[1] or (
+            out is not None and out.shape != g.shape):
+        raise ValueError(f"dense_dx_cuda takes g (M, Dout), w (Din, Dout) "
+                         f"and out like g, got {tuple(g.shape)}, "
+                         f"{tuple(w.shape)}")
+    (M, Dout), Din = g.shape, w.shape[0]
+    dx = torch.empty((M, Din), dtype=torch.float32, device=dev)
+    launch.run("dense_bwd", "dense_dx_f32", dev, (g, w, out, dx),
+               (M, Din, Dout))
+    dense_dx_cuda.launches += 1
+    return dx
+
+
+def dense_dwdb_cuda(x, g, out=None):
+    """K3 on the card, one launch: dw = x^T g (Din, Dout) and db = the sum
+    of g's rows (Dout,), f32, g masked by ``out > 0``; x (M, Din), g and
+    ``out`` (M, Dout).  ``dense_dwdb_cuda.launches`` counts the launches."""
+    dev = launch.check_f32_cuda("dense_dwdb_cuda", x=x, g=g, out=out)
+    if x.ndim != 2 or g.ndim != 2 or x.shape[0] != g.shape[0] or (
+            out is not None and out.shape != g.shape):
+        raise ValueError(f"dense_dwdb_cuda takes x (M, Din), g (M, Dout) "
+                         f"and out like g, got {tuple(x.shape)}, "
+                         f"{tuple(g.shape)}")
+    (M, Din), Dout = x.shape, g.shape[1]
+    dw = torch.empty((Din, Dout), dtype=torch.float32, device=dev)
+    db = torch.empty((Dout,), dtype=torch.float32, device=dev)
+    launch.run("dense_bwd", "dense_dwdb_f32", dev, (x, g, out, dw, db),
+               (M, Din, Dout))
+    dense_dwdb_cuda.launches += 1
+    return dw, db
+
+
+dense_dx_cuda.launches = 0
+dense_dwdb_cuda.launches = 0
+
+
+class DenseFunction(torch.autograd.Function):
+    """act(x @ w + b) with K1 forward and K2/K3 backward on the card (the
+    plain versions on the CPU).  x (M, Din) and w (Din, Dout) of one
+    dtype, b (Dout,) or None.  The relu mask comes from the saved output
+    (out > 0 iff the pre-activation was > 0), as in the reference's
+    ``_dense_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, activation):
+        if x.device.type == "cpu":
+            out = ref.dense_ref(x, w, b, activation=activation)
+        else:
+            out = dense_cuda(x.detach(), w.detach(), launch.detached(b),
+                             activation=activation)
+        relu = activation == "relu"
+        ctx.save_for_backward(x, w, out if relu else None)
+        ctx.b_dtype = None if b is None else b.dtype
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w, out = (launch.detached(t) for t in ctx.saved_tensors)
+        g = g.contiguous()
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx = dw = db = None
+        cpu = x.device.type == "cpu"
+        if need_x:
+            dx = (ref.dense_dx_ref if cpu else dense_dx_cuda)(
+                g, w, out).to(x.dtype)
+        if need_w or need_b:
+            dw, db = (ref.dense_dwdb_ref if cpu else dense_dwdb_cuda)(
+                x, g, out)
+            dw = dw.to(w.dtype) if need_w else None
+            db = db.to(ctx.b_dtype) if need_b else None
+        return dx, dw, db, None

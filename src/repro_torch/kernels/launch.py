@@ -1,0 +1,65 @@
+"""What the kernel wrappers share: binding a C entry point, checking the
+tensors it is handed, launching it on the current stream.
+
+A launcher takes contiguous f32 tensors on one CUDA device that do not
+require grad (the autograd ``Function``s call it on detached tensors),
+launches on PyTorch's current stream and raises if the launch was
+refused.  It never synchronises and never falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+__all__ = ["check_f32_cuda", "detached", "run"]
+
+_FNS: dict = {}
+
+
+def _bind(lib: str, symbol: str, n_ptrs: int, n_ints: int):
+    fn = getattr(build.load(lib), symbol)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _FNS[(lib, symbol)] = fn
+    return fn
+
+
+def detached(t):
+    """``t`` outside autograd (None stays None), for handing a Function's
+    inputs to a launcher."""
+    return None if t is None else t.detach()
+
+
+def check_f32_cuda(name: str, **tensors) -> torch.device:
+    """Raise unless every given tensor (None skipped) is a contiguous f32
+    tensor on one CUDA device outside autograd; returns that device."""
+    given = {k: t for k, t in tensors.items() if t is not None}
+    devices = {t.device for t in given.values()}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name} takes tensors on one CUDA device, got "
+                         f"{ {k: str(t.device) for k, t in given.items()} }")
+    for key, t in given.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} must be float32, got {t.dtype} "
+                            "(the training kernels are f32 only)")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        if t.requires_grad:
+            raise RuntimeError(
+                f"{name} launches outside autograd: pass tensors that do "
+                "not require grad, or differentiate through kernels.ops")
+    return next(iter(devices))
+
+
+def run(lib: str, symbol: str, device, ptrs, ints) -> None:
+    """Launch ``symbol`` of kernel library ``lib`` with ``ptrs`` (tensors
+    or None) and ``ints`` on ``device``'s current stream."""
+    fn = _FNS.get((lib, symbol)) or _bind(lib, symbol, len(ptrs), len(ints))
+    err = fn(*[None if t is None else t.data_ptr() for t in ptrs], *ints,
+             torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")

@@ -4,15 +4,32 @@ Counterpart of ``repro/kernels/ops.py``.  There is no implementation
 switch: a CPU tensor takes the plain version in ``ref.py``, a CUDA tensor
 launches the hand-written kernel or raises.  No path gives way to the
 plain version on the card.
+
+Where a gradient is wanted (grad mode on and an input requires grad) the
+call goes through the kernel's ``torch.autograd.Function``, whose forward
+and backward route by device the same way; otherwise the launcher (or
+plain version) is called directly, so serving pays nothing for autograd.
 """
 from __future__ import annotations
 
 import torch
 
+from . import conv2d as _conv
 from . import dense as _dense
+from . import pool2d as _pool
 from . import ref
 
-__all__ = ["dense"]
+__all__ = ["dense", "conv2d", "max_pool2d"]
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _check_activation(activation):
+    if activation not in _dense.ACTIVATIONS:
+        raise ValueError(f"activation must be one of {_dense.ACTIVATIONS}")
 
 
 def dense(x, w, b=None, activation: str = "none"):
@@ -20,17 +37,63 @@ def dense(x, w, b=None, activation: str = "none"):
 
     ``x`` may carry leading batch dims; they flatten into the kernel's row
     axis and reshape back.  ``w`` is cast to ``x.dtype`` as the reference
-    does, and ``b`` enters the f32 epilogue.
+    does, and ``b`` enters the f32 epilogue.  Differentiable: K2 and K3
+    are its backward on the card.
     """
-    if activation not in _dense.ACTIVATIONS:
-        raise ValueError(f"activation must be one of {_dense.ACTIVATIONS}")
+    _check_activation(activation)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     w = w.to(x.dtype).contiguous()
-    if x.device.type == "cpu":
+    cpu = x.device.type == "cpu"
+    if b is not None and not cpu:
+        b = b.to(torch.float32).contiguous()
+    if _wants_grad(x2, w, b):
+        out = _dense.DenseFunction.apply(x2, w, b, activation)
+    elif cpu:
         out = ref.dense_ref(x2, w, b, activation=activation)
     else:
-        if b is not None:
-            b = b.to(torch.float32).contiguous()
         out = _dense.dense_cuda(x2, w, b, activation=activation)
     return out.reshape(*lead, w.shape[-1])
+
+
+def conv2d(x, w, b=None, padding: str = "SAME", stride: int = 1,
+           activation: str = "none"):
+    """Convolution + optional fused bias/activation (paper Eq. 1+2), NHWC
+    x HWIO -> NHWC.  Differentiable: K4 forward, K5/K6 backward on the
+    card.  The kernels are stride-1 (the paper's CNNs pool instead of
+    striding); a strided call on a CUDA tensor raises
+    ``NotImplementedError``, on a CPU tensor it takes the plain version."""
+    _check_activation(activation)
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(padding)
+    w = w.to(x.dtype)
+    cpu = x.device.type == "cpu"
+    if stride != 1:
+        if not cpu:
+            raise NotImplementedError(
+                f"conv2d: stride={stride} has no kernel on the card (the "
+                "conv kernels are stride-1)")
+        return ref.conv2d_fused_ref(x, w, b, padding=padding, stride=stride,
+                                    activation=activation)
+    x = x.contiguous()
+    w = w.contiguous()
+    if _wants_grad(x, w, b):
+        return _conv.Conv2dFunction.apply(x, w, b, padding, activation)
+    if cpu:
+        return ref.conv2d_fused_ref(x, w, b, padding=padding,
+                                    activation=activation)
+    return _conv.conv2d_cuda(x, w, b, padding=padding, activation=activation)
+
+
+def max_pool2d(x, window: int = 2, stride: int = 2):
+    """Non-overlapping max pooling (paper Eq. 15; backward Eq. 18, ties
+    split evenly), NHWC; ``window`` must equal ``stride``."""
+    if window != stride:
+        raise ValueError(f"max_pool2d is non-overlapping only (stride == "
+                         f"window), got window={window} stride={stride}")
+    x = x.contiguous()
+    if _wants_grad(x):
+        return _pool.MaxPool2dFunction.apply(x, window)
+    if x.device.type == "cpu":
+        return ref.max_pool2d_ref(x, window, stride)
+    return _pool.max_pool2d_cuda(x, window)

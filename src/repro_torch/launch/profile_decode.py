@@ -33,14 +33,14 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _device_us(evt) -> float:
+def device_us(evt) -> float:
     for attr in ("device_time_total", "cuda_time_total"):
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
 
 
-def _busy_us(prof) -> float:
+def busy_us(prof) -> float:
     """Union of the device kernel intervals, in microseconds."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
@@ -90,13 +90,13 @@ def main(argv=None):
             eng.decode(toks)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(evt.key, _device_us(evt) / 1e3 / args.steps, evt.count
+    rows = [(evt.key, device_us(evt) / 1e3 / args.steps, evt.count
              // args.steps) for evt in prof.key_averages()
-            if _device_us(evt) > 0 and evt.device_type
+            if device_us(evt) > 0 and evt.device_type
             == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
     step_ms = wall_ms / args.steps
-    busy_ms = _busy_us(prof) / 1e3 / args.steps
+    busy_ms = busy_us(prof) / 1e3 / args.steps
     card = _card()
     print(f"[profile] {cfg.name} full width, {args.slots} slots, "
           f"{args.steps} decode steps on {card}")

@@ -1,9 +1,10 @@
-"""Common LM layers, from ``repro/models/layers.py`` (params as dicts).
+"""Common layers, from ``repro/models/layers.py`` (params as dicts).
 
-Init functions take a ``torch.Generator`` and a ``stack`` shape that is
-prepended to every leaf, so a layer stack is drawn in place with its
-leading ``L`` axis (as the reference's ``vmap`` over layer keys lays it
-out) instead of being stacked afterwards.
+Init functions take a ``torch.Generator``.  The LM ones also take a
+``stack`` shape that is prepended to every leaf, so a layer stack is drawn
+in place with its leading ``L`` axis (as the reference's ``vmap`` over
+layer keys lays it out) instead of being stacked afterwards.  The CNN's
+layers keep the reference's layouts: HWIO filters, (Din, Dout) weights.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from repro_torch.kernels import ops
 __all__ = [
     "init_rms_norm", "rms_norm", "init_dense", "dense", "init_mlp", "mlp",
     "rope_frequencies", "apply_rope", "init_embedding", "embed",
+    "init_conv2d", "conv2d", "init_fc", "fc",
 ]
 
 
@@ -47,6 +49,35 @@ def init_dense(gen, d_in: int, d_out: int, *, stack=(), dtype=torch.float32,
 def dense(params, x):
     """Bias-free projection through the port's dense kernel."""
     return ops.dense(x, params["w"])
+
+
+def init_conv2d(gen, kh: int, kw: int, c_in: int, c_out: int, *,
+                dtype=torch.float32, device="cpu"):
+    """He-initialised HWIO conv filter (std sqrt(2 / fan_in)) + zero bias."""
+    return {"w": _normal(gen, (kh, kw, c_in, c_out),
+                         math.sqrt(2.0 / (c_in * kh * kw)), dtype, device),
+            "b": torch.zeros((c_out,), dtype=dtype, device=device)}
+
+
+def conv2d(params, x, padding: str = "SAME", stride: int = 1,
+           activation: str = "none"):
+    """Conv + fused bias/activation through the port's conv kernels."""
+    return ops.conv2d(x, params["w"], params["b"], padding=padding,
+                      stride=stride, activation=activation)
+
+
+def init_fc(gen, d_in: int, d_out: int, *, dtype=torch.float32,
+            device="cpu"):
+    """He-initialised full-connection layer (weight + zero bias, §4.1.2)."""
+    return {"w": _normal(gen, (d_in, d_out), math.sqrt(2.0 / d_in), dtype,
+                         device),
+            "b": torch.zeros((d_out,), dtype=dtype, device=device)}
+
+
+def fc(params, x, activation: str = "none"):
+    """Full-connection layer + fused bias/activation through ``ops.dense``
+    (K1 forward, K2/K3 backward on the card)."""
+    return ops.dense(x, params["w"], params["b"], activation=activation)
 
 
 def init_mlp(gen, d_model: int, d_ff: int, *, stack=(), dtype=torch.float32,

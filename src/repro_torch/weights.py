@@ -1,11 +1,12 @@
 """Params across the package boundary, through numpy.
 
-``params_from_numpy`` takes a tree of numpy arrays in the reference's
-layout (``jax.tree_util.tree_map(np.asarray, repro.models.lm.init_params(
-key, cfg))``) and returns the port's params with the same structure,
-shapes and dtypes, on ``device``.  No transposes: both packages keep
-dense weights (Din, Dout), tables (V, d) and layer leaves stacked on a
-leading L axis.
+``params_from_numpy`` takes a tree of numpy arrays (dicts and lists) in
+the reference's layout, e.g. ``jax.tree_util.tree_map(np.asarray,
+repro.models.lm.init_params(key, cfg))`` for an LM ``ModelConfig`` or
+``... repro.models.cnn.init_cnn(key, cfg)`` for a ``CNNConfig``, and
+returns the port's params with the same structure, shapes and dtypes, on
+``device``.  No transposes: both packages keep dense weights (Din, Dout),
+HWIO filters, tables (V, d) and layer leaves stacked on a leading L axis.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import cnn, lm
 
 __all__ = ["params_from_numpy", "params_to_numpy"]
 
@@ -33,6 +34,13 @@ def _convert(tree, template, device, path):
                              f"{sorted(template)}, got {got}")
         return {k: _convert(tree[k], template[k], device, f"{path}[{k!r}]")
                 for k in template}
+    if isinstance(template, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(template):
+            got = len(tree) if isinstance(tree, (list, tuple)) else type(tree)
+            raise ValueError(f"params{path}: expected a list of "
+                             f"{len(template)}, got {got}")
+        return [_convert(t, u, device, f"{path}[{i}]")
+                for i, (t, u) in enumerate(zip(tree, template))]
     t = _to_torch(np.asarray(tree))
     if tuple(t.shape) != tuple(template.shape) or t.dtype != template.dtype:
         raise ValueError(f"params{path}: expected {template.dtype} "
@@ -42,10 +50,14 @@ def _convert(tree, template, device, path):
 
 
 def params_from_numpy(tree, cfg, device="cuda"):
-    """The port's params for ``cfg`` from a numpy tree in the reference's
-    layout; raises on a missing key, a wrong shape or a wrong dtype."""
+    """The port's params for ``cfg`` (an LM ``ModelConfig`` or a
+    ``CNNConfig``) from a numpy tree in the reference's layout; raises on a
+    missing key, a wrong length, a wrong shape or a wrong dtype."""
     dev = resolve_device(device)
-    template = lm.init_params(cfg, None, device="meta")
+    if isinstance(cfg, cnn.CNNConfig):
+        template = cnn.init_cnn(cfg, None, device="meta")
+    else:
+        template = lm.init_params(cfg, None, device="meta")
     return _convert(tree, template, dev, "")
 
 
@@ -53,4 +65,6 @@ def params_to_numpy(params):
     """The inverse: a numpy tree (float32 leaves stay float32)."""
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [params_to_numpy(v) for v in params]
     return params.detach().cpu().numpy()

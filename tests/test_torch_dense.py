@@ -111,8 +111,18 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         build.build()
 
 
+TPU_KERNELS = {   # kernel library -> the Pallas kernels its source replaces
+    "dense_fwd": ("_dense_fwd_kernel",),
+    "dense_bwd": ("_dense_dx_kernel", "_dense_dwdb_kernel"),
+    "conv2d": ("_conv_fwd_kernel", "_conv_dx_kernel", "_conv_dw_kernel"),
+    "pool2d": ("_pool_fwd_kernel", "_pool_bwd_kernel"),
+}
+
+
 def test_sources_ship_and_name_the_tpu_kernel():
-    for rel in build.SOURCES.values():
+    assert set(build.SOURCES) == set(TPU_KERNELS)
+    for name, rel in build.SOURCES.items():
         src = (os.path.dirname(build.__file__) + "/" + rel)
         text = open(src).read()
-        assert "_dense_fwd_kernel" in text and "sm_90a" in text
+        assert "sm_90a" in text
+        assert all(k in text for k in TPU_KERNELS[name]), name

@@ -24,7 +24,12 @@ SLICE_MODULES = (
     "repro_torch.models.lm", "repro_torch.serving",
     "repro_torch.serving.scheduler", "repro_torch.serving.engine",
     "repro_torch.launch.serve", "repro_torch.launch.profile_decode",
-    "repro_torch.weights",
+    "repro_torch.weights", "repro_torch.kernels.launch",
+    "repro_torch.kernels.conv2d", "repro_torch.kernels.pool2d",
+    "repro_torch.models.cnn", "repro_torch.core.tree",
+    "repro_torch.core.bpt_trainer", "repro_torch.optim",
+    "repro_torch.optim.optimizers", "repro_torch.data",
+    "repro_torch.data.synthetic",
 )
 BANNED = ("jax", "jaxlib", "repro")
 

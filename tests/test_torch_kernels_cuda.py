@@ -53,3 +53,136 @@ def test_ops_dense_on_card_launches_the_kernel():
     want = ref.dense_ref(x, w)
     assert (out.float() - want.float()).abs().max().item() <= \
         1e-2 * want.float().abs().max().item()
+
+
+# ----------------------------------------------------------------------
+# K2-K8: the training kernels, f32, against their plain versions
+# ----------------------------------------------------------------------
+GRAD_TOL = 1e-4      # x max(max|ref|, 1): the reference's gradient gate
+
+
+@pytest.fixture(autouse=True)
+def _exact_f32(monkeypatch):
+    """The plain versions run cuBLAS/cuDNN on the card: keep them in full
+    f32, since TF32 products alone miss the 1e-4 gradient gate."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+def _gen(seed):
+    return torch.Generator("cuda").manual_seed(seed)
+
+
+def _randn(gen, shape):
+    return torch.randn(shape, generator=gen, device="cuda")
+
+
+def _close(got, want, grad):
+    got = torch.cat([t.reshape(-1) for t in got]) if isinstance(
+        got, tuple) else got
+    want = torch.cat([t.reshape(-1) for t in want]) if isinstance(
+        want, tuple) else want
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    tol = GRAD_TOL * max(scale, 1.0) if grad else 1e-5 * scale
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Din,Dout,relu", [
+    (64, 192, 2000, True), (64, 2000, 10, False), (37, 100, 77, True)])
+def test_dense_backward_kernels_match_plain(M, Din, Dout, relu):
+    _card()
+    from repro_torch.kernels import dense as dn
+    gen = _gen(2)
+    x, w = _randn(gen, (M, Din)), _randn(gen, (Din, Dout))
+    g = _randn(gen, (M, Dout))
+    out = torch.relu(_randn(gen, (M, Dout))) if relu else None
+    before = (dn.dense_dx_cuda.launches, dn.dense_dwdb_cuda.launches)
+    _close(dn.dense_dx_cuda(g, w, out), ref.dense_dx_ref(g, w, out), True)
+    _close(dn.dense_dwdb_cuda(x, g, out), ref.dense_dwdb_ref(x, g, out),
+           True)
+    assert (dn.dense_dx_cuda.launches, dn.dense_dwdb_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,Cin,Cout,k,padding", [
+    (64, 32, 32, 3, 12, 3, "SAME"), (3, 9, 7, 3, 5, 2, "SAME"),
+    (3, 9, 7, 3, 5, 4, "SAME"), (2, 9, 7, 4, 20, 7, "SAME"),
+    (3, 9, 7, 4, 20, 3, "VALID")])
+def test_conv_kernels_match_plain(B, H, W, Cin, Cout, k, padding):
+    _card()
+    from repro_torch.kernels import conv2d as cv
+    gen = _gen(3)
+    x, w = _randn(gen, (B, H, W, Cin)), _randn(gen, (k, k, Cin, Cout))
+    b = _randn(gen, (Cout,))
+    out = cv.conv2d_cuda(x, w, b, padding=padding, activation="relu")
+    _close(out, ref.conv2d_fused_ref(x, w, b, padding=padding,
+                                      activation="relu"), False)
+    g = _randn(gen, tuple(out.shape))
+    _close(cv.conv2d_dx_cuda(g, w, x.shape, padding, out),
+           ref.conv2d_dx_ref(g, w, x.shape, padding, out), True)
+    dw = cv.conv2d_dw_cuda(x, g, w.shape, padding, out)
+    _close(dw, ref.conv2d_dw_ref(x, g, w.shape, padding, out), True)
+    again = cv.conv2d_dw_cuda(x, g, w.shape, padding, out)
+    assert torch.equal(dw[0], again[0]) and torch.equal(dw[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ties", [((64, 32, 32, 12), False),
+                                        ((3, 9, 7, 5), False),
+                                        ((2, 8, 8, 12), True)])
+def test_pool_kernels_match_plain(shape, ties):
+    _card()
+    from repro_torch.kernels import pool2d as pl
+    gen = _gen(4)
+    x = _randn(gen, shape)
+    x = torch.relu(torch.round(x) if ties else x)
+    out = pl.max_pool2d_cuda(x)
+    want = ref.max_pool2d_ref(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    g = _randn(gen, tuple(out.shape))
+    _close(pl.max_pool2d_bwd_cuda(x, out, g),
+           ref.max_pool2d_bwd_ref(x, out, g), True)
+
+
+@pytest.mark.cuda
+def test_cnn_step_on_card_matches_cpu():
+    """One Table-2 case1 gradient on the card and on the CPU from the same
+    params and batch."""
+    _card()
+    from repro_torch import weights
+    from repro_torch.core.bpt_trainer import value_and_grad
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.synthetic import image_dataset
+    from repro_torch.models import cnn
+    cfg = cnn.make_case("case1")
+    tree = weights.params_to_numpy(cnn.init_cnn(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    xs, ys = image_dataset(4, seed=1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = weights.params_from_numpy(tree, cfg, dev)
+        batch = {"images": torch.as_tensor(xs, device=dev),
+                 "labels": torch.as_tensor(ys, device=dev)}
+        (loss, _), grads = value_and_grad(
+            lambda p, bt: (cnn.cnn_loss(p, bt, cfg), {}), params, batch)
+        out[dev] = [loss.cpu()] + [t.cpu() for t in tree_leaves(grads)]
+    assert abs(out["cuda"][0].item() - out["cpu"][0].item()) <= \
+        1e-5 * abs(out["cpu"][0].item())
+    for a, e in zip(out["cuda"][1:], out["cpu"][1:], strict=True):
+        scale = max(e.abs().max().item(), 1.0)
+        assert (a - e).abs().max().item() <= GRAD_TOL * scale
+
+
+@pytest.mark.cuda
+def test_strided_conv_on_card_raises():
+    """The conv kernels are stride-1: a strided call on a CUDA tensor
+    raises instead of running anything else."""
+    _card()
+    x = torch.zeros((1, 8, 8, 3), device="cuda")
+    w = torch.zeros((3, 3, 3, 4), device="cuda")
+    with pytest.raises(NotImplementedError, match="stride"):
+        ops.conv2d(x, w, stride=2)
