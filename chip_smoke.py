@@ -17,19 +17,38 @@ from the root of a checkout.  Phases, each of which raises on failure
    a Table-2 case7 training step at B = 64, plus ragged and tied cases;
    per kernel, its time, the plain version's, the library call's and the
    bound, summed over one step's launches; K6 reruns bit for bit;
-3. reduced Yi-6B in f32 served on the card and on the CPU from the same
-   weights and request stream: identical token streams, logits within
-   1e-4;
+2c. K9 (RMSNorm) at decode and prefill rows of d = 4608, 4096, 3072 in
+   bf16 and f32 plus ragged rows, and K10 (flash attention) at Gemma-2's
+   (bf16 and f32, q x 8 so the soft-cap of 50 acts), Yi-6B's and Phi-3's
+   attention shapes (S up to 8192, windows) plus a small case with fully
+   masked rows, each against its plain version (K10 in bf16 within one
+   bf16 ulp of it plus 1e-3 of its rms), with kernel, plain, library
+   (``F.rms_norm``; for K10 ``flex_attention`` with a soft-cap
+   ``score_mod`` where a soft-cap is on, else
+   ``F.scaled_dot_product_attention``) and bound times;
+3. reduced Yi-6B and reduced Gemma-2 (prompts longer than its window of
+   16) in f32 served on the card and on the CPU from the same weights and
+   request stream: identical token streams, logits within 1e-4;
 3b. a reduced CNN and case1 trained 4 AdamW steps on the card and on the
    CPU from the same numpy params and batches: losses and params agree;
-4. the slice: full-width Yi-6B from a seed, 8 Poisson requests through the
+4. full-width Yi-6B from a seed, 8 Poisson requests through the
    continuous-batching engine with measured timing; every request
-   completes, logits are finite and K1 ran 224 times per forward call;
+   completes, logits are finite, K1 ran 224 and K9 65 times per forward
+   call;
 4b. the training slice: case7 (20.4 M params) at 32 px, B = 64, 20 AdamW
    steps through ``make_node_round``: finite losses, every grad leaf
    nonzero (at the initial params),
    exactly 56 launches a step (K1-K8: 7 7 7 10 9 10 3 3), step time,
    device time per kernel, busy share and peak memory;
+4c. the slice: Gemma-2-27B at full width and 8 layers (4 local, 4
+   global) from a seed, 4 Poisson requests (one prompt of 5000 tokens,
+   past the 4096 window) through the continuous engine with 4 slots of
+   5120 positions: every request completes, logits are finite, K1 ran 56
+   and K9 33 times per forward call; then K10 through ``ops.flash_attention``
+   on the q, k, v of layers 0 (local) and 1 (global) of the long prompt,
+   held against the model's own blockwise attention (atol 8e-2, rtol
+   2e-2: it rounds p to bf16) and against its plain version on the same
+   q, k, v (phase 2c's gate);
 5. the serving CLI once on the reduced config;
 6. a JSON line with every ported kernel, then the card again, then the
    result line ``{"ok": true, "device": {...}}``.
@@ -39,6 +58,7 @@ It needs one card, imports no JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -650,20 +670,285 @@ def phase_train_slice(torch, port, mods, card, steps=20):
                       "device_ms": dev_ms if total > 0 else None}
 
 
+# ----------------------------------------------------------------------
+# K9 and K10 at the LM shapes
+# ----------------------------------------------------------------------
+ATTN_TOL = {"bfloat16": (8e-2, 2e-2), "float32": (1e-4, 1e-3)}  # atol, rtol
+# K10 against flash_attention_ref: both sum the same f32 terms, in another
+# order, and round once to the output dtype.  bf16: one bf16 ulp of |ref|
+# (<= 2^-7 |ref|) plus 1e-3 of the output's rms for sums that cancel;
+# f32: the test tolerance (atol 1e-4, rtol 1e-3).
+K10_BF16_GATE = (2.0 ** -7, 1e-3)   # x |ref|, x rms(ref)
+QSCALE = 8.0   # q x 8 where a soft-cap is on: scores ~N(0, 64) reach the
+#                range where cap * tanh(s / cap) differs from s by percents
+RMS_CASES = [(rows, d, dt) for d in (4608, 4096, 3072)   # decode, prefill
+             for rows in (4, 4500) for dt in ("bfloat16", "float32")]
+RMS_CASES += [(5000, 4608, "bfloat16"),                   # the long prompt
+              (5, 4095, "bfloat16"), (37, 1000, "float32"),
+              (3, 13, "bfloat16")]                        # ragged rows
+# (name, B, H, KH, Sq, Sk, D, dtype, window, softcap)
+FLASH_CASES = [
+    ("gemma2 global", 1, 32, 16, 8192, 8192, 128, "bfloat16", 0, 50.0),
+    ("gemma2 local", 1, 32, 16, 8192, 8192, 128, "bfloat16", 4096, 50.0),
+    ("gemma2 local", 1, 32, 16, 5000, 5000, 128, "bfloat16", 4096, 50.0),
+    ("gemma2 global", 1, 32, 16, 5000, 5000, 128, "bfloat16", 0, 50.0),
+    ("gemma2 global", 1, 32, 16, 8192, 8192, 128, "float32", 0, 50.0),
+    ("gemma2 local", 1, 32, 16, 8192, 8192, 128, "float32", 4096, 50.0),
+    ("gemma2 local", 1, 32, 16, 5000, 5000, 128, "float32", 4096, 50.0),
+    ("gemma2 global", 1, 32, 16, 5000, 5000, 128, "float32", 0, 50.0),
+    ("yi-6b", 1, 32, 4, 4096, 4096, 128, "bfloat16", 0, 0.0),
+    ("yi-6b swa", 1, 32, 4, 8192, 8192, 128, "bfloat16", 4096, 0.0),
+    ("phi3", 1, 32, 32, 4096, 4096, 96, "bfloat16", 0, 0.0),
+    ("sq>sk", 1, 4, 2, 300, 200, 64, "float32", 0, 0.0),
+    ("sq>sk", 1, 4, 2, 300, 200, 64, "bfloat16", 0, 0.0),
+]
+GEMMA_LONG = 5000                  # the long prompt of phase 4c
+
+
+def live_pairs(Sq, Sk, causal=True, window=0) -> int:
+    """(q, k) pairs that no mask removes (ends aligned as in K10)."""
+    import numpy as np
+    qp = np.arange(Sq, dtype=np.int64) + (Sk - Sq)
+    hi = np.minimum(qp, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(qp - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound_ms(B, H, KH, Sq, Sk, D, dtype, window, causal=True):
+    """QK and PV over the live pairs at the dtype's peak, or q, k, v and
+    out read and written once, whichever is larger."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    nbytes = itemsize * B * D * (2 * H * Sq + 2 * KH * Sk)
+    flops = 4.0 * D * B * H * live_pairs(Sq, Sk, causal, window)
+    return roof_ms(nbytes, flops, dtype)
+
+
+def _attn_err(torch, got, want, dtype):
+    atol, rtol = ATTN_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    ok = bool((diff <= atol + rtol * want.float().abs()).all())
+    return diff.max().item(), ok
+
+
+def _k10_gate(torch, got, want, dtype):
+    """K10 against its plain version at its gate; returns (max_abs_err,
+    the allowance where |err| / allowance peaks, that peak, gate text);
+    the gate holds while the peak is at most 1."""
+    w = want.float()
+    diff = (got.float() - w).abs()
+    if dtype == "float32":
+        atol, rtol = ATTN_TOL[dtype]
+        allow = atol + rtol * w.abs()
+        text = f"atol {atol}, rtol {rtol}"
+    else:
+        rel, frac = K10_BF16_GATE
+        atol = frac * w.square().mean().sqrt().item()
+        allow = rel * w.abs() + atol
+        text = f"2^-7 |ref| + {atol:.3g}"
+    ratio = diff / allow
+    at = int(ratio.argmax())
+    return (diff.max().item(), allow.flatten()[at].item(),
+            ratio.flatten()[at].item(), text)
+
+
+def flex_yardstick(torch, Sq, Sk, window, cap):
+    """One PyTorch call for K10's function on rows that have a live key:
+    ``flex_attention`` (compiled) with the soft-cap as ``score_mod`` and
+    the causal (ends aligned) and window band as a block mask.  Timed
+    only; never on the port's path."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    off = Sk - Sq
+
+    def score_mod(s, b, h, qi, kj):
+        return torch.tanh(s / cap) * cap
+
+    def mask_mod(b, h, qi, kj):
+        live = kj <= qi + off
+        if window:
+            live = live & (qi + off - kj < window)
+        return live
+    block = create_block_mask(mask_mod, None, None, Sq, Sk, device="cuda")
+    torch._dynamo.reset()
+    fn = torch.compile(flex_attention)
+    return lambda q, k, v: fn(q, k, v, score_mod=score_mod,
+                              block_mask=block, enable_gqa=True)
+
+
+def phase_attn_kernels(torch, ref, mods):
+    """K9 and K10 against their plain versions at the LM shapes; returns
+    per case (err, ok, kernel, plain, library, bound ms)."""
+    F = torch.nn.functional
+    rms, flash = mods["rmsnorm"], mods["flash_attention"]
+    gen = torch.Generator("cuda").manual_seed(3)
+    out = {"K9": {}, "K10": {}}
+    log(f"[k9] {'rows x d':<12} {'dtype':<9} {'max_abs_err':<11} "
+        f"{'tol':<10} {'kernel_ms':<10} {'plain_ms':<10} "
+        f"{'library_ms':<10} bound_ms")
+    for rows, d, dt in RMS_CASES:
+        tdt = getattr(torch, dt)
+        itemsize = 2 if dt == "bfloat16" else 4
+        nbytes = 2 * rows * d * itemsize + 4 * d
+        copies = max(2, min(64, math.ceil(256e6 / nbytes)))
+        sets = [(torch.randn((rows, d), generator=gen, device="cuda").to(tdt),
+                 torch.randn((d,), generator=gen, device="cuda") * 0.1 + 1.0)
+                for _ in range(copies)]
+        got = rms.rmsnorm_cuda(*sets[0])
+        want = ref.rmsnorm_ref(*sets[0])
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = (BF16_TOL if dt == "bfloat16" else F32_TOL) * \
+            want.float().abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"K9 ({rows}, {d}) {dt}: max_abs_err {err} "
+                                 f"> tol {tol}")
+        k_ms = time_ms(torch, rms.rmsnorm_cuda, sets)
+        p_ms = time_ms(torch, ref.rmsnorm_ref, sets, iters=20)
+        lib_sets = [(x, (d,), s.to(tdt)) for x, s in sets]
+        l_ms = time_ms(torch, F.rms_norm, lib_sets)
+        b_ms, by = roof_ms(nbytes, 4.0 * rows * d)
+        log(f"[k9] {rows:>5}x{d:<6} {dt:<9} {err:<11.4g} {tol:<10.4g} "
+            f"{k_ms:<10.5f} {p_ms:<10.5f} {l_ms:<10.5f} {b_ms:.5f} ({by})")
+        out["K9"][(rows, d, dt)] = dict(err=err, tol=tol, ms=k_ms,
+                                        plain_ms=p_ms, library_ms=l_ms,
+                                        bound_ms=b_ms, bound_by=by)
+        del sets, lib_sets, got, want
+
+    log(f"[k10] {'case':<14} {'B H KH Sq Sk D':<26} {'window':>6} "
+        f"{'cap':>4} {'max_abs_err':<11} {'kernel_ms':<10} {'plain_ms':<10} "
+        f"{'library_ms':<10} bound_ms")
+    for name, B, H, KH, Sq, Sk, D, dt, window, cap in FLASH_CASES:
+        tdt = getattr(torch, dt)
+        kw = dict(causal=True, window=window, softcap=cap)
+
+        def rnd(shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    * scale).to(tdt)
+        sets = [(rnd((B, H, Sq, D), QSCALE if cap else 1.0),
+                 rnd((B, KH, Sk, D)), rnd((B, KH, Sk, D))) for _ in range(2)]
+        got = flash.flash_attention_cuda(*sets[0], **kw)
+        want = ref.flash_attention_ref(*sets[0], **kw)
+        torch.cuda.synchronize()
+        err, tol, ratio, gate = _k10_gate(torch, got, want, dt)
+        if not ratio <= 1.0:
+            raise AssertionError(f"K10 {name} {(B, H, KH, Sq, Sk, D)} {dt}: "
+                                 f"max_abs_err {err}, {ratio:.3g} x its "
+                                 f"allowance ({gate})")
+        big = Sq * Sk * H > 2**29
+        l_ms, lib_err = None, None
+        if Sq == Sk and cap and dt == "bfloat16":
+            # flex_attention soft-caps; it is held to ATTN_TOL to show it
+            # computes the same function, then timed
+            flex = flex_yardstick(torch, Sq, Sk, window, cap)
+            lib_err, lib_ok = _attn_err(torch, flex(*sets[0]), want, dt)
+            if not lib_ok:
+                raise AssertionError(f"flex_attention {name} {Sq} differs "
+                                     f"from the plain version by {lib_err}")
+            l_ms = time_ms(torch, flex, sets, iters=4 if big else 20,
+                           warmup=1)
+            del flex
+        del got, want
+        k_ms = time_ms(torch, lambda q, k, v: flash.flash_attention_cuda(
+            q, k, v, **kw), sets, iters=4 if big else 20, warmup=1)
+        p_ms = time_ms(torch, lambda q, k, v: ref.flash_attention_ref(
+            q, k, v, **kw), sets[:1], iters=2 if big else 5, warmup=1)
+        torch.cuda.empty_cache()
+        if Sq == Sk and not cap:   # the same function: no soft-cap, and
+            #                        SDPA aligns causal at the top left
+            mask = None
+            if window:
+                i = torch.arange(Sq, device="cuda")
+                mask = (i[None, :] <= i[:, None]) & \
+                    (i[:, None] - i[None, :] < window)
+            def sdpa(q, k, v, mask=mask):
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, is_causal=mask is None,
+                    enable_gqa=True)
+            l_ms = time_ms(torch, sdpa, sets, iters=4 if big else 20,
+                           warmup=1)
+            del mask
+        b_ms, by = flash_bound_ms(B, H, KH, Sq, Sk, D, dt, window)
+        log(f"[k10] {name:<14} {str((B, H, KH, Sq, Sk, D)):<26} {window:>6} "
+            f"{cap:>4g} {err:<11.4g} {k_ms:<10.5f} {p_ms:<10.5f} "
+            f"{'-' if l_ms is None else f'{l_ms:.5f}':<10} {b_ms:.5f} ({by})"
+            f"  [{dt}, gate {gate}: peak {ratio:.3g} of it"
+            + (f"; q x {QSCALE:g}" if cap else "")
+            + ("" if lib_err is None else
+               f"; flex_attention vs plain {lib_err:.4g}") + "]")
+        out["K10"][(name, Sq, Sk, D, dt, window)] = dict(
+            err=err, tol=tol, ratio=ratio, ms=k_ms, plain_ms=p_ms,
+            library_ms=l_ms, bound_ms=b_ms, bound_by=by)
+        del sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def _worst(cases):
+    return max(cases.values(),
+               key=lambda r: r.get("ratio", r["err"] / r["tol"]))
+
+
+def attn_json_rows(attn, k9_launches, k9_yi_launches, k10_launches,
+                   k10_path_diff):
+    """The kernels-line rows of K9 and K10: times of the launches one
+    Gemma-2 decode step makes (K9) and of the two launches on the long
+    prompt's layers (K10)."""
+    n9 = 33
+    k9 = attn["K9"][(4, 4608, "bfloat16")]
+    w9 = _worst(attn["K9"])
+    local = attn["K10"][("gemma2 local", GEMMA_LONG, GEMMA_LONG, 128,
+                         "bfloat16", 4096)]
+    glob = attn["K10"][("gemma2 global", GEMMA_LONG, GEMMA_LONG, 128,
+                        "bfloat16", 0)]
+    w10 = _worst(attn["K10"])
+    return [{
+        "name": "rmsnorm (K9)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:20",
+        "launches": k9_launches, "max_abs_err": w9["err"],
+        "tolerance": w9["tol"], "ms": n9 * k9["ms"],
+        "plain_ms": n9 * k9["plain_ms"], "bound_ms": n9 * k9["bound_ms"],
+        "bound_by": k9["bound_by"], "library_ms": n9 * k9["library_ms"],
+        "work": "one Gemma-2 (8 layers) decode step: 33 bf16 launches at "
+                "4 x 4608",
+        "yi_launches": k9_yi_launches,
+    }, {
+        "name": "flash_attention (K10)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:28",
+        "launches": k10_launches, "max_abs_err": w10["err"],
+        "tolerance": w10["tol"], "ms": local["ms"] + glob["ms"],
+        "plain_ms": local["plain_ms"] + glob["plain_ms"],
+        "bound_ms": local["bound_ms"] + glob["bound_ms"],
+        "bound_by": local["bound_by"],
+        "library_ms": local["library_ms"] + glob["library_ms"],
+        "work": f"layers 0 (window 4096) and 1 (global) of a {GEMMA_LONG}-"
+                "token Gemma-2 prompt: 2 bf16 launches, soft-cap 50; "
+                "library: flex_attention (compiled) with the soft-cap "
+                "score_mod and the causal/window block mask",
+        "path_max_abs_diff_vs_model": k10_path_diff["model"],
+        "path_max_abs_err_vs_plain": k10_path_diff["plain"],
+    }]
+
+
 def _logit_diff(torch, a, b):
     return (a.float().cpu() - b.float().cpu()).abs().max().item()
 
 
-def phase_reduced(torch, configs, lm, serving, weights):
-    """Reduced Yi-6B in f32, served on the card and on the CPU."""
-    cfg = dataclasses.replace(configs.get_reduced("yi-6b"), dtype="float32")
+def phase_reduced(torch, configs, lm, serving, weights, arch="yi-6b"):
+    """Reduced ``arch`` in f32, served on the card and on the CPU.  For
+    Gemma-2 the prompts (20-36 tokens) pass its window of 16, so the local
+    layer masks in prefill and decode."""
+    cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32")
     host = lm.init_params(cfg, torch.Generator("cpu").manual_seed(0),
                           device="cpu")
     tree = weights.params_to_numpy(host)
     params = {dev: weights.params_from_numpy(tree, cfg, dev)
               for dev in ("cuda", "cpu")}
+    long_prompts = cfg.sliding_window > 0
+    lens = dict(prompt_lens=(20, 28, 36)) if long_prompts else {}
     reqs = serving.poisson_requests(6, rate_rps=200.0, seed=0,
-                                    vocab_size=cfg.vocab_size)
+                                    vocab_size=cfg.vocab_size, **lens)
     sc = serving.ServeConfig(slots=4, max_seq=96, timing="model",
                              cache_dtype="float32")
     streams = {}
@@ -672,19 +957,21 @@ def phase_reduced(torch, configs, lm, serving, weights):
         streams[dev] = {ev.request: ev.tokens for ev in eng.run(reqs)
                         if ev.kind == "complete"}
     if streams["cuda"] != streams["cpu"] or len(streams["cuda"]) != 6:
-        raise AssertionError(f"token streams differ: card {streams['cuda']} "
-                             f"cpu {streams['cpu']}")
+        raise AssertionError(f"{arch} token streams differ: card "
+                             f"{streams['cuda']} cpu {streams['cpu']}")
 
     import numpy as np
     rng = np.random.default_rng(0)
-    prompt = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    P = 24 if long_prompts else 16
+    prompt = rng.integers(0, cfg.vocab_size, (2, P)).astype(np.int32)
     steps = rng.integers(0, cfg.vocab_size, (4, 3, 1)).astype(np.int32)
     out = {}
     with torch.inference_mode():
         for dev in ("cuda", "cpu"):
             logits, sl = lm.prefill(params[dev], torch.as_tensor(
                 prompt, device=dev), cfg, cache_dtype=torch.float32)
-            cache = lm.init_cache(3, 32, cfg, dtype=torch.float32, device=dev)
+            cache = lm.init_cache(3, P + 16, cfg, dtype=torch.float32,
+                                  device=dev)
             lm.cache_insert(cache, sl, 0, 0)
             lm.cache_insert(cache, sl, 2, 1)
             seq = [logits]
@@ -696,27 +983,17 @@ def phase_reduced(torch, configs, lm, serving, weights):
             out[dev] = seq
     diff = max(_logit_diff(torch, a, b) for a, b in zip(out["cuda"],
                                                         out["cpu"]))
-    log(f"[reduced] yi-6b f32 card vs cpu: {len(streams['cuda'])} token "
+    log(f"[reduced] {arch} f32 card vs cpu: {len(streams['cuda'])} token "
         f"streams identical; prefill+decode logits max_abs_diff {diff:.3g} "
         f"(tol {SERVE_TOL})")
     if not diff <= SERVE_TOL:
-        raise AssertionError(f"card vs cpu logits differ by {diff}")
+        raise AssertionError(f"{arch} card vs cpu logits differ by {diff}")
 
 
-def phase_slice(torch, configs, lm, serving, dense_mod, card):
-    """Full-width Yi-6B: 8 Poisson requests, measured timing."""
-    import numpy as np
-    cfg = configs.get_config("yi-6b")
-    t0 = time.perf_counter()
-    params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
-                            device="cuda")
-    eng = serving.make_serve_engine(params, cfg, serving.ServeConfig(
-        slots=4, max_seq=128), device="cuda")
-    torch.cuda.synchronize()
-    log(f"[slice] yi-6b full width ({cfg.param_count() / 1e9:.3f} B params "
-        f"f32 + bf16 compute copy) ready in {time.perf_counter() - t0:.1f} s")
-    eng.generate(np.zeros((1, 8), np.int32), 2)   # warm-up: CUDA/cuBLAS init
-
+def _serve(torch, eng, reqs, counters):
+    """Run ``reqs`` through ``eng`` with every launch counter zeroed just
+    before; check that logits stay finite.  Returns (events, launches,
+    forward calls, decode step ms, peak bytes)."""
     finite, decode_ms = [], []
     prefill, decode = eng.prefill, eng.decode
 
@@ -732,40 +1009,166 @@ def phase_slice(torch, configs, lm, serving, dense_mod, card):
         return logits, ms
 
     eng.prefill, eng.decode = checked_prefill, checked_decode
-    reqs = serving.poisson_requests(8, rate_rps=50, seed=0,
-                                    vocab_size=cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
     eng.prefill_calls = eng.decode_calls = 0
-    dense_mod.dense_cuda.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     events = list(eng.run(reqs))
-    launches = dense_mod.dense_cuda.launches
-    calls = eng.prefill_calls + eng.decode_calls
+    launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-
-    done = [ev for ev in events if ev.kind == "complete"]
-    ttft = [ev.ttft_ms for ev in events if ev.kind == "prefill"]
-    if len(done) != 8:
-        raise AssertionError(f"{len(done)} of 8 requests completed")
+    eng.prefill, eng.decode = prefill, decode
     if not all(finite):
         raise AssertionError("non-finite logits in the full-width run")
-    if launches != 224 * calls:
-        raise AssertionError(f"K1 launches {launches} != 224 x {calls} "
-                             "forward calls")
+    return events, launches, eng.prefill_calls + eng.decode_calls, \
+        decode_ms, peak
+
+
+def _report(events, n_req, eng, calls, launches, per_call, decode_ms, peak,
+            card, tag):
+    """Check completion and launches per forward call; log the end-to-end
+    numbers."""
+    import numpy as np
+    done = [ev for ev in events if ev.kind == "complete"]
+    ttft = [ev.ttft_ms for ev in events if ev.kind == "prefill"]
+    if len(done) != n_req:
+        raise AssertionError(f"{len(done)} of {n_req} requests completed")
+    for key, n in per_call.items():
+        if launches[key] != n * calls:
+            raise AssertionError(f"{key} launches {launches[key]} != {n} x "
+                                 f"{calls} forward calls")
     toks = sum(len(ev.tokens) for ev in done)
     makespan = max(ev.t_ms for ev in done)
     lat = [ev.latency_ms for ev in done]
     p = np.percentile
-    log(f"[slice] card: {card}")
-    log(f"[slice] 8/8 requests, {toks} tokens, {eng.prefill_calls} prefill "
-        f"calls + {eng.decode_calls} decode steps, K1 launches {launches} "
-        f"= 224 x {calls}")
-    log(f"[slice] TTFT p50 {p(ttft, 50):.3f} ms p99 {p(ttft, 99):.3f} ms | "
+    log(f"[{tag}] card: {card}")
+    log(f"[{tag}] {n_req}/{n_req} requests, {toks} tokens, "
+        f"{eng.prefill_calls} prefill calls + {eng.decode_calls} decode "
+        "steps, launches " + ", ".join(
+            f"{k} {launches[k]} = {n} x {calls}" for k, n in per_call.items()))
+    log(f"[{tag}] TTFT p50 {p(ttft, 50):.3f} ms p99 {p(ttft, 99):.3f} ms | "
         f"latency p50 {p(lat, 50):.3f} ms p99 {p(lat, 99):.3f} ms | "
         f"{toks / makespan * 1e3:.2f} tok/s over {makespan:.1f} ms")
-    log(f"[slice] decode step mean {np.mean(decode_ms):.3f} ms p50 "
+    log(f"[{tag}] decode step mean {np.mean(decode_ms):.3f} ms p50 "
         f"{p(decode_ms, 50):.3f} ms | max_memory_allocated "
         f"{peak / 1e9:.2f} GB ({card})")
+
+
+def phase_slice(torch, configs, lm, serving, counters, card):
+    """Full-width Yi-6B: 8 Poisson requests, measured timing; 224 K1 and
+    65 K9 launches per forward call."""
+    import numpy as np
+    cfg = configs.get_config("yi-6b")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            device="cuda")
+    eng = serving.make_serve_engine(params, cfg, serving.ServeConfig(
+        slots=4, max_seq=128), device="cuda")
+    torch.cuda.synchronize()
+    log(f"[slice] yi-6b full width ({cfg.param_count() / 1e9:.3f} B params "
+        f"f32 + bf16 compute copy) ready in {time.perf_counter() - t0:.1f} s")
+    eng.generate(np.zeros((1, 8), np.int32), 2)   # warm-up: CUDA/cuBLAS init
+    reqs = serving.poisson_requests(8, rate_rps=50, seed=0,
+                                    vocab_size=cfg.vocab_size)
+    events, launches, calls, decode_ms, peak = _serve(torch, eng, reqs,
+                                                      counters)
+    L = cfg.num_layers             # 32: 224 K1 and 65 K9 a forward
+    _report(events, 8, eng, calls, launches, {"K1": 7 * L, "K9": 2 * L + 1},
+            decode_ms, peak, card, "slice")
     return launches
+
+
+def phase_gemma(torch, configs, serving, counters, card, layers=8):
+    """The slice: Gemma-2-27B at full width, ``layers`` deep (the config's
+    local/global pattern), 4 Poisson requests with one prompt of 5000
+    tokens; then K10 on layers 0 and 1 of that prompt against the model's
+    own attention and its plain version.  Returns (serving launches, K10
+    launches, K10's max difference from each)."""
+    import numpy as np
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention, blocks, layers as nn, lm
+    cfg = dataclasses.replace(configs.get_config("gemma2-27b"),
+                              num_layers=layers)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    eng = serving.make_serve_engine(params, cfg, serving.ServeConfig(
+        slots=4, max_seq=GEMMA_LONG + 120), device="cuda")
+    torch.cuda.synchronize()
+    log(f"[gemma] gemma2-27b full width, {layers} of 46 layers "
+        f"({n_params} params f32 + bf16 compute copy), windows "
+        f"{blocks.layer_windows(cfg)}, ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    eng.generate(np.zeros((1, 8), np.int32), 2)   # warm-up
+    reqs = serving.poisson_requests(4, rate_rps=20, seed=0,
+                                    prompt_lens=(16, 32, 64), gen_lens=(8,),
+                                    gen_probs=(1.0,),
+                                    vocab_size=cfg.vocab_size)
+    rng = np.random.default_rng(1)
+    reqs[0].tokens = rng.integers(0, cfg.vocab_size, GEMMA_LONG,
+                                  dtype=np.int32)
+    events, launches, calls, decode_ms, peak = _serve(torch, eng, reqs,
+                                                      counters)
+    _report(events, 4, eng, calls, launches,
+            {"K1": 7 * layers, "K9": 4 * layers + 1}, decode_ms, peak, card,
+            "gemma")
+    long_pre = next(ev.prefill_ms for ev in events
+                    if ev.kind == "prefill" and ev.request == 0)
+    log(f"[gemma] the {GEMMA_LONG}-token prompt: prefill {long_pre:.3f} ms; "
+        f"its decode steps read past the local window "
+        f"({cfg.sliding_window})")
+
+    # K10 on the long prompt's layer-0 (local) and layer-1 (global) q, k, v:
+    # against the model's attention (which rounds p to bf16) at ATTN_TOL,
+    # and against its plain version on the same q, k, v at its own gate
+    from repro_torch.kernels import ref
+    flash = counters["K10"]
+    worst, k10_launches = {"model": 0.0, "plain": 0.0}, 0
+    with torch.inference_mode():
+        p = eng.params
+        toks = torch.as_tensor(reqs[0].tokens[None], device="cuda")
+        x = nn.embed(p["embed"], toks).to(torch.bfloat16)
+        pos = torch.arange(GEMMA_LONG, device="cuda")[None]
+        for i, win in enumerate(blocks.layer_windows(cfg)[:2]):
+            lp = lm.layer_params(p["layers"], i)
+            h = nn.rms_norm(lp["ln1"], x, cfg.norm_eps)
+            q, k, v = attention.project_qkv(lp["attn"], h, pos, cfg)
+            model = attention.chunked_attention(
+                q, k, v, causal=True, window=win,
+                attn_softcap=cfg.attn_softcap)
+            flash.launches = 0
+            got = ops.flash_attention(q, k, v, causal=True, window=win,
+                                      softcap=cfg.attn_softcap)
+            torch.cuda.synchronize()
+            k10_launches += flash.launches
+            if flash.launches != 1:
+                raise AssertionError(f"K10 launched {flash.launches} times "
+                                     "for one ops.flash_attention call")
+            err, ok = _attn_err(torch, got, model, "bfloat16")
+            kind = "global" if win == blocks.GLOBAL_WINDOW else "local"
+            log(f"[gemma] layer {i} ({kind}"
+                f", window {win}): K10 vs the model's attention max_abs_diff "
+                f"{err:.4g} (atol {ATTN_TOL['bfloat16'][0]}, rtol "
+                f"{ATTN_TOL['bfloat16'][1]})")
+            if not ok:
+                raise AssertionError(f"K10 differs from the model's attention"
+                                     f" on layer {i} by {err}")
+            plain = ref.flash_attention_ref(
+                *(t.transpose(1, 2) for t in (q, k, v)), causal=True,
+                window=win, softcap=cfg.attn_softcap).transpose(1, 2)
+            p_err, _, ratio, gate = _k10_gate(torch, got, plain, "bfloat16")
+            log(f"[gemma] layer {i}: K10 vs its plain version on the same "
+                f"q, k, v max_abs_err {p_err:.4g} (gate {gate}: peak "
+                f"{ratio:.3g} of it)")
+            if not ratio <= 1.0:
+                raise AssertionError(f"K10 differs from its plain version on"
+                                     f" layer {i} by {p_err}")
+            worst["model"] = max(worst["model"], err)
+            worst["plain"] = max(worst["plain"], p_err)
+            x, _, _ = blocks.block_forward(lp, x, pos, cfg, window=win)
+            del q, k, v, model, got, plain
+    return launches, k10_launches, worst
 
 
 def phase_cli():
@@ -783,6 +1186,10 @@ def phase_cli():
 
 
 def main() -> int:
+    # torch.compile (the flex_attention yardstick) caches inside the checkout
+    cache = SRC / "repro_torch" / "kernels" / "_build" / "compile_cache"
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = str(cache / "inductor")
+    os.environ["TRITON_CACHE_DIR"] = str(cache / "triton")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -797,7 +1204,9 @@ def main() -> int:
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import conv2d as conv_mod
     from repro_torch.kernels import dense as dense_mod
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import pool2d as pool_mod
+    from repro_torch.kernels import rmsnorm as rms_mod
     from repro_torch.launch import profile_decode
     from repro_torch.models import cnn, lm
     from repro_torch.optim import optimizers
@@ -805,7 +1214,10 @@ def main() -> int:
     port = SimpleNamespace(cnn=cnn, weights=weights, trainer=bpt_trainer,
                            synthetic=synthetic, types=types, optim=optimizers,
                            tree=tree, profile=profile_decode)
-    mods = {"dense": dense_mod, "conv2d": conv_mod, "pool2d": pool_mod}
+    mods = {"dense": dense_mod, "conv2d": conv_mod, "pool2d": pool_mod,
+            "rmsnorm": rms_mod, "flash_attention": flash_mod}
+    counters = {"K1": dense_mod.dense_cuda, "K9": rms_mod.rmsnorm_cuda,
+                "K10": flash_mod.flash_attention_cuda}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -820,10 +1232,16 @@ def main() -> int:
 
     step, worst = phase_kernel(torch, dense_mod, ref)
     train_rows = phase_train_kernels(torch, ref, mods, cnn)
-    phase_reduced(torch, configs, lm, serving, weights)
+    attn_rows = phase_attn_kernels(torch, ref, mods)
+    phase_reduced(torch, configs, lm, serving, weights, "yi-6b")
+    phase_reduced(torch, configs, lm, serving, weights, "gemma2-27b")
     phase_train_reduced(torch, port)
-    launches = phase_slice(torch, configs, lm, serving, dense_mod, card)
+    launches = phase_slice(torch, configs, lm, serving, counters, card)
     train_launches, train = phase_train_slice(torch, port, mods, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma_launches, k10_launches, k10_diff = phase_gemma(
+        torch, configs, serving, counters, card)
     phase_cli()
 
     k1 = train_rows["K1"]
@@ -831,7 +1249,7 @@ def main() -> int:
         "name": "dense_fwd (K1)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dense_fwd.cu",
         "replaces": "src/repro/kernels/dense.py:46",
-        "launches": launches, "max_abs_err": worst["err"],
+        "launches": launches["K1"], "max_abs_err": worst["err"],
         "tolerance": worst["tol"], "ms": step["ms"],
         "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": dominant(step["bound_by"]),
@@ -858,6 +1276,8 @@ def main() -> int:
             "step_device_ms": (train["device_ms"] or {}).get(key),
             "work": f"one case7 training step at B=64: "
                     f"{STEP_LAUNCHES[key]} f32 launches"})
+    rows += attn_json_rows(attn_rows, gemma_launches["K9"],
+                           launches["K9"], k10_launches, k10_diff)
     log(json.dumps({"kernels": rows}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ __all__ = ["ARCH_NAMES", "get_config", "get_reduced"]
 _MODULES = {
     "yi-6b": "yi_6b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "gemma2-27b": "gemma2_27b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

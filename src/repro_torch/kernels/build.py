@@ -29,7 +29,9 @@ BUILD_DIR = _HERE / "_build"
 
 # kernel library name -> its source, relative to this package
 SOURCES = {"dense_fwd": "csrc/dense_fwd.cu", "dense_bwd": "csrc/dense_bwd.cu",
-           "conv2d": "csrc/conv2d.cu", "pool2d": "csrc/pool2d.cu"}
+           "conv2d": "csrc/conv2d.cu", "pool2d": "csrc/pool2d.cu",
+           "rmsnorm": "csrc/rmsnorm.cu",
+           "flash_attention": "csrc/flash_attention.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

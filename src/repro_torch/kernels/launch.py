@@ -19,10 +19,10 @@ __all__ = ["check_f32_cuda", "detached", "run"]
 _FNS: dict = {}
 
 
-def _bind(lib: str, symbol: str, n_ptrs: int, n_ints: int):
+def _bind(lib: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int):
     fn = getattr(build.load(lib), symbol)
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _FNS[(lib, symbol)] = fn
     return fn
@@ -55,11 +55,13 @@ def check_f32_cuda(name: str, **tensors) -> torch.device:
     return next(iter(devices))
 
 
-def run(lib: str, symbol: str, device, ptrs, ints) -> None:
+def run(lib: str, symbol: str, device, ptrs, ints, floats=()) -> None:
     """Launch ``symbol`` of kernel library ``lib`` with ``ptrs`` (tensors
-    or None) and ``ints`` on ``device``'s current stream."""
-    fn = _FNS.get((lib, symbol)) or _bind(lib, symbol, len(ptrs), len(ints))
+    or None), ``ints`` and ``floats`` (C ``float``) on ``device``'s current
+    stream."""
+    fn = _FNS.get((lib, symbol)) or _bind(lib, symbol, len(ptrs), len(ints),
+                                          len(floats))
     err = fn(*[None if t is None else t.data_ptr() for t in ptrs], *ints,
-             torch.cuda.current_stream(device).cuda_stream)
+             *floats, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError {err}")

@@ -16,10 +16,12 @@ import torch
 
 from . import conv2d as _conv
 from . import dense as _dense
+from . import flash_attention as _flash
 from . import pool2d as _pool
 from . import ref
+from . import rmsnorm as _rmsnorm
 
-__all__ = ["dense", "conv2d", "max_pool2d"]
+__all__ = ["dense", "conv2d", "max_pool2d", "rmsnorm", "flash_attention"]
 
 
 def _wants_grad(*tensors) -> bool:
@@ -97,3 +99,41 @@ def max_pool2d(x, window: int = 2, stride: int = 2):
     if x.device.type == "cpu":
         return ref.max_pool2d_ref(x, window, stride)
     return _pool.max_pool2d_cuda(x, window)
+
+
+def _forward_only(name: str, *tensors):
+    if _wants_grad(*tensors):
+        raise NotImplementedError(
+            f"{name} on the card is forward only: its backward kernel is not "
+            "written (the reference has none either); call it without "
+            "gradients, or on CPU tensors")
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """RMSNorm over the last axis: x * rsqrt(mean(x^2) + eps) * scale in
+    f32, cast to x's dtype.  ``x`` may carry leading dims.  K9 on the card
+    (forward only); the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return ref.rmsnorm_ref(x, scale, eps=eps)
+    _forward_only("rmsnorm", x, scale)
+    d = x.shape[-1]
+    out = _rmsnorm.rmsnorm_cuda(x.reshape(-1, d).contiguous(),
+                                scale.contiguous(), eps=eps)
+    return out.reshape(x.shape)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """q (B, Sq, H, D), k and v (B, Sk, KH, D), BSHD like the models ->
+    (B, Sq, H, D).  K10 on the card (forward only), transposed to its BHSD
+    layout and back as the reference's ``ops.flash_attention`` does; on
+    the CPU the plain version of what K10 computes."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if q.device.type == "cpu":
+        out = ref.flash_attention_ref(qt, kt, vt, causal=causal,
+                                      window=window, softcap=softcap)
+    else:
+        _forward_only("flash_attention", q, k, v)
+        out = _flash.flash_attention_cuda(qt, kt, vt, causal=causal,
+                                          window=window, softcap=softcap)
+    return out.transpose(1, 2)

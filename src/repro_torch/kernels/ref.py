@@ -8,16 +8,22 @@ mask taken from the saved output, the padded cotangent and flipped filter
 of the conv input gradient, the even split of tied pool maxima.
 
 Layouts are the reference's: NHWC activations, HWIO filters, dense
-weights (Din, Dout).
+weights (Din, Dout); ``attention_ref`` takes BSHD like the models,
+``flash_attention_ref`` BHSD like K10.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 __all__ = ["dense_ref", "dense_dx_ref", "dense_dwdb_ref", "conv_pads",
            "conv2d_ref", "conv2d_fused_ref", "conv2d_dx_ref", "conv2d_dw_ref",
-           "max_pool2d_ref", "max_pool2d_bwd_ref"]
+           "max_pool2d_ref", "max_pool2d_bwd_ref", "rmsnorm_ref",
+           "attention_ref", "flash_attention_ref", "flash_pad_len",
+           "NEG_INF"]
+
+NEG_INF = -1e30            # the finite "masked" score of the reference
 
 
 def _masked(g, out):
@@ -149,3 +155,86 @@ def max_pool2d_bwd_ref(x, out, g, window: int = 2):
     dx[:, :Ho * window, :Wo * window, :] = routed.reshape(
         B, Ho * window, Wo * window, C)
     return dx
+
+
+# --------------------------------------------------------------- rmsnorm
+def rmsnorm_ref(x, scale, eps: float = 1e-6):
+    """K9: per row of x (..., d), x * rsqrt(mean(x^2) + eps) * scale in
+    f32, cast to x's dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+# ------------------------------------------------------------- attention
+def attention_ref(q, k, v, *, causal=True, window=None, softcap=0.0,
+                  scale=None):
+    """The naive O(S^2) GQA attention oracle of the reference (``ref.py``'s
+    ``attention_ref``): q (B, Sq, H, D), k and v (B, Sk, KH, D).  A row
+    with no live key averages v over the Sk keys."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    if not scale:
+        scale = float(np.float32(1.0) / np.sqrt(np.float32(D)))
+    qg = q.reshape(B, Sq, KH, G, D)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg.float(), k.float()) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qi = torch.arange(Sq, device=q.device)[:, None]
+    kj = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kj <= qi + (Sk - Sq))      # ends aligned
+    if window:
+        mask = mask & ((qi + (Sk - Sq)) - kj < window)
+    s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def flash_pad_len(sk: int, k_tile: int = 128) -> int:
+    """nk * tk: the key length K10 pads k and v to, tk = min(k_tile, Sk)."""
+    tk = min(k_tile, sk)
+    return -(-sk // tk) * tk
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, k_tile: int = 128):
+    """Exactly what K10 computes (``flash_attention.py``'s
+    ``_flash_kernel``): q (B, H, Sq, D), k and v (B, KH, Sk, D) -> (B, H,
+    Sq, D) in q's dtype.
+
+    k and v are padded with zeros to ``flash_pad_len(Sk, k_tile)`` keys
+    and every score outside the kv-padding, causal (ends aligned) and
+    window masks is -1e30 after the soft-cap.  One softmax over the padded
+    keys, normalised at the end as K10 does (acc / max(l, 1e-20)), equals
+    K10's online one up to rounding; a row with no live key (causal,
+    Sq > Sk) puts p = 1 on every padded key and returns sum(v) / (nk*tk),
+    where ``attention_ref`` returns sum(v) / Sk.  Updates its own score
+    tensor in place, so an S = 8192 call holds one f32 score tensor.
+    """
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    G = H // KH
+    P = flash_pad_len(Sk, k_tile)
+    kp = F.pad(k.float(), (0, 0, 0, P - Sk))
+    vp = F.pad(v.float(), (0, 0, 0, P - Sk))
+    s = torch.matmul(q.float().reshape(B, KH, G, Sq, D),
+                     kp[:, :, None].transpose(-1, -2))   # (B, KH, G, Sq, P)
+    s.mul_(1.0 / float(D) ** 0.5)
+    if softcap:
+        s.div_(softcap).tanh_().mul_(softcap)
+    qi = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    kj = torch.arange(P, device=q.device)[None, :]
+    mask = kj < Sk
+    if causal:
+        mask = mask & (kj <= qi)
+    if window:
+        mask = mask & (qi - kj < window)
+    s.masked_fill_(~mask, NEG_INF)
+    s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
+    l = s.sum(dim=-1, keepdim=True).clamp_min_(1e-20)
+    o = torch.matmul(s, vp[:, :, None]).div_(l)
+    return o.reshape(B, H, Sq, D).to(q.dtype)

@@ -6,6 +6,10 @@ fills every slot with a prompt, then traces ``--steps`` decode steps with
 wall time and the card's busy share over the traced window:
 
     python -m repro_torch.launch.profile_decode --steps 5
+    python -m repro_torch.launch.profile_decode --arch gemma2-27b --layers 8
+
+``--layers`` cuts the depth (full width kept), for a model whose full
+depth does not fit the card with its f32 masters and bf16 copy.
 
 Needs one NVIDIA card; prints the card's name and power limit beside the
 numbers.  ``--json PATH`` also writes them as JSON.
@@ -13,6 +17,7 @@ numbers.  ``--json PATH`` also writes them as JSON.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -63,11 +68,15 @@ def main(argv=None):
     ap.add_argument("--prompt", type=int, default=16)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="depth to build (0: the config's own)")
     ap.add_argument("--json", default="")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
     cfg = configs.get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
                             device=dev)
     eng = make_serve_engine(params, cfg, ServeConfig(
@@ -98,7 +107,8 @@ def main(argv=None):
     step_ms = wall_ms / args.steps
     busy_ms = busy_us(prof) / 1e3 / args.steps
     card = _card()
-    print(f"[profile] {cfg.name} full width, {args.slots} slots, "
+    print(f"[profile] {cfg.name} full width, {cfg.num_layers} layers, "
+          f"{args.slots} slots, "
           f"{args.steps} decode steps on {card}")
     print(f"[profile] step {step_ms:.3f} ms wall, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / step_ms:.1f}%)"
@@ -107,7 +117,8 @@ def main(argv=None):
         print(f"[profile] {ms:9.4f} ms/step {n:6d} launches/step  {key[:90]}")
     if args.json:
         with open(args.json, "w") as fh:
-            json.dump({"card": card, "arch": cfg.name, "slots": args.slots,
+            json.dump({"card": card, "arch": cfg.name,
+                       "layers": cfg.num_layers, "slots": args.slots,
                        "steps": args.steps, "step_ms": step_ms,
                        "busy_ms": busy_ms, "kernels": [
                            {"name": k, "ms_per_step": ms,

@@ -1,22 +1,24 @@
-"""Grouped-query attention: the prefill path and the KV-cache decode path,
-from ``repro/models/attention.py``.
+"""Grouped-query attention: the blockwise prefill path and the KV-cache
+decode path, from ``repro/models/attention.py``.
 
-Prefill replaces the reference's blockwise online softmax
-(``chunked_attention``, plain jnp, not a Pallas kernel) with one masked
-softmax over the whole key range, in the same form the reference takes
-when the keys fit one block (Sk <= 1024, which covers every prompt the
-serving path sees): unnormalised ``exp(s - max)`` cast to v's dtype
-before the PV product, divided by the row sum afterwards.
+Prefill runs the reference's ``chunked_attention`` (plain jnp there, not
+a Pallas kernel; plain PyTorch here) with its chunk sizes, so the bf16
+rounding of p, which follows the running max of each key chunk, is the
+reference's.  Its sharding constraints and ``block_skip`` are left out:
+they change where the work runs, not its values.  Both paths take the
+sliding window (as data, one int per layer) and Gemma-2's attention
+soft-cap.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .layers import apply_rope, dense, init_dense
+from .layers import apply_rope, dense, init_dense, softcap
 
-__all__ = ["init_attention", "attention_block", "init_kv_cache",
-           "decode_attention_block", "NEG_INF"]
+__all__ = ["init_attention", "project_qkv", "chunked_attention",
+           "attention_block", "init_kv_cache", "decode_attention_block",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -33,14 +35,82 @@ def init_attention(gen, d_model: int, num_heads: int, num_kv_heads: int,
     }
 
 
-def _masked_softmax_pv(s, mask, v):
-    """s (…, Sk) f32 scores, mask broadcastable to s, v (B, Sk, KH, D) →
-    f32 (B, Sq, KH, G, D) with p cast to v's dtype before the product."""
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    lsum = p.sum(dim=-1)
-    o = torch.einsum("bqhgk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
-    return o / lsum.clamp_min(1e-20)[..., None]
+def _scale(D: int) -> float:
+    """1 / sqrt(D) rounded to f32, as the reference computes it."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(D)))
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, window=None,
+                      attn_softcap: float = 0.0, q_chunk: int = 512,
+                      k_chunk: int = 1024):
+    """Blockwise online-softmax GQA attention.  q (B, Sq, H, D), k and v
+    (B, Sk, KH, D) -> (B, Sq, H, D) in q's dtype.
+
+    ``window`` None or 0 is full attention, else token i attends to j in
+    (i - window, i].  Scores and the running max, sum and accumulator are
+    f32; p is cast to v's dtype before the PV product, as the reference
+    does.
+    """
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    scale = _scale(D)
+    q_chunk = min(q_chunk, Sq)
+    k_chunk = min(k_chunk, Sk)
+    nq, nk = -(-Sq // q_chunk), -(-Sk // k_chunk)
+    win = int(window) if window else None
+    dev = q.device
+    k_range = torch.arange(k_chunk, device=dev)
+    q_range = torch.arange(q_chunk, device=dev)
+    outs = []
+    for qi in range(nq):
+        q_blk = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        rows = q_blk.shape[1]
+        q_blk = q_blk.reshape(B, rows, KH, G, D).float()
+        q_pos = qi * q_chunk + q_range[:rows]
+        acc = torch.zeros((B, rows, KH, G, D), dtype=torch.float32,
+                          device=dev)
+        m = torch.full((B, rows, KH, G), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        lsum = torch.zeros((B, rows, KH, G), dtype=torch.float32, device=dev)
+        for ki in range(nk):
+            k_blk = k[:, ki * k_chunk:(ki + 1) * k_chunk]
+            v_blk = v[:, ki * k_chunk:(ki + 1) * k_chunk]
+            k_pos = ki * k_chunk + k_range[:k_blk.shape[1]]
+            s = torch.einsum("bqhgd,bkhd->bqhgk", q_blk,
+                             k_blk.float()) * scale
+            if attn_softcap:
+                s = softcap(s, attn_softcap)
+            mask = torch.ones((rows, k_blk.shape[1]), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask = mask & (k_pos[None, :] <= q_pos[:, None])
+            if win is not None:
+                mask = mask & (q_pos[:, None] - k_pos[None, :] < win)
+            s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            lsum = lsum * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bqhgk,bkhd->bqhgd", p.to(v.dtype).float(),
+                              v_blk.float())
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        out = acc / lsum.clamp_min(1e-20)[..., None]
+        outs.append(out.to(q.dtype).reshape(B, rows, H, D))
+    return torch.cat(outs, dim=1) if nq > 1 else outs[0]
+
+
+def project_qkv(params, x, positions, cfg):
+    """The q, k, v projections of x (B, S, d_model) with rotary positions:
+    q (B, S, H, D), k and v (B, S, KH, D)."""
+    B, S, _ = x.shape
+    H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = dense(params["wq"], x).reshape(B, S, H, D)
+    k = dense(params["wk"], x).reshape(B, S, KH, D)
+    v = dense(params["wv"], x).reshape(B, S, KH, D)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
 
 
 def attention_block(params, x, positions, cfg, *, window=None,
@@ -48,25 +118,12 @@ def attention_block(params, x, positions, cfg, *, window=None,
     """Self-attention over a whole prompt.  x: (B, S, d_model).
     Returns (out (B, S, d_model), (k, v) post-rope (B, S, KH, D))."""
     B, S, _ = x.shape
-    H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    G = H // KH
-    q = dense(params["wq"], x).reshape(B, S, H, D)
-    k = dense(params["wk"], x).reshape(B, S, KH, D)
-    v = dense(params["wv"], x).reshape(B, S, KH, D)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(D)))
-    s = torch.einsum("bqhgd,bkhd->bqhgk", q.reshape(B, S, KH, G, D).float(),
-                     k.float()) * scale
-    pos = torch.arange(S, device=x.device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=x.device)
-    if causal:
-        mask = mask & (pos[None, :] <= pos[:, None])
-    if window is not None:
-        mask = mask & (pos[:, None] - pos[None, :] < int(window))
-    o = _masked_softmax_pv(s, mask[None, :, None, None, :], v)
-    out = o.to(q.dtype).reshape(B, S, H * D)
+    q, k, v = project_qkv(params, x, positions, cfg)
+    out = chunked_attention(q, k, v, causal=causal, window=window,
+                            attn_softcap=cfg.attn_softcap,
+                            q_chunk=cfg.attn_q_chunk or 512,
+                            k_chunk=cfg.attn_k_chunk or 1024)
+    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
     return dense(params["wo"], out), (k, v)
 
 
@@ -110,6 +167,8 @@ def decode_attention_block(params, x, cache, cache_len, cfg, *, window=None):
 
     s = torch.einsum("bhgd,bkhd->bhgk", q.reshape(B, KH, G, D).float(),
                      ck.float()) / float(np.sqrt(np.float32(D)))
+    if cfg.attn_softcap:
+        s = softcap(s, cfg.attn_softcap)
     k_pos = torch.arange(S, device=x.device)
     mask = k_pos[None, :] <= lens[:, None]
     if window is not None:

@@ -1,8 +1,10 @@
 """Decoder block for ``arch_type="dense"``: prefill and decode paths, from
-``repro/models/blocks.py``.
+``repro/models/blocks.py``, with Gemma-2's branches: per-layer sliding
+windows (``window_pattern`` / ``global_layers``), the attention soft-cap
+and the post-norms ``pn1`` / ``pn2``.
 
-The moe, ssm and hybrid branches, and the config branches neither Yi-6B
-nor Phi-3 uses, are not ported yet: ``check_supported`` raises
+The moe, ssm and hybrid branches, and the config branches none of Yi-6B,
+Phi-3 and Gemma-2 uses, are not ported yet: ``check_supported`` raises
 ``NotImplementedError`` naming the branch.  ``mlp_megatron``,
 ``attn_block_skip`` and ``bf16_params_compute`` only change sharding,
 skipping or the place of a cast in the reference, not its values, and
@@ -22,9 +24,8 @@ __all__ = ["init_block", "block_forward", "block_decode", "init_block_cache",
 GLOBAL_WINDOW = (2**31 - 1) // 2   # "no window", as the reference's int32
 
 # config fields whose reference branch the port does not have yet
-_UNPORTED_FLAGS = ("sliding_window", "attn_softcap", "final_softcap",
-                   "post_norm", "qk_norm", "frontend", "embed_onehot",
-                   "embed_reshard", "attn_kv_gather")
+_UNPORTED_FLAGS = ("qk_norm", "frontend", "embed_onehot", "embed_reshard",
+                   "attn_kv_gather")
 
 
 def check_supported(cfg) -> None:
@@ -42,13 +43,25 @@ def check_supported(cfg) -> None:
 
 
 def layer_windows(cfg, num_layers=None):
-    """Per-layer attention windows: ``GLOBAL_WINDOW`` for every layer
-    (sliding windows are not ported)."""
-    if cfg.sliding_window > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: the sliding_window branch is not ported yet")
+    """Per-layer sliding-window sizes, one int per layer.
+
+    Gemma-2 style: with ``window_pattern`` p, every p-th layer is global
+    (``GLOBAL_WINDOW``) and the others use ``sliding_window``; explicit
+    ``global_layers`` take precedence.  Without either, every layer uses
+    ``sliding_window``, or full attention when it is 0.
+    """
     L = num_layers if num_layers is not None else cfg.num_layers
-    return (GLOBAL_WINDOW,) * L
+    if cfg.sliding_window <= 0:
+        return (GLOBAL_WINDOW,) * L
+    if cfg.global_layers:
+        glob = set(cfg.global_layers)
+        return tuple(GLOBAL_WINDOW if i in glob else cfg.sliding_window
+                     for i in range(L))
+    if cfg.window_pattern > 0:
+        p = cfg.window_pattern
+        return tuple(GLOBAL_WINDOW if i % p == p - 1 else cfg.sliding_window
+                     for i in range(L))
+    return (cfg.sliding_window,) * L
 
 
 def init_block(gen, cfg, *, stack=(), dtype=torch.float32, device="cpu"):
@@ -62,6 +75,10 @@ def init_block(gen, cfg, *, stack=(), dtype=torch.float32, device="cpu"):
     if cfg.d_ff > 0:
         p["ln2"] = init_rms_norm(d, **kw)
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, **kw)
+    if cfg.post_norm:
+        p["pn1"] = init_rms_norm(d, **kw)
+        if "ln2" in p:
+            p["pn2"] = init_rms_norm(d, **kw)
     return p
 
 
@@ -74,14 +91,26 @@ def block_forward(params, x, positions, cfg, window=None,
     h = rms_norm(params["ln1"], x, cfg.norm_eps)
     attn_out, kv = attention_block(params["attn"], h, positions, cfg,
                                    window=window)
-    x = x + attn_out
+    x = x + _post_norm(params, "pn1", attn_out, cfg)
     if collect_cache:
         k, v = kv
         kv = {"kv": {"k": k.to(cache_dtype), "v": v.to(cache_dtype)}}
-    if "mlp" in params:
-        h2 = rms_norm(params["ln2"], x, cfg.norm_eps)
-        x = x + mlp(params["mlp"], h2, cfg.activation)
-    return x, kv, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _mlp_residual(params, x, cfg), kv, torch.zeros(
+        (), dtype=torch.float32, device=x.device)
+
+
+def _post_norm(params, name, out, cfg):
+    """Gemma-2's norm of a sublayer's output before the residual add."""
+    return rms_norm(params[name], out, cfg.norm_eps) if cfg.post_norm \
+        else out
+
+
+def _mlp_residual(params, x, cfg):
+    if "mlp" not in params:
+        return x
+    h2 = rms_norm(params["ln2"], x, cfg.norm_eps)
+    return x + _post_norm(params, "pn2", mlp(params["mlp"], h2,
+                                             cfg.activation), cfg)
 
 
 def init_block_cache(batch, seq_len, cfg, *, stack=(), dtype=torch.bfloat16,
@@ -98,8 +127,5 @@ def block_decode(params, x, cache, cache_len, cfg, window=None):
     h = rms_norm(params["ln1"], x, cfg.norm_eps)
     attn_out, _ = decode_attention_block(params["attn"], h, cache["kv"],
                                          cache_len, cfg, window=window)
-    x = x + attn_out
-    if "mlp" in params:
-        h2 = rms_norm(params["ln2"], x, cfg.norm_eps)
-        x = x + mlp(params["mlp"], h2, cfg.activation)
-    return x, cache
+    x = x + _post_norm(params, "pn1", attn_out, cfg)
+    return _mlp_residual(params, x, cfg), cache

@@ -16,8 +16,9 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 
 __all__ = [
-    "init_rms_norm", "rms_norm", "init_dense", "dense", "init_mlp", "mlp",
-    "rope_frequencies", "apply_rope", "init_embedding", "embed",
+    "init_rms_norm", "rms_norm", "softcap", "init_dense", "dense",
+    "init_mlp", "mlp", "rope_frequencies", "apply_rope", "init_embedding",
+    "embed",
     "init_conv2d", "conv2d", "init_fc", "fc",
 ]
 
@@ -32,12 +33,15 @@ def init_rms_norm(d: int, *, stack=(), dtype=torch.float32, device="cpu"):
 
 
 def rms_norm(params, x, eps: float = 1e-6):
-    """RMSNorm in f32, cast back to ``x.dtype``."""
-    dt = x.dtype
-    x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * params["scale"].float()).to(dt)
+    """RMSNorm in f32, cast back to ``x.dtype``: the reference's layer,
+    which computes K9's function, so it goes through ``ops.rmsnorm`` (K9 on
+    the card, the plain version on the CPU)."""
+    return ops.rmsnorm(x, params["scale"], eps)
+
+
+def softcap(x, cap: float):
+    """Gemma-2 logit soft-capping: cap * tanh(x / cap), in x's dtype."""
+    return torch.tanh(x / cap) * cap
 
 
 def init_dense(gen, d_in: int, d_out: int, *, stack=(), dtype=torch.float32,

@@ -18,7 +18,7 @@ from repro_torch.core.device import resolve_device
 
 from .blocks import (block_decode, block_forward, check_supported,
                      init_block, init_block_cache, layer_windows)
-from .layers import embed, init_embedding, init_rms_norm, rms_norm
+from .layers import embed, init_embedding, init_rms_norm, rms_norm, softcap
 
 __all__ = ["init_params", "forward", "DecodeCache", "init_cache", "prefill",
            "cache_insert", "cache_evict", "decode_step", "compute_params",
@@ -68,16 +68,22 @@ def layer_params(layers, i: int):
 
 
 def compute_params(params, cfg):
-    """``params`` with every floating leaf of >= 2 dims cast once to the
-    activation dtype.  ``ops.dense``, the embedding and the lm-head cast
-    to that dtype at every call, so the values are the same; holding the
-    copy saves re-reading the f32 weights each step.  1-D leaves (norm
-    scales) stay as they are."""
+    """``params`` with every weight matrix cast once to the activation
+    dtype: the floating leaves of >= 2 dims per layer (>= 3 in the stacked
+    ``layers`` tree, whose leaves carry the leading ``L`` axis) and the
+    embedding and head tables.  ``ops.dense``, the embedding and the
+    lm-head cast to that dtype at every call, so the values are the same;
+    holding the copy saves re-reading the f32 weights each step.  Norm
+    scales, 1-D per layer, stay as they are: the norm reads them in f32."""
     dt = _dtype(cfg)
 
-    def cast(t):
-        return t.to(dt) if t.is_floating_point() and t.ndim >= 2 else t
-    return _tree_map(cast, params)
+    def caster(min_ndim):
+        def cast(t):
+            return t.to(dt) if t.is_floating_point() and \
+                t.ndim >= min_ndim else t
+        return cast
+    return {k: _tree_map(caster(3 if k == "layers" else 2), v)
+            for k, v in params.items()}
 
 
 def _head_table(params):
@@ -85,7 +91,12 @@ def _head_table(params):
 
 
 def _logits(params, x, cfg):
-    return (x @ _head_table(params).to(_dtype(cfg)).T).float()
+    """Head logits in the activation dtype, Gemma-2's final soft-cap
+    applied there, then f32, as the reference orders them."""
+    logits = x @ _head_table(params).to(_dtype(cfg)).T
+    if cfg.final_softcap:
+        logits = softcap(logits, cfg.final_softcap)
+    return logits.float()
 
 
 # ----------------------------------------------------------------------
@@ -129,10 +140,13 @@ class DecodeCache:
     lengths: torch.Tensor
 
 
-def init_cache(batch, max_seq, cfg, dtype=torch.bfloat16, device="cpu"):
+def init_cache(batch, max_seq, cfg, dtype=torch.bfloat16, device="cuda"):
     """Slot-major decode cache for ``batch`` slots of ``max_seq`` tokens
-    (cfg last, as the reference's current signature)."""
+    (cfg last, as the reference's current signature), on ``device``:
+    ``"cuda"`` by default, which raises without a card unless ``"cpu"``
+    is passed."""
     check_supported(cfg)
+    device = resolve_device(device)
     layers = init_block_cache(batch, max_seq, cfg, stack=(cfg.num_layers,),
                               dtype=dtype, device=device)
     return DecodeCache(layers=layers,

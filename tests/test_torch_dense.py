@@ -116,6 +116,8 @@ TPU_KERNELS = {   # kernel library -> the Pallas kernels its source replaces
     "dense_bwd": ("_dense_dx_kernel", "_dense_dwdb_kernel"),
     "conv2d": ("_conv_fwd_kernel", "_conv_dx_kernel", "_conv_dw_kernel"),
     "pool2d": ("_pool_fwd_kernel", "_pool_bwd_kernel"),
+    "rmsnorm": ("_rmsnorm_kernel",),
+    "flash_attention": ("_flash_kernel",),
 }
 
 

@@ -29,7 +29,8 @@ SLICE_MODULES = (
     "repro_torch.models.cnn", "repro_torch.core.tree",
     "repro_torch.core.bpt_trainer", "repro_torch.optim",
     "repro_torch.optim.optimizers", "repro_torch.data",
-    "repro_torch.data.synthetic",
+    "repro_torch.data.synthetic", "repro_torch.kernels.rmsnorm",
+    "repro_torch.kernels.flash_attention", "repro_torch.configs.gemma2_27b",
 )
 BANNED = ("jax", "jaxlib", "repro")
 

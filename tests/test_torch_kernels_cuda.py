@@ -186,3 +186,69 @@ def test_strided_conv_on_card_raises():
     w = torch.zeros((3, 3, 3, 4), device="cuda")
     with pytest.raises(NotImplementedError, match="stride"):
         ops.conv2d(x, w, stride=2)
+
+
+# ----------------------------------------------------------------------
+# K9 and K10: RMSNorm and flash attention, against their plain versions
+# ----------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows,d", [(4, 4608), (300, 4096), (7, 3072),
+                                    (5, 4095), (3, 13), (1, 1)])
+def test_rmsnorm_kernel_matches_plain(rows, d, dtype):
+    """Decode and prefill rows at the LM widths, and ragged rows whose
+    starts are not 16-byte aligned (d = 4095, 13)."""
+    _card()
+    from repro_torch.kernels import rmsnorm as rms
+    gen = _gen(5)
+    x = _randn(gen, (rows, d)).to(getattr(torch, dtype))
+    scale = _randn(gen, (d,)) * 0.1 + 1.0
+    before = rms.rmsnorm_cuda.launches
+    got = ops.rmsnorm(x, scale)
+    want = ref.rmsnorm_ref(x, scale)
+    torch.cuda.synchronize()
+    assert rms.rmsnorm_cuda.launches == before + 1
+    assert got.dtype == x.dtype
+    # bf16: one rounding of the output; f32: sums in another order
+    tol = (1e-5 if dtype == "float32" else 1e-2) * want.float().abs().max()
+    assert (got.float() - want.float()).abs().max().item() <= tol.item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal,window,softcap", [
+    (1, 8, 4, 300, 300, 128, True, 0, 50.0),      # Gemma-2 heads, global
+    (1, 8, 4, 333, 333, 128, True, 100, 50.0),    # ragged, windowed
+    (2, 4, 1, 130, 130, 96, True, 0, 0.0),        # Phi-3 head_dim, MQA
+    (1, 4, 4, 64, 90, 32, False, 16, 0.0),        # Sk > Sq, not causal
+    (1, 4, 2, 300, 200, 16, True, 0, 0.0),        # fully masked rows
+    (1, 2, 2, 40, 40, 256, True, 0, 30.0),        # the widest head
+])
+def test_flash_attention_kernel_matches_plain(B, H, KH, Sq, Sk, D, causal,
+                                              window, softcap, dtype):
+    _card()
+    from repro_torch.kernels import flash_attention as fa
+    gen = _gen(6)
+    tdt = getattr(torch, dtype)
+    q = _randn(gen, (B, H, Sq, D)).to(tdt)
+    k = _randn(gen, (B, KH, Sk, D)).to(tdt)
+    v = _randn(gen, (B, KH, Sk, D)).to(tdt)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = fa.flash_attention_cuda.launches
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == before + 1
+    # the reference's K10 tolerances (tests/test_kernels.py)
+    atol, rtol = (1e-4, 1e-3) if dtype == "float32" else (8e-2, 2e-2)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_gradient_on_card_raises():
+    _card()
+    q = torch.zeros((1, 8, 2, 16), device="cuda", requires_grad=True)
+    k = torch.zeros((1, 8, 1, 16), device="cuda")
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.flash_attention(q, k, k)

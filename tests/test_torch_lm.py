@@ -1,7 +1,9 @@
 """The port's LM (``repro_torch.models.lm``) against ``repro.models.lm``
-on reduced Yi-6B and Phi-3: the same numpy params through both, then
-``prefill`` logits and cache and several ``decode_step``s with per-row
-lengths.
+on reduced Yi-6B, Phi-3, Gemma-2 (local/global windows, soft-caps,
+post-norms) and Yi-6B with sliding windows on every layer: the same numpy
+params through both, then ``prefill`` logits and cache and several
+``decode_step``s with per-row lengths, and one prefill long enough for two
+key chunks of the blockwise attention.
 
 Tolerances: the f32 config runs an f32 cache and must agree to 1e-4 in
 the logits and 1e-5 in the cache (sums in another order); the default
@@ -22,11 +24,14 @@ from repro import configs as jconfigs  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.core.types import ModelConfig  # noqa: E402
-from repro_torch.models import blocks, layers  # noqa: E402
+from repro_torch.models import attention, blocks, layers  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.weights import params_from_numpy, params_to_numpy  # noqa: E402
 
-ARCHS = ("yi-6b", "phi3-mini-3.8b")
+# "yi-6b:swa": reduced Yi-6B under get_config(..., "swa")-style windows
+# (every layer local), the window cut to 8 as the reduced configs cut it
+ARCHS = ("yi-6b", "phi3-mini-3.8b", "gemma2-27b", "yi-6b:swa")
+SWA = dict(sliding_window=8, window_pattern=0, global_layers=())
 TOL = {"float32": {"logits": 1e-4, "cache": 1e-5},
        "bfloat16": {"logits": 0.05, "cache": 0.08}}
 CACHE_DT = {"float32": (jnp.float32, torch.float32),
@@ -39,10 +44,18 @@ _jdecode = jax.jit(lambda p, c, t, cfg: jlm.decode_step(p, c, None, t, cfg),
                    static_argnums=3)
 
 
+def _reduced(pkg, arch, **kw):
+    name, _, variant = arch.partition(":")
+    cfg = pkg.get_reduced(name)
+    if variant == "swa":
+        cfg = dataclasses.replace(cfg, **SWA)
+    return dataclasses.replace(cfg, **kw)
+
+
 def _pair(arch, dtype):
     """(jax cfg, port cfg, jax params, port params) from one numpy tree."""
-    jcfg = dataclasses.replace(jconfigs.get_reduced(arch), dtype=dtype)
-    tcfg = dataclasses.replace(configs.get_reduced(arch), dtype=dtype)
+    jcfg = _reduced(jconfigs, arch, dtype=dtype)
+    tcfg = _reduced(configs, arch, dtype=dtype)
     jp = jlm.init_params(jax.random.PRNGKey(0), jcfg)
     tree = jax.tree_util.tree_map(np.asarray, jp)
     return jcfg, tcfg, jp, params_from_numpy(tree, tcfg, device="cpu")
@@ -84,10 +97,11 @@ def test_decode_steps_match_jax(arch, dtype):
     jcfg, tcfg, jp, tp = _pair(arch, dtype)
     jdt, tdt = CACHE_DT[dtype]
     rng = np.random.default_rng(2)
+    # slot 2's prompt and its decode positions pass the windows (8, 16)
     prompts = {0: rng.integers(0, jcfg.vocab_size, (1, 5)).astype(np.int32),
-               2: rng.integers(0, jcfg.vocab_size, (1, 9)).astype(np.int32)}
-    jc = jlm.init_cache(3, 24, jcfg, dtype=jdt)
-    tc = lm.init_cache(3, 24, tcfg, dtype=tdt)
+               2: rng.integers(0, jcfg.vocab_size, (1, 19)).astype(np.int32)}
+    jc = jlm.init_cache(3, 32, jcfg, dtype=jdt)
+    tc = lm.init_cache(3, 32, tcfg, dtype=tdt, device="cpu")
     with torch.inference_mode():
         for slot, p in prompts.items():
             _, jsl = _jprefill(jp, jnp.asarray(p), jcfg, jdt)
@@ -102,7 +116,7 @@ def test_decode_steps_match_jax(arch, dtype):
             np.testing.assert_allclose(_f32(tl)[[0, 2]], _f32(jl)[[0, 2]],
                                        atol=TOL[dtype]["logits"])
             assert tc.lengths.tolist() == np.asarray(jc.lengths).tolist()
-    assert tc.lengths.tolist() == [9, 0, 13]
+    assert tc.lengths.tolist() == [9, 0, 23]
     for leaf in ("k", "v"):
         np.testing.assert_allclose(
             _f32(tc.layers["kv"][leaf])[:, [0, 2]],
@@ -114,7 +128,7 @@ def test_decode_steps_match_jax(arch, dtype):
 def test_forward_hidden_matches_jax(arch):
     jcfg, tcfg, jp, tp = _pair(arch, "float32")
     toks = np.random.default_rng(3).integers(
-        0, jcfg.vocab_size, (2, 7)).astype(np.int32)
+        0, jcfg.vocab_size, (2, 21)).astype(np.int32)
     jh, jcache, _ = jlm.forward(jp, jnp.asarray(toks), jcfg)
     th, tcache, aux = lm.forward(tp, torch.from_numpy(toks), tcfg)
     assert jcache is None and tcache is None and float(aux) == 0.0
@@ -124,9 +138,9 @@ def test_forward_hidden_matches_jax(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_params_layout_matches_jax(arch):
     """Same tree, shapes and dtypes as the reference's init."""
-    cfg = configs.get_reduced(arch)
-    shapes = jax.eval_shape(lambda k: jlm.init_params(k, jconfigs.get_reduced(
-        arch)), jax.random.PRNGKey(0))
+    cfg = _reduced(configs, arch)
+    shapes = jax.eval_shape(lambda k: jlm.init_params(k, _reduced(
+        jconfigs, arch)), jax.random.PRNGKey(0))
     want = jax.tree_util.tree_map(lambda s: (tuple(s.shape), str(s.dtype)),
                                   shapes)
     ours = lm.init_params(cfg, torch.Generator("cpu").manual_seed(0),
@@ -134,6 +148,82 @@ def test_init_params_layout_matches_jax(arch):
     got = jax.tree_util.tree_map(lambda a: (a.shape, str(a.dtype)),
                                  params_to_numpy(ours))
     assert got == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_long_prefill_spans_two_key_chunks(dtype):
+    """A 1100-token prompt: the blockwise attention walks three query
+    chunks of 512 and two key chunks of 1024, on the local (window 16)
+    and the global layer of reduced Gemma-2.
+
+    The f32 k cache is held at 1e-4, not 1e-5: under ``jax.jit`` the
+    reference's own rotary embedding drifts from its eager form as the
+    position grows (4.7e-5 at positions 1000-1100 for |x| ~ 3, against
+    1e-6 eager, which the port matches), and k is the rotated tensor.
+    """
+    jcfg, tcfg, jp, tp = _pair("gemma2-27b", dtype)
+    tol = dict(TOL[dtype], **({"cache": 1e-4} if dtype == "float32" else {}))
+    jdt, tdt = CACHE_DT[dtype]
+    toks = np.random.default_rng(6).integers(
+        0, jcfg.vocab_size, (1, 1100)).astype(np.int32)
+    jl, jsl = _jprefill(jp, jnp.asarray(toks), jcfg, jdt)
+    with torch.inference_mode():
+        tl, tsl = lm.prefill(tp, torch.from_numpy(toks), tcfg,
+                             cache_dtype=tdt)
+    np.testing.assert_allclose(_f32(tl), _f32(jl), atol=tol["logits"])
+    for leaf in ("k", "v"):
+        np.testing.assert_allclose(_f32(tsl.layers["kv"][leaf]),
+                                   _f32(jsl.layers["kv"][leaf]),
+                                   atol=tol["cache"], err_msg=leaf)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "yi-6b:swa", "yi-6b"])
+def test_layer_windows_match_jax(arch):
+    from repro.models import blocks as jblocks
+    for L in (2, 5, 8):
+        want = np.asarray(jblocks.layer_windows(_reduced(jconfigs, arch), L))
+        got = blocks.layer_windows(_reduced(configs, arch), L)
+        assert list(got) == want.tolist()
+
+
+def test_chunked_attention_matches_jax():
+    """The blockwise attention alone, bf16, small chunks so that every
+    query chunk walks several key chunks: window, soft-cap, GQA."""
+    from repro.models import attention as jattn
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((2, 70, 8, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 70, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 70, 2, 16)).astype(np.float32)
+    kw = dict(causal=True, window=24, attn_softcap=50.0, q_chunk=16,
+              k_chunk=32)
+    want = jattn.chunked_attention(*(jnp.asarray(a, jnp.bfloat16)
+                                     for a in (q, k, v)), **kw)
+    got = attention.chunked_attention(*(torch.from_numpy(a).bfloat16()
+                                        for a in (q, k, v)), **kw)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=8e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "gemma2-27b"])
+def test_compute_params_keeps_norm_scales(arch):
+    """The serving copy casts weight matrices to bf16 and leaves every norm
+    scale (1-D per layer, stacked (L, d)) in f32, as the reference's
+    per-layer cast of >= 2-D leaves does."""
+    cfg = configs.get_reduced(arch)
+    params = lm.init_params(cfg, torch.Generator("cpu").manual_seed(0), "cpu")
+    cp = lm.compute_params(params, cfg)
+    for name in ("ln1", "ln2") + (("pn1", "pn2") if cfg.post_norm else ()):
+        assert cp["layers"][name]["scale"].dtype == torch.float32, name
+    assert cp["final_norm"]["scale"].dtype == torch.float32
+    assert cp["layers"]["attn"]["wq"]["w"].dtype == torch.bfloat16
+    assert cp["layers"]["mlp"]["wo"]["w"].dtype == torch.bfloat16
+    assert cp["embed"]["table"].dtype == torch.bfloat16
+
+
+def test_init_cache_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_cache(2, 8, configs.get_reduced("yi-6b"))
 
 
 def test_init_params_is_seeded_and_explicit():
@@ -188,11 +278,7 @@ def _tiny(**kw):
 
 
 @pytest.mark.parametrize("kw,branch", [
-    (dict(sliding_window=8, window_pattern=2), "sliding_window"),
     (dict(qk_norm=True), "qk_norm"),
-    (dict(attn_softcap=50.0), "attn_softcap"),
-    (dict(final_softcap=30.0), "final_softcap"),
-    (dict(post_norm=True), "post_norm"),
     (dict(embed_onehot=True), "embed_onehot"),
     (dict(arch_type="moe", num_experts=4, top_k=2, expert_d_ff=64), "moe"),
     (dict(arch_type="ssm"), "ssm"),

@@ -1,0 +1,134 @@
+"""K9 (RMSNorm) in the port against the JAX package: ``ops.rmsnorm``
+(the plain version on the CPU) against ``rmsnorm_pallas`` in interpret
+mode and ``ops.rmsnorm(impl="pallas")``, and the port's ``layers.rms_norm``
+(which goes through ``ops.rmsnorm``) against the reference's layer; plus
+the CUDA wrapper's contract.  The kernel itself is held against its plain
+version on a card in ``test_torch_kernels_cuda.py``.
+
+Tolerances: f32 atol 1e-5, rtol 1e-4, the reference's own for K9
+(``tests/test_kernels.py``); bf16 one rounding of the output (rtol 2^-7).
+Seeded numpy cases, not ``@given``.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.rmsnorm import rmsnorm_pallas  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _close(got, want, dtype):
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=2.0 ** -7)
+
+
+def _inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape).astype(np.float32)
+    s = (rng.standard_normal((shape[-1],)) * 0.1 + 1.0).astype(np.float32)
+    return x, s
+
+
+def _port(x, s, dtype):
+    out = ops.rmsnorm(torch.from_numpy(x).to(TDT[dtype]), torch.from_numpy(s))
+    assert out.dtype == TDT[dtype] and tuple(out.shape) == x.shape
+    return out.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 64, 128, 512])
+@pytest.mark.parametrize("rows", [1, 37, 256, 300])
+def test_matches_pallas(rows, d, dtype):
+    x, s = _inputs((rows, d), seed=rows * 1000 + d)
+    want = rmsnorm_pallas(jnp.asarray(x, JDT[dtype]), jnp.asarray(s),
+                          row_tile=64)
+    _close(_port(x, s, dtype), np.asarray(want.astype(jnp.float32)), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(5, 7, 64), (2, 3, 4, 32), (128,)],
+                         ids=["3d", "4d", "1d"])
+def test_nd_shapes_match_jax_ops(shape, dtype):
+    x, s = _inputs(shape, seed=len(shape))
+    want = jops.rmsnorm(jnp.asarray(x, JDT[dtype]), jnp.asarray(s),
+                        impl="pallas")
+    _close(_port(x, s, dtype), np.asarray(want.astype(jnp.float32)), dtype)
+
+
+@pytest.mark.parametrize("eps", [1e-6, 1e-5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_rms_norm_matches_jax(dtype, eps):
+    """The LM's norm: f32 scale, x in the activation dtype."""
+    x, s = _inputs((2, 9, 96), seed=11)
+    want = jlayers.rms_norm({"scale": jnp.asarray(s)},
+                            jnp.asarray(x, JDT[dtype]), eps)
+    got = layers.rms_norm({"scale": torch.from_numpy(s)},
+                          torch.from_numpy(x).to(TDT[dtype]), eps)
+    assert got.dtype == TDT[dtype]
+    _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)), dtype)
+
+
+def test_bf16_scale():
+    """A bf16 scale (bf16 params) is read as f32, as the reference does."""
+    x, s = _inputs((4, 48), seed=5)
+    sb = jnp.asarray(s, jnp.bfloat16)
+    want = rmsnorm_pallas(jnp.asarray(x), sb)
+    got = ops.rmsnorm(torch.from_numpy(x),
+                      torch.from_numpy(np.array(sb.astype(jnp.float32)))
+                      .bfloat16())
+    _close(got.numpy(), np.asarray(want), "float32")
+
+
+def test_cpu_path_never_builds(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("the CPU path must not build a kernel")
+    monkeypatch.setattr(build, "build", boom)
+    x, s = _inputs((3, 16), seed=0)
+    before = rms.rmsnorm_cuda.launches
+    out = ops.rmsnorm(torch.from_numpy(x), torch.from_numpy(s))
+    assert rms.rmsnorm_cuda.launches == before
+    assert torch.equal(out, ref.rmsnorm_ref(torch.from_numpy(x),
+                                            torch.from_numpy(s)))
+
+
+class TestCudaWrapperContract:
+    """What ``rmsnorm_cuda`` and ``ops.rmsnorm`` refuse, checked before any
+    launch."""
+
+    def test_cpu_tensor_raises(self):
+        with pytest.raises(ValueError, match="CUDA"):
+            rms.rmsnorm_cuda(torch.ones((2, 8)), torch.ones((8,)))
+
+    @pytest.mark.parametrize("bad", ["dtype", "scale-shape", "ndim"])
+    def test_bad_inputs_raise(self, bad):
+        x, s = torch.ones((2, 8)), torch.ones((8,))
+        if bad == "dtype":
+            x = x.double()
+        elif bad == "scale-shape":
+            s = torch.ones((7,))
+        else:
+            x = torch.ones((2, 2, 8))
+        with pytest.raises((TypeError, ValueError)):
+            rms.rmsnorm_cuda(x, s)
+
+    def test_gradient_on_the_card_is_not_implemented(self):
+        """Off the CPU a call that needs a gradient names the missing
+        backward (a meta tensor stands in for the card here)."""
+        x = torch.ones((2, 8), device="meta", requires_grad=True)
+        s = torch.ones((8,), device="meta")
+        with pytest.raises(NotImplementedError, match="backward"):
+            ops.rmsnorm(x, s)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.rmsnorm(x.detach(), s)

@@ -1,7 +1,8 @@
 """The port's serving path against the JAX engines: the same params and
 request stream through ``repro.serving`` and ``repro_torch.serving``
-under the deterministic cost clock give the same event streams; plus the
-slot invariants, the explicit device contract and a CLI smoke."""
+under the deterministic cost clock give the same event streams, on reduced
+Yi-6B and on reduced Gemma-2 with prompts longer than its window; plus
+the slot invariants, the explicit device contract and a CLI smoke."""
 import dataclasses
 
 import pytest
@@ -24,15 +25,27 @@ SERVE = dict(slots=3, max_seq=64, timing="model", cache_dtype="float32",
              slot_cost_ms=0.5)
 
 
-@pytest.fixture(scope="module")
-def f32_pair():
-    """Reduced Yi-6B in f32: (jax cfg, jax params, port cfg, port params)."""
-    jcfg = dataclasses.replace(jconfigs.get_reduced("yi-6b"), dtype="float32")
-    tcfg = dataclasses.replace(configs.get_reduced("yi-6b"), dtype="float32")
+def _f32_pair(arch):
+    """Reduced ``arch`` in f32: (jax cfg, jax params, port cfg, port
+    params) from one numpy tree."""
+    jcfg = dataclasses.replace(jconfigs.get_reduced(arch), dtype="float32")
+    tcfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32")
     jp = jlm.init_params(jax.random.PRNGKey(0), jcfg)
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg,
                            device="cpu")
     return jcfg, jp, tcfg, tp
+
+
+@pytest.fixture(scope="module")
+def f32_pair():
+    """Reduced Yi-6B in f32."""
+    return _f32_pair("yi-6b")
+
+
+@pytest.fixture(scope="module")
+def gemma_pair():
+    """Reduced Gemma-2 in f32 (window 16 on layer 0, global layer 1)."""
+    return _f32_pair("gemma2-27b")
 
 
 def _events(evs):
@@ -58,6 +71,36 @@ def test_event_streams_match_jax(f32_pair, batching):
     assert got == want
 
 
+@pytest.mark.parametrize("batching", ["continuous", "static"])
+def test_gemma2_event_streams_match_jax(gemma_pair, batching):
+    """Prompts of 20-36 tokens against a window of 16: the local layer
+    masks in prefill and in every decode step."""
+    jcfg, jp, tcfg, tp = gemma_pair
+    reqs = serving.poisson_requests(6, rate_rps=400.0, seed=4,
+                                    prompt_lens=(20, 28, 36),
+                                    gen_lens=(2, 4, 9, 12),
+                                    vocab_size=tcfg.vocab_size)
+    jeng = jserving.make_serve_engine(jp, jcfg, jserving.ServeConfig(
+        batching=batching, **SERVE))
+    teng = serving.make_serve_engine(tp, tcfg, serving.ServeConfig(
+        batching=batching, **SERVE), device="cpu")
+    want = _events(jeng.run(reqs))
+    got = _events(teng.run(reqs))
+    assert sum(k == "complete" for k, *_ in got) == 6
+    assert got == want
+
+
+def test_gemma2_generate_matches_jax(gemma_pair):
+    jcfg, jp, tcfg, tp = gemma_pair
+    prompts = np.random.default_rng(6).integers(
+        0, tcfg.vocab_size, (2, 24)).astype(np.int32)
+    want = jserving.make_serve_engine(jp, jcfg, jserving.ServeConfig(
+        **SERVE)).generate(prompts, 8)
+    got = serving.make_serve_engine(tp, tcfg, serving.ServeConfig(
+        **SERVE), device="cpu").generate(prompts, 8)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
 def test_scheduler_stream_matches_jax():
     a = serving.poisson_requests(9, rate_rps=50.0, seed=11, vocab_size=300)
     b = jserving.poisson_requests(9, rate_rps=50.0, seed=11, vocab_size=300)
@@ -69,7 +112,7 @@ def test_scheduler_stream_matches_jax():
 class TestSlotInvariants:
     def test_insert_evict_lengths(self, f32_pair):
         _, _, cfg, params = f32_pair
-        cache = lm.init_cache(4, 32, cfg)
+        cache = lm.init_cache(4, 32, cfg, device="cpu")
         with torch.inference_mode():
             _, sl = lm.prefill(params, torch.zeros((1, 5), dtype=torch.int32),
                                cfg)
@@ -82,7 +125,7 @@ class TestSlotInvariants:
 
     def test_auto_increment_only_occupied(self, f32_pair):
         _, _, cfg, params = f32_pair
-        cache = lm.init_cache(4, 32, cfg)
+        cache = lm.init_cache(4, 32, cfg, device="cpu")
         with torch.inference_mode():
             _, sl = lm.prefill(params, torch.zeros((1, 5), dtype=torch.int32),
                                cfg)
@@ -95,7 +138,7 @@ class TestSlotInvariants:
     def test_full_row_writes_nothing(self, f32_pair):
         """A row whose length reached max_seq leaves its cache as it was."""
         _, _, cfg, params = f32_pair
-        cache = lm.init_cache(2, 6, cfg, dtype=torch.float32)
+        cache = lm.init_cache(2, 6, cfg, dtype=torch.float32, device="cpu")
         with torch.inference_mode():
             _, sl = lm.prefill(params, torch.ones((1, 6), dtype=torch.int32),
                                cfg, cache_dtype=torch.float32)
@@ -167,6 +210,15 @@ def test_cli_smoke_cpu(capsys):
     out = capsys.readouterr().out
     assert len(lat) == 3
     assert "yi-6b continuous: 3 requests" in out
+
+
+def test_cli_smoke_cpu_gemma2(capsys):
+    lat = serve_cli.main(["--arch", "gemma2-27b", "--device", "cpu",
+                          "--requests", "3", "--gen", "4", "--rate", "300",
+                          "--timing", "model"])
+    out = capsys.readouterr().out
+    assert len(lat) == 3
+    assert "gemma2-27b continuous: 3 requests" in out
 
 
 def test_cli_without_card_raises(monkeypatch):
