@@ -14,9 +14,13 @@ from the root of a checkout.  Phases, each of which raises on failure
    cases; kernel, plain and ``torch.matmul`` times by CUDA events, beside
    the least time the card could take;
 2b. K2-K8 (and K1 in f32) against their plain versions at every shape of
-   a Table-2 case7 training step at B = 64, plus ragged and tied cases;
-   per kernel, its time, the plain version's, the library call's and the
-   bound, summed over one step's launches; K6 reruns bit for bit;
+   a Table-2 case7 training step at B = 64, plus ragged and tied cases
+   and, for the split-K f32 product of K1 and K2, shapes whose reduction
+   crosses slice boundaries off the 16-deep step or takes the
+   element-by-element loads; per kernel, its time, the plain version's,
+   the library call's and the bound, summed over one step's launches, and
+   per K1/K2 shape the slices S it splits into; K1 f32, K2 and K6 rerun
+   bit for bit;
 2c. K9 (RMSNorm) at decode and prefill rows of d = 4608, 4096, 3072 in
    bf16 and f32 plus ragged rows, and K10 (flash attention) at Gemma-2's
    (bf16 and f32, q x 8 so the soft-cap of 50 acts), Yi-6B's and Phi-3's
@@ -62,6 +66,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -264,6 +269,13 @@ def case7_step_shapes(cnn):
 
 RAGGED = {   # correctness only: odd B, Cin = 3, k = 2/4/7, VALID, ragged tiles
     "dense": ((37, 100, 77, True), (5, 3, 130, False), (64, 192, 70, True)),
+    # (M, Din, Dout, relu) for K1 and K2's split-K product: reductions of
+    # 1000-1002 cut into 7 slices of 144 (the last ragged), K or N not a
+    # multiple of 4 (element-by-element loads), one 10-wide tile
+    "split": ((37, 1000, 77, True), (37, 77, 1000, True),
+              (64, 1002, 200, True), (64, 200, 1002, True),
+              (3, 1001, 77, False), (64, 2000, 1000, False),
+              (64, 10, 2000, True)),
     "conv": ((3, 9, 7, 3, 5, 2, "SAME"), (3, 9, 7, 3, 5, 4, "SAME"),
              (3, 9, 7, 3, 5, 7, "SAME"), (3, 9, 7, 4, 20, 3, "VALID"),
              (1, 8, 8, 12, 12, 7, "VALID"), (5, 6, 6, 12, 12, 7, "SAME")),
@@ -359,13 +371,15 @@ def _train_specs(torch, ref, mods):
                    lib=torch.matmul, lib_args=lambda x, w, b, a: (x, w),
                    nbytes=lambda s: 4 * (s[0] * s[1] + s[1] * s[2] + s[2]
                                          + s[0] * s[2]),
-                   flops=lambda s: 2.0 * s[0] * s[1] * s[2], grad=False),
+                   flops=lambda s: 2.0 * s[0] * s[1] * s[2], grad=False,
+                   splits=lambda s: dn.dense_splits(s[0], s[2], s[1])),
         "K2": dict(make=lambda gen, s: fc_args(gen, s, False),
                    kern=dn.dense_dx_cuda, plain=ref.dense_dx_ref,
                    lib=lambda g, w, o: torch.matmul(g, w.t()),
                    nbytes=lambda s: 4 * (s[0] * s[2] * (2 if s[3] else 1)
                                          + s[1] * s[2] + s[0] * s[1]),
-                   flops=lambda s: 2.0 * s[0] * s[1] * s[2], grad=True),
+                   flops=lambda s: 2.0 * s[0] * s[1] * s[2], grad=True,
+                   splits=lambda s: dn.dense_splits(s[0], s[1], s[2])),
         "K3": dict(make=lambda gen, s: (lambda g, x, o: (x, g, o))(
                        *fc_args(gen, s, True)),
                    kern=dn.dense_dwdb_cuda, plain=ref.dense_dwdb_ref,
@@ -440,9 +454,9 @@ def phase_train_kernels(torch, ref, mods, cnn):
     step = case7_step_shapes(cnn)
     gen = torch.Generator("cuda").manual_seed(2)
     rows = {}
-    log(f"[train-k] {'kernel':<4} {'shape':<34} {'x':>2}  {'max_abs_err':<11} "
-        f"{'tol':<10} {'kernel_ms':<10} {'plain_ms':<10} {'library_ms':<10} "
-        "bound_ms")
+    log(f"[train-k] {'kernel':<4} {'shape':<34} {'x':>2} {'S':>2}  "
+        f"{'max_abs_err':<11} {'tol':<10} {'kernel_ms':<10} {'plain_ms':<10} "
+        f"{'library_ms':<10} bound_ms")
     for key, spec in specs.items():
         row = {"err": 0.0, "tol": 0.0, "ratio": -1.0, "ms": 0.0,
                "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
@@ -452,7 +466,10 @@ def phase_train_kernels(torch, ref, mods, cnn):
         cases = [(s, n) for s, n in step[key].items()]
         if key != "K1":
             cases += [(s, 0) for s in RAGGED[kind]]
+        if key in ("K1", "K2"):
+            cases += [(s, 0) for s in RAGGED["split"]]
         for s, n in cases:
+            S = str(spec["splits"](s)) if "splits" in spec else "-"
             args = spec["make"](gen, s)
             err, tol = _compare(torch, key, spec, args)
             if not err <= tol:
@@ -462,7 +479,7 @@ def phase_train_kernels(torch, ref, mods, cnn):
             if ratio > row["ratio"]:
                 row.update(err=err, tol=tol, ratio=ratio)
             if n == 0:
-                log(f"[train-k] {key:<4} {str(s):<34} {'-':>2}  "
+                log(f"[train-k] {key:<4} {str(s):<34} {'-':>2} {S:>2}  "
                     f"{err:<11.4g} {tol:<10.4g}")
                 continue
             nbytes = spec["nbytes"](s)
@@ -473,21 +490,27 @@ def phase_train_kernels(torch, ref, mods, cnn):
             lib_args = spec.get("lib_args", lambda *a: a)
             l_ms = time_ms(torch, spec["lib"], [lib_args(*a) for a in sets])
             b_ms, by = roof_ms(nbytes, spec["flops"](s))
-            log(f"[train-k] {key:<4} {str(s):<34} {n:>2}  {err:<11.4g} "
-                f"{tol:<10.4g} {k_ms:<10.5f} {p_ms:<10.5f} {l_ms:<10.5f} "
-                f"{b_ms:.5f}")
+            log(f"[train-k] {key:<4} {str(s):<34} {n:>2} {S:>2}  "
+                f"{err:<11.4g} {tol:<10.4g} {k_ms:<10.5f} {p_ms:<10.5f} "
+                f"{l_ms:<10.5f} {b_ms:.5f}")
             row["ms"] += n * k_ms
             row["plain_ms"] += n * p_ms
             row["library_ms"] += n * l_ms
             row["bound_ms"] += n * b_ms
             row["bound_by"][by] = row["bound_by"].get(by, 0.0) + n * b_ms
             del sets
-        if key == "K6":            # fixed-order partial sums: identical bits
-            x, g, ws, p, o = spec["make"](gen, next(iter(step["K6"])))
-            a, b = mods["conv2d"].conv2d_dw_cuda(x, g, ws, p, o), \
-                mods["conv2d"].conv2d_dw_cuda(x, g, ws, p, o)
-            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
-                raise AssertionError("K6 gave different bits on a rerun")
+        if key in ("K1", "K2", "K6"):
+            # fixed-order partial sums: identical bits on a rerun, at every
+            # case7 shape (and K1/K2's split cases)
+            for s in list(step[key]) + (list(RAGGED["split"])
+                                        if key != "K6" else []):
+                args = spec["make"](gen, s)
+                a, b = (_flat(torch, spec["kern"](*args)) for _ in range(2))
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{key} {s} gave different bits on "
+                                         "a rerun")
+            log(f"[train-k] {key} reruns bit for bit at every case7"
+                + (" and split" if key != "K6" else "") + " shape")
         log(f"[train-k] {key} one case7 step ({STEP_LAUNCHES[key]} launches): "
             f"kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, "
             f"library {row['library_ms']:.5f} ms, bound {row['bound_ms']:.5f}"
@@ -545,7 +568,10 @@ def phase_train_reduced(torch, port):
 
 
 KERNEL_NAMES = (   # device kernel name -> the port's kernel, for the profile
-    ("dense_fwd_f32_kernel", "K1"), ("dense_dx_kernel", "K2"),
+    # K1 f32 and K2 are two passes each (split-K product, fixed-order sum):
+    # dense_fwd_f32_kernel + dense_fwd_f32_sum_kernel, dense_dx_kernel +
+    # dense_dx_sum_kernel
+    ("dense_fwd_f32", "K1"), ("dense_dx_", "K2"),
     ("dense_dwdb_kernel", "K3"), ("conv_igemm_kernel<false>", "K4"),
     ("conv_igemm_kernel<true>", "K5"), ("conv_dw_", "K6"),
     ("pool_fwd_kernel", "K7"), ("pool_bwd_kernel", "K8"))
@@ -636,15 +662,19 @@ def phase_train_slice(torch, port, mods, card, steps=20):
         wall_ms = (time.perf_counter() - t0) * 1e3 / prof_steps
     dev_ms = {k: 0.0 for k in STEP_LAUNCHES}
     dev_ms["other"] = 0.0
-    other_launches = 0
+    dev_n = dict.fromkeys(dev_ms, 0)
+    passes = {}                    # K1 f32 / K2 device kernels by name
     for evt in prof.key_averages():
         us = port.profile.device_us(evt)
         if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         key = next((k for pat, k in KERNEL_NAMES if pat in evt.key), "other")
         dev_ms[key] += us / 1e3 / prof_steps
-        if key == "other":
-            other_launches += evt.count
+        dev_n[key] += evt.count
+        if key in ("K1", "K2"):
+            name = re.search(r"dense_\w+", evt.key).group(0)
+            ms, n = passes.get(name, (0.0, 0))
+            passes[name] = (ms + us / 1e3 / prof_steps, n + evt.count)
     busy_ms = port.profile.busy_us(prof) / 1e3 / prof_steps
     total = sum(dev_ms.values())
     log(f"[train] case7 full width ({n_params} params f32), B={B}, {steps} "
@@ -660,9 +690,16 @@ def phase_train_slice(torch, port, mods, card, steps=20):
             f"step, device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}"
             f"%), kernel time {total:.3f} ms a step: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in dev_ms.items()))
-        log(f"[train] device kernels a step: {sum(STEP_LAUNCHES.values())} "
-            f"of K1-K8 and {other_launches / prof_steps:.1f} others (PyTorch "
+        k_kernels = sum(n for k, n in dev_n.items() if k != "other")
+        log(f"[train] device kernels a step: "
+            f"{k_kernels / prof_steps:.1f} of K1-K8 for their "
+            f"{sum(STEP_LAUNCHES.values())} launches (K1 f32 and K2 run a "
+            f"second pass where they split) and "
+            f"{dev_n['other'] / prof_steps:.1f} others (PyTorch "
             "elementwise and reductions: loss, clipping, AdamW)")
+        log("[train] K1 f32 / K2 device time a step by pass: " + ", ".join(
+            f"{name} {ms:.4f} ms ({n / prof_steps:.0f})"
+            for name, (ms, n) in sorted(passes.items())))
     else:
         log("[train] device time per kernel: not measured (the profiler "
             "recorded no device time)")
@@ -1261,7 +1298,11 @@ def main() -> int:
         "train_bound_ms": k1["bound_ms"],
         "train_library_ms": k1["library_ms"],
         "train_step_device_ms": (train["device_ms"] or {}).get("K1"),
-        "train_work": "one case7 training step: 7 f32 launches at M=64",
+        "train_work": "one case7 training step: 7 f32 launches at M=64, "
+                      "split-K into " + "/".join(
+                          str(dense_mod.dense_splits(M, N, K))
+                          for M, K, N, _ in case7_step_shapes(cnn)["K1"])
+                      + " slices",
     }]
     for key, name, src, replaces in TRAIN_KERNELS[1:]:
         r = train_rows[key]
@@ -1275,7 +1316,11 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "step_device_ms": (train["device_ms"] or {}).get(key),
             "work": f"one case7 training step at B=64: "
-                    f"{STEP_LAUNCHES[key]} f32 launches"})
+                    f"{STEP_LAUNCHES[key]} f32 launches" + (
+                        ", split-K into " + "/".join(
+                            str(dense_mod.dense_splits(M, Din, Dout))
+                            for M, Din, Dout, _ in case7_step_shapes(cnn)[
+                                "K2"]) + " slices" if key == "K2" else "")})
     rows += attn_json_rows(attn_rows, gemma_launches["K9"],
                            launches["K9"], k10_launches, k10_diff)
     log(json.dumps({"kernels": rows}))

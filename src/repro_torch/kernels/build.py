@@ -6,9 +6,10 @@ a plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is loaded from ``_build/`` (listed in
-``.gitignore``).  ``build()`` starts one ``nvcc`` per missing source, all
+The library name carries a hash of the source, of every header under
+``csrc/`` (``*.cuh``, which any source may include) and of the flags, so an
+edited source or header rebuilds and an unchanged one is loaded from
+``_build/`` (listed in ``.gitignore``).  ``build()`` starts one ``nvcc`` per missing source, all
 at once, and waits for them together.  A failed build raises
 ``KernelBuildError`` with the compiler's output; nothing falls back.
 """
@@ -58,9 +59,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (_HERE / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha256((_HERE / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=None) -> dict[str, Path]:

@@ -25,21 +25,32 @@
 // both kernels at the hidden widths.
 //
 // What the design does about it.
-//   * K2 reuses K1's f32 tiling (dense_fwd.cu): 64 x 64 output tiles, 256
-//     threads of 4 x 4 outputs, a K loop of 16 through shared memory.  It
-//     reads w transposed by index (16 neighbouring threads read 16
-//     neighbouring floats of one row of w), so no transposed copy is made.
+//   * K2 is the split-K product of gemm_f32.cuh, shared with K1's f32
+//     instance (dense_fwd.cu), with B(k, n) = w[n][k]: w^T read by index
+//     in 16-byte copies along Dout, so no transposed copy is made.  The
+//     reduction (Dout) is split across blocks into `splits` slices, chosen
+//     from the shapes by kernels/dense.py dense_splits (8 at 2000 -> 2000:
+//     256 blocks where one tile a block gave 32; 14 for the 192-wide dx of
+//     the first FC layer, 42 blocks where it had 3), each slice filling a
+//     two-stage cp.async ring while it multiplies.  The relu mask rides
+//     along: the mask tile is copied beside g's and each thread zeroes its
+//     own chunk of g where the mask is not > 0 before the block reads it.
+//     Pass 2 adds the slices' partials in slice order: no atomics, and a
+//     rerun gives identical bits.
 //   * K3 contracts over only 64 rows while its output is up to 2000 x
 //     2000, so it tiles the OUTPUT (64 x 64 per block, 1024 blocks at
 //     2000 x 2000) and walks the rows inside the block, 16 at a time.  The
 //     blocks of the first row of tiles also sum g's rows for db, so one
 //     launch writes both outputs.
-// Neither pipelines its loads or uses the tensor cores (TF32 would break
-// the gradient gate); both sit above their bound.  Ragged M, Din and Dout
-// are masked loads with zero fill and a masked store.
+// Neither uses the tensor cores: TF32 keeps about three decimal digits and
+// would break the 1e-4 gradient gate (a 3xTF32 split is later work).  K3
+// does not pipeline its loads and sits above its bound.  Ragged M, Din and
+// Dout are masked loads with zero fill and a masked store.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gemm_f32.cuh"
 
 namespace {
 
@@ -54,62 +65,23 @@ __device__ __forceinline__ float masked(const float* __restrict__ g,
   return (mask == nullptr || mask[i] > 0.0f) ? v : 0.0f;
 }
 
-// K2: dx (M, Din) = (g masked) @ w^T; the reduction runs over Dout.
-__global__ void __launch_bounds__(kThreads)
+// K2: dx (M, Din) = (g masked) @ w^T, the reduction over Dout: the two
+// passes of gemm_f32.cuh under K2's names.
+__global__ void __launch_bounds__(gemm_f32::kThreads)
 dense_dx_kernel(const float* __restrict__ g, const float* __restrict__ w,
-                const float* __restrict__ mask, float* __restrict__ dx,
-                int M, int Din, int Dout) {
-  __shared__ float gs[kBK][kB + 1];  // gs[k][m] = g[m0 + m][k0 + k]
-  __shared__ float ws[kBK][kB + 1];  // ws[k][n] = w[n0 + n][k0 + k]
+                const float* __restrict__ mask, const float* __restrict__ bias,
+                float* __restrict__ part, float* __restrict__ dx, int M,
+                int Din, int Dout, int relu, int splits, int depth, int vecA,
+                int vecB) {
+  gemm_f32::splitk_tile<true, true>(g, w, mask, bias, part, dx, M, Din, Dout,
+                                    relu, splits, depth, vecA, vecB);
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.y * kB;
-  const int n0 = blockIdx.x * kB;
-  float acc[4][4] = {};
-
-  for (int k0 = 0; k0 < Dout; k0 += kBK) {
-    for (int c = tid; c < kB * kBK; c += kThreads) {
-      const int r = c / kBK;
-      const int k = c % kBK;
-      const int gr = m0 + r;
-      const int gk = k0 + k;
-      gs[k][r] = (gr < M && gk < Dout)
-                     ? masked(g, mask, (size_t)gr * Dout + gk) : 0.0f;
-    }
-    for (int c = tid; c < kB * kBK; c += kThreads) {
-      const int n = c / kBK;
-      const int k = c % kBK;
-      const int gn = n0 + n;
-      const int gk = k0 + k;
-      ws[k][n] = (gn < Din && gk < Dout) ? w[(size_t)gn * Dout + gk] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], bw[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = gs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bw[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bw[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = m0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gr < M && gn < Din) dx[(size_t)gr * Din + gn] = acc[i][j];
-    }
-  }
+__global__ void __launch_bounds__(gemm_f32::kThreads)
+dense_dx_sum_kernel(const float* __restrict__ part,
+                    const float* __restrict__ bias, float* __restrict__ dx,
+                    int M, int Din, int relu, int splits) {
+  gemm_f32::splitk_sum(part, bias, dx, M, Din, relu, splits);
 }
 
 // K3: dw (Din, Dout) = x^T (g masked); db (Dout) = sum_m (g masked).
@@ -187,14 +159,13 @@ dense_dwdb_kernel(const float* __restrict__ x, const float* __restrict__ g,
 }  // namespace
 
 extern "C" int dense_dx_f32(const void* g, const void* w, const void* mask,
-                            void* dx, int M, int Din, int Dout,
-                            void* stream) {
-  if (M <= 0 || Din <= 0 || Dout <= 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((Din + kB - 1) / kB, (M + kB - 1) / kB);
-  dense_dx_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const float*>(w),
-      static_cast<const float*>(mask), static_cast<float*>(dx), M, Din, Dout);
-  return (int)cudaGetLastError();
+                            void* part, void* dx, int M, int Din, int Dout,
+                            int splits, int depth, void* stream) {
+  return gemm_f32::splitk_launch<true>(
+      dense_dx_kernel, dense_dx_sum_kernel, static_cast<const float*>(g),
+      static_cast<const float*>(w), static_cast<const float*>(mask), nullptr,
+      static_cast<float*>(part), static_cast<float*>(dx), M, Din, Dout, 0,
+      splits, depth, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int dense_dwdb_f32(const void* x, const void* g, const void* mask,

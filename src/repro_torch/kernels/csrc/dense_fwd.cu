@@ -12,7 +12,8 @@
 //     nvcuda::wmma 16x16x16 fragments with f32 accumulators.  This is the
 //     LM serving path: every q/k/v/o and MLP projection.
 //   * dense_fwd_f32: plain FMA on the CUDA cores, no TF32, so it agrees
-//     with a full-f32 reference (the CNN path and the tests).
+//     with a full-f32 reference (the CNN path and the tests).  Its body is
+//     the split-K product of gemm_f32.cuh, shared with K2 (dense_bwd.cu).
 //
 // What bounds it.  Serving decodes M = 4 rows (one per cache slot) through
 // weights that are read once per step: the work is 2 flops per weight
@@ -36,6 +37,21 @@
 // bound.  cp.async/TMA pipelining, wgmma and a split-K shape for M = 4
 // are later work.
 //
+// The f32 instance trains the CNN's FC stack at M = 64 rows: (64, 192,
+// 2000), five of (64, 2000, 2000) and (64, 2000, 10) a step.  At (64,
+// 2000, 2000) a launch does 0.512 GFLOP (7.6 us at the 67 TFLOP/s f32 FMA
+// peak) against 16.5 MB of operands (4.9 us at 3.35 TB/s): the FMA rate
+// bounds it.  One 64 x 64 tile per block gave 32 blocks for 132 SMs, each
+// walking K = 2000 in 125 synchronous steps, so the card sat idle waiting
+// on memory.  Now the reduction is split over K across blocks
+// (gemm_f32.cuh): `splits` slices, chosen from the shapes by
+// kernels/dense.py dense_splits (8 at (64, 2000, 2000): 256 blocks, two
+// an SM), each filling a two-stage cp.async ring while it multiplies;
+// pass 2 adds the slices' partials in slice order and applies bias and
+// relu (pass 1 does that itself when splits == 1).  The tensor cores stay
+// out: TF32 keeps about three decimal digits and would miss the 1e-5
+// x max|ref| gate of a forward; a 3xTF32 split is later work.
+//
 // Ragged M, N and K are handled by masked loads (zero fill) and a masked
 // epilogue store.  b may be null.  Each entry point returns
 // cudaGetLastError() after the launch; it never synchronises.
@@ -44,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "gemm_f32.cuh"
 
 namespace {
 
@@ -149,69 +167,22 @@ dense_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // ---------------------------------------------------------------- f32
-constexpr int kFB = 64;   // 64 x 64 output tile
-constexpr int kFBK = 16;
-constexpr int kThreadsF32 = 256;  // 16 x 16 threads, 4 x 4 outputs each
-
-__global__ void __launch_bounds__(kThreadsF32)
+// The two passes of gemm_f32.cuh under K1's names (w read as (K, N)).
+__global__ void __launch_bounds__(gemm_f32::kThreads)
 dense_fwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ b, float* __restrict__ out,
-                     int M, int N, int K, int relu) {
-  __shared__ float xs[kFBK][kFB + 1];  // transposed: xs[k][m]
-  __shared__ float ws[kFBK][kFB];
+                     const float* __restrict__ mask,
+                     const float* __restrict__ b, float* __restrict__ part,
+                     float* __restrict__ out, int M, int N, int K, int relu,
+                     int splits, int depth, int vecA, int vecB) {
+  gemm_f32::splitk_tile<false, false>(x, w, mask, b, part, out, M, N, K,
+                                      relu, splits, depth, vecA, vecB);
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.y * kFB;
-  const int n0 = blockIdx.x * kFB;
-  float acc[4][4] = {};
-
-  for (int k0 = 0; k0 < K; k0 += kFBK) {
-    for (int c = tid; c < kFB * kFBK; c += kThreadsF32) {
-      const int r = c / kFBK;
-      const int k = c % kFBK;
-      const int gr = m0 + r;
-      const int gk = k0 + k;
-      xs[k][r] = (gr < M && gk < K) ? x[(size_t)gr * K + gk] : 0.0f;
-    }
-    for (int c = tid; c < kFBK * kFB; c += kThreadsF32) {
-      const int k = c / kFB;
-      const int n = c % kFB;
-      const int gk = k0 + k;
-      const int gn = n0 + n;
-      ws[k][n] = (gk < K && gn < N) ? w[(size_t)gk * N + gn] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFBK; ++kk) {
-      float a[4], bw[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bw[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bw[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = m0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gr < M && gn < N) {
-        float v = acc[i][j];
-        if (b != nullptr) v += b[gn];
-        if (relu) v = fmaxf(v, 0.0f);
-        out[(size_t)gr * N + gn] = v;
-      }
-    }
-  }
+__global__ void __launch_bounds__(gemm_f32::kThreads)
+dense_fwd_f32_sum_kernel(const float* __restrict__ part,
+                         const float* __restrict__ b, float* __restrict__ out,
+                         int M, int N, int relu, int splits) {
+  gemm_f32::splitk_sum(part, b, out, M, N, relu, splits);
 }
 
 }  // namespace
@@ -240,13 +211,12 @@ extern "C" int dense_fwd_bf16(const void* x, const void* w, const void* b,
 }
 
 extern "C" int dense_fwd_f32(const void* x, const void* w, const void* b,
-                             void* out, int M, int N, int K, int relu,
-                             void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((N + kFB - 1) / kFB, (M + kFB - 1) / kFB);
-  dense_fwd_f32_kernel<<<grid, kThreadsF32, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<float*>(out), M, N, K, relu);
-  return (int)cudaGetLastError();
+                             void* part, void* out, int M, int N, int K,
+                             int relu, int splits, int depth, void* stream) {
+  return gemm_f32::splitk_launch<false>(
+      dense_fwd_f32_kernel, dense_fwd_f32_sum_kernel,
+      static_cast<const float*>(x), static_cast<const float*>(w), nullptr,
+      static_cast<const float*>(b), static_cast<float*>(part),
+      static_cast<float*>(out), M, N, K, relu, splits, depth,
+      static_cast<cudaStream_t>(stream));
 }

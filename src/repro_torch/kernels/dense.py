@@ -5,8 +5,15 @@ Counterpart of ``repro/kernels/dense.py``.  ``ops.dense`` calls
 ``dense_cuda`` directly where no gradient is needed (serving), and
 ``DenseFunction`` otherwise; inside it a CUDA tensor launches the kernels
 and a CPU tensor takes their plain versions in ``ref.py``.
+
+K1's f32 instance and K2 are one split-K product (``csrc/gemm_f32.cuh``):
+``dense_splits`` picks how many slices of the reduction run on separate
+blocks, and the launcher hands the kernel a scratch buffer for their
+partial sums.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -14,19 +21,55 @@ from torch.autograd.function import once_differentiable
 from . import launch, ref
 
 __all__ = ["dense_cuda", "dense_dx_cuda", "dense_dwdb_cuda",
-           "DenseFunction", "ACTIVATIONS"]
+           "DenseFunction", "ACTIVATIONS", "dense_splits", "split_depth"]
 
 ACTIVATIONS = ("none", "relu")
 
 _ENTRY = {torch.bfloat16: "dense_fwd_bf16", torch.float32: "dense_fwd_f32"}
+
+_SM_BLOCKS = 264   # two blocks on each of the H100's 132 SMs
+_MIN_DEPTH = 128   # shallowest slice of K one split-K block reduces
+_TILE, _DEPTH = 64, 16   # gemm_f32.cuh's output tile and K step
+
+
+def split_depth(K: int, splits: int) -> int:
+    """How deep each of ``splits`` slices of K is: ceil(K / splits)
+    rounded up to the kernel's K step; the last slice takes what is left.
+    The launchers hand it to ``gemm_f32.cuh``, which refuses a depth that
+    leaves part of K out or a slice empty."""
+    return math.ceil(math.ceil(K / splits) / _DEPTH) * _DEPTH
+
+
+def dense_splits(M: int, N: int, K: int) -> int:
+    """How many slices the f32 product C (M, N) = A (M, K) B (K, N) splits
+    its reduction into: as many blocks as two on every SM hold, every
+    slice at least ``_MIN_DEPTH`` deep, and none empty.  1 when K is short
+    or the tiles alone fill the card.  It depends on the shapes only, so
+    every run adds the same partials in the same order."""
+    tiles = math.ceil(M / _TILE) * math.ceil(N / _TILE)
+    splits = max(1, min(K // _MIN_DEPTH, _SM_BLOCKS // tiles))
+    while splits > 1 and (splits - 1) * split_depth(K, splits) >= K:
+        splits -= 1
+    return splits
+
+
+def _split(M, N, K, device):
+    """(splits, depth, the (splits, M, N) scratch for the partial sums or
+    None) of the f32 product C (M, N) = A (M, K) B (K, N)."""
+    splits = dense_splits(M, N, K)
+    part = None if splits == 1 else torch.empty(
+        (splits, M, N), dtype=torch.float32, device=device)
+    return splits, split_depth(K, splits), part
 
 
 def dense_cuda(x, w, b=None, activation: str = "none"):
     """act(x @ w + b) on the card: x (M, K), w (K, N), b (N,) float32 or
     None; x and w bfloat16 or float32, the same dtype, contiguous.
 
-    Allocates the output, launches on the current stream, raises if the
-    launch was refused.  ``dense_cuda.launches`` counts the launches.
+    Allocates the output (and in f32 the split-K scratch), launches on
+    the current stream, raises if the launch was refused.
+    ``dense_cuda.launches`` counts the launches; the f32 instance's two
+    passes are one.
     """
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation must be one of {ACTIVATIONS}")
@@ -56,8 +99,11 @@ def dense_cuda(x, w, b=None, activation: str = "none"):
         if not t.is_contiguous():
             raise ValueError("dense_cuda takes contiguous tensors")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    launch.run("dense_fwd", _ENTRY[x.dtype], x.device, (x, w, b, out),
-               (M, N, K, activation == "relu"))
+    ptrs, ints = (x, w, b, out), (M, N, K, activation == "relu")
+    if x.dtype == torch.float32:
+        splits, depth, part = _split(M, N, K, x.device)
+        ptrs, ints = (x, w, b, part, out), (*ints, splits, depth)
+    launch.run("dense_fwd", _ENTRY[x.dtype], x.device, ptrs, ints)
     dense_cuda.launches += 1
     return out
 
@@ -67,8 +113,9 @@ dense_cuda.launches = 0
 
 def dense_dx_cuda(g, w, out=None):
     """K2 on the card: dx = (g masked by ``out > 0``) @ w^T, f32; g and
-    ``out`` (M, Dout), w (Din, Dout).  ``dense_dx_cuda.launches`` counts
-    the launches."""
+    ``out`` (M, Dout), w (Din, Dout).  The reduction over Dout is split as
+    ``dense_splits(M, Din, Dout)`` says; the two passes count as one
+    launch on ``dense_dx_cuda.launches``."""
     dev = launch.check_f32_cuda("dense_dx_cuda", g=g, w=w, out=out)
     if g.ndim != 2 or w.ndim != 2 or g.shape[1] != w.shape[1] or (
             out is not None and out.shape != g.shape):
@@ -77,8 +124,9 @@ def dense_dx_cuda(g, w, out=None):
                          f"{tuple(w.shape)}")
     (M, Dout), Din = g.shape, w.shape[0]
     dx = torch.empty((M, Din), dtype=torch.float32, device=dev)
-    launch.run("dense_bwd", "dense_dx_f32", dev, (g, w, out, dx),
-               (M, Din, Dout))
+    splits, depth, part = _split(M, Din, Dout, dev)
+    launch.run("dense_bwd", "dense_dx_f32", dev, (g, w, out, part, dx),
+               (M, Din, Dout, splits, depth))
     dense_dx_cuda.launches += 1
     return dx
 

@@ -21,7 +21,12 @@ def _card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,M,K,N", [
     ("bfloat16", 4, 4096, 512), ("bfloat16", 24, 4096, 4096),
-    ("bfloat16", 5, 72, 70), ("float32", 37, 100, 77)])
+    ("bfloat16", 5, 72, 70), ("float32", 37, 100, 77),
+    # f32 split-K: the case7 hidden layer (8 slices), K not a multiple of
+    # slices x 16 (7 slices of 144 over 1000), K not a multiple of 4 (the
+    # element-by-element loads), N = 10 (14 slices, one tile)
+    ("float32", 64, 2000, 2000), ("float32", 37, 1000, 77),
+    ("float32", 64, 1002, 200), ("float32", 64, 2000, 10)])
 def test_dense_kernel_matches_plain(dtype, M, K, N):
     _card()
     gen = torch.Generator("cuda").manual_seed(0)
@@ -90,7 +95,11 @@ def _close(got, want, grad):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,Din,Dout,relu", [
-    (64, 192, 2000, True), (64, 2000, 10, False), (37, 100, 77, True)])
+    (64, 192, 2000, True), (64, 2000, 10, False), (37, 100, 77, True),
+    # K2 split over Dout: the case7 hidden layer, Dout not a multiple of
+    # slices x 16, Dout not a multiple of 4, one 10-wide tile of 14 slices
+    (64, 2000, 2000, True), (37, 77, 1000, True), (64, 200, 1002, True),
+    (64, 10, 2000, False)])
 def test_dense_backward_kernels_match_plain(M, Din, Dout, relu):
     _card()
     from repro_torch.kernels import dense as dn
@@ -104,6 +113,26 @@ def test_dense_backward_kernels_match_plain(M, Din, Dout, relu):
            True)
     assert (dn.dense_dx_cuda.launches, dn.dense_dwdb_cuda.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Din,Dout", [(64, 2000, 2000), (37, 77, 1000),
+                                        (64, 192, 2000)])
+def test_split_dense_kernels_rerun_bit_for_bit(M, Din, Dout):
+    """K1 f32 and K2 add their split partials in slice order, without
+    atomics: a rerun gives identical bits."""
+    _card()
+    from repro_torch.kernels import dense as dn
+    gen = _gen(7)
+    x, w = _randn(gen, (M, Din)), _randn(gen, (Din, Dout))
+    b, g = _randn(gen, (Dout,)), _randn(gen, (M, Dout))
+    out = torch.relu(_randn(gen, (M, Dout)))
+    fwd = [dn.dense_cuda(x, w, b, activation="relu") for _ in range(2)]
+    dx = [dn.dense_dx_cuda(g, w, out) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert dn.dense_splits(M, Dout, Din) > 1 or dn.dense_splits(
+        M, Din, Dout) > 1
+    assert torch.equal(fwd[0], fwd[1]) and torch.equal(dx[0], dx[1])
 
 
 @pytest.mark.cuda
