@@ -9,27 +9,33 @@ from the root of a checkout.  Phases, each of which raises on failure
 1. the card's name and power limit; build every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in
    parallel) and print the compiler's register/spill report;
-2. K1 (``dense_fwd``) against its plain version ``dense_ref`` on the card
-   at every Yi-6B projection shape at M = 4 and 24 in bf16, plus ragged
-   cases; kernel, plain and ``torch.matmul`` times by CUDA events, beside
-   the least time the card could take;
+2. K1 (``dense_fwd``) in bf16 against its plain version ``dense_ref`` on
+   the card at every Yi-6B and Gemma-2 projection shape at M = 1, 4 and
+   16 (the split-K decode instance; slices S printed per shape) and 24
+   (prefill), plus ragged cases with bias and relu; the decode and ragged
+   split cases rerun bit for bit; kernel, plain and ``torch.matmul`` times
+   by CUDA events and (kernel, ``torch.matmul``) on the device's clock
+   (``device_ms``: the same loop under ``torch.profiler``), beside the
+   least time the card could take; a Yi-6B (224 launches) and a Gemma-2
+   8-layer (56 launches) decode step's sums at M = 4;
 2b. K2-K8 (and K1 in f32) against their plain versions at every shape of
    a Table-2 case7 training step at B = 64, plus ragged and tied cases
    and, for the split-K f32 product of K1 and K2, shapes whose reduction
    crosses slice boundaries off the 16-deep step or takes the
    element-by-element loads; per kernel, its time, the plain version's,
-   the library call's and the bound, summed over one step's launches, and
-   per K1/K2 shape the slices S it splits into; K1 f32, K2 and K6 rerun
-   bit for bit;
+   the library call's and the bound, summed over one step's launches
+   (kernel and library also on the device's clock), and per K1/K2 shape
+   the slices S it splits into; K1 f32, K2 and K6 rerun bit for bit;
 2c. K9 (RMSNorm) at decode and prefill rows of d = 4608, 4096, 3072 in
    bf16 and f32 plus ragged rows, and K10 (flash attention) at Gemma-2's
    (bf16 and f32, q x 8 so the soft-cap of 50 acts), Yi-6B's and Phi-3's
    attention shapes (S up to 8192, windows) plus a small case with fully
    masked rows, each against its plain version (K10 in bf16 within one
-   bf16 ulp of it plus 1e-3 of its rms), with kernel, plain, library
-   (``F.rms_norm``; for K10 ``flex_attention`` with a soft-cap
-   ``score_mod`` where a soft-cap is on, else
-   ``F.scaled_dot_product_attention``) and bound times;
+   bf16 ulp of it plus 1e-3 of its rms, and bit for bit on a rerun), with
+   kernel, plain, library (``F.rms_norm``; for K10 ``flex_attention``
+   with a soft-cap ``score_mod`` where a soft-cap is on, else
+   ``F.scaled_dot_product_attention``) and bound times, kernel and
+   library also on the device's clock;
 3. reduced Yi-6B and reduced Gemma-2 (prompts longer than its window of
    16) in f32 served on the card and on the CPU from the same weights and
    request stream: identical token streams, logits within 1e-4;
@@ -54,8 +60,10 @@ from the root of a checkout.  Phases, each of which raises on failure
    2e-2: it rounds p to bf16) and against its plain version on the same
    q, k, v (phase 2c's gate);
 5. the serving CLI once on the reduced config;
-6. a JSON line with every ported kernel, then the card again, then the
-   result line ``{"ok": true, "device": {...}}``.
+6. a JSON line with every ported kernel (device-clock times as the extra
+   fields ``device_ms`` and ``library_device_ms``, "not measured" being
+   null), then the card again, then the result line
+   ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports no JAX and nothing of the JAX package ``repro``.
 """
@@ -81,11 +89,24 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 BF16_TOL = 1e-2                    # x max|ref|: one bf16 rounding of the output
 F32_TOL = 1e-5                     # x max|ref|: f32 sums in another order
 SERVE_TOL = 1e-4                   # card vs CPU logits, reduced f32 model
-LAYER_SHAPES = (                   # one Yi-6B layer's projections: (name, K, N)
-    ("wq", 4096, 4096), ("wk", 4096, 512), ("wv", 4096, 512),
-    ("wo", 4096, 4096), ("wg", 4096, 11008), ("wi", 4096, 11008),
-    ("mlp_wo", 11008, 4096))
-
+DECODE_SHAPES = {                  # one layer's projections: (name, K, N)
+    "yi-6b": (("wq", 4096, 4096), ("wk", 4096, 512), ("wv", 4096, 512),
+              ("wo", 4096, 4096), ("wg", 4096, 11008),
+              ("wi", 4096, 11008), ("mlp_wo", 11008, 4096)),
+    "gemma2-27b": (("wq", 4608, 4096), ("wk", 4608, 2048),
+                   ("wv", 4608, 2048), ("wo", 4096, 4608),
+                   ("wg", 4608, 36864), ("wi", 4608, 36864),
+                   ("mlp_wo", 36864, 4608)),
+}
+DECODE_LAYERS = {"yi-6b": 32, "gemma2-27b": 8}   # phases 4 and 4c
+K1_ROWS = (1, 4, 16, 24)           # decode rows (split-K instance), prefill
+K1_RAGGED = (                      # (dtype, M, K, N), bias + relu
+    ("float32", 37, 100, 77), ("bfloat16", 5, 72, 70),
+    ("bfloat16", 33, 100, 130),
+    # split-K: N off the 64-column tile, K off the 64-deep step, N or K not
+    # a multiple of 8 (element-by-element loads), 144 slices of one step
+    ("bfloat16", 1, 4100, 520), ("bfloat16", 16, 1000, 77),
+    ("bfloat16", 7, 4099, 130), ("bfloat16", 3, 36864, 100))
 
 def log(*parts):
     print(*parts, flush=True)
@@ -137,78 +158,159 @@ def time_ms(torch, fn, arg_sets, iters=50, warmup=5) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(torch, fn, arg_sets, iters=50, warmup=5, tries=2):
+    """Device time of one ``fn`` call: ``time_ms``'s cycled loop under
+    ``torch.profiler``, each CUDA kernel's time read as
+    ``launch/profile_decode.py`` reads it.  The tracer starts a moment
+    after the profiler and misses launches (seen: all of a short loop, one
+    of four long calls), so a first pass of the loop is the warm-up step of
+    the profiler's schedule and only the second is read; each kernel
+    counts as the mean of its recorded launches times the launches a call
+    makes, and a loop that records no device time is traced once more.
+    Returns (ms, or None where the profiler recorded no device time;
+    {kernel name: launches recorded})."""
+    from repro_torch.launch.profile_decode import device_us
+    for i in range(warmup):
+        fn(*arg_sets[i % len(arg_sets)])
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+            for _ in range(2):          # the warm-up step, then the traced one
+                for i in range(iters):
+                    fn(*arg_sets[i % len(arg_sets)])
+                torch.cuda.synchronize()
+                prof.step()
+        us, names = 0.0, {}
+        for evt in prof.key_averages():
+            t = device_us(evt)
+            if t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA \
+                    and not evt.key.startswith("ProfilerStep"):  # the span
+                us += t / evt.count * max(1, round(evt.count / iters))
+                names[evt.key] = evt.count
+        if us > 0:
+            return us / 1e3, names
+    return None, {}
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.5f}"
+
+
+def add_ms(total, n, ms):
+    """total + n * ms, None (not measured) once either is None."""
+    return None if total is None or ms is None else total + n * ms
+
+
 # ----------------------------------------------------------------------
+def _k1_check(torch, dense_cuda, ref, x, w, b=None, activation="none"):
+    """K1 against dense_ref; returns (out, max_abs_err, tol)."""
+    got = dense_cuda(x, w, b, activation=activation)
+    want = ref.dense_ref(x, w, b, activation=activation)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = (F32_TOL if x.dtype == torch.float32 else BF16_TOL) * \
+        want.float().abs().max().item()
+    return got, err, tol
+
+
 def phase_kernel(torch, dense_mod, ref):
-    """K1 against dense_ref at the serving shapes; returns the JSON row
-    parts for one decode step (224 launches at M = 4)."""
+    """K1 against dense_ref at every Yi-6B and Gemma-2 projection shape at
+    M = 1, 4, 16 (split-K decode instance) and 24 (prefill), plus ragged
+    cases; the decode shapes and ragged split cases rerun bit for bit.
+    Returns the decode-step sums at M = 4 per model and the worst error."""
     gen = torch.Generator("cuda").manual_seed(1)
     dense_cuda = dense_mod.dense_cuda
-    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-            "bound_by": {}}
+    steps = {arch: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                    "library_ms": 0.0, "library_device_ms": 0.0,
+                    "bound_ms": 0.0, "bound_by": {}, "launches": 0}
+             for arch in DECODE_SHAPES}
     worst = {"err": 0.0, "ratio": 0.0, "tol": 0.0}
-    log(f"[k1] {'shape':<19} {'M':>3}  {'max_abs_err':<12} {'tol':<10} "
-        f"{'kernel_ms':<10} {'plain_ms':<10} {'library_ms':<10} "
-        f"{'bound_ms':<10} bound/kernel")
-    for M in (4, 24):
-        for name, K, N in LAYER_SHAPES:
-            wbytes = K * N * 2
-            copies = max(2, min(64, math.ceil(256e6 / wbytes)))
-            x = torch.randn((M, K), generator=gen, device="cuda"
-                            ).to(torch.bfloat16)
-            ws = [(torch.randn((K, N), generator=gen, device="cuda")
-                   / math.sqrt(K)).to(torch.bfloat16) for _ in range(copies)]
-            got = dense_cuda(x, ws[0])
-            want = ref.dense_ref(x, ws[0])
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = BF16_TOL * want.float().abs().max().item()
-            if not err <= tol:
-                raise AssertionError(f"K1 {name} M={M}: max_abs_err {err} "
-                                     f"> tol {tol}")
-            sets = [(x, w) for w in ws]
-            k_ms = time_ms(torch, dense_cuda, sets)
-            p_ms = time_ms(torch, ref.dense_ref, sets)
-            l_ms = time_ms(torch, torch.matmul, sets)
-            b_ms, by = bound_ms(M, N, K, "bfloat16")
-            log(f"[k1] {name:<7} {K:>5}x{N:<5} {M:>3}  {err:<12.4g} "
-                f"{tol:<10.4g} {k_ms:<10.5f} {p_ms:<10.5f} {l_ms:<10.5f} "
-                f"{b_ms:<10.5f} {b_ms / k_ms:.3f}")
-            if M == 4:
-                L = 32
-                step["ms"] += L * k_ms
-                step["plain_ms"] += L * p_ms
-                step["library_ms"] += L * l_ms
-                step["bound_ms"] += L * b_ms
-                by_ms = step["bound_by"]
-                by_ms[by] = by_ms.get(by, 0.0) + L * b_ms
-                if err / tol > worst["ratio"]:
+    names = set()
+    log(f"[k1] {'model':<10} {'shape':<12} {'x':>1} {'M':>3} {'S':>3}  "
+        f"{'max_abs_err':<11} {'tol':<9} {'kernel_ms':<9} {'device_ms':<9} "
+        f"{'plain_ms':<9} {'library_ms':<10} {'lib_dev_ms':<10} "
+        f"{'bound_ms':<9} bound/device")
+    for arch, shapes in DECODE_SHAPES.items():
+        unique = {}
+        for name, K, N in shapes:
+            unique.setdefault((K, N), []).append(name)
+        for M in K1_ROWS:
+            for (K, N), which in unique.items():
+                wbytes = K * N * 2
+                copies = max(2, min(64, math.ceil(256e6 / wbytes)))
+                x = torch.randn((M, K), generator=gen, device="cuda"
+                                ).to(torch.bfloat16)
+                ws = [(torch.randn((K, N), generator=gen, device="cuda")
+                       / math.sqrt(K)).to(torch.bfloat16)
+                      for _ in range(copies)]
+                got, err, tol = _k1_check(torch, dense_cuda, ref, x, ws[0])
+                if not err <= tol:
+                    raise AssertionError(f"K1 {arch} {K}x{N} M={M}: "
+                                         f"max_abs_err {err} > tol {tol}")
+                S, _ = dense_mod.bf16_splits(M, N, K)
+                if M <= 16 and not torch.equal(got, dense_cuda(x, ws[0])):
+                    raise AssertionError(f"K1 {arch} {K}x{N} M={M} gave "
+                                         "different bits on a rerun")
+                sets = [(x, w) for w in ws]
+                k_ms = time_ms(torch, dense_cuda, sets)
+                k_dev, seen = device_ms(torch, dense_cuda, sets)
+                names.update(seen)   # the kernels' names
+                p_ms = time_ms(torch, ref.dense_ref, sets)
+                l_ms = time_ms(torch, torch.matmul, sets)
+                l_dev, _ = device_ms(torch, torch.matmul, sets)
+                b_ms, by = bound_ms(M, N, K, "bfloat16")
+                log(f"[k1] {arch:<10} {K:>5}x{N:<6} {len(which)} {M:>3} "
+                    f"{S if M <= 16 else '-':>3}  {err:<11.4g} {tol:<9.4g} "
+                    f"{k_ms:<9.5f} {fmt_ms(k_dev):<9} {p_ms:<9.5f} "
+                    f"{l_ms:<10.5f} {fmt_ms(l_dev):<10} {b_ms:<9.5f} "
+                    + ("-" if k_dev is None else f"{b_ms / k_dev:.3f}"))
+                if M == 4:
+                    n = DECODE_LAYERS[arch] * len(which)
+                    st = steps[arch]
+                    st["ms"] += n * k_ms
+                    st["device_ms"] = add_ms(st["device_ms"], n, k_dev)
+                    st["plain_ms"] += n * p_ms
+                    st["library_ms"] += n * l_ms
+                    st["library_device_ms"] = add_ms(
+                        st["library_device_ms"], n, l_dev)
+                    st["bound_ms"] += n * b_ms
+                    st["bound_by"][by] = st["bound_by"].get(by, 0.0) + \
+                        n * b_ms
+                    st["launches"] += n
+                if M <= 16 and err / tol > worst["ratio"]:
                     worst = {"err": err, "ratio": err / tol, "tol": tol}
-            del x, ws, sets, got, want
+                del x, ws, sets, got
+    log("[k1] bf16 device kernels: " + ", ".join(sorted(names)))
 
-    # ragged shapes: masked loads, bias and relu epilogue
-    for dtype, M, K, N in (("float32", 37, 100, 77),
-                           ("bfloat16", 5, 72, 70),
-                           ("bfloat16", 33, 100, 130)):
+    for dtype, M, K, N in K1_RAGGED:
         tdt = getattr(torch, dtype)
         x = torch.randn((M, K), generator=gen, device="cuda").to(tdt)
         w = torch.randn((K, N), generator=gen, device="cuda").to(tdt)
         b = torch.randn((N,), generator=gen, device="cuda")
-        got = dense_cuda(x, w, b, activation="relu")
-        want = ref.dense_ref(x, w, b, activation="relu")
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        tol = (F32_TOL if dtype == "float32" else BF16_TOL) * \
-            want.float().abs().max().item()
-        log(f"[k1] ragged {dtype} M={M} K={K} N={N} bias+relu: "
+        got, err, tol = _k1_check(torch, dense_cuda, ref, x, w, b, "relu")
+        split = dtype == "bfloat16" and M <= 16
+        S = dense_mod.bf16_splits(M, N, K)[0] if split else "-"
+        log(f"[k1] ragged {dtype} M={M} K={K} N={N} S={S} bias+relu: "
             f"max_abs_err {err:.4g} tol {tol:.4g}")
         if not err <= tol:
             raise AssertionError(f"K1 ragged {dtype} ({M},{K},{N}): "
                                  f"max_abs_err {err} > tol {tol}")
-    log(f"[k1] one decode step (224 launches, M=4): kernel "
-        f"{step['ms']:.4f} ms, plain {step['plain_ms']:.4f} ms, "
-        f"torch.matmul {step['library_ms']:.4f} ms, bound "
-        f"{step['bound_ms']:.4f} ms ({dominant(step['bound_by'])})")
-    return step, worst
+        if split and not torch.equal(got, dense_cuda(x, w, b, "relu")):
+            raise AssertionError(f"K1 ragged ({M},{K},{N}) gave different "
+                                 "bits on a rerun")
+    log("[k1] bf16 split-K reruns bit for bit at every decode and ragged "
+        "shape")
+    for arch, st in steps.items():
+        log(f"[k1] one {arch} decode step ({st['launches']} launches, M=4): "
+            f"kernel {st['ms']:.4f} ms (device {fmt_ms(st['device_ms'])}), "
+            f"plain {st['plain_ms']:.4f} ms, torch.matmul "
+            f"{st['library_ms']:.4f} ms (device "
+            f"{fmt_ms(st['library_device_ms'])}), bound "
+            f"{st['bound_ms']:.4f} ms ({dominant(st['bound_by'])})")
+    return steps, worst
 
 
 # ----------------------------------------------------------------------
@@ -455,12 +557,12 @@ def phase_train_kernels(torch, ref, mods, cnn):
     gen = torch.Generator("cuda").manual_seed(2)
     rows = {}
     log(f"[train-k] {'kernel':<4} {'shape':<34} {'x':>2} {'S':>2}  "
-        f"{'max_abs_err':<11} {'tol':<10} {'kernel_ms':<10} {'plain_ms':<10} "
-        f"{'library_ms':<10} bound_ms")
+        f"{'max_abs_err':<11} {'tol':<10} {'kernel_ms':<10} {'device_ms':<12} "
+        f"{'plain_ms':<10} {'library_ms':<10} {'lib_dev_ms':<12} bound_ms")
     for key, spec in specs.items():
         row = {"err": 0.0, "tol": 0.0, "ratio": -1.0, "ms": 0.0,
-               "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-               "bound_by": {}}
+               "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "library_device_ms": 0.0, "bound_ms": 0.0, "bound_by": {}}
         kind = {"K1": "dense", "K2": "dense", "K3": "dense", "K7": "pool",
                 "K8": "pool"}.get(key, "conv")
         cases = [(s, n) for s, n in step[key].items()]
@@ -486,19 +588,26 @@ def phase_train_kernels(torch, ref, mods, cnn):
             copies = max(2, min(64, math.ceil(256e6 / nbytes)))
             sets = [args] + [spec["make"](gen, s) for _ in range(copies - 1)]
             k_ms = time_ms(torch, spec["kern"], sets)
+            k_dev, _ = device_ms(torch, spec["kern"], sets)
             p_ms = time_ms(torch, spec["plain"], sets, iters=20)
             lib_args = spec.get("lib_args", lambda *a: a)
-            l_ms = time_ms(torch, spec["lib"], [lib_args(*a) for a in sets])
+            lib_sets = [lib_args(*a) for a in sets]
+            l_ms = time_ms(torch, spec["lib"], lib_sets)
+            l_dev, _ = device_ms(torch, spec["lib"], lib_sets)
             b_ms, by = roof_ms(nbytes, spec["flops"](s))
             log(f"[train-k] {key:<4} {str(s):<34} {n:>2} {S:>2}  "
-                f"{err:<11.4g} {tol:<10.4g} {k_ms:<10.5f} {p_ms:<10.5f} "
-                f"{l_ms:<10.5f} {b_ms:.5f}")
+                f"{err:<11.4g} {tol:<10.4g} {k_ms:<10.5f} "
+                f"{fmt_ms(k_dev):<12} {p_ms:<10.5f} {l_ms:<10.5f} "
+                f"{fmt_ms(l_dev):<12} {b_ms:.5f}")
             row["ms"] += n * k_ms
+            row["device_ms"] = add_ms(row["device_ms"], n, k_dev)
+            row["library_device_ms"] = add_ms(row["library_device_ms"], n,
+                                              l_dev)
             row["plain_ms"] += n * p_ms
             row["library_ms"] += n * l_ms
             row["bound_ms"] += n * b_ms
             row["bound_by"][by] = row["bound_by"].get(by, 0.0) + n * b_ms
-            del sets
+            del sets, lib_sets
         if key in ("K1", "K2", "K6"):
             # fixed-order partial sums: identical bits on a rerun, at every
             # case7 shape (and K1/K2's split cases)
@@ -512,8 +621,10 @@ def phase_train_kernels(torch, ref, mods, cnn):
             log(f"[train-k] {key} reruns bit for bit at every case7"
                 + (" and split" if key != "K6" else "") + " shape")
         log(f"[train-k] {key} one case7 step ({STEP_LAUNCHES[key]} launches): "
-            f"kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, "
-            f"library {row['library_ms']:.5f} ms, bound {row['bound_ms']:.5f}"
+            f"kernel {row['ms']:.5f} ms (device {fmt_ms(row['device_ms'])}),"
+            f" plain {row['plain_ms']:.5f} ms, library "
+            f"{row['library_ms']:.5f} ms (device "
+            f"{fmt_ms(row['library_device_ms'])}), bound {row['bound_ms']:.5f}"
             f" ms ({dominant(row['bound_by'])}); worst max_abs_err "
             f"{row['err']:.4g} at tol {row['tol']:.4g}")
         rows[key] = row
@@ -820,8 +931,8 @@ def phase_attn_kernels(torch, ref, mods):
     gen = torch.Generator("cuda").manual_seed(3)
     out = {"K9": {}, "K10": {}}
     log(f"[k9] {'rows x d':<12} {'dtype':<9} {'max_abs_err':<11} "
-        f"{'tol':<10} {'kernel_ms':<10} {'plain_ms':<10} "
-        f"{'library_ms':<10} bound_ms")
+        f"{'tol':<10} {'kernel_ms':<10} {'device_ms':<12} {'plain_ms':<10} "
+        f"{'library_ms':<10} {'lib_dev_ms':<12} bound_ms")
     for rows, d, dt in RMS_CASES:
         tdt = getattr(torch, dt)
         itemsize = 2 if dt == "bfloat16" else 4
@@ -840,20 +951,26 @@ def phase_attn_kernels(torch, ref, mods):
             raise AssertionError(f"K9 ({rows}, {d}) {dt}: max_abs_err {err} "
                                  f"> tol {tol}")
         k_ms = time_ms(torch, rms.rmsnorm_cuda, sets)
+        k_dev, _ = device_ms(torch, rms.rmsnorm_cuda, sets)
         p_ms = time_ms(torch, ref.rmsnorm_ref, sets, iters=20)
         lib_sets = [(x, (d,), s.to(tdt)) for x, s in sets]
         l_ms = time_ms(torch, F.rms_norm, lib_sets)
+        l_dev, _ = device_ms(torch, F.rms_norm, lib_sets)
         b_ms, by = roof_ms(nbytes, 4.0 * rows * d)
         log(f"[k9] {rows:>5}x{d:<6} {dt:<9} {err:<11.4g} {tol:<10.4g} "
-            f"{k_ms:<10.5f} {p_ms:<10.5f} {l_ms:<10.5f} {b_ms:.5f} ({by})")
+            f"{k_ms:<10.5f} {fmt_ms(k_dev):<12} {p_ms:<10.5f} {l_ms:<10.5f} "
+            f"{fmt_ms(l_dev):<12} {b_ms:.5f} ({by})")
         out["K9"][(rows, d, dt)] = dict(err=err, tol=tol, ms=k_ms,
-                                        plain_ms=p_ms, library_ms=l_ms,
+                                        device_ms=k_dev, plain_ms=p_ms,
+                                        library_ms=l_ms,
+                                        library_device_ms=l_dev,
                                         bound_ms=b_ms, bound_by=by)
         del sets, lib_sets, got, want
 
     log(f"[k10] {'case':<14} {'B H KH Sq Sk D':<26} {'window':>6} "
-        f"{'cap':>4} {'max_abs_err':<11} {'kernel_ms':<10} {'plain_ms':<10} "
-        f"{'library_ms':<10} bound_ms")
+        f"{'cap':>4} {'max_abs_err':<11} {'kernel_ms':<10} {'device_ms':<12} "
+        f"{'plain_ms':<10} {'library_ms':<10} {'lib_dev_ms':<12} bound_ms")
+    names = set()
     for name, B, H, KH, Sq, Sk, D, dt, window, cap in FLASH_CASES:
         tdt = getattr(torch, dt)
         kw = dict(causal=True, window=window, softcap=cap)
@@ -871,8 +988,13 @@ def phase_attn_kernels(torch, ref, mods):
             raise AssertionError(f"K10 {name} {(B, H, KH, Sq, Sk, D)} {dt}: "
                                  f"max_abs_err {err}, {ratio:.3g} x its "
                                  f"allowance ({gate})")
+        if dt == "bfloat16" and not torch.equal(
+                got, flash.flash_attention_cuda(*sets[0], **kw)):
+            raise AssertionError(f"K10 {name} {(B, H, KH, Sq, Sk, D)} gave "
+                                 "different bits on a rerun")
         big = Sq * Sk * H > 2**29
-        l_ms, lib_err = None, None
+        iters = 4 if big else 20
+        l_ms = l_dev = lib_err = None
         if Sq == Sk and cap and dt == "bfloat16":
             # flex_attention soft-caps; it is held to ATTN_TOL to show it
             # computes the same function, then timed
@@ -881,12 +1003,16 @@ def phase_attn_kernels(torch, ref, mods):
             if not lib_ok:
                 raise AssertionError(f"flex_attention {name} {Sq} differs "
                                      f"from the plain version by {lib_err}")
-            l_ms = time_ms(torch, flex, sets, iters=4 if big else 20,
-                           warmup=1)
+            l_ms = time_ms(torch, flex, sets, iters=iters, warmup=1)
+            l_dev, _ = device_ms(torch, flex, sets, iters=iters, warmup=1)
             del flex
         del got, want
-        k_ms = time_ms(torch, lambda q, k, v: flash.flash_attention_cuda(
-            q, k, v, **kw), sets, iters=4 if big else 20, warmup=1)
+
+        def kern(q, k, v):
+            return flash.flash_attention_cuda(q, k, v, **kw)
+        k_ms = time_ms(torch, kern, sets, iters=iters, warmup=1)
+        k_dev, seen = device_ms(torch, kern, sets, iters=iters, warmup=1)
+        names.update(seen)   # the kernels' names
         p_ms = time_ms(torch, lambda q, k, v: ref.flash_attention_ref(
             q, k, v, **kw), sets[:1], iters=2 if big else 5, warmup=1)
         torch.cuda.empty_cache()
@@ -901,22 +1027,26 @@ def phase_attn_kernels(torch, ref, mods):
                 return F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, is_causal=mask is None,
                     enable_gqa=True)
-            l_ms = time_ms(torch, sdpa, sets, iters=4 if big else 20,
-                           warmup=1)
+            l_ms = time_ms(torch, sdpa, sets, iters=iters, warmup=1)
+            l_dev, _ = device_ms(torch, sdpa, sets, iters=iters, warmup=1)
             del mask
         b_ms, by = flash_bound_ms(B, H, KH, Sq, Sk, D, dt, window)
         log(f"[k10] {name:<14} {str((B, H, KH, Sq, Sk, D)):<26} {window:>6} "
-            f"{cap:>4g} {err:<11.4g} {k_ms:<10.5f} {p_ms:<10.5f} "
-            f"{'-' if l_ms is None else f'{l_ms:.5f}':<10} {b_ms:.5f} ({by})"
+            f"{cap:>4g} {err:<11.4g} {k_ms:<10.5f} {fmt_ms(k_dev):<12} "
+            f"{p_ms:<10.5f} {'-' if l_ms is None else f'{l_ms:.5f}':<10} "
+            f"{'-' if l_ms is None else fmt_ms(l_dev):<12} {b_ms:.5f} ({by})"
             f"  [{dt}, gate {gate}: peak {ratio:.3g} of it"
             + (f"; q x {QSCALE:g}" if cap else "")
             + ("" if lib_err is None else
                f"; flex_attention vs plain {lib_err:.4g}") + "]")
         out["K10"][(name, Sq, Sk, D, dt, window)] = dict(
-            err=err, tol=tol, ratio=ratio, ms=k_ms, plain_ms=p_ms,
-            library_ms=l_ms, bound_ms=b_ms, bound_by=by)
+            err=err, tol=tol, ratio=ratio, ms=k_ms, device_ms=k_dev,
+            plain_ms=p_ms, library_ms=l_ms, library_device_ms=l_dev,
+            bound_ms=b_ms, bound_by=by)
         del sets
         torch.cuda.empty_cache()
+    log("[k10] bf16 reruns bit for bit in every bf16 case; device kernels: "
+        + ", ".join(sorted(names)))
     return out
 
 
@@ -946,6 +1076,8 @@ def attn_json_rows(attn, k9_launches, k9_yi_launches, k10_launches,
         "tolerance": w9["tol"], "ms": n9 * k9["ms"],
         "plain_ms": n9 * k9["plain_ms"], "bound_ms": n9 * k9["bound_ms"],
         "bound_by": k9["bound_by"], "library_ms": n9 * k9["library_ms"],
+        "device_ms": add_ms(0.0, n9, k9["device_ms"]),
+        "library_device_ms": add_ms(0.0, n9, k9["library_device_ms"]),
         "work": "one Gemma-2 (8 layers) decode step: 33 bf16 launches at "
                 "4 x 4608",
         "yi_launches": k9_yi_launches,
@@ -959,6 +1091,9 @@ def attn_json_rows(attn, k9_launches, k9_yi_launches, k10_launches,
         "bound_ms": local["bound_ms"] + glob["bound_ms"],
         "bound_by": local["bound_by"],
         "library_ms": local["library_ms"] + glob["library_ms"],
+        "device_ms": add_ms(local["device_ms"], 1, glob["device_ms"]),
+        "library_device_ms": add_ms(local["library_device_ms"], 1,
+                                    glob["library_device_ms"]),
         "work": f"layers 0 (window 4096) and 1 (global) of a {GEMMA_LONG}-"
                 "token Gemma-2 prompt: 2 bf16 launches, soft-cap 50; "
                 "library: flex_attention (compiled) with the soft-cap "
@@ -1267,7 +1402,7 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             log(f"[build] {name}: {line}")
 
-    step, worst = phase_kernel(torch, dense_mod, ref)
+    k1_steps, worst = phase_kernel(torch, dense_mod, ref)
     train_rows = phase_train_kernels(torch, ref, mods, cnn)
     attn_rows = phase_attn_kernels(torch, ref, mods)
     phase_reduced(torch, configs, lm, serving, weights, "yi-6b")
@@ -1282,21 +1417,33 @@ def main() -> int:
     phase_cli()
 
     k1 = train_rows["K1"]
+    yi, gem = k1_steps["yi-6b"], k1_steps["gemma2-27b"]
     rows = [{
         "name": "dense_fwd (K1)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dense_fwd.cu",
         "replaces": "src/repro/kernels/dense.py:46",
         "launches": launches["K1"], "max_abs_err": worst["err"],
-        "tolerance": worst["tol"], "ms": step["ms"],
-        "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
-        "bound_by": dominant(step["bound_by"]),
-        "library_ms": step["library_ms"],
-        "work": "one Yi-6B decode step: 224 bf16 launches at M=4",
+        "tolerance": worst["tol"], "ms": yi["ms"],
+        "plain_ms": yi["plain_ms"], "bound_ms": yi["bound_ms"],
+        "bound_by": dominant(yi["bound_by"]),
+        "library_ms": yi["library_ms"], "device_ms": yi["device_ms"],
+        "library_device_ms": yi["library_device_ms"],
+        "work": "one Yi-6B decode step: 224 bf16 launches at M=4 "
+                "(split-K weight stream)",
+        "gemma_launches": gemma_launches["K1"], "gemma_ms": gem["ms"],
+        "gemma_device_ms": gem["device_ms"],
+        "gemma_plain_ms": gem["plain_ms"], "gemma_bound_ms": gem["bound_ms"],
+        "gemma_library_ms": gem["library_ms"],
+        "gemma_library_device_ms": gem["library_device_ms"],
+        "gemma_work": "one Gemma-2 decode step, 8 layers: 56 bf16 launches "
+                      "at M=4",
         "train_launches": train_launches["K1"],
         "train_max_abs_err": k1["err"], "train_tolerance": k1["tol"],
         "train_ms": k1["ms"], "train_plain_ms": k1["plain_ms"],
         "train_bound_ms": k1["bound_ms"],
         "train_library_ms": k1["library_ms"],
+        "train_device_ms": k1["device_ms"],
+        "train_library_device_ms": k1["library_device_ms"],
         "train_step_device_ms": (train["device_ms"] or {}).get("K1"),
         "train_work": "one case7 training step: 7 f32 launches at M=64, "
                       "split-K into " + "/".join(
@@ -1313,7 +1460,8 @@ def main() -> int:
             "max_abs_err": r["err"], "tolerance": r["tol"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": dominant(r["bound_by"]),
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"],
             "step_device_ms": (train["device_ms"] or {}).get(key),
             "work": f"one case7 training step at B=64: "
                     f"{STEP_LAUNCHES[key]} f32 launches" + (

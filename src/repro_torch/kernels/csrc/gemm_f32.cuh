@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace gemm_f32 {
 
 constexpr int kTile = 64;     // output tile, rows and columns
@@ -51,21 +53,6 @@ constexpr int kDepth = 16;    // K step through shared memory
 constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kLd = kDepth + 4;   // k-contiguous tile rows (A, mask, w^T)
 constexpr int kLdN = kTile + 4;   // n-contiguous tile rows (w)
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
-                                           bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
 
 __device__ __forceinline__ float lane(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -125,9 +112,9 @@ __device__ __forceinline__ void splitk_tile(
       if (vecA) {
         const bool ok = r < M && k < kend;
         const size_t i = ok ? (size_t)r * K + k : 0;
-        cp_async16(&sm.a[s][ar][ac], A + i, ok);
+        cp_async::copy16(&sm.a[s][ar][ac], A + i, ok);
         if constexpr (kMasked)
-          if (masked) cp_async16(&sm.m[s][ar][ac], mask + i, ok);
+          if (masked) cp_async::copy16(&sm.m[s][ar][ac], mask + i, ok);
       } else {
         *reinterpret_cast<float4*>(&sm.a[s][ar][ac]) =
             load4(A, kMasked ? mask : nullptr, r, k, M, kend, K);
@@ -137,7 +124,8 @@ __device__ __forceinline__ void splitk_tile(
       const int n = n0 + ar, k = k0 + ac;
       if (vecB) {
         const bool ok = n < N && k < kend;
-        cp_async16(&sm.b[s][ar][ac], W + (ok ? (size_t)n * K + k : 0), ok);
+        cp_async::copy16(&sm.b[s][ar][ac],
+                         W + (ok ? (size_t)n * K + k : 0), ok);
       } else {
         *reinterpret_cast<float4*>(&sm.b[s][ar][ac]) =
             load4(W, nullptr, n, k, N, kend, K);
@@ -146,7 +134,8 @@ __device__ __forceinline__ void splitk_tile(
       const int k = k0 + bk, n = n0 + bc;
       if (vecB) {
         const bool ok = k < kend && n < N;
-        cp_async16(&sm.b[s][bk][bc], W + (ok ? (size_t)k * N + n : 0), ok);
+        cp_async::copy16(&sm.b[s][bk][bc],
+                         W + (ok ? (size_t)k * N + n : 0), ok);
       } else {
         *reinterpret_cast<float4*>(&sm.b[s][bk][bc]) =
             load4(W, nullptr, k, n, kend, N, N);
@@ -156,12 +145,12 @@ __device__ __forceinline__ void splitk_tile(
 
   float acc[4][4] = {};
   if (steps > 0) load(0, kbeg);
-  cp_async_commit();
+  cp_async::commit();
   for (int t = 0; t < steps; ++t) {
     const int s = t & 1;
     if (t + 1 < steps) load(s ^ 1, kbeg + (t + 1) * kDepth);
-    cp_async_commit();
-    cp_async_wait_one();   // every group but the newest: step t has landed
+    cp_async::commit();
+    cp_async::wait<1>();   // every group but the newest: step t has landed
     if constexpr (kMasked) {
       if (masked && vecA) {  // this thread's own copies are visible to it
         float4* a = reinterpret_cast<float4*>(&sm.a[s][ar][ac]);

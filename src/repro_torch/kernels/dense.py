@@ -9,10 +9,12 @@ and a CPU tensor takes their plain versions in ``ref.py``.
 K1's f32 instance and K2 are one split-K product (``csrc/gemm_f32.cuh``):
 ``dense_splits`` picks how many slices of the reduction run on separate
 blocks, and the launcher hands the kernel a scratch buffer for their
-partial sums.
+partial sums.  K1's bf16 instance at M <= 16 (decode) splits its
+reduction the same way, as ``bf16_splits`` says.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -21,7 +23,8 @@ from torch.autograd.function import once_differentiable
 from . import launch, ref
 
 __all__ = ["dense_cuda", "dense_dx_cuda", "dense_dwdb_cuda",
-           "DenseFunction", "ACTIVATIONS", "dense_splits", "split_depth"]
+           "DenseFunction", "ACTIVATIONS", "dense_splits", "split_depth",
+           "bf16_splits"]
 
 ACTIVATIONS = ("none", "relu")
 
@@ -30,6 +33,10 @@ _ENTRY = {torch.bfloat16: "dense_fwd_bf16", torch.float32: "dense_fwd_f32"}
 _SM_BLOCKS = 264   # two blocks on each of the H100's 132 SMs
 _MIN_DEPTH = 128   # shallowest slice of K one split-K block reduces
 _TILE, _DEPTH = 64, 16   # gemm_f32.cuh's output tile and K step
+# dense_fwd.cu's bf16 split-K instance: rows it takes, output columns a
+# block owns, K step (one ring stage), and the deepest slice whose x rows
+# fit its shared memory, in K steps
+_BF16_ROWS, _BF16_TILE_N, _BF16_STEP, _BF16_MAX_STEPS = 16, 64, 64, 16
 
 
 def split_depth(K: int, splits: int) -> int:
@@ -53,23 +60,61 @@ def dense_splits(M: int, N: int, K: int) -> int:
     return splits
 
 
+@functools.lru_cache(maxsize=1024)   # every decode projection asks each step
+def bf16_splits(M: int, N: int, K: int) -> tuple[int, int]:
+    """(splits, depth) of K1's bf16 instance for x (M, K) @ w (K, N).
+
+    At M <= 16 the weight panel of each 64-column tile streams through
+    ``splits`` blocks, each reducing one ``depth``-deep slice of K (a
+    multiple of the 64-deep K step, at most 1024, the last slice taking
+    what is left).  The depth is the largest that still gives every SM two
+    blocks (tiles x splits >= 264), or one K step where K is too short for
+    that; every slice is non-empty.  Prefill (M > 16) does not split:
+    (1, 0).  Depends on the shapes only, so every run adds the same
+    partials in the same order."""
+    if M > _BF16_ROWS:
+        return 1, 0
+    steps = math.ceil(K / _BF16_STEP)
+    want = math.ceil(_SM_BLOCKS / math.ceil(N / _BF16_TILE_N))
+    depth = next((d for d in range(min(steps, _BF16_MAX_STEPS), 0, -1)
+                  if math.ceil(steps / d) >= want), 1)
+    return math.ceil(steps / depth), depth * _BF16_STEP
+
+
+_WORKSPACE: dict = {}   # (device, stream) -> f32 split-K scratch
+
+
+def _scratch(splits, M, N, device):
+    """Room for the (splits, M, N) f32 partial sums of a split-K launch,
+    or None where the reduction does not split.  One buffer per (device,
+    stream), grown as needed and reused: launches on one stream run in
+    order, each adding up its partials before the next starts, and a
+    decode step saves an allocation per projection."""
+    if splits == 1:
+        return None
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _WORKSPACE.get(key)
+    if buf is None or buf.numel() < splits * M * N:
+        buf = torch.empty(splits * M * N, dtype=torch.float32, device=device)
+        _WORKSPACE[key] = buf
+    return buf
+
+
 def _split(M, N, K, device):
-    """(splits, depth, the (splits, M, N) scratch for the partial sums or
-    None) of the f32 product C (M, N) = A (M, K) B (K, N)."""
+    """(splits, depth, the scratch for the partial sums or None) of the
+    f32 product C (M, N) = A (M, K) B (K, N)."""
     splits = dense_splits(M, N, K)
-    part = None if splits == 1 else torch.empty(
-        (splits, M, N), dtype=torch.float32, device=device)
-    return splits, split_depth(K, splits), part
+    return splits, split_depth(K, splits), _scratch(splits, M, N, device)
 
 
 def dense_cuda(x, w, b=None, activation: str = "none"):
     """act(x @ w + b) on the card: x (M, K), w (K, N), b (N,) float32 or
     None; x and w bfloat16 or float32, the same dtype, contiguous.
 
-    Allocates the output (and in f32 the split-K scratch), launches on
-    the current stream, raises if the launch was refused.
-    ``dense_cuda.launches`` counts the launches; the f32 instance's two
-    passes are one.
+    Allocates the output (where the reduction splits, the partial sums go
+    to the stream's workspace), launches on the current stream, raises if
+    the launch was refused.  ``dense_cuda.launches`` counts the launches;
+    a split product's two passes are one.
     """
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation must be one of {ACTIVATIONS}")
@@ -99,11 +144,13 @@ def dense_cuda(x, w, b=None, activation: str = "none"):
         if not t.is_contiguous():
             raise ValueError("dense_cuda takes contiguous tensors")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    ptrs, ints = (x, w, b, out), (M, N, K, activation == "relu")
     if x.dtype == torch.float32:
         splits, depth, part = _split(M, N, K, x.device)
-        ptrs, ints = (x, w, b, part, out), (*ints, splits, depth)
-    launch.run("dense_fwd", _ENTRY[x.dtype], x.device, ptrs, ints)
+    else:
+        splits, depth = bf16_splits(M, N, K)
+        part = _scratch(splits, M, N, x.device)
+    launch.run("dense_fwd", _ENTRY[x.dtype], x.device, (x, w, b, part, out),
+               (M, N, K, activation == "relu", splits, depth))
     dense_cuda.launches += 1
     return out
 

@@ -1,9 +1,11 @@
 """Where a decode step's time goes on the card, by kernel.
 
 Builds full-width ``--arch`` (default Yi-6B) from a seed on the card,
-fills every slot with a prompt, then traces ``--steps`` decode steps with
-``torch.profiler`` and prints the device time by kernel name, the step's
-wall time and the card's busy share over the traced window:
+fills every slot with a prompt, times ``--steps`` decode steps without the
+profiler (each one synchronised: the median and fastest step), then
+traces ``--steps`` more with ``torch.profiler`` and prints the device time
+by kernel name, the traced steps' wall time and the card's busy share over
+the traced window:
 
     python -m repro_torch.launch.profile_decode --steps 5
     python -m repro_torch.launch.profile_decode --arch gemma2-27b --layers 8
@@ -80,7 +82,8 @@ def main(argv=None):
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
                             device=dev)
     eng = make_serve_engine(params, cfg, ServeConfig(
-        slots=args.slots, max_seq=args.prompt + args.steps + 8), device=dev)
+        slots=args.slots, max_seq=args.prompt + 2 * args.steps + 8),
+        device=dev)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.slots, args.prompt))
     _, sl, _ = eng.prefill(prompts)
@@ -90,6 +93,12 @@ def main(argv=None):
     for _ in range(2):                       # warm-up
         eng.decode(toks)
     torch.cuda.synchronize()
+    plain_ms = []                            # the profiler adds host time
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        eng.decode(toks)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -110,6 +119,8 @@ def main(argv=None):
     print(f"[profile] {cfg.name} full width, {cfg.num_layers} layers, "
           f"{args.slots} slots, "
           f"{args.steps} decode steps on {card}")
+    print(f"[profile] unprofiled step median {np.median(plain_ms):.3f} ms, "
+          f"fastest {min(plain_ms):.3f} ms")
     print(f"[profile] step {step_ms:.3f} ms wall, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / step_ms:.1f}%)"
           if rows else "[profile] device time: not measured")
@@ -120,6 +131,7 @@ def main(argv=None):
             json.dump({"card": card, "arch": cfg.name,
                        "layers": cfg.num_layers, "slots": args.slots,
                        "steps": args.steps, "step_ms": step_ms,
+                       "unprofiled_step_ms": plain_ms,
                        "busy_ms": busy_ms, "kernels": [
                            {"name": k, "ms_per_step": ms,
                             "launches_per_step": n} for k, ms, n in rows]},

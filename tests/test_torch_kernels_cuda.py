@@ -45,6 +45,36 @@ def test_dense_kernel_matches_plain(dtype, M, K, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16])
+@pytest.mark.parametrize("K,N,relu", [
+    (4096, 512, False), (4096, 11008, False), (36864, 4608, False),
+    # ragged: N off the 64-column tile, K off the 64-deep step, N or K
+    # not a multiple of 8 (the element-by-element loads)
+    (4096, 520, True), (1000, 77, True), (4099, 130, True)])
+def test_dense_bf16_split_kernel_matches_plain_and_reruns(M, K, N, relu):
+    """K1's bf16 decode instance (split-K weight stream) at Yi-6B's and
+    Gemma-2's split shapes: one bf16 rounding of the output from the plain
+    version, one launch a call, identical bits on a rerun."""
+    _card()
+    gen = torch.Generator("cuda").manual_seed(8)
+    x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((K, N), generator=gen, device="cuda")
+         / K ** 0.5).bfloat16()
+    b = torch.randn((N,), generator=gen, device="cuda") if relu else None
+    act = "relu" if relu else "none"
+    before = dense.dense_cuda.launches
+    got = dense.dense_cuda(x, w, b, activation=act)
+    again = dense.dense_cuda(x, w, b, activation=act)
+    want = ref.dense_ref(x, w, b, activation=act)
+    torch.cuda.synchronize()
+    assert dense.dense_cuda.launches == before + 2
+    assert dense.bf16_splits(M, N, K)[0] > 1
+    tol = 1e-2 * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
 def test_ops_dense_on_card_launches_the_kernel():
     _card()
     gen = torch.Generator("cuda").manual_seed(1)
@@ -272,6 +302,26 @@ def test_flash_attention_kernel_matches_plain(B, H, KH, Sq, Sk, D, causal,
     atol, rtol = (1e-4, 1e-3) if dtype == "float32" else (8e-2, 2e-2)
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,window,softcap", [
+    (1, 8, 4, 300, 300, 128, 0, 50.0), (1, 8, 4, 333, 333, 128, 100, 50.0),
+    (1, 4, 2, 300, 200, 16, 0, 0.0), (1, 2, 2, 40, 40, 256, 0, 30.0)])
+def test_flash_attention_bf16_reruns_bit_for_bit(B, H, KH, Sq, Sk, D,
+                                                 window, softcap):
+    """K10's bf16 instance (tensor-core products, fixed summation order):
+    identical bits on a rerun."""
+    _card()
+    from repro_torch.kernels import flash_attention as fa
+    gen = _gen(9)
+    q, k, v = (_randn(gen, (B, n, S, D)).bfloat16()
+               for n, S in ((H, Sq), (KH, Sk), (KH, Sk)))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    first = fa.flash_attention_cuda(q, k, v, **kw)
+    second = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
