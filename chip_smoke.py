@@ -11,13 +11,16 @@ from the root of a checkout.  Phases, each of which raises on failure
    parallel) and print the compiler's register/spill report;
 2. K1 (``dense_fwd``) in bf16 against its plain version ``dense_ref`` on
    the card at every Yi-6B and Gemma-2 projection shape at M = 1, 4 and
-   16 (the split-K decode instance; slices S printed per shape) and 24
-   (prefill), plus ragged cases with bias and relu; the decode and ragged
-   split cases rerun bit for bit; kernel, plain and ``torch.matmul`` times
-   by CUDA events and (kernel, ``torch.matmul``) on the device's clock
-   (``device_ms``: the same loop under ``torch.profiler``), beside the
-   least time the card could take; a Yi-6B (224 launches) and a Gemma-2
-   8-layer (56 launches) decode step's sums at M = 4;
+   16 (the split-K decode stream), 17, 24 and 64 (the prefill tile GEMM's
+   64-row weight stream) and, at Gemma-2's shapes, 512 and 5000 (its
+   128-row tiles), with the slices S printed per shape, plus ragged cases
+   with bias and relu; every shape reruns bit for bit; kernel, plain and
+   ``torch.matmul`` times by CUDA events and (kernel, ``torch.matmul``)
+   on the device's clock (``device_ms``: the same loop under
+   ``torch.profiler``), beside the least time the card could take; the
+   sums of a Yi-6B (224 launches) and a Gemma-2 8-layer (56 launches)
+   decode step at M = 4 and prefill forward (Yi-6B at M = 24, Gemma-2 at
+   M = 5000);
 2b. K2-K8 (and K1 in f32) against their plain versions at every shape of
    a Table-2 case7 training step at B = 64, plus ragged and tied cases
    and, for the split-K f32 product of K1 and K2, shapes whose reduction
@@ -25,7 +28,8 @@ from the root of a checkout.  Phases, each of which raises on failure
    element-by-element loads; per kernel, its time, the plain version's,
    the library call's and the bound, summed over one step's launches
    (kernel and library also on the device's clock), and per K1/K2 shape
-   the slices S it splits into; K1 f32, K2 and K6 rerun bit for bit;
+   the slices S it splits into, and per K6 shape each of its two passes'
+   device time; K1 f32, K2 and K6 rerun bit for bit;
 2c. K9 (RMSNorm) at decode and prefill rows of d = 4608, 4096, 3072 in
    bf16 and f32 plus ragged rows, and K10 (flash attention) at Gemma-2's
    (bf16 and f32, q x 8 so the soft-cap of 50 acts), Yi-6B's and Phi-3's
@@ -62,13 +66,22 @@ from the root of a checkout.  Phases, each of which raises on failure
 5. the serving CLI once on the reduced config;
 6. a JSON line with every ported kernel (device-clock times as the extra
    fields ``device_ms`` and ``library_device_ms``, "not measured" being
-   null), then the card again, then the result line
+   null; K1 also its prefill sums as ``prefill_*`` and ``gemma_prefill_*``,
+   K6 its passes as ``pass_device_ms``), then the card again, then the
+   result line
    ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports no JAX and nothing of the JAX package ``repro``.
+
+    python3 chip_smoke.py --k1-rows 512,5000
+
+builds the kernels and runs phase 2 alone at those rows M (the other rows
+and the sums are left out), then stops without a result line: copied into
+the root of another checkout, it times that checkout's K1 the same way.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
 import json
@@ -99,14 +112,21 @@ DECODE_SHAPES = {                  # one layer's projections: (name, K, N)
                    ("mlp_wo", 36864, 4608)),
 }
 DECODE_LAYERS = {"yi-6b": 32, "gemma2-27b": 8}   # phases 4 and 4c
-K1_ROWS = (1, 4, 16, 24)           # decode rows (split-K instance), prefill
+K1_ROWS = (1, 4, 16,               # decode rows (the split-K stream)
+           17, 24, 64)             # prefill rows (the tile GEMM, 64-row)
+K1_GEMMA_ROWS = (512, 5000)        # long prompts (128-row tiles), Gemma-2
+PREFILL_ROWS = {"yi-6b": 24, "gemma2-27b": 5000}   # the prefill sums
 K1_RAGGED = (                      # (dtype, M, K, N), bias + relu
     ("float32", 37, 100, 77), ("bfloat16", 5, 72, 70),
     ("bfloat16", 33, 100, 130),
     # split-K: N off the 64-column tile, K off the 64-deep step, N or K not
     # a multiple of 8 (element-by-element loads), 144 slices of one step
     ("bfloat16", 1, 4100, 520), ("bfloat16", 16, 1000, 77),
-    ("bfloat16", 7, 4099, 130), ("bfloat16", 3, 36864, 100))
+    ("bfloat16", 7, 4099, 130), ("bfloat16", 3, 36864, 100),
+    # prefill: N off the 128-column tile, K off the 32-deep step, 128-row
+    # tiles clipped at M, element-by-element loads, split and not
+    ("bfloat16", 17, 4099, 130), ("bfloat16", 65, 1000, 77),
+    ("bfloat16", 129, 4100, 520), ("bfloat16", 200, 72, 70))
 
 def log(*parts):
     print(*parts, flush=True)
@@ -158,7 +178,7 @@ def time_ms(torch, fn, arg_sets, iters=50, warmup=5) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(torch, fn, arg_sets, iters=50, warmup=5, tries=2):
+def device_ms(torch, fn, arg_sets, iters=50, warmup=5, tries=3):
     """Device time of one ``fn`` call: ``time_ms``'s cycled loop under
     ``torch.profiler``, each CUDA kernel's time read as
     ``launch/profile_decode.py`` reads it.  The tracer starts a moment
@@ -166,9 +186,9 @@ def device_ms(torch, fn, arg_sets, iters=50, warmup=5, tries=2):
     of four long calls), so a first pass of the loop is the warm-up step of
     the profiler's schedule and only the second is read; each kernel
     counts as the mean of its recorded launches times the launches a call
-    makes, and a loop that records no device time is traced once more.
-    Returns (ms, or None where the profiler recorded no device time;
-    {kernel name: launches recorded})."""
+    makes, and a loop that records no device time is traced again, up to
+    ``tries`` times.  Returns (ms, or None where the profiler recorded no
+    device time; {kernel name: its ms per ``fn`` call})."""
     from repro_torch.launch.profile_decode import device_us
     for i in range(warmup):
         fn(*arg_sets[i % len(arg_sets)])
@@ -188,8 +208,9 @@ def device_ms(torch, fn, arg_sets, iters=50, warmup=5, tries=2):
             t = device_us(evt)
             if t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA \
                     and not evt.key.startswith("ProfilerStep"):  # the span
-                us += t / evt.count * max(1, round(evt.count / iters))
-                names[evt.key] = evt.count
+                per = t / evt.count * max(1, round(evt.count / iters))
+                us += per
+                names[evt.key] = per / 1e3
         if us > 0:
             return us / 1e3, names
     return None, {}
@@ -216,20 +237,27 @@ def _k1_check(torch, dense_cuda, ref, x, w, b=None, activation="none"):
     return got, err, tol
 
 
-def phase_kernel(torch, dense_mod, ref):
+def _k1_sum():
+    return {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "library_device_ms": 0.0, "bound_ms": 0.0, "bound_by": {},
+            "launches": 0}
+
+
+def phase_kernel(torch, dense_mod, ref, only=None):
     """K1 against dense_ref at every Yi-6B and Gemma-2 projection shape at
-    M = 1, 4, 16 (split-K decode instance) and 24 (prefill), plus ragged
-    cases; the decode shapes and ragged split cases rerun bit for bit.
-    Returns the decode-step sums at M = 4 per model and the worst error."""
+    M = 1, 4, 16 (split-K decode stream), 17, 24 and 64 (prefill tile
+    GEMM, 64-row tiles) and, at Gemma-2's shapes, 512 and 5000 (128-row
+    tiles), plus ragged cases; every shape reruns bit for bit.  Returns the
+    per-model sums of a decode step (M = 4) and of a prefill forward (Yi-6B
+    at M = 24, Gemma-2 at M = 5000), and the worst error.  ``only``, a set
+    of rows, keeps just those rows and leaves out the sums."""
     gen = torch.Generator("cuda").manual_seed(1)
     dense_cuda = dense_mod.dense_cuda
-    steps = {arch: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
-                    "library_ms": 0.0, "library_device_ms": 0.0,
-                    "bound_ms": 0.0, "bound_by": {}, "launches": 0}
-             for arch in DECODE_SHAPES}
+    sums = {(arch, kind): _k1_sum() for arch in DECODE_SHAPES
+            for kind in ("decode", "prefill")}
     worst = {"err": 0.0, "ratio": 0.0, "tol": 0.0}
     names = set()
-    log(f"[k1] {'model':<10} {'shape':<12} {'x':>1} {'M':>3} {'S':>3}  "
+    log(f"[k1] {'model':<10} {'shape':<12} {'x':>1} {'M':>4} {'S':>3}  "
         f"{'max_abs_err':<11} {'tol':<9} {'kernel_ms':<9} {'device_ms':<9} "
         f"{'plain_ms':<9} {'library_ms':<10} {'lib_dev_ms':<10} "
         f"{'bound_ms':<9} bound/device")
@@ -237,7 +265,8 @@ def phase_kernel(torch, dense_mod, ref):
         unique = {}
         for name, K, N in shapes:
             unique.setdefault((K, N), []).append(name)
-        for M in K1_ROWS:
+        rows = K1_ROWS + (K1_GEMMA_ROWS if arch == "gemma2-27b" else ())
+        for M in (M for M in rows if only is None or M in only):
             for (K, N), which in unique.items():
                 wbytes = K * N * 2
                 copies = max(2, min(64, math.ceil(256e6 / wbytes)))
@@ -251,25 +280,28 @@ def phase_kernel(torch, dense_mod, ref):
                     raise AssertionError(f"K1 {arch} {K}x{N} M={M}: "
                                          f"max_abs_err {err} > tol {tol}")
                 S, _ = dense_mod.bf16_splits(M, N, K)
-                if M <= 16 and not torch.equal(got, dense_cuda(x, ws[0])):
+                if not torch.equal(got, dense_cuda(x, ws[0])):
                     raise AssertionError(f"K1 {arch} {K}x{N} M={M} gave "
                                          "different bits on a rerun")
                 sets = [(x, w) for w in ws]
-                k_ms = time_ms(torch, dense_cuda, sets)
-                k_dev, seen = device_ms(torch, dense_cuda, sets)
+                iters = 20 if M >= 512 else 50
+                k_ms = time_ms(torch, dense_cuda, sets, iters=iters)
+                k_dev, seen = device_ms(torch, dense_cuda, sets, iters=iters)
                 names.update(seen)   # the kernels' names
-                p_ms = time_ms(torch, ref.dense_ref, sets)
-                l_ms = time_ms(torch, torch.matmul, sets)
-                l_dev, _ = device_ms(torch, torch.matmul, sets)
+                p_ms = time_ms(torch, ref.dense_ref, sets, iters=iters)
+                l_ms = time_ms(torch, torch.matmul, sets, iters=iters)
+                l_dev, _ = device_ms(torch, torch.matmul, sets, iters=iters)
                 b_ms, by = bound_ms(M, N, K, "bfloat16")
-                log(f"[k1] {arch:<10} {K:>5}x{N:<6} {len(which)} {M:>3} "
-                    f"{S if M <= 16 else '-':>3}  {err:<11.4g} {tol:<9.4g} "
+                log(f"[k1] {arch:<10} {K:>5}x{N:<6} {len(which)} {M:>4} "
+                    f"{S:>3}  {err:<11.4g} {tol:<9.4g} "
                     f"{k_ms:<9.5f} {fmt_ms(k_dev):<9} {p_ms:<9.5f} "
                     f"{l_ms:<10.5f} {fmt_ms(l_dev):<10} {b_ms:<9.5f} "
                     + ("-" if k_dev is None else f"{b_ms / k_dev:.3f}"))
-                if M == 4:
+                for kind, at in (("decode", 4), ("prefill", PREFILL_ROWS[arch])):
+                    if M != at:
+                        continue
                     n = DECODE_LAYERS[arch] * len(which)
-                    st = steps[arch]
+                    st = sums[(arch, kind)]
                     st["ms"] += n * k_ms
                     st["device_ms"] = add_ms(st["device_ms"], n, k_dev)
                     st["plain_ms"] += n * p_ms
@@ -280,9 +312,10 @@ def phase_kernel(torch, dense_mod, ref):
                     st["bound_by"][by] = st["bound_by"].get(by, 0.0) + \
                         n * b_ms
                     st["launches"] += n
-                if M <= 16 and err / tol > worst["ratio"]:
+                if err / tol > worst["ratio"]:
                     worst = {"err": err, "ratio": err / tol, "tol": tol}
                 del x, ws, sets, got
+                torch.cuda.empty_cache()
     log("[k1] bf16 device kernels: " + ", ".join(sorted(names)))
 
     for dtype, M, K, N in K1_RAGGED:
@@ -291,26 +324,31 @@ def phase_kernel(torch, dense_mod, ref):
         w = torch.randn((K, N), generator=gen, device="cuda").to(tdt)
         b = torch.randn((N,), generator=gen, device="cuda")
         got, err, tol = _k1_check(torch, dense_cuda, ref, x, w, b, "relu")
-        split = dtype == "bfloat16" and M <= 16
-        S = dense_mod.bf16_splits(M, N, K)[0] if split else "-"
+        bf16 = dtype == "bfloat16"
+        S = dense_mod.bf16_splits(M, N, K)[0] if bf16 else "-"
         log(f"[k1] ragged {dtype} M={M} K={K} N={N} S={S} bias+relu: "
             f"max_abs_err {err:.4g} tol {tol:.4g}")
         if not err <= tol:
             raise AssertionError(f"K1 ragged {dtype} ({M},{K},{N}): "
                                  f"max_abs_err {err} > tol {tol}")
-        if split and not torch.equal(got, dense_cuda(x, w, b, "relu")):
+        if bf16 and not torch.equal(got, dense_cuda(x, w, b, "relu")):
             raise AssertionError(f"K1 ragged ({M},{K},{N}) gave different "
                                  "bits on a rerun")
-    log("[k1] bf16 split-K reruns bit for bit at every decode and ragged "
+        if bf16 and err / tol > worst["ratio"]:
+            worst = {"err": err, "ratio": err / tol, "tol": tol}
+    log("[k1] bf16 reruns bit for bit at every decode, prefill and ragged "
         "shape")
-    for arch, st in steps.items():
-        log(f"[k1] one {arch} decode step ({st['launches']} launches, M=4): "
-            f"kernel {st['ms']:.4f} ms (device {fmt_ms(st['device_ms'])}), "
-            f"plain {st['plain_ms']:.4f} ms, torch.matmul "
-            f"{st['library_ms']:.4f} ms (device "
+    for (arch, kind), st in sums.items():
+        if only is not None:
+            break
+        M = 4 if kind == "decode" else PREFILL_ROWS[arch]
+        log(f"[k1] one {arch} {kind} forward ({st['launches']} launches, "
+            f"M={M}): kernel {st['ms']:.4f} ms (device "
+            f"{fmt_ms(st['device_ms'])}), plain {st['plain_ms']:.4f} ms, "
+            f"torch.matmul {st['library_ms']:.4f} ms (device "
             f"{fmt_ms(st['library_device_ms'])}), bound "
             f"{st['bound_ms']:.4f} ms ({dominant(st['bound_by'])})")
-    return steps, worst
+    return sums, worst
 
 
 # ----------------------------------------------------------------------
@@ -562,7 +600,8 @@ def phase_train_kernels(torch, ref, mods, cnn):
     for key, spec in specs.items():
         row = {"err": 0.0, "tol": 0.0, "ratio": -1.0, "ms": 0.0,
                "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "library_device_ms": 0.0, "bound_ms": 0.0, "bound_by": {}}
+               "library_device_ms": 0.0, "bound_ms": 0.0, "bound_by": {},
+               "passes": {}}
         kind = {"K1": "dense", "K2": "dense", "K3": "dense", "K7": "pool",
                 "K8": "pool"}.get(key, "conv")
         cases = [(s, n) for s, n in step[key].items()]
@@ -588,7 +627,7 @@ def phase_train_kernels(torch, ref, mods, cnn):
             copies = max(2, min(64, math.ceil(256e6 / nbytes)))
             sets = [args] + [spec["make"](gen, s) for _ in range(copies - 1)]
             k_ms = time_ms(torch, spec["kern"], sets)
-            k_dev, _ = device_ms(torch, spec["kern"], sets)
+            k_dev, seen = device_ms(torch, spec["kern"], sets)
             p_ms = time_ms(torch, spec["plain"], sets, iters=20)
             lib_args = spec.get("lib_args", lambda *a: a)
             lib_sets = [lib_args(*a) for a in sets]
@@ -599,6 +638,15 @@ def phase_train_kernels(torch, ref, mods, cnn):
                 f"{err:<11.4g} {tol:<10.4g} {k_ms:<10.5f} "
                 f"{fmt_ms(k_dev):<12} {p_ms:<10.5f} {l_ms:<10.5f} "
                 f"{fmt_ms(l_dev):<12} {b_ms:.5f}")
+            if key == "K6":     # each pass's device time
+                passes = {re.search(r"conv_dw_\w+", name).group(0): ms
+                          for name, ms in seen.items()}
+                for name, ms in passes.items():
+                    row["passes"][name] = row["passes"].get(name, 0.0) \
+                        + n * ms
+                log(f"[train-k] K6   {str(s):<34} device ms by pass: "
+                    + ", ".join(f"{k} {v:.5f}"
+                                for k, v in sorted(passes.items())))
             row["ms"] += n * k_ms
             row["device_ms"] = add_ms(row["device_ms"], n, k_dev)
             row["library_device_ms"] = add_ms(row["library_device_ms"], n,
@@ -626,7 +674,10 @@ def phase_train_kernels(torch, ref, mods, cnn):
             f"{row['library_ms']:.5f} ms (device "
             f"{fmt_ms(row['library_device_ms'])}), bound {row['bound_ms']:.5f}"
             f" ms ({dominant(row['bound_by'])}); worst max_abs_err "
-            f"{row['err']:.4g} at tol {row['tol']:.4g}")
+            f"{row['err']:.4g} at tol {row['tol']:.4g}"
+            + ("; device ms by pass: " + ", ".join(
+                f"{k} {v:.5f}" for k, v in sorted(row["passes"].items()))
+               if row["passes"] else ""))
         rows[key] = row
     return rows
 
@@ -1165,12 +1216,17 @@ def phase_reduced(torch, configs, lm, serving, weights, arch="yi-6b"):
 def _serve(torch, eng, reqs, counters):
     """Run ``reqs`` through ``eng`` with every launch counter zeroed just
     before; check that logits stay finite.  Returns (events, launches,
-    forward calls, decode step ms, peak bytes)."""
-    finite, decode_ms = [], []
+    forward calls, decode step ms, peak bytes, {prompt rows: K1 launches
+    counted in each prefill call of that many rows})."""
+    finite, decode_ms, pre_k1 = [], [], {}
     prefill, decode = eng.prefill, eng.decode
+    k1 = counters["K1"]
 
     def checked_prefill(tokens):
+        before = k1.launches
         logits, sl, ms = prefill(tokens)
+        pre_k1.setdefault(math.prod(tokens.shape), []).append(
+            k1.launches - before)
         finite.append(bool(torch.isfinite(logits).all()))
         return logits, sl, ms
 
@@ -1192,7 +1248,7 @@ def _serve(torch, eng, reqs, counters):
     if not all(finite):
         raise AssertionError("non-finite logits in the full-width run")
     return events, launches, eng.prefill_calls + eng.decode_calls, \
-        decode_ms, peak
+        decode_ms, peak, pre_k1
 
 
 def _report(events, n_req, eng, calls, launches, per_call, decode_ms, peak,
@@ -1241,20 +1297,21 @@ def phase_slice(torch, configs, lm, serving, counters, card):
     eng.generate(np.zeros((1, 8), np.int32), 2)   # warm-up: CUDA/cuBLAS init
     reqs = serving.poisson_requests(8, rate_rps=50, seed=0,
                                     vocab_size=cfg.vocab_size)
-    events, launches, calls, decode_ms, peak = _serve(torch, eng, reqs,
-                                                      counters)
+    events, launches, calls, decode_ms, peak, pre_k1 = _serve(
+        torch, eng, reqs, counters)
     L = cfg.num_layers             # 32: 224 K1 and 65 K9 a forward
     _report(events, 8, eng, calls, launches, {"K1": 7 * L, "K9": 2 * L + 1},
             decode_ms, peak, card, "slice")
-    return launches
+    return launches, pre_k1
 
 
 def phase_gemma(torch, configs, serving, counters, card, layers=8):
     """The slice: Gemma-2-27B at full width, ``layers`` deep (the config's
     local/global pattern), 4 Poisson requests with one prompt of 5000
     tokens; then K10 on layers 0 and 1 of that prompt against the model's
-    own attention and its plain version.  Returns (serving launches, K10
-    launches, K10's max difference from each)."""
+    own attention and its plain version.  Returns (serving launches, K1
+    launches per prefill call by prompt rows, K10 launches, K10's max
+    difference from each)."""
     import numpy as np
     from repro_torch.core.tree import tree_leaves
     from repro_torch.kernels import ops
@@ -1280,8 +1337,8 @@ def phase_gemma(torch, configs, serving, counters, card, layers=8):
     rng = np.random.default_rng(1)
     reqs[0].tokens = rng.integers(0, cfg.vocab_size, GEMMA_LONG,
                                   dtype=np.int32)
-    events, launches, calls, decode_ms, peak = _serve(torch, eng, reqs,
-                                                      counters)
+    events, launches, calls, decode_ms, peak, pre_k1 = _serve(
+        torch, eng, reqs, counters)
     _report(events, 4, eng, calls, launches,
             {"K1": 7 * layers, "K9": 4 * layers + 1}, decode_ms, peak, card,
             "gemma")
@@ -1340,7 +1397,25 @@ def phase_gemma(torch, configs, serving, counters, card, layers=8):
             worst["plain"] = max(worst["plain"], p_err)
             x, _, _ = blocks.block_forward(lp, x, pos, cfg, window=win)
             del q, k, v, model, got, plain
-    return launches, k10_launches, worst
+    return launches, pre_k1, k10_launches, worst
+
+
+def prefill_launches(k1_sums, arch, pre_k1):
+    """Phase 2's prefill sum for ``arch`` with ``launches`` the K1 launches
+    that phase 4 or 4c counted in its prefill calls of PREFILL_ROWS[arch]
+    rows; raises unless every such call launched K1 as often as the sum
+    adds shapes."""
+    st = dict(k1_sums[(arch, "prefill")])
+    M = PREFILL_ROWS[arch]
+    seen = pre_k1.get(M, [])
+    if not seen or set(seen) != {st["launches"]}:
+        raise AssertionError(f"{arch}: prefill calls of {M} rows launched K1 "
+                             f"{seen} times; phase 2's sum adds "
+                             f"{st['launches']} launches")
+    log(f"[k1] {arch}: {len(seen)} prefill call(s) of {M} rows in the "
+        f"serving run, each {seen[0]} K1 launches (counted)")
+    st["launches"] = seen[0]
+    return st
 
 
 def phase_cli():
@@ -1358,6 +1433,11 @@ def phase_cli():
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
+                                 "on one NVIDIA card (see the module text).")
+    ap.add_argument("--k1-rows", help="comma-separated rows M: run phase 2 "
+                    "(K1) alone at these rows and print no result line")
+    args = ap.parse_args()
     # torch.compile (the flex_attention yardstick) caches inside the checkout
     cache = SRC / "repro_torch" / "kernels" / "_build" / "compile_cache"
     os.environ["TORCHINDUCTOR_CACHE_DIR"] = str(cache / "inductor")
@@ -1402,22 +1482,30 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             log(f"[build] {name}: {line}")
 
-    k1_steps, worst = phase_kernel(torch, dense_mod, ref)
+    if args.k1_rows:
+        phase_kernel(torch, dense_mod, ref,
+                     {int(m) for m in args.k1_rows.split(",")})
+        log(card_line())
+        return 0
+    k1_sums, worst = phase_kernel(torch, dense_mod, ref)
     train_rows = phase_train_kernels(torch, ref, mods, cnn)
     attn_rows = phase_attn_kernels(torch, ref, mods)
     phase_reduced(torch, configs, lm, serving, weights, "yi-6b")
     phase_reduced(torch, configs, lm, serving, weights, "gemma2-27b")
     phase_train_reduced(torch, port)
-    launches = phase_slice(torch, configs, lm, serving, counters, card)
+    launches, yi_pre_k1 = phase_slice(torch, configs, lm, serving, counters,
+                                      card)
     train_launches, train = phase_train_slice(torch, port, mods, card)
     gc.collect()
     torch.cuda.empty_cache()
-    gemma_launches, k10_launches, k10_diff = phase_gemma(
+    gemma_launches, gem_pre_k1, k10_launches, k10_diff = phase_gemma(
         torch, configs, serving, counters, card)
     phase_cli()
 
     k1 = train_rows["K1"]
-    yi, gem = k1_steps["yi-6b"], k1_steps["gemma2-27b"]
+    yi, gem = k1_sums[("yi-6b", "decode")], k1_sums[("gemma2-27b", "decode")]
+    yi_pre = prefill_launches(k1_sums, "yi-6b", yi_pre_k1)
+    gem_pre = prefill_launches(k1_sums, "gemma2-27b", gem_pre_k1)
     rows = [{
         "name": "dense_fwd (K1)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dense_fwd.cu",
@@ -1437,6 +1525,19 @@ def main() -> int:
         "gemma_library_device_ms": gem["library_device_ms"],
         "gemma_work": "one Gemma-2 decode step, 8 layers: 56 bf16 launches "
                       "at M=4",
+        **{f"{tag}_{key}": st[key] for tag, st in (
+            ("prefill", yi_pre), ("gemma_prefill", gem_pre))
+           for key in ("launches", "ms", "device_ms", "plain_ms", "bound_ms",
+                       "library_ms", "library_device_ms")},
+        "prefill_work": f"one Yi-6B prefill forward of "
+                        f"{PREFILL_ROWS['yi-6b']} tokens: "
+                        f"{yi_pre['launches']} bf16 launches, counted in "
+                        "phase 4 (tile GEMM, 64-row tiles, split-K)",
+        "gemma_prefill_work": f"one Gemma-2 prefill forward of "
+                              f"{PREFILL_ROWS['gemma2-27b']} tokens, 8 "
+                              f"layers: {gem_pre['launches']} bf16 launches,"
+                              " counted in phase 4c (tile GEMM, 128-row "
+                              "tiles)",
         "train_launches": train_launches["K1"],
         "train_max_abs_err": k1["err"], "train_tolerance": k1["tol"],
         "train_ms": k1["ms"], "train_plain_ms": k1["plain_ms"],
@@ -1463,6 +1564,7 @@ def main() -> int:
             "library_ms": r["library_ms"], "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"],
             "step_device_ms": (train["device_ms"] or {}).get(key),
+            **({"pass_device_ms": r["passes"]} if r["passes"] else {}),
             "work": f"one case7 training step at B=64: "
                     f"{STEP_LAUNCHES[key]} f32 launches" + (
                         ", split-K into " + "/".join(

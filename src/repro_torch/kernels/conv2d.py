@@ -9,6 +9,7 @@ the kernels and a CPU tensor takes their plain versions in ``ref.py``.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -17,10 +18,12 @@ from torch.autograd.function import once_differentiable
 from . import launch, ref
 
 __all__ = ["conv2d_cuda", "conv2d_dx_cuda", "conv2d_dw_cuda",
-           "Conv2dFunction", "dw_splits"]
+           "Conv2dFunction", "dw_tile", "dw_splits", "dw_smem"]
 
-_SM_BLOCKS = 264        # two blocks on each of the H100's 132 SMs
-_MIN_ROWS = 256         # fewest B.H.W rows one K6 block reduces
+_SMS = 132              # the H100's SMs
+_DW_PIXELS = (256, 128, 64, 32, 16)   # pixels a K6 block owns, largest first
+_DW_SMEM = 227 * 1024   # the H100's opt-in shared memory a block
+_THREADS = 256          # conv2d.cu's kThreads
 
 
 def _out_hw(H, W, kh, kw, padding):
@@ -86,20 +89,64 @@ def conv2d_dx_cuda(g, w, x_shape, padding: str = "SAME", out=None):
     return dx
 
 
-def dw_splits(rows: int, taps: int, cout: int) -> int:
-    """How many chunks K6 splits its B.H.W reduction into: enough blocks
-    for two on every SM, at least ``_MIN_ROWS`` rows a block.  It depends
-    on the shapes only, so every run adds the same partials in the same
-    order."""
-    tiles = math.ceil((taps + 1) / 64) * math.ceil(cout / 16)
-    return max(1, min(math.ceil(rows / _MIN_ROWS),
-                      math.ceil(_SM_BLOCKS / tiles)))
+def dw_smem(tile, Cin, Cout, kh, kw) -> int:
+    """Bytes of shared memory one K6 pass-1 block takes for output-pixel
+    ``tile`` = (images, rows, columns): the x patch with its halo (rounded
+    to 16 bytes), the g tile of its channel chunk and its mask, and the
+    pixels' patch offsets, or the pixel groups' sums where those are
+    larger.  conv2d.cu's ``DwPlan::smem`` is the kernel's own count (its
+    ``conv2d_dw_smem``); a test on the card holds the two equal."""
+    tb, th, tw = tile
+    ct = min(16, math.ceil(Cout / 4) * 4)
+    jobs = min(math.ceil((kh * kw * Cin + 1) / 4), _THREADS // (ct // 4)) \
+        * (ct // 4)
+    pixels = tb * th * tw
+    xs = math.ceil(tb * (th + kh - 1) * (tw + kw - 1) * Cin / 4) * 4
+    return 4 * max(xs + 2 * pixels * ct + pixels,
+                   (_THREADS // jobs) * jobs * 16)
+
+
+@functools.lru_cache(maxsize=256)   # every training step asks per layer
+def dw_tile(B, Ho, Wo, Cin, Cout, kh, kw) -> tuple[int, int, int]:
+    """(images, rows, columns) of the output pixels one K6 pass-1 block
+    owns: the most pixels of 256, 128, 64, 32 and 16 that still gives one
+    tile an SM (16 where B.Ho.Wo is too small for that), whole images where one
+    image has no more pixels, else whole rows; halved until the block's
+    shared memory fits the 227 KB a block may opt in to.  Depends on the
+    shapes only, so every run adds the same partials in the same order.
+    Raises where even one pixel's x patch does not fit (kh.kw.Cin above
+    about 58 000 floats)."""
+    total = B * Ho * Wo
+    pixels = next((p for p in _DW_PIXELS if math.ceil(total / p) >= _SMS),
+                  _DW_PIXELS[-1])
+    while True:
+        if Ho * Wo <= pixels:
+            tile = (min(B, pixels // (Ho * Wo)), Ho, Wo)
+        elif Wo <= pixels:
+            tile = (1, pixels // Wo, Wo)
+        else:
+            tile = (1, 1, pixels)
+        if dw_smem(tile, Cin, Cout, kh, kw) <= _DW_SMEM:
+            return tile
+        if pixels == 1:
+            raise ValueError(f"conv2d_dw_cuda: one pixel's {kh}x{kw}x{Cin} "
+                             "x patch does not fit a block's 227 KB of "
+                             "shared memory")
+        pixels //= 2
+
+
+def dw_splits(B, Ho, Wo, Cin, Cout, kh, kw) -> int:
+    """How many tiles K6 splits its B.Ho.Wo reduction into (``dw_tile``):
+    pass 2 adds that many partials per output."""
+    tb, th, tw = dw_tile(B, Ho, Wo, Cin, Cout, kh, kw)
+    return math.ceil(B / tb) * math.ceil(Ho / th) * math.ceil(Wo / tw)
 
 
 def conv2d_dw_cuda(x, g, w_shape, padding: str = "SAME", out=None):
     """K6 on the card: (dw, db) of a stride-1 conv, f32, from its input x
-    and cotangent g masked by ``out > 0``.  Two passes (split partial sums,
-    then their fixed-order total) make one launch of the kernel:
+    and cotangent g masked by ``out > 0``.  Two passes (one partial sum per
+    ``dw_tile`` tile of output pixels, into the stream's workspace, then
+    their fixed-order total) make one launch of the kernel:
     ``conv2d_dw_cuda.launches`` counts them."""
     dev = launch.check_f32_cuda("conv2d_dw_cuda", x=x, g=g, out=out)
     kh, kw, Cin, Cout = w_shape
@@ -111,14 +158,13 @@ def conv2d_dw_cuda(x, g, w_shape, padding: str = "SAME", out=None):
                          f"{tuple(g.shape)} do not match filter "
                          f"{tuple(w_shape)}")
     top, _, left, _ = ref.conv_pads(kh, kw, padding)
-    taps = kh * kw * Cin
-    splits = dw_splits(B * Ho * Wo, taps, Cout)
-    part = torch.empty((splits, taps + 1, Cout), dtype=torch.float32,
-                       device=dev)
+    tile = dw_tile(B, Ho, Wo, Cin, Cout, kh, kw)
+    splits = dw_splits(B, Ho, Wo, Cin, Cout, kh, kw)
+    part = launch.workspace(splits * (kh * kw * Cin + 1) * Cout, dev)
     dw = torch.empty(tuple(w_shape), dtype=torch.float32, device=dev)
     db = torch.empty((Cout,), dtype=torch.float32, device=dev)
     launch.run("conv2d", "conv2d_dw_f32", dev, (x, g, out, part, dw, db),
-               (B, H, W, Cin, Ho, Wo, Cout, kh, kw, top, left, splits))
+               (B, H, W, Cin, Ho, Wo, Cout, kh, kw, top, left, *tile))
     conv2d_dw_cuda.launches += 1
     return dw, db
 

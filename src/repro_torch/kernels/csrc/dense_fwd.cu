@@ -8,12 +8,13 @@
 //
 // Two instances behind a plain C interface (built with nvcc, loaded with
 // ctypes by repro_torch/kernels/build.py):
-//   * dense_fwd_bf16: bf16 operands on the tensor cores through
-//     nvcuda::wmma 16x16x16 fragments with f32 accumulators.  This is the
-//     LM serving path: every q/k/v/o and MLP projection.  At M <= 16
-//     (decode) a split-K weight stream (dense_fwd_bf16_splitk and
-//     dense_fwd_bf16_splitk_sum); above (prefill) the tile kernel
-//     dense_fwd_bf16_kernel<64>.
+//   * dense_fwd_bf16: bf16 operands on the tensor cores with f32
+//     accumulators.  This is the LM serving path: every q/k/v/o and MLP
+//     projection.  At M <= 16 (decode) a split-K weight stream of
+//     nvcuda::wmma 16x16x16 fragments (dense_fwd_bf16_splitk and
+//     dense_fwd_bf16_splitk_sum); above (prefill) a tile GEMM of
+//     mma.sync m16n8k16 products (dense_fwd_bf16_tile), split over K where
+//     its tiles alone would leave the card idle.
 //   * dense_fwd_f32: plain FMA on the CUDA cores, no TF32, so it agrees
 //     with a full-f32 reference (the CNN path and the tests).  Its body is
 //     the split-K product of gemm_f32.cuh, shared with K2 (dense_bwd.cu).
@@ -27,10 +28,7 @@
 // (10.0 us), 4096 -> 512 4.2 MB (1.25 us); Gemma-2: 4608 -> 36864 and
 // 36864 -> 4608 339.7 MB each (101 us), 4608 -> 4096 37.7 MB (11.3 us).
 //
-// What the decode design does about it.  The first design gave each
-// block one 64-column panel and walked all of K in a synchronous load,
-// barrier, multiply loop: N / 64 blocks (8 at N = 512), few bytes in
-// flight, 0.16-0.18 ms a launch whatever N was.  Now:
+// What the decode design (M <= 16) does about it:
 //   * the reduction over K is split across blocks: grid (N / 64 tiles,
 //     splits), block (tile, z) reducing the z-th `depth`-deep slice of K.
 //     kernels/dense.py bf16_splits picks (splits, depth) from the shapes:
@@ -64,9 +62,31 @@
 // wgmma, and a persistent grid that walks tiles and slices so one block's
 // epilogue overlaps the next one's loads.
 //
-// Prefill (M > 16) keeps the first design: BM = 64 rows, one 64-column
-// panel a block, a synchronous K loop.
-//
+// Prefill (M > 16): one tile GEMM, dense_fwd_bf16_tile, in two instances
+// chosen by the shapes:
+//   * 17 <= M <= 64 is still a weight stream (x @ w moves K N bf16 weight
+//     bytes for 2 M flops each: 27 us at 11008 -> 4096, as at M = 4).
+//     dense_fwd_bf16_tile<1>: 64 x 128 tiles, 4 warps, x's rows staged
+//     beside w in each ring stage (no depth cap from an x slice), and the
+//     reduction split over K like the decode stream (bf16_splits: slices
+//     at least 128 deep until two blocks an SM run; 288 blocks at 11008
+//     -> 4096), partials added in slice order by the same second launch.
+//     Row fragments past M skip their products.
+//   * M > 64 turns compute-bound (2 M flops a weight pair: at M = 5000,
+//     Gemma-2's 4608 -> 36864 is 1.70 TFLOP, 1.72 ms at 989 TFLOP/s).
+//     dense_fwd_bf16_tile<2>: 128 x 128 tiles, 8 warps of 64 x 32, the
+//     same ring and products, blocks ordered in groups of 8 row tiles so
+//     the blocks in flight share w panels through L2; K splits only where
+//     the tiles fill fewer than 132 SMs (M = 128 at N = 4096 gives 32
+//     tiles).
+// Both keep 4 x 4 m16n8k16 accumulators (64 f32) a thread, fed by ldmatrix
+// from a 4-stage cp.async ring of 32-deep stages (55 KB and 74 KB of
+// dynamic shared memory), every fragment of a 16-deep step loaded before
+// its products, with bias, relu and the bf16 cast fused into the store.
+// What bounds the compute-bound instance is mma.sync, which issues at
+// about half of wgmma's rate on Hopper; what is left is wgmma fed by TMA,
+// with a persistent grid.
+
 // The f32 instance trains the CNN's FC stack at M = 64 rows: (64, 192,
 // 2000), five of (64, 2000, 2000) and (64, 2000, 10) a step.  At (64,
 // 2000, 2000) a launch does 0.512 GFLOP (7.6 us at the 67 TFLOP/s f32 FMA
@@ -102,100 +122,8 @@ using namespace nvcuda;
 constexpr int kWarps = 4;
 constexpr int kThreadsBf16 = 32 * kWarps;
 constexpr int kBN = 16 * kWarps;  // one 16-column fragment strip per warp
-constexpr int kBK = 64;
 constexpr int kPadH = 8;          // bf16 pad: rows stay 16-byte aligned
 constexpr int kPadF = 4;          // f32 pad of the epilogue tile
-
-template <int BM>
-__global__ void __launch_bounds__(kThreadsBf16)
-dense_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                      const __nv_bfloat16* __restrict__ w,
-                      const float* __restrict__ b,
-                      __nv_bfloat16* __restrict__ out,
-                      int M, int N, int K, int relu, int vec) {
-  constexpr int FM = BM / 16;
-  __shared__ __align__(128) __nv_bfloat16 xs[BM][kBK + kPadH];
-  __shared__ __align__(128) __nv_bfloat16 ws[kBK][kBN + kPadH];
-  __shared__ __align__(128) float cs[BM][kBN + kPadF];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * kBN;
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM];
-#pragma unroll
-  for (int i = 0; i < FM; ++i) wmma::fill_fragment(acc[i], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // x tile (BM x kBK), in chunks of 8 along K
-    for (int c = tid; c < BM * kBK / 8; c += kThreadsBf16) {
-      const int r = c / (kBK / 8);
-      const int kc = (c % (kBK / 8)) * 8;
-      const int gr = m0 + r;
-      const int gk = k0 + kc;
-      __nv_bfloat16* dst = &xs[r][kc];
-      if (vec && gr < M && gk + 8 <= K) {
-        *reinterpret_cast<uint4*>(dst) =
-            *reinterpret_cast<const uint4*>(x + (size_t)gr * K + gk);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          dst[e] = (gr < M && gk + e < K) ? x[(size_t)gr * K + gk + e] : zero;
-      }
-    }
-    // w tile (kBK x kBN), in chunks of 8 along N
-    for (int c = tid; c < kBK * kBN / 8; c += kThreadsBf16) {
-      const int r = c / (kBN / 8);
-      const int nc = (c % (kBN / 8)) * 8;
-      const int gk = k0 + r;
-      const int gn = n0 + nc;
-      __nv_bfloat16* dst = &ws[r][nc];
-      if (vec && gk < K && gn + 8 <= N) {
-        *reinterpret_cast<uint4*>(dst) =
-            *reinterpret_cast<const uint4*>(w + (size_t)gk * N + gn);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          dst[e] = (gk < K && gn + e < N) ? w[(size_t)gk * N + gn + e] : zero;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> bf;
-      wmma::load_matrix_sync(bf, &ws[kk][warp * 16], kBN + kPadH);
-#pragma unroll
-      for (int i = 0; i < FM; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> af;
-        wmma::load_matrix_sync(af, &xs[i * 16][kk], kBK + kPadH);
-        wmma::mma_sync(acc[i], af, bf, acc[i]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-    wmma::store_matrix_sync(&cs[i * 16][warp * 16], acc[i], kBN + kPadF,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int c = tid; c < BM * kBN; c += kThreadsBf16) {
-    const int r = c / kBN;
-    const int n = c % kBN;
-    const int gr = m0 + r;
-    const int gn = n0 + n;
-    if (gr < M && gn < N) {
-      float v = cs[r][n];
-      if (b != nullptr) v += b[gn];
-      if (relu) v = fmaxf(v, 0.0f);
-      out[(size_t)gr * N + gn] = __float2bfloat16(v);
-    }
-  }
-}
 
 // ------------------------------------------------ bf16 split-K, M <= 16
 constexpr int kRows = 16;          // one wmma row fragment holds M <= 16
@@ -341,6 +269,235 @@ dense_fwd_bf16_splitk_sum(const float* __restrict__ part,
   out[idx] = __float2bfloat16(v);
 }
 
+// ------------------------------------------------ bf16 tile GEMM, M > 16
+// Block (tile, z): a BM x 128 output tile over the z-th `depth`-deep slice
+// of K, BM = 64 WM.  4 WM warps, each owning a 64 x 32 warp tile: 4 x 4
+// mma.sync m16n8k16 products per 16-deep step, f32 accumulators in
+// registers.  x's rows and w's panel stream together through a 4-stage
+// cp.async ring of 32-deep stages; fragments come from ldmatrix (w
+// transposed on the way) on rows padded by 16 bytes, so the eight row
+// addresses of each 8 x 8 matrix fall on distinct banks.
+constexpr int kTBN = 128;          // output columns a block owns
+constexpr int kTBK = 32;           // K rows per ring stage (the slice step)
+constexpr int kTStages = 4;        // ring depth
+constexpr int kLdA = kTBK + kPadH;   // 40 bf16: 80-byte x rows
+constexpr int kLdB = kTBN + kPadH;   // 136 bf16: 272-byte w rows
+constexpr int kGroup = 8;          // row tiles in one group of the block order
+
+template <int WM>
+inline size_t tile_smem() {
+  return sizeof(__nv_bfloat16) * kTStages *
+         ((size_t)64 * WM * kLdA + (size_t)kTBK * kLdB);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8 and receives, per matrix, row l / 4's elements 2 (l % 4)
+// and 2 (l % 4) + 1 (with .trans: column l / 4's).
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c (16 x 8, f32) += a (16 x 16, row-major bf16) b (16 x 8, bf16)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int WM>
+__global__ void __launch_bounds__(128 * WM)
+dense_fwd_bf16_tile(const __nv_bfloat16* __restrict__ x,
+                    const __nv_bfloat16* __restrict__ w,
+                    const float* __restrict__ b, float* __restrict__ part,
+                    __nv_bfloat16* __restrict__ out, int M, int N, int K,
+                    int relu, int splits, int depth, int vec) {
+  constexpr int BM = 64 * WM;
+  constexpr int kThreads = 128 * WM;
+  constexpr int kStageA = BM * kLdA;
+  constexpr int kStageB = kTBK * kLdB;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sb = sa + kTStages * kStageA;
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int wr = (warp / 4) * 64;    // the warp tile's first row in the block
+  const int wc = (warp % 4) * 32;    // ... and first column
+  // blocks in groups of kGroup row tiles, row tiles fastest: the blocks
+  // that run together share a few w panels and x tiles through L2
+  // instead of streaming every w panel once per row tile
+  const int tm = (M + BM - 1) / BM;
+  const int tn = (N + kTBN - 1) / kTBN;
+  const int first = blockIdx.x / (kGroup * tn) * kGroup;
+  const int rows = min(kGroup, tm - first);
+  const int in_group = blockIdx.x % (kGroup * tn);
+  const int m0 = (first + in_group % rows) * BM;
+  const int n0 = in_group / rows * kTBN;
+  const int z = blockIdx.z;
+  const int kbeg = z * depth;
+  const int kend = min(K, kbeg + depth);
+  const int steps = (kend - kbeg + kTBK - 1) / kTBK;
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+
+  // stage t of the slice (x's BM x 32 tile and w's 32 x 128 panel) into
+  // ring slot `slot`, zero outside [kbeg, kend) x M x N
+  auto load = [&](int slot, int t) {
+    const int k0 = kbeg + t * kTBK;
+    __nv_bfloat16* a = sa + slot * kStageA;
+    __nv_bfloat16* bs = sb + slot * kStageB;
+#pragma unroll
+    for (int i = 0; i < BM * (kTBK / 8) / kThreads; ++i) {
+      const int c = tid + i * kThreads;
+      const int r = c / (kTBK / 8);
+      const int kc = (c % (kTBK / 8)) * 8;
+      const int gr = m0 + r;
+      const int gk = k0 + kc;
+      __nv_bfloat16* dst = a + r * kLdA + kc;
+      if (vec) {
+        const bool ok = gr < M && gk < kend;
+        cp_async::copy16(dst, x + (ok ? (size_t)gr * K + gk : 0), ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = (gr < M && gk + e < kend) ? x[(size_t)gr * K + gk + e]
+                                             : zero;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kTBK * (kTBN / 8) / kThreads; ++i) {
+      const int c = tid + i * kThreads;
+      const int r = c / (kTBN / 8);
+      const int nc = (c % (kTBN / 8)) * 8;
+      const int gk = k0 + r;
+      const int gn = n0 + nc;
+      __nv_bfloat16* dst = bs + r * kLdB + nc;
+      if (vec) {
+        const bool ok = gk < kend && gn < N;
+        cp_async::copy16(dst, w + (ok ? (size_t)gk * N + gn : 0), ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[e] = (gk < kend && gn + e < N) ? w[(size_t)gk * N + gn + e]
+                                             : zero;
+      }
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  // the warp's 16-row fragments that hold a row < M (warp-uniform)
+  const int live = min(4, max(0, (M - m0 - wr + 15) / 16));
+
+  for (int t = 0; t < kTStages - 1; ++t) {
+    if (t < steps) load(t, t);
+    cp_async::commit();
+  }
+  for (int t = 0; t < steps; ++t) {
+    cp_async::wait<kTStages - 2>();   // stage t landed
+    __syncthreads();                 // ... for every thread; slot t-1 free
+    if (t + kTStages - 1 < steps)
+      load((t + kTStages - 1) % kTStages, t + kTStages - 1);
+    cp_async::commit();
+    const __nv_bfloat16* a = sa + (t % kTStages) * kStageA + wr * kLdA;
+    const __nv_bfloat16* bs = sb + (t % kTStages) * kStageB + wc;
+#pragma unroll
+    for (int kk = 0; kk < kTBK; kk += 16) {
+      // every fragment of the step first, then the products, so the
+      // loads of one step overlap the products of the last
+      unsigned af[4][4], bf[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldmatrix_x4(af[i], a + (i * 16 + lane % 16) * kLdA + kk +
+                               (lane / 16) * 8);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {   // two n8 tiles an ldmatrix
+        unsigned r[4];
+        ldmatrix_x4_trans(r, bs + (kk + lane % 16) * kLdB + j * 16 +
+                                 (lane / 16) * 8);
+        bf[2 * j][0] = r[0];
+        bf[2 * j][1] = r[1];
+        bf[2 * j + 1][0] = r[2];
+        bf[2 * j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (WM > 1 || i < live)   // the stream skips fragments past M
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_bf16(acc[i][j], af[i], bf[j][0], bf[j][1]);
+    }
+  }
+  cp_async::wait<0>();
+
+  // epilogue from the accumulators: element e of fragment (i, j) is row
+  // lane / 4 (+ 8 for e >= 2), column 2 (lane % 4) + e % 2
+  const bool whole = splits == 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = m0 + wr + i * 16 + lane / 4 + h * 8;
+      if (gr >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int gn = n0 + wc + j * 8 + (lane % 4) * 2;
+        float v0 = acc[i][j][2 * h];
+        float v1 = acc[i][j][2 * h + 1];
+        if (whole) {
+          if (b != nullptr) {
+            if (gn < N) v0 += b[gn];
+            if (gn + 1 < N) v1 += b[gn + 1];
+          }
+          if (relu) {
+            v0 = fmaxf(v0, 0.0f);
+            v1 = fmaxf(v1, 0.0f);
+          }
+          __nv_bfloat16* o = out + (size_t)gr * N + gn;
+          if (vec && gn < N) {   // N % 8 == 0: the pair is in the row
+            *reinterpret_cast<__nv_bfloat162*>(o) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (gn < N) o[0] = __float2bfloat16(v0);
+            if (gn + 1 < N) o[1] = __float2bfloat16(v1);
+          }
+        } else {
+          float* p = part + ((size_t)z * M + gr) * N + gn;
+          if (vec && gn < N) {
+            *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+          } else {
+            if (gn < N) p[0] = v0;
+            if (gn + 1 < N) p[1] = v1;
+          }
+        }
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- f32
 // The two passes of gemm_f32.cuh under K1's names (w read as (K, N)).
 __global__ void __launch_bounds__(gemm_f32::kThreads)
@@ -360,28 +517,35 @@ dense_fwd_f32_sum_kernel(const float* __restrict__ part,
   gemm_f32::splitk_sum(part, b, out, M, N, relu, splits);
 }
 
-// Let the split-K pass use more than 48 KB of dynamic shared memory: once
-// per device, since a decode step launches it 224 times and the call costs
-// the host microseconds each time.
-int allow_splitk_smem() {
+// Let the split-K pass and the tile GEMM use more than 48 KB of dynamic
+// shared memory: once per device, since a decode step launches K1 224
+// times and the call costs the host microseconds each time.
+int allow_bf16_smem() {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   static bool done[64] = {};
   if (dev < 64 && done[dev]) return 0;
-  err = cudaFuncSetAttribute(dense_fwd_bf16_splitk,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  err = cudaFuncSetAttribute(dense_fwd_bf16_splitk, attr,
                              (int)splitk_smem(kMaxDepth));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dense_fwd_bf16_tile<1>, attr,
+                               (int)tile_smem<1>());
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dense_fwd_bf16_tile<2>, attr,
+                               (int)tile_smem<2>());
   if (err == cudaSuccess && dev < 64) done[dev] = true;
   return (int)err;
 }
 
 }  // namespace
 
-// x (M, K), w (K, N) bf16; b (N,) f32 or null; out (M, N) bf16.  At
-// M <= 16, (splits, depth) cut K into slices (kernels/dense.py
-// bf16_splits) and part holds the (splits, M, N) f32 partial sums, null
-// when splits == 1; above, they are not read.
+// x (M, K), w (K, N) bf16; b (N,) f32 or null; out (M, N) bf16.
+// (splits, depth) cut K into slices (kernels/dense.py bf16_splits): at
+// M <= 16 for the split-K stream (depth a multiple of 64, at most 1024),
+// above for the tile GEMM (depth a multiple of 32).  part holds the
+// (splits, M, N) f32 partial sums, null when splits == 1.
 extern "C" int dense_fwd_bf16(const void* x, const void* w, const void* b,
                               void* part, void* out, int M, int N, int K,
                               int relu, int splits, int depth,
@@ -389,29 +553,39 @@ extern "C" int dense_fwd_bf16(const void* x, const void* w, const void* b,
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   const int vec = (K % 8 == 0) && (N % 8 == 0) &&
                   ((uintptr_t)x % 16 == 0) && ((uintptr_t)w % 16 == 0);
+  const bool tile = M > kRows;
+  const int step = tile ? kTBK : kStep;
+  // the slices cover K, none is empty, each starts on a K step
+  if (splits <= 0 || splits > 65535 || depth <= 0 || depth % step != 0 ||
+      (!tile && depth > kMaxDepth) || (long long)splits * depth < K ||
+      (long long)(splits - 1) * depth >= K ||
+      (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int err = allow_bf16_smem();
+  if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
   const auto* wp = static_cast<const __nv_bfloat16*>(w);
   const auto* bp = static_cast<const float*>(b);
   auto* op = static_cast<__nv_bfloat16*>(out);
-  if (M > kRows) {
-    dim3 grid((N + kBN - 1) / kBN, (M + 63) / 64);
-    dense_fwd_bf16_kernel<64><<<grid, kThreadsBf16, 0, s>>>(
-        xp, wp, bp, op, M, N, K, relu, vec);
-    return (int)cudaGetLastError();
-  }
-  // the slices cover K, none is empty, each starts on a K step
-  if (splits <= 0 || splits > 65535 || depth <= 0 || depth % kStep != 0 ||
-      depth > kMaxDepth || (long long)splits * depth < K ||
-      (long long)(splits - 1) * depth >= K ||
-      (splits > 1 && part == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int err = allow_splitk_smem();
-  if (err != 0) return err;
   auto* pp = static_cast<float*>(part);
-  dim3 grid((N + kBN - 1) / kBN, splits);
-  dense_fwd_bf16_splitk<<<grid, kThreadsBf16, splitk_smem(depth), s>>>(
-      xp, wp, bp, pp, op, M, N, K, relu, splits, depth, vec);
+  if (!tile) {
+    dim3 grid((N + kBN - 1) / kBN, splits);
+    dense_fwd_bf16_splitk<<<grid, kThreadsBf16, splitk_smem(depth), s>>>(
+        xp, wp, bp, pp, op, M, N, K, relu, splits, depth, vec);
+  } else {   // 64-row tiles up to M = 64, 128-row ones beyond
+    const int WM = M <= 64 ? 1 : 2;
+    const long long tiles = (long long)((M + 64 * WM - 1) / (64 * WM)) *
+                            ((N + kTBN - 1) / kTBN);
+    if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    dim3 grid((unsigned)tiles, 1, splits);
+    if (WM == 1)
+      dense_fwd_bf16_tile<1><<<grid, 128, tile_smem<1>(), s>>>(
+          xp, wp, bp, pp, op, M, N, K, relu, splits, depth, vec);
+    else
+      dense_fwd_bf16_tile<2><<<grid, 256, tile_smem<2>(), s>>>(
+          xp, wp, bp, pp, op, M, N, K, relu, splits, depth, vec);
+  }
   int rc = (int)cudaGetLastError();
   if (rc != 0 || splits == 1) return rc;
   const size_t n = (size_t)M * N;

@@ -9,8 +9,9 @@ and a CPU tensor takes their plain versions in ``ref.py``.
 K1's f32 instance and K2 are one split-K product (``csrc/gemm_f32.cuh``):
 ``dense_splits`` picks how many slices of the reduction run on separate
 blocks, and the launcher hands the kernel a scratch buffer for their
-partial sums.  K1's bf16 instance at M <= 16 (decode) splits its
-reduction the same way, as ``bf16_splits`` says.
+partial sums.  K1's bf16 instance splits its reduction the same way, as
+``bf16_splits`` says: the decode stream at M <= 16 always, the prefill
+tile GEMM where its tiles alone would leave SMs idle.
 """
 from __future__ import annotations
 
@@ -37,6 +38,12 @@ _TILE, _DEPTH = 64, 16   # gemm_f32.cuh's output tile and K step
 # block owns, K step (one ring stage), and the deepest slice whose x rows
 # fit its shared memory, in K steps
 _BF16_ROWS, _BF16_TILE_N, _BF16_STEP, _BF16_MAX_STEPS = 16, 64, 64, 16
+# its prefill tile GEMM: rows a block owns up to M = 64 (the weight
+# stream) and above, columns, K step, the shallowest slice in K steps, and
+# the blocks each tile size wants before its slices stop splitting
+_TILE_ROWS_STREAM, _TILE_ROWS, _TILE_N, _TILE_STEP = 64, 128, 128, 32
+_TILE_MIN_STEPS = 4
+_TILE_BLOCKS = {64: _SM_BLOCKS, 128: _SM_BLOCKS // 2}
 
 
 def split_depth(K: int, splits: int) -> int:
@@ -60,20 +67,36 @@ def dense_splits(M: int, N: int, K: int) -> int:
     return splits
 
 
-@functools.lru_cache(maxsize=1024)   # every decode projection asks each step
+@functools.lru_cache(maxsize=1024)   # every projection asks each call
 def bf16_splits(M: int, N: int, K: int) -> tuple[int, int]:
     """(splits, depth) of K1's bf16 instance for x (M, K) @ w (K, N).
 
-    At M <= 16 the weight panel of each 64-column tile streams through
-    ``splits`` blocks, each reducing one ``depth``-deep slice of K (a
-    multiple of the 64-deep K step, at most 1024, the last slice taking
+    At M <= 16 (decode) the weight panel of each 64-column tile streams
+    through ``splits`` blocks, each reducing one ``depth``-deep slice of K
+    (a multiple of the 64-deep K step, at most 1024, the last slice taking
     what is left).  The depth is the largest that still gives every SM two
     blocks (tiles x splits >= 264), or one K step where K is too short for
-    that; every slice is non-empty.  Prefill (M > 16) does not split:
-    (1, 0).  Depends on the shapes only, so every run adds the same
-    partials in the same order."""
+    that.
+
+    Above (prefill) the tile GEMM owns 64-row tiles up to M = 64 and
+    128-row tiles beyond, 128 columns each.  Its slices are multiples of
+    the 32-deep K step, of about equal depth, and as many as bring tiles x
+    splits to 264 blocks (64-row tiles) or 132 (128-row tiles, 8 warps
+    each), but none shallower than 128 (four steps); 1 where the tiles
+    alone reach it.
+
+    Every slice is non-empty.  Depends on the shapes only, so every run
+    adds the same partials in the same order."""
     if M > _BF16_ROWS:
-        return 1, 0
+        rows = _TILE_ROWS_STREAM if M <= _TILE_ROWS_STREAM else _TILE_ROWS
+        tiles = math.ceil(M / rows) * math.ceil(N / _TILE_N)
+        steps = math.ceil(K / _TILE_STEP)
+        low = min(steps, _TILE_MIN_STEPS)
+        want = min(math.ceil(_TILE_BLOCKS[rows] / tiles), steps // low)
+        depth = math.ceil(steps / want)
+        while math.ceil(steps / depth) < want:   # rounding lost a slice
+            depth -= 1
+        return math.ceil(steps / depth), depth * _TILE_STEP
     steps = math.ceil(K / _BF16_STEP)
     want = math.ceil(_SM_BLOCKS / math.ceil(N / _BF16_TILE_N))
     depth = next((d for d in range(min(steps, _BF16_MAX_STEPS), 0, -1)
@@ -81,23 +104,11 @@ def bf16_splits(M: int, N: int, K: int) -> tuple[int, int]:
     return math.ceil(steps / depth), depth * _BF16_STEP
 
 
-_WORKSPACE: dict = {}   # (device, stream) -> f32 split-K scratch
-
-
 def _scratch(splits, M, N, device):
-    """Room for the (splits, M, N) f32 partial sums of a split-K launch,
-    or None where the reduction does not split.  One buffer per (device,
-    stream), grown as needed and reused: launches on one stream run in
-    order, each adding up its partials before the next starts, and a
-    decode step saves an allocation per projection."""
-    if splits == 1:
-        return None
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    buf = _WORKSPACE.get(key)
-    if buf is None or buf.numel() < splits * M * N:
-        buf = torch.empty(splits * M * N, dtype=torch.float32, device=device)
-        _WORKSPACE[key] = buf
-    return buf
+    """Room for the (splits, M, N) f32 partial sums of a split-K launch
+    (the stream's workspace, ``launch.workspace``), or None where the
+    reduction does not split."""
+    return None if splits == 1 else launch.workspace(splits * M * N, device)
 
 
 def _split(M, N, K, device):

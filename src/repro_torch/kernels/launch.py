@@ -14,9 +14,10 @@ import torch
 
 from . import build
 
-__all__ = ["check_f32_cuda", "detached", "run"]
+__all__ = ["check_f32_cuda", "detached", "run", "workspace"]
 
 _FNS: dict = {}
+_WORKSPACE: dict = {}   # (device, stream) -> f32 scratch of the split kernels
 
 
 def _bind(lib: str, symbol: str, n_ptrs: int, n_ints: int, n_floats: int):
@@ -53,6 +54,21 @@ def check_f32_cuda(name: str, **tensors) -> torch.device:
                 f"{name} launches outside autograd: pass tensors that do "
                 "not require grad, or differentiate through kernels.ops")
     return next(iter(devices))
+
+
+def workspace(numel: int, device) -> torch.Tensor:
+    """An f32 scratch buffer of at least ``numel`` elements for the partial
+    sums of a kernel that splits its reduction (K1, K2, K6).  One buffer
+    per (device, stream), grown as needed and reused: launches on one
+    stream run in order, each adding up its partials before the next
+    starts, so a decode step or a training step saves an allocation per
+    launch."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _WORKSPACE.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty(numel, dtype=torch.float32, device=device)
+        _WORKSPACE[key] = buf
+    return buf
 
 
 def run(lib: str, symbol: str, device, ptrs, ints, floats=()) -> None:

@@ -145,9 +145,13 @@ def test_images_need_no_input_gradient(monkeypatch):
     assert calls == []
 
 
-@pytest.mark.parametrize("rows,taps,cout,want", [
-    (65536, 27, 12, 256), (16384, 108, 12, 64), (1024, 108, 12, 4),
-    (8, 27, 12, 1)])
-def test_dw_splits_fill_the_card_and_depend_on_shapes_only(rows, taps, cout,
-                                                          want):
-    assert conv2d.dw_splits(rows, taps, cout) == want
+@pytest.mark.parametrize("B,H,W,Cin,Cout,k,want", [
+    (64, 32, 32, 3, 12, 3, 256), (64, 16, 16, 12, 12, 3, 256),
+    (64, 8, 8, 12, 12, 3, 256), (64, 4, 4, 12, 12, 3, 64),
+    (2, 2, 2, 3, 12, 3, 1)])
+def test_dw_splits_fill_the_card_and_depend_on_shapes_only(B, H, W, Cin,
+                                                          Cout, k, want):
+    """K6 cuts B.H.W into one tile of output pixels a block: 256 tiles (one
+    an SM and more) at case7's 32, 16 and 8 px layers, and 16-pixel tiles
+    (whole 4 x 4 images) where the layer is too small to fill the card."""
+    assert conv2d.dw_splits(B, H, W, Cin, Cout, k, k) == want

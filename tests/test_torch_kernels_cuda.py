@@ -75,6 +75,58 @@ def test_dense_bf16_split_kernel_matches_plain_and_reruns(M, K, N, relu):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [17, 24, 33, 63, 64, 65, 129])
+@pytest.mark.parametrize("K,N,relu", [
+    (4096, 512, False), (11008, 4096, True),
+    # ragged: N off the 128-column tile, K off the 32-deep step, N or K
+    # not a multiple of 8 (the element-by-element loads)
+    (4096, 520, True), (1000, 77, True), (4099, 130, False),
+    (72, 70, True)])
+def test_dense_bf16_prefill_kernel_matches_plain_and_reruns(M, K, N, relu):
+    """K1's bf16 prefill instance (the tile GEMM; 64-row tiles to M = 64,
+    128-row beyond, split over K where its tiles leave SMs idle): one bf16
+    rounding of the output from the plain version, one launch a call,
+    identical bits on a rerun."""
+    _card()
+    gen = torch.Generator("cuda").manual_seed(10)
+    x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((K, N), generator=gen, device="cuda")
+         / K ** 0.5).bfloat16()
+    b = torch.randn((N,), generator=gen, device="cuda") if relu else None
+    act = "relu" if relu else "none"
+    before = dense.dense_cuda.launches
+    got = dense.dense_cuda(x, w, b, activation=act)
+    again = dense.dense_cuda(x, w, b, activation=act)
+    want = ref.dense_ref(x, w, b, activation=act)
+    torch.cuda.synchronize()
+    assert dense.dense_cuda.launches == before + 2
+    tol = 1e-2 * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(512, 4608, 4096), (512, 36864, 4608),
+                                   (1000, 4608, 2048)])
+def test_dense_bf16_prefill_gemma_shapes_match_plain_and_rerun(M, K, N):
+    """The compute-bound regime at Gemma-2's widths (128-row tiles; 4608
+    -> 4096 at M = 512 splits K in two), with bias and relu."""
+    _card()
+    gen = torch.Generator("cuda").manual_seed(11)
+    x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((K, N), generator=gen, device="cuda")
+         / K ** 0.5).bfloat16()
+    b = torch.randn((N,), generator=gen, device="cuda")
+    got = dense.dense_cuda(x, w, b, activation="relu")
+    again = dense.dense_cuda(x, w, b, activation="relu")
+    want = ref.dense_ref(x, w, b, activation="relu")
+    torch.cuda.synchronize()
+    tol = 1e-2 * want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
 def test_ops_dense_on_card_launches_the_kernel():
     _card()
     gen = torch.Generator("cuda").manual_seed(1)
@@ -186,6 +238,66 @@ def test_conv_kernels_match_plain(B, H, W, Cin, Cout, k, padding):
     _close(dw, ref.conv2d_dw_ref(x, g, w.shape, padding, out), True)
     again = cv.conv2d_dw_cuda(x, g, w.shape, padding, out)
     assert torch.equal(dw[0], again[0]) and torch.equal(dw[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,Cin,Cout,k,padding", [
+    # every case7 shape at B = 64, then the ragged cases: odd B, Cin 3,
+    # k = 2/4/7, VALID, tiles clipped at the edges, several images a tile
+    (64, 32, 32, 3, 12, 3, "SAME"), (64, 16, 16, 12, 12, 3, "SAME"),
+    (64, 8, 8, 12, 12, 3, "SAME"), (64, 4, 4, 12, 12, 3, "SAME"),
+    (3, 9, 7, 3, 5, 2, "SAME"), (3, 9, 7, 3, 5, 4, "SAME"),
+    (3, 9, 7, 3, 5, 7, "SAME"), (3, 9, 7, 4, 20, 3, "VALID"),
+    (1, 8, 8, 12, 12, 7, "VALID"), (5, 6, 6, 12, 12, 7, "SAME"),
+    (7, 5, 300, 3, 16, 5, "SAME"),
+    # wide Cin: tiles of 145 KB and 219 KB of shared memory (past 48 KB)
+    (1, 8, 8, 2048, 16, 3, "SAME"), (1, 6, 6, 1000, 8, 7, "SAME")])
+def test_conv_dw_kernel_matches_plain_and_reruns(B, H, W, Cin, Cout, k,
+                                                 padding):
+    """K6 (tiles of output pixels, fixed-order sums): within the gradient
+    gate of its plain version, with and without the relu mask, one launch a
+    call, identical bits on a rerun."""
+    _card()
+    from repro_torch.kernels import conv2d as cv
+    gen = _gen(12)
+    Ho, Wo = (H, W) if padding == "SAME" else (H - k + 1, W - k + 1)
+    x = _randn(gen, (B, H, W, Cin))
+    g = _randn(gen, (B, Ho, Wo, Cout))
+    out = torch.relu(_randn(gen, (B, Ho, Wo, Cout)))
+    ws = (k, k, Cin, Cout)
+    for mask in (out, None):
+        before = cv.conv2d_dw_cuda.launches
+        got = cv.conv2d_dw_cuda(x, g, ws, padding, mask)
+        again = cv.conv2d_dw_cuda(x, g, ws, padding, mask)
+        assert cv.conv2d_dw_cuda.launches == before + 2
+        _close(got, ref.conv2d_dw_ref(x, g, ws, padding, mask), True)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                             again[1])
+
+
+@pytest.mark.cuda
+def test_conv_dw_tile_chooser_counts_the_kernels_bytes():
+    """conv2d.dw_smem (which sizes K6's tiles) equals the kernel's own
+    count of a pass-1 block's shared memory, DwPlan::smem, at every tile
+    the chooser picks for the case7, ragged and wide shapes and at tiles
+    of 1-256 pixels."""
+    _card()
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels import conv2d as cv
+    fn = build.load("conv2d").conv2d_dw_smem
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_longlong
+    shapes = [(64, 32, 32, 3, 12, 3), (64, 16, 16, 12, 12, 3),
+              (64, 4, 4, 12, 12, 3), (3, 9, 7, 3, 5, 7), (3, 9, 7, 4, 20, 3),
+              (2, 56, 56, 512, 512, 3), (1, 6, 6, 1000, 8, 7),
+              (1, 8, 8, 2048, 16, 3), (7, 3, 3, 33, 17, 1)]
+    for B, H, W, Cin, Cout, k in shapes:
+        tiles = {cv.dw_tile(B, H, W, Cin, Cout, k, k), (1, 1, 1), (1, 1, W),
+                 (1, 2, W), (B, H, W), (1, H, W)}
+        for tile in tiles:
+            assert fn(Cin, Cout, k, k, *tile) == cv.dw_smem(tile, Cin, Cout,
+                                                            k, k), tile
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """The split-K products: how the reduction is cut for the f32 product
-behind K1's f32 instance and K2 (``dense.dense_splits``) and for K1's
-bf16 decode instance (``dense.bf16_splits``), and that the kernel
+behind K1's f32 instance and K2 (``dense.dense_splits``), for K1's bf16
+decode stream and prefill tile GEMM (``dense.bf16_splits``) and for K6's
+tiles of output pixels (``conv2d.dw_tile``), and that the kernel
 libraries rebuild when the header they share changes.  CPU only, no
 ``nvcc``: the kernels themselves are held against their plain versions on
 a card in ``test_torch_kernels_cuda.py``.
@@ -13,7 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.kernels import build, dense  # noqa: E402
+from repro_torch.kernels import build, conv2d, dense, ref  # noqa: E402
 
 # (M, N, K) of C (M, N) = A (M, K) B (K, N): every case7 shape at B = 64
 # (K1: (64, Dout, Din); K2: (64, Din, Dout)), short K, ragged shapes
@@ -125,8 +126,8 @@ def test_bf16_slices_cover_k_and_fill_the_card(M, K, N):
     (4, 4096, 11008, (4, 1024)),   # the deepest slice: x rows fit smem
     (1, 36864, 4608, (36, 1024)),  # Gemma-2's down projection
     (16, 72, 70, (2, 64)),         # K too short for two blocks an SM
-    (17, 4096, 512, (1, 0)),       # prefill: no split
-    (24, 4096, 4096, (1, 0)),
+    (17, 4096, 512, (32, 128)),    # prefill: slices of the shallowest 128
+    (24, 4096, 4096, (9, 480)),    # 32 tiles x 9 = 288 blocks
 ])
 def test_bf16_splits_depend_on_shapes_only(M, K, N, want):
     assert dense.bf16_splits(M, N, K) == want
@@ -150,6 +151,197 @@ def test_bf16_slice_partials_in_order_give_the_product():
     want = x.double() @ w.double()
     assert (total.double() - want).abs().max().item() <= \
         1e-5 * want.abs().max().item()
+
+
+# ----------------------------------------------------------------------
+# K1's bf16 prefill instance (M > 16): a tile GEMM split over K where its
+# tiles alone leave the card idle
+# ----------------------------------------------------------------------
+TILE_STEP, TILE_MIN_STEPS = 32, 4
+PREFILL_ROWS = [17, 24, 33, 63, 64, 65, 128, 129, 512, 5000]
+
+
+def _prefill_blocks(M, N, K):
+    """(tiles, the blocks the tile size wants) of the prefill GEMM."""
+    rows = 64 if M <= 64 else 128
+    return -(-M // rows) * -(-N // 128), 264 if rows == 64 else 132
+
+
+@pytest.mark.parametrize("M", PREFILL_ROWS)
+@pytest.mark.parametrize("K,N", LM_SHAPES + BF16_RAGGED)
+def test_prefill_slices_cover_k_and_fill_the_card(M, K, N):
+    splits, depth = dense.bf16_splits(M, N, K)
+    assert (splits, depth) == dense.bf16_splits(M, N, K)   # shapes only
+    assert depth % TILE_STEP == 0 and splits >= 1
+    slices = [(z * depth, min(K, (z + 1) * depth)) for z in range(splits)]
+    assert slices[0][0] == 0 and slices[-1][1] == K
+    assert all(b == c for (_, b), (c, _) in zip(slices, slices[1:]))
+    assert all(b > a for a, b in slices)                  # none empty
+    # no slice shallower than 4 K steps where K splits at all
+    assert splits == 1 or depth >= TILE_MIN_STEPS * TILE_STEP
+    tiles, want = _prefill_blocks(M, N, K)
+    steps = -(-K // TILE_STEP)
+    if tiles >= want:                  # the tiles alone fill the card
+        assert splits == 1
+    elif steps // TILE_MIN_STEPS >= -(-want // tiles):
+        assert tiles * splits >= want  # K allows filling it: filled
+    else:                              # slices about as shallow as allowed
+        assert depth < 2 * TILE_MIN_STEPS * TILE_STEP
+
+
+@pytest.mark.parametrize("M", [17, 24, 64, 65, 512, 5000])
+@pytest.mark.parametrize("K,N", LM_SHAPES)
+def test_prefill_blocks_fill_the_card_at_the_lm_shapes(M, K, N):
+    """Every Yi-6B, Phi-3 and Gemma-2 projection at prefill rows launches
+    at least one block an SM, two where the tiles are 64-row."""
+    splits, _ = dense.bf16_splits(M, N, K)
+    tiles, want = _prefill_blocks(M, N, K)
+    assert tiles * splits >= min(want, 128)
+
+
+@pytest.mark.parametrize("M,K,N,want", [
+    (24, 11008, 4096, (9, 1248)),   # Yi-6B's down projection: 288 blocks
+    (24, 4096, 11008, (4, 1024)),   # 86 tiles x 4
+    (64, 36864, 4608, (8, 4608)),   # Gemma-2's down projection
+    (64, 4608, 36864, (1, 4608)),   # 288 tiles: no split
+    (65, 4096, 4096, (5, 832)),     # 128-row tiles from M = 65 on
+    (512, 4608, 4096, (2, 2304)),   # 128 tiles: two slices
+    (512, 36864, 4608, (1, 36864)),
+    (5000, 4608, 36864, (1, 4608)), (5000, 36864, 4608, (1, 36864)),
+    (17, 72, 70, (1, 96)),          # K too short to split
+])
+def test_prefill_splits_depend_on_shapes_only(M, K, N, want):
+    assert dense.bf16_splits(M, N, K) == want
+
+
+@pytest.mark.parametrize("M,K,N", [(24, 4099, 130), (65, 1000, 77),
+                                   (33, 11008, 64)])
+def test_prefill_slice_partials_in_order_give_the_product(M, K, N):
+    """What the prefill instance's two passes compute, through the plain
+    version: each slice's product of the bf16 operands in f32, added in
+    slice order, then bias and relu, equals the whole product."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).bfloat16().float()
+    w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)
+                         ).bfloat16().float()
+    b = torch.from_numpy(rng.standard_normal(N).astype(np.float32))
+    splits, depth = dense.bf16_splits(M, N, K)
+    assert splits > 1
+    total = torch.zeros((M, N))
+    for z in range(splits):
+        lo, hi = z * depth, min(K, (z + 1) * depth)
+        total += ref.dense_ref(x[:, lo:hi], w[lo:hi])
+    got = torch.relu(total + b)
+    want = ref.dense_ref(x.double(), w.double(), b.double(), "relu")
+    assert (got.double() - want).abs().max().item() <= \
+        1e-5 * want.abs().max().item()
+
+
+# ----------------------------------------------------------------------
+# K6: one tile of output pixels a pass-1 block, partials added in order
+# ----------------------------------------------------------------------
+CASE7_CONV = [(64, 32, 32, 3, 12, 3, "SAME"), (64, 16, 16, 12, 12, 3, "SAME"),
+              (64, 8, 8, 12, 12, 3, "SAME"), (64, 4, 4, 12, 12, 3, "SAME")]
+RAGGED_CONV = [(3, 9, 7, 3, 5, 2, "SAME"), (3, 9, 7, 3, 5, 4, "SAME"),
+               (3, 9, 7, 3, 5, 7, "SAME"), (3, 9, 7, 4, 20, 3, "VALID"),
+               (1, 8, 8, 12, 12, 7, "VALID"), (5, 6, 6, 12, 12, 7, "SAME")]
+WIDE_CONV = [(8, 224, 224, 64, 64, 3, "SAME"), (2, 56, 56, 512, 512, 3, "SAME"),
+             (1, 5, 300, 3, 16, 5, "SAME"), (7, 3, 3, 33, 17, 1, "VALID"),
+             # past 48 KB of shared memory a block: 145 KB and 219 KB tiles
+             (1, 8, 8, 2048, 16, 3, "SAME"), (1, 6, 6, 1000, 8, 7, "SAME")]
+DW_SMEM_LIMIT = 227 * 1024   # the H100's opt-in shared memory a block
+
+
+def _out_hw(H, W, k, pad):
+    return (H, W) if pad == "SAME" else (H - k + 1, W - k + 1)
+
+
+def _tiles(B, Ho, Wo, tile):
+    """Every tile's (images, rows, columns) ranges in the launch's order
+    (columns fastest, then rows, then images), clipped at the edges."""
+    tb, th, tw = tile
+    return [((b, min(B, b + tb)), (h, min(Ho, h + th)), (w, min(Wo, w + tw)))
+            for b in range(0, B, tb) for h in range(0, Ho, th)
+            for w in range(0, Wo, tw)]
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout,k,pad",
+                         CASE7_CONV + RAGGED_CONV + WIDE_CONV)
+def test_dw_tiles_cover_every_pixel_once_and_fit(B, H, W, Cin, Cout, k, pad):
+    Ho, Wo = _out_hw(H, W, k, pad)
+    tile = conv2d.dw_tile(B, Ho, Wo, Cin, Cout, k, k)
+    assert tile == conv2d.dw_tile(B, Ho, Wo, Cin, Cout, k, k)  # shapes only
+    assert conv2d.dw_smem(tile, Cin, Cout, k, k) <= DW_SMEM_LIMIT
+    seen = np.zeros((B, Ho, Wo), np.int64)
+    tiles = _tiles(B, Ho, Wo, tile)
+    assert len(tiles) == conv2d.dw_splits(B, Ho, Wo, Cin, Cout, k, k)
+    for (b0, b1), (h0, h1), (w0, w1) in tiles:
+        assert b1 > b0 and h1 > h0 and w1 > w0          # none empty
+        seen[b0:b1, h0:h1, w0:w1] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout,k,want", [
+    (64, 32, 32, 3, 12, 3, (1, 8, 32)),    # 256 pixels, 256 tiles
+    (64, 16, 16, 12, 12, 3, (1, 4, 16)),   # 64 pixels: 256 tiles
+    (64, 8, 8, 12, 12, 3, (1, 2, 8)),      # 16 pixels: 256 tiles
+    (64, 4, 4, 12, 12, 3, (1, 4, 4)),      # whole images: 64 tiles
+    (2, 2, 2, 3, 12, 3, (2, 2, 2)),        # two images a block
+    (3, 9, 7, 3, 5, 2, (1, 2, 7)),
+    (2, 56, 56, 512, 512, 3, (1, 1, 32)),  # wide channels: 208 KB
+    (1, 6, 6, 1000, 8, 7, (1, 1, 2)),      # smem halves it from 16 pixels
+])
+def test_dw_tile_depends_on_shapes_only(B, H, W, Cin, Cout, k, want):
+    assert conv2d.dw_tile(B, H, W, Cin, Cout, k, k) == want
+
+
+def test_dw_tile_refuses_a_patch_past_the_block_limit():
+    """One pixel's 3 x 3 x 6400 patch fits a block; 3 x 3 x 7000 does not,
+    and the chooser says so rather than hand the kernel a tile it
+    refuses."""
+    assert conv2d.dw_tile(1, 8, 8, 6400, 16, 3, 3) == (1, 1, 1)
+    with pytest.raises(ValueError, match="does not fit"):
+        conv2d.dw_tile(1, 8, 8, 7000, 16, 3, 3)
+
+
+def test_dw_tile_blocks_fill_the_card_where_the_layer_allows():
+    """One tile an SM wherever B.H.W has 16 pixels for each of 132 SMs."""
+    for B, H, W, Cin, Cout, k, _ in CASE7_CONV + WIDE_CONV:
+        if B * H * W >= 132 * 16:
+            assert conv2d.dw_splits(B, H, W, Cin, Cout, k, k) >= 132
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout,k,pad",
+                         [(64, 8, 8, 12, 12, 3, "SAME"),
+                          (64, 4, 4, 12, 12, 3, "SAME")] + RAGGED_CONV)
+def test_dw_tile_partials_in_order_give_the_gradient(B, H, W, Cin, Cout, k,
+                                                      pad):
+    """What K6's two passes compute, through the plain version: each
+    tile's (dw, db) from its pixels alone (g masked by ``out > 0`` and
+    zero outside the tile), added in tile order, equals the whole."""
+    rng = np.random.default_rng(3)
+    Ho, Wo = _out_hw(H, W, k, pad)
+    x = torch.from_numpy(rng.standard_normal((B, H, W, Cin)).astype(
+        np.float32))
+    g = torch.from_numpy(rng.standard_normal((B, Ho, Wo, Cout)).astype(
+        np.float32))
+    out = torch.relu(torch.from_numpy(rng.standard_normal(
+        (B, Ho, Wo, Cout)).astype(np.float32)))
+    ws = (k, k, Cin, Cout)
+    dw, db = torch.zeros(ws), torch.zeros(Cout)
+    for (b0, b1), (h0, h1), (w0, w1) in _tiles(
+            B, Ho, Wo, conv2d.dw_tile(B, Ho, Wo, Cin, Cout, k, k)):
+        gt = torch.zeros_like(g)
+        gt[b0:b1, h0:h1, w0:w1] = g[b0:b1, h0:h1, w0:w1]
+        pw, pb = ref.conv2d_dw_ref(x, gt, ws, pad, out)
+        dw += pw
+        db += pb
+    want_w, want_b = ref.conv2d_dw_ref(x.double(), g.double(), ws, pad,
+                                       out.double())
+    scale = max(want_w.abs().max().item(), want_b.abs().max().item(), 1.0)
+    assert (dw.double() - want_w).abs().max().item() <= 1e-4 * scale
+    assert (db.double() - want_b).abs().max().item() <= 1e-4 * scale
 
 
 def _scratch_csrc(tmp_path, monkeypatch):
