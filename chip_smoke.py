@@ -22,14 +22,17 @@ from the root of a checkout.  Phases, each of which raises on failure
    decode step at M = 4 and prefill forward (Yi-6B at M = 24, Gemma-2 at
    M = 5000);
 2b. K2-K8 (and K1 in f32) against their plain versions at every shape of
-   a Table-2 case7 training step at B = 64, plus ragged and tied cases
-   and, for the split-K f32 product of K1 and K2, shapes whose reduction
+   a Table-2 case7 training step at B = 64, plus ragged and tied cases,
+   for the split-K f32 product of K1 and K2 shapes whose reduction
    crosses slice boundaries off the 16-deep step or takes the
-   element-by-element loads; per kernel, its time, the plain version's,
-   the library call's and the bound, summed over one step's launches
-   (kernel and library also on the device's clock), and per K1/K2 shape
-   the slices S it splits into, and per K6 shape each of its two passes'
-   device time; K1 f32, K2 and K6 rerun bit for bit;
+   element-by-element loads, for K3 a long reduction that splits, and
+   for K4/K5 shapes past one block's shared memory or 16 output channels;
+   per kernel, its time, the plain version's, the library call's and the
+   bound, per shape and summed over one step's launches (kernel and
+   library also on the device's clock), per K1/K2/K3 shape the slices S
+   it splits into (K4/K5: its tiles of output pixels), and per K6 shape
+   each of its two passes' device time; K1 f32 and K2-K6 rerun bit for
+   bit;
 2c. K9 (RMSNorm) at decode and prefill rows of d = 4608, 4096, 3072 in
    bf16 and f32 plus ragged rows, and K10 (flash attention) at Gemma-2's
    (bf16 and f32, q x 8 so the soft-cap of 50 acts), Yi-6B's and Phi-3's
@@ -37,9 +40,9 @@ from the root of a checkout.  Phases, each of which raises on failure
    masked rows, each against its plain version (K10 in bf16 within one
    bf16 ulp of it plus 1e-3 of its rms, and bit for bit on a rerun), with
    kernel, plain, library (``F.rms_norm``; for K10 ``flex_attention``
-   with a soft-cap ``score_mod`` where a soft-cap is on, else
-   ``F.scaled_dot_product_attention``) and bound times, kernel and
-   library also on the device's clock;
+   with a soft-cap ``score_mod`` where a soft-cap is on, in f32 at the
+   long prompt's S only, else ``F.scaled_dot_product_attention``) and
+   bound times, kernel and library also on the device's clock;
 3. reduced Yi-6B and reduced Gemma-2 (prompts longer than its window of
    16) in f32 served on the card and on the CPU from the same weights and
    request stream: identical token streams, logits within 1e-4;
@@ -78,6 +81,10 @@ It needs one card, imports no JAX and nothing of the JAX package ``repro``.
 builds the kernels and runs phase 2 alone at those rows M (the other rows
 and the sums are left out), then stops without a result line: copied into
 the root of another checkout, it times that checkout's K1 the same way.
+
+    python3 chip_smoke.py --train-kernels K3,K4,K5
+
+does the same for phase 2b and the named kernels.
 """
 from __future__ import annotations
 
@@ -409,6 +416,9 @@ def case7_step_shapes(cnn):
 
 RAGGED = {   # correctness only: odd B, Cin = 3, k = 2/4/7, VALID, ragged tiles
     "dense": ((37, 100, 77, True), (5, 3, 130, False), (64, 192, 70, True)),
+    # K3 over a long reduction on a small output (32 slices of 128 rows);
+    # its 128 x 64 register tile with Din and Dout not multiples of 4
+    "dwdb": ((4096, 77, 10, True), (70, 2001, 2003, True)),
     # (M, Din, Dout, relu) for K1 and K2's split-K product: reductions of
     # 1000-1002 cut into 7 slices of 144 (the last ragged), K or N not a
     # multiple of 4 (element-by-element loads), one 10-wide tile
@@ -419,6 +429,10 @@ RAGGED = {   # correctness only: odd B, Cin = 3, k = 2/4/7, VALID, ragged tiles
     "conv": ((3, 9, 7, 3, 5, 2, "SAME"), (3, 9, 7, 3, 5, 4, "SAME"),
              (3, 9, 7, 3, 5, 7, "SAME"), (3, 9, 7, 4, 20, 3, "VALID"),
              (1, 8, 8, 12, 12, 7, "VALID"), (5, 6, 6, 12, 12, 7, "SAME")),
+    # K4/K5 past one block's shared memory (Cin in chunks; K5's 2048-wide
+    # output in column tiles) and past 16 output channels (column tiles)
+    "conv_wide": ((1, 8, 8, 2048, 16, 3, "SAME"),
+                  (2, 9, 7, 4, 300, 3, "SAME")),
     "pool": ((3, 9, 7, 5), (2, 8, 8, 12)),
 }
 
@@ -504,6 +518,13 @@ def _train_specs(torch, ref, mods):
         B, H, W, Cin, Cout, k, pad = s
         return conv_flops(B, H, W, Cin, Cout, k, pad, ref)
 
+    def splits_by(mod, name, per):
+        """{"splits": shape -> per(mod.name, shape)}, the slices (K4/K5:
+        tiles) a shape takes, where the checkout has mod.name; a parent's
+        checkout, run with --train-kernels, may not."""
+        fn = getattr(mod, name, None)
+        return {} if fn is None else {"splits": lambda s: per(fn, s)}
+
     return {
         "K1": dict(make=k1, kern=lambda x, w, b, a: dn.dense_cuda(
                        x, w, b, activation=a),
@@ -528,7 +549,8 @@ def _train_specs(torch, ref, mods):
                                          * (2 if s[3] else 1) + s[1] * s[2]
                                          + s[2]),
                    flops=lambda s: 2.0 * s[0] * s[1] * s[2] + s[0] * s[2],
-                   grad=True),
+                   grad=True, **splits_by(dn, "dwdb_splits",
+                                          lambda f, s: f(*s[:3]))),
         "K4": dict(make=k4, kern=lambda x, w, b, p: cv.conv2d_cuda(
                        x, w, b, padding=p, activation="relu"),
                    plain=lambda x, w, b, p: ref.conv2d_fused_ref(
@@ -536,14 +558,17 @@ def _train_specs(torch, ref, mods):
                    lib=lambda x, w, b: F.conv2d(x, w, b, padding="same"),
                    lib_args=lambda x, w, b, p: (nchw(x), oihw(w), b),
                    nbytes=lambda s: conv_bytes(s, 1, 0), flops=cflops,
-                   grad=False),
+                   grad=False, **splits_by(cv, "conv_tiles", lambda f, s: f(
+                       s[0], *conv_geom(s)[7:], s[3], s[4], s[5], s[5],
+                       False))),
         "K5": dict(make=k5, kern=cv.conv2d_dx_cuda, plain=ref.conv2d_dx_ref,
                    lib=lambda size, w, g: torch.nn.grad.conv2d_input(
                        size, w, g, padding=w.shape[2] // 2),
                    lib_args=lambda g, w, xs, p, o: (
                        (xs[0], xs[3], xs[1], xs[2]), oihw(w), nchw(g)),
                    nbytes=lambda s: conv_bytes(s, 0, 1), flops=cflops,
-                   grad=True),
+                   grad=True, **splits_by(cv, "conv_tiles", lambda f, s: f(
+                       *s[:3], s[4], s[3], s[5], s[5], True))),
         "K6": dict(make=k6, kern=cv.conv2d_dw_cuda, plain=ref.conv2d_dw_ref,
                    lib=lambda x, size, g: torch.nn.grad.conv2d_weight(
                        x, size, g, padding=size[2] // 2),
@@ -586,29 +611,37 @@ def _compare(torch, key, spec, args):
     return err, tol
 
 
-def phase_train_kernels(torch, ref, mods, cnn):
+RERUN = ("K1", "K2", "K3", "K4", "K5", "K6")   # checked bit for bit
+
+
+def phase_train_kernels(torch, ref, mods, cnn, only=None):
     """K2-K8 (and K1 at the FC shapes) against their plain versions on the
-    card, at every case7 B = 64 shape and the ragged and tied cases; per
-    kernel, times summed over one training step's launches."""
+    card, at every case7 B = 64 shape and the ragged, wide and tied cases;
+    per kernel, times summed over one training step's launches.  ``only``
+    limits it to those kernels."""
     specs = _train_specs(torch, ref, mods)
     step = case7_step_shapes(cnn)
     gen = torch.Generator("cuda").manual_seed(2)
     rows = {}
-    log(f"[train-k] {'kernel':<4} {'shape':<34} {'x':>2} {'S':>2}  "
+    log(f"[train-k] {'kernel':<4} {'shape':<34} {'x':>2} {'S':>4}  "
         f"{'max_abs_err':<11} {'tol':<10} {'kernel_ms':<10} {'device_ms':<12} "
         f"{'plain_ms':<10} {'library_ms':<10} {'lib_dev_ms':<12} bound_ms")
     for key, spec in specs.items():
+        if only is not None and key not in only:
+            continue
         row = {"err": 0.0, "tol": 0.0, "ratio": -1.0, "ms": 0.0,
                "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "library_device_ms": 0.0, "bound_ms": 0.0, "bound_by": {},
                "passes": {}}
         kind = {"K1": "dense", "K2": "dense", "K3": "dense", "K7": "pool",
                 "K8": "pool"}.get(key, "conv")
+        extra = list(RAGGED["split"] if key in ("K1", "K2") else
+                     RAGGED["dwdb"] if key == "K3" else
+                     RAGGED["conv_wide"] if key in ("K4", "K5") else ())
         cases = [(s, n) for s, n in step[key].items()]
         if key != "K1":
             cases += [(s, 0) for s in RAGGED[kind]]
-        if key in ("K1", "K2"):
-            cases += [(s, 0) for s in RAGGED["split"]]
+        cases += [(s, 0) for s in extra]
         for s, n in cases:
             S = str(spec["splits"](s)) if "splits" in spec else "-"
             args = spec["make"](gen, s)
@@ -620,7 +653,7 @@ def phase_train_kernels(torch, ref, mods, cnn):
             if ratio > row["ratio"]:
                 row.update(err=err, tol=tol, ratio=ratio)
             if n == 0:
-                log(f"[train-k] {key:<4} {str(s):<34} {'-':>2} {S:>2}  "
+                log(f"[train-k] {key:<4} {str(s):<34} {'-':>2} {S:>4}  "
                     f"{err:<11.4g} {tol:<10.4g}")
                 continue
             nbytes = spec["nbytes"](s)
@@ -634,7 +667,7 @@ def phase_train_kernels(torch, ref, mods, cnn):
             l_ms = time_ms(torch, spec["lib"], lib_sets)
             l_dev, _ = device_ms(torch, spec["lib"], lib_sets)
             b_ms, by = roof_ms(nbytes, spec["flops"](s))
-            log(f"[train-k] {key:<4} {str(s):<34} {n:>2} {S:>2}  "
+            log(f"[train-k] {key:<4} {str(s):<34} {n:>2} {S:>4}  "
                 f"{err:<11.4g} {tol:<10.4g} {k_ms:<10.5f} "
                 f"{fmt_ms(k_dev):<12} {p_ms:<10.5f} {l_ms:<10.5f} "
                 f"{fmt_ms(l_dev):<12} {b_ms:.5f}")
@@ -656,18 +689,17 @@ def phase_train_kernels(torch, ref, mods, cnn):
             row["bound_ms"] += n * b_ms
             row["bound_by"][by] = row["bound_by"].get(by, 0.0) + n * b_ms
             del sets, lib_sets
-        if key in ("K1", "K2", "K6"):
-            # fixed-order partial sums: identical bits on a rerun, at every
-            # case7 shape (and K1/K2's split cases)
-            for s in list(step[key]) + (list(RAGGED["split"])
-                                        if key != "K6" else []):
+        if key in RERUN:
+            # fixed summation orders: identical bits on a rerun, at every
+            # case7 shape and the split, long and wide cases
+            for s in list(step[key]) + extra:
                 args = spec["make"](gen, s)
                 a, b = (_flat(torch, spec["kern"](*args)) for _ in range(2))
                 if not torch.equal(a, b):
                     raise AssertionError(f"{key} {s} gave different bits on "
                                          "a rerun")
             log(f"[train-k] {key} reruns bit for bit at every case7"
-                + (" and split" if key != "K6" else "") + " shape")
+                + (" and extra" if extra else "") + " shape")
         log(f"[train-k] {key} one case7 step ({STEP_LAUNCHES[key]} launches): "
             f"kernel {row['ms']:.5f} ms (device {fmt_ms(row['device_ms'])}),"
             f" plain {row['plain_ms']:.5f} ms, library "
@@ -734,8 +766,8 @@ KERNEL_NAMES = (   # device kernel name -> the port's kernel, for the profile
     # dense_fwd_f32_kernel + dense_fwd_f32_sum_kernel, dense_dx_kernel +
     # dense_dx_sum_kernel
     ("dense_fwd_f32", "K1"), ("dense_dx_", "K2"),
-    ("dense_dwdb_kernel", "K3"), ("conv_igemm_kernel<false>", "K4"),
-    ("conv_igemm_kernel<true>", "K5"), ("conv_dw_", "K6"),
+    ("dense_dwdb_", "K3"), ("conv_tile_kernel<false>", "K4"),
+    ("conv_tile_kernel<true>", "K5"), ("conv_dw_", "K6"),
     ("pool_fwd_kernel", "K7"), ("pool_bwd_kernel", "K8"))
 
 
@@ -1046,9 +1078,10 @@ def phase_attn_kernels(torch, ref, mods):
         big = Sq * Sk * H > 2**29
         iters = 4 if big else 20
         l_ms = l_dev = lib_err = None
-        if Sq == Sk and cap and dt == "bfloat16":
+        if Sq == Sk and cap and (dt == "bfloat16" or Sq == GEMMA_LONG):
             # flex_attention soft-caps; it is held to ATTN_TOL to show it
-            # computes the same function, then timed
+            # computes the same function, then timed (f32: at the long
+            # prompt's S, the kernel table's f32 row)
             flex = flex_yardstick(torch, Sq, Sk, window, cap)
             lib_err, lib_ok = _attn_err(torch, flex(*sets[0]), want, dt)
             if not lib_ok:
@@ -1435,6 +1468,9 @@ def phase_cli():
 def main() -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
                                  "on one NVIDIA card (see the module text).")
+    ap.add_argument("--train-kernels", help="comma-separated kernels "
+                    "(K1-K8): run phase 2b alone for them and print no "
+                    "result line")
     ap.add_argument("--k1-rows", help="comma-separated rows M: run phase 2 "
                     "(K1) alone at these rows and print no result line")
     args = ap.parse_args()
@@ -1485,6 +1521,11 @@ def main() -> int:
     if args.k1_rows:
         phase_kernel(torch, dense_mod, ref,
                      {int(m) for m in args.k1_rows.split(",")})
+        log(card_line())
+        return 0
+    if args.train_kernels:
+        phase_train_kernels(torch, ref, mods, cnn,
+                            set(args.train_kernels.split(",")))
         log(card_line())
         return 0
     k1_sums, worst = phase_kernel(torch, dense_mod, ref)

@@ -18,11 +18,13 @@ from torch.autograd.function import once_differentiable
 from . import launch, ref
 
 __all__ = ["conv2d_cuda", "conv2d_dx_cuda", "conv2d_dw_cuda",
-           "Conv2dFunction", "dw_tile", "dw_splits", "dw_smem"]
+           "Conv2dFunction", "conv_tile", "conv_tiles", "conv_smem",
+           "dw_tile", "dw_splits", "dw_smem"]
 
 _SMS = 132              # the H100's SMs
 _DW_PIXELS = (256, 128, 64, 32, 16)   # pixels a K6 block owns, largest first
-_DW_SMEM = 227 * 1024   # the H100's opt-in shared memory a block
+_CONV_PIXELS = (256, 128, 64, 32, 16, 8, 4)   # pixels a K4/K5 block owns
+_SMEM = 227 * 1024      # the H100's opt-in shared memory a block
 _THREADS = 256          # conv2d.cu's kThreads
 
 
@@ -47,8 +49,9 @@ def _check_shapes(name, x_shape, w, padding):
 def conv2d_cuda(x, w, b=None, padding: str = "SAME",
                 activation: str = "none"):
     """K4 on the card: act(conv(x, w) + b), x (B, H, W, Cin), w (kh, kw,
-    Cin, Cout), b (Cout,) or None, f32, stride 1.  ``conv2d_cuda.launches``
-    counts the launches."""
+    Cin, Cout), b (Cout,) or None, f32, stride 1; one block a
+    ``conv_tile`` tile of output pixels.  ``conv2d_cuda.launches`` counts
+    the launches."""
     dev = launch.check_f32_cuda("conv2d_cuda", x=x, w=w, b=b)
     B, H, W, Cin = x.shape
     Ho, Wo = _check_shapes("conv2d_cuda", x.shape, w, padding)
@@ -58,9 +61,10 @@ def conv2d_cuda(x, w, b=None, padding: str = "SAME",
                          f"{tuple(b.shape)}")
     top, _, left, _ = ref.conv_pads(kh, kw, padding)
     out = torch.empty((B, Ho, Wo, Cout), dtype=torch.float32, device=dev)
-    launch.run("conv2d", "conv2d_igemm_f32", dev, (x, w, b, None, out),
+    launch.run("conv2d", "conv2d_tile_f32", dev, (x, w, b, None, out),
                (B, H, W, Cin, Ho, Wo, Cout, kh, kw, top, left, 0,
-                activation == "relu"))
+                activation == "relu",
+                *conv_tile(B, Ho, Wo, Cin, Cout, kh, kw, False)))
     conv2d_cuda.launches += 1
     return out
 
@@ -82,11 +86,106 @@ def conv2d_dx_cuda(g, w, x_shape, padding: str = "SAME", out=None):
                          f"{tuple(w.shape)}")
     top, _, left, _ = ref.conv_pads(kh, kw, padding)
     dx = torch.empty((B, H, W, Cin), dtype=torch.float32, device=dev)
-    launch.run("conv2d", "conv2d_igemm_f32", dev, (g, w, None, out, dx),
+    launch.run("conv2d", "conv2d_tile_f32", dev, (g, w, None, out, dx),
                (B, Ho, Wo, Cout, H, W, Cin, kh, kw, kh - 1 - top,
-                kw - 1 - left, 1, 0))
+                kw - 1 - left, 1, 0,
+                *conv_tile(B, H, W, Cout, Cin, kh, kw, True)))
     conv2d_dx_cuda.launches += 1
     return dx
+
+
+def _tile_of(B, Ho, Wo, pixels):
+    """(images, rows, columns) of a tile of at most ``pixels`` output
+    pixels: whole images where one image has no more, else whole rows,
+    else part of a row."""
+    if Ho * Wo <= pixels:
+        return min(B, pixels // (Ho * Wo)), Ho, Wo
+    if Wo <= pixels:
+        return 1, pixels // Wo, Wo
+    return 1, 1, pixels
+
+
+def conv_smem(tile, chunk, taps, Cin, Cout, kh, kw, flip) -> int:
+    """Bytes of shared memory one K4 (``flip`` False) or K5 (True) block
+    takes for output-pixel ``tile`` = (images, rows, columns), staging
+    ``chunk`` input channels of ``taps`` taps at a time: the ring of x
+    patch (K5 also its mask) and filter panel, one stage or two where the
+    reduction takes several chunks, or the reduction slices' partials
+    where those are larger; then the bias, the patch offset of every tap's
+    channel quads and two tables of the tile's pixels.  conv2d.cu's
+    ``ConvPlan::smem`` is the kernel's own count (its
+    ``conv2d_tile_smem``); a test on the card holds the two equal."""
+    tb, th, tw = tile
+    cn = min(16, math.ceil(Cout / 4) * 4)
+    cq = math.ceil(chunk / 4)
+    cs = 4 * cq if cq % 2 else 4 * cq + 4
+    stages = 2 if chunk < Cin or taps < kh * kw else 1
+    pixels = tb * th * tw
+    jobs = math.ceil(pixels / 4) * (cn // 4)
+    slices = max(1, min(_THREADS // jobs, taps * cq))
+    xs = tb * (th + kh - 1) * (tw + kw - 1) * cs
+    stage = xs * (2 if flip else 1) + taps * 4 * cq * cn
+    region = max(stages * stage, slices * jobs * 16)
+    return 4 * (region + cn + kh * kw * cq + 2 * pixels)
+
+
+def _largest(fits, top):
+    """The largest n in 1 .. top with fits(n), fits being monotone (true
+    up to some n), or None."""
+    if not fits(1):
+        return None
+    lo, hi = 1, top
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
+
+
+@functools.lru_cache(maxsize=256)   # every training step asks per layer
+def conv_tile(B, Ho, Wo, Cin, Cout, kh, kw, flip) -> tuple[int, ...]:
+    """(images, rows, columns, chunk, taps) of one K4 (``flip`` False) or
+    K5 (True) block.  The output pixels it owns: the most of 256, 128,
+    ..., 4 that still gives one tile an SM (4 where B.Ho.Wo is too small
+    for that).  What it stages at a time: all of Cin and every tap where
+    that fits the 227 KB of shared memory a block may opt in to; else the
+    most channels (a multiple of 4, or 1-3) of every tap that fit a
+    two-stage ring; else one channel of the most taps that fit, the pixels
+    halving first.  Depends on the shapes only, so every run sums in the
+    same order.  Raises where one pixel's single-channel patch does not
+    fit."""
+    total = B * Ho * Wo
+    taps = kh * kw
+    pixels = next((p for p in _CONV_PIXELS if math.ceil(total / p) >= _SMS),
+                  _CONV_PIXELS[-1])
+    while True:
+        tile = _tile_of(B, Ho, Wo, pixels)
+
+        def fits(chunk, t=taps, tile=tile):
+            return conv_smem(tile, chunk, t, Cin, Cout, kh, kw,
+                             flip) <= _SMEM
+        if fits(Cin):
+            return (*tile, Cin, taps)
+        quads = _largest(lambda n: fits(4 * n), Cin // 4) if Cin > 4 else None
+        chunk = 4 * quads if quads else next(
+            (c for c in (3, 2, 1) if c < Cin and fits(c)), None)
+        if chunk:
+            return (*tile, chunk, taps)
+        if pixels == 1:
+            break
+        pixels //= 2
+    t = _largest(lambda n: fits(1, n), taps)
+    if t is None:
+        raise ValueError(f"conv2d_cuda: one pixel's {kh}x{kw} "
+                         "single-channel patch does not fit a block's 227 "
+                         "KB of shared memory")
+    return (*tile, 1, t)
+
+
+def conv_tiles(B, Ho, Wo, Cin, Cout, kh, kw, flip) -> int:
+    """How many tiles of output pixels (blocks along grid.x) a K4 or K5
+    launch has (``conv_tile``)."""
+    tb, th, tw = conv_tile(B, Ho, Wo, Cin, Cout, kh, kw, flip)[:3]
+    return math.ceil(B / tb) * math.ceil(Ho / th) * math.ceil(Wo / tw)
 
 
 def dw_smem(tile, Cin, Cout, kh, kw) -> int:
@@ -120,13 +219,8 @@ def dw_tile(B, Ho, Wo, Cin, Cout, kh, kw) -> tuple[int, int, int]:
     pixels = next((p for p in _DW_PIXELS if math.ceil(total / p) >= _SMS),
                   _DW_PIXELS[-1])
     while True:
-        if Ho * Wo <= pixels:
-            tile = (min(B, pixels // (Ho * Wo)), Ho, Wo)
-        elif Wo <= pixels:
-            tile = (1, pixels // Wo, Wo)
-        else:
-            tile = (1, 1, pixels)
-        if dw_smem(tile, Cin, Cout, kh, kw) <= _DW_SMEM:
+        tile = _tile_of(B, Ho, Wo, pixels)
+        if dw_smem(tile, Cin, Cout, kh, kw) <= _SMEM:
             return tile
         if pixels == 1:
             raise ValueError(f"conv2d_dw_cuda: one pixel's {kh}x{kw}x{Cin} "

@@ -6,18 +6,21 @@
 //   * _conv_dx_kernel (pallas_call in _backward_dx): the VALID correlation
 //     of the padded cotangent with the spatially flipped, channel-swapped
 //     filter.  The Pallas code runs K4's body (_im2col_accum) on those
-//     operands; here K5 is the same kernel as K4, reading the cotangent
-//     with the mirrored padding and the filter flipped by index;
+//     operands; here K5 is the other instance of K4's template, reading
+//     the cotangent with the mirrored padding and the filter flipped by
+//     index;
 //   * _conv_dw_kernel (pallas_call in _backward_dw): dw[i,j,ci,co] =
 //     sum_{b,h,w} xpad[b,h+i,w+j,ci] g[b,h,w,co], f32 output.  The conv
 //     bias gradient (db = sum g, plain jnp in _conv2d_bwd) is folded in.
-// The relu mask (g * (out > 0) in _conv2d_bwd) is folded into the loads
-// of K5 and K6: `mask` is the saved forward output, or null.
+// The relu mask (g * (out > 0) in _conv2d_bwd) is staged beside the
+// cotangent and applied in shared memory by K5 and K6: `mask` is the saved
+// forward output, or null.
 //
 // Plain C interface (nvcc, loaded with ctypes by repro_torch/kernels/
 // build.py); each entry point returns cudaGetLastError() after its
 // launches and never synchronises.  f32 FMA with f32 accumulation, no
-// TF32 (the reference's gradient gate is 1e-4 x scale).
+// TF32 (the reference's gradient gate is 1e-4 x scale); fixed summation
+// orders and no float atomics, so a rerun gives identical bits.
 //
 // Padding is done by bounds checks on the input index, never by a padded
 // copy: the input pixel of output (ho, wo) under tap (i, j) is
@@ -30,33 +33,48 @@
 // 12, Cout 12, 3 x 3 taps).  At case7, B = 64 layer 0's forward moves
 // 3.9 MB (1.2 us at 3.35 TB/s) for 42 MFLOP (0.6 us at 67 TFLOP/s): bytes
 // bound it; layer 1 (16 x 16 x 12) moves 1.6 MB (0.5 us) for the same
-// flops: the f32 FMA rate bounds it.  The deep 4 x 4 layers are a few
-// microseconds of launch and little else.
+// flops.  The seven 4 x 4 layers are 1024 output pixels each: there one
+// round trip to memory and the launch, not bytes or flops, set the time.
 //
-// What the design does about it.
-//   * K4/K5 are an implicit GEMM: rows are B.Ho.Wo output pixels, the
-//     reduction is kh.kw.Cin taps, columns are Cout.  A block owns 64
-//     pixels x 16 channels (Cout = 12 wastes a quarter of the columns,
-//     not the 52 of 64 that K1's square tile would), gathers the im2col
-//     tile into shared memory 32 taps at a time (neighbouring threads on
-//     neighbouring channels of one pixel) and keeps 4 accumulators a
-//     thread.  bias + relu are fused into the store.
+// What the designs do about it.  Every kernel gives a block one tile of
+// output pixels (tb images x th rows x tw columns, chosen from the shapes
+// by kernels/conv2d.py: conv_tile for K4/K5, dw_tile for K6), at least one
+// tile an SM where B.Ho.Wo allows, and stages what the tile needs once in
+// shared memory, every cp.async copy in flight together (stage_rows): the
+// tile's x patch with its (kh - 1) x (kw - 1) halo, zero outside the
+// input, so each input element is fetched once, not once a tap.
+//   * K4/K5 (conv_tile_kernel<kFlip>) also stage the filter panel of the
+//     block's output channels (at most 16; grid.y walks wider Cout) and the
+//     bias.  Each patch pixel's channels sit at a stride of an odd number
+//     of 16-byte quads, rounded up from the channel count (Cin 3 -> 4, 12
+//     -> 12), so a quarter-warp's 16-byte reads of neighbouring pixels hit
+//     distinct banks.  A thread owns 4 pixels x 4 output channels and one
+//     slice of the reduction's (tap, channel quad) units, strided; per unit
+//     four 16-byte patch reads and four filter rows feed 64 FMAs, with the
+//     unit's patch offset read from a table, so there is no division in the
+//     inner loop.  The slices' partials meet in shared memory and are added
+//     in slice order, then bias + relu are applied and the outputs stored,
+//     neighbouring threads on neighbouring channels.  Where the patch and
+//     the filter panel do not fit the block's shared memory (wide Cin, or
+//     a wide filter), the block walks the reduction in chunks of channels
+//     (and, past that, of taps) through a two-stage cp.async ring; case7
+//     takes one chunk.  K5 flips the filter as it stages it and masks the
+//     staged cotangent.
 //   * K6's reduction over B.H.W is 65 536 long at layer 0 while its output
 //     is the (K + 1) x Co table (28 x 12 at layer 0, 109 x 12 after; row K
-//     is a constant 1, whose sums are db).  Pass 1 gives a block one tile
-//     of output pixels (tb images x th rows x tw columns, chosen from the
-//     shapes by kernels/conv2d.py dw_tile: 16-256 pixels, a tile an SM
-//     where B.H.W allows), stages the tile's x patch with its halo and the
-//     masked g once in shared memory (x read from device memory once, not
-//     kh.kw times) and lets each thread sum 4 taps x 4 channels over a
-//     share of the tile's pixels; pass 2 adds the tiles' partials, 32
-//     neighbouring outputs a block, 8 warps over every 8th tile, then the
-//     8 sums in warp order.  No float atomics: two runs give identical
-//     bits.  A block may take up to the device's opt-in shared memory
-//     (227 KB on H100); a shape where even one pixel's patch does not fit
-//     (kh.kw.Cin above about 58 000 floats) is refused.  What is left: the
-//     4 x 4 layers' tiles are mostly copy latency, and a patch read by
-//     several tap-group blocks (grid.y > 1, wide Cin) is staged by each.
+//     is a constant 1, whose sums are db).  Pass 1 stages the patch and
+//     the masked g of a tile and lets each thread sum 4 taps x 4 channels
+//     over a share of the tile's pixels; pass 2 adds the tiles' partials,
+//     32 neighbouring outputs a block, 8 warps over every 8th tile, then
+//     the 8 sums in warp order.
+// A block may take up to the device's opt-in shared memory (227 KB on
+// H100; opt_in_smem).  K6 refuses a shape where even one pixel's patch
+// does not fit (kh.kw.Cin above about 58 000 floats); K4/K5 refuse only a
+// shape where one pixel's single-channel patch (K5: and its mask), twice
+// for the ring, does not (K4 from 81 x 81 taps, K5 from 59 x 59).  What is
+// left: a 4 x 4 layer's block is mostly copy latency, and a patch read
+// by several blocks of one tile (grid.y > 1: wide Cout for K4/K5, wide Cin
+// for K6) is staged by each.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,9 +84,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBM = 64;  // output pixels per K4/K5 block
-constexpr int kBN = 16;  // channels per block
-constexpr int kBK = 32;  // reduction step through shared memory
 
 struct Geometry {
   int B, Hi, Wi, Ci;  // input of this pass (the cotangent for K5)
@@ -76,116 +91,325 @@ struct Geometry {
   int kh, kw, pt, pl;
 };
 
-// The input element under output pixel r and tap k, zero outside the
-// input; mask (same shape as the input) zeroes where it is not > 0.
-__device__ __forceinline__ float im2col(const float* __restrict__ in,
-                                        const float* __restrict__ mask,
-                                        const Geometry& q, int r, int k) {
-  const int c = k % q.Ci;
-  const int t = k / q.Ci;
-  const int j = t % q.kw;
-  const int i = t / q.kw;
-  const int wo = r % q.Wo;
-  const int u = r / q.Wo;
-  const int ho = u % q.Ho;
-  const int b = u / q.Ho;
-  const int hi = ho + i - q.pt;
-  const int wi = wo + j - q.pl;
-  if (hi < 0 || hi >= q.Hi || wi < 0 || wi >= q.Wi) return 0.0f;
-  const size_t idx = (((size_t)b * q.Hi + hi) * q.Wi + wi) * q.Ci + c;
-  const float v = in[idx];
-  return (mask == nullptr || mask[idx] > 0.0f) ? v : 0.0f;
+// Stage `rows` rows of `len` floats into dst (row r at dst + r * pitch)
+// with cp.async copies, every one of them in flight at once: each group of
+// kLanes neighbouring threads (a power of two up to a warp; a warp where
+// rows are long, as K6's are, 4 for K4/K5's short rows) takes rows g,
+// g + 256 / kLanes, ..., its lanes on neighbouring addresses.
+// row(r, off, lo, hi) places row r in the source once: element e (lo <= e
+// < hi) comes from src + off + e, the rest of the row is zero-filled.
+// kVec: 16-byte copies (len, pitch, off, lo and hi multiples of 4, src
+// 16-byte aligned), else 4-byte.  The caller commits the group.
+template <bool kVec, int kLanes, typename Row>
+__device__ __forceinline__ void stage_rows(float* dst, int pitch,
+                                           const float* __restrict__ src,
+                                           int rows, int len, Row row) {
+  constexpr int kW = kVec ? 4 : 1;
+  const int lane = threadIdx.x % kLanes;
+  for (int r = threadIdx.x / kLanes; r < rows; r += kThreads / kLanes) {
+    long long off = 0;
+    int lo = 0, hi = 0;
+    row(r, off, lo, hi);
+    for (int e = lane * kW; e < len; e += kLanes * kW) {
+      const bool ok = e >= lo && e < hi;
+      float* d = dst + r * pitch + e;
+      const float* s = src + (ok ? off + e : 0);
+      if (kVec)
+        cp_async::copy16(d, s, ok);
+      else
+        cp_async::copy4(d, s, ok);
+    }
+  }
 }
 
-// K4 (kFlip = false) and K5 (kFlip = true), two instances of one body:
-//   out[r, o] = act(sum_k im2col(in)[r, k] * W[k, o] + bias[o]),
-// W[k, o] = w[i, j, c, o] (HWIO, forward) or w[kh-1-i, kw-1-j, o, c]
-// (flipped and channel-swapped, input gradient).
+// ----------------------------------------------------------------------
+// K4 and K5: out[r, o] = act(sum_{t, c} in(r, t, c) W[t, c, o] + bias[o])
+// over output pixels r, taps t = (i, j) and input channels c;
+// W[t, c, o] = w[i, j, c, o] (HWIO, forward) or w[kh-1-i, kw-1-j, o, c]
+// (flipped and channel-swapped: the input gradient).
+// ----------------------------------------------------------------------
+
+// The layout of one K4/K5 block, from the shapes alone.  The launcher's
+// chooser sizes tiles and chunks by the same bytes (conv2d.py
+// conv_smem); the C entry refuses a block over the limit, and
+// conv2d_tile_smem below lets a test on the card hold the two equal.
+struct ConvPlan {
+  int T;        // taps kh.kw
+  int cn, cgn;  // output channels a block owns (a multiple of 4), quads
+  int cc, cq;   // input channels a chunk holds, its quads (rounded up)
+  int tc, ntc;  // taps a chunk holds, tap chunks
+  int cs;       // floats a patch pixel takes: cq quads, made odd
+  int nch, nst; // chunks, ring stages (2 where there is more than one)
+  int PH, PW, P, U;   // patch rows and columns, tile pixels, P / 4 rounded up
+  int jobs, units, rs;  // (pixel quad, channel quad) jobs, reduction
+                        // units (tap, channel quad) a chunk, slices of them
+  int xs_n, ms_n, ws_n, stage_n, region;
+  __host__ __device__ ConvPlan(const Geometry& q, int tb, int th, int tw,
+                               int chunk, int taps, bool flip) {
+    T = q.kh * q.kw;
+    cn = q.Co < 16 ? (q.Co + 3) / 4 * 4 : 16;
+    cgn = cn / 4;
+    cc = chunk;
+    cq = (cc + 3) / 4;
+    tc = taps;
+    ntc = (T + tc - 1) / tc;
+    cs = cq % 2 == 1 ? 4 * cq : 4 * cq + 4;
+    nch = (q.Ci + cc - 1) / cc * ntc;
+    nst = nch > 1 ? 2 : 1;
+    PH = th + q.kh - 1;
+    PW = tw + q.kw - 1;
+    P = tb * th * tw;
+    U = (P + 3) / 4;
+    jobs = U * cgn;
+    units = tc * cq;
+    rs = kThreads / jobs;
+    if (rs > units) rs = units;
+    if (rs < 1) rs = 1;
+    xs_n = tb * PH * PW * cs;
+    ms_n = flip ? xs_n : 0;          // K5's mask patch
+    ws_n = tc * 4 * cq * cn;
+    stage_n = xs_n + ms_n + ws_n;
+    const int red_n = rs * jobs * 16;   // the slices' partials, after
+    region = nst * stage_n > red_n ? nst * stage_n : red_n;
+  }
+  // floats of the ring (or the partials), then the bias, the patch offsets
+  // of every tap's channel quads and two tables of the tile's pixels (ints)
+  __host__ __device__ size_t smem() const {
+    return sizeof(float) * ((size_t)region + cn + (size_t)T * cq +
+                            2 * (size_t)P);
+  }
+};
+
+// One slice of the reduction: units sl, sl + rs, ... of the chunk's
+// `units`; the chunk's unit r is its tap r / cq, channel quad r % cq, and
+// uo[r] is its offset in the patch.
+__device__ __forceinline__ void conv_accumulate(
+    float4 (&acc)[4], const float* __restrict__ xs,
+    const float* __restrict__ ws, const int* __restrict__ uo,
+    const int (&xo)[4], int sl, int rs, int units, int cn, int cg) {
+#pragma unroll 2
+  for (int r = sl; r < units; r += rs) {
+    const float* xp = xs + uo[r];
+    const float* wp = ws + r * 4 * cn + cg * 4;
+    const float4 w0 = *reinterpret_cast<const float4*>(wp);
+    const float4 w1 = *reinterpret_cast<const float4*>(wp + cn);
+    const float4 w2 = *reinterpret_cast<const float4*>(wp + 2 * cn);
+    const float4 w3 = *reinterpret_cast<const float4*>(wp + 3 * cn);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float4 x = *reinterpret_cast<const float4*>(xp + xo[k]);
+      float4& a = acc[k];
+      a.x = fmaf(x.x, w0.x, a.x);
+      a.y = fmaf(x.x, w0.y, a.y);
+      a.z = fmaf(x.x, w0.z, a.z);
+      a.w = fmaf(x.x, w0.w, a.w);
+      a.x = fmaf(x.y, w1.x, a.x);
+      a.y = fmaf(x.y, w1.y, a.y);
+      a.z = fmaf(x.y, w1.z, a.z);
+      a.w = fmaf(x.y, w1.w, a.w);
+      a.x = fmaf(x.z, w2.x, a.x);
+      a.y = fmaf(x.z, w2.y, a.y);
+      a.z = fmaf(x.z, w2.z, a.z);
+      a.w = fmaf(x.z, w2.w, a.w);
+      a.x = fmaf(x.w, w3.x, a.x);
+      a.y = fmaf(x.w, w3.y, a.y);
+      a.z = fmaf(x.w, w3.z, a.z);
+      a.w = fmaf(x.w, w3.w, a.w);
+    }
+  }
+}
+
+// Block (tile, channel tile) of K4 (kFlip false) or K5 (kFlip true):
+// grid (tiles, ceil(Co / cn)).  vec_x: the input (and mask) take 16-byte
+// copies (Ci and the chunk multiples of 4, pointers aligned); vec_w: the
+// filter does (K4 with Co a multiple of 4).
 template <bool kFlip>
 __global__ void __launch_bounds__(kThreads)
-conv_igemm_kernel(const float* __restrict__ in, const float* __restrict__ w,
-                  const float* __restrict__ bias,
-                  const float* __restrict__ mask, float* __restrict__ out,
-                  Geometry q, int relu) {
-  __shared__ float xt[kBK][kBM + 1];  // xt[k][r]
-  __shared__ float wt[kBK][kBN];      // wt[k][o]
+conv_tile_kernel(const float* __restrict__ in, const float* __restrict__ w,
+                 const float* __restrict__ bias,
+                 const float* __restrict__ mask, float* __restrict__ out,
+                 Geometry q, int tb, int th, int tw, int chunk, int taps,
+                 int relu, int vec_x, int vec_w) {
+  extern __shared__ __align__(16) float sm[];
+  const ConvPlan d(q, tb, th, tw, chunk, taps, kFlip);
+  float* red = sm;                          // after the last chunk
+  float* bs = sm + d.region;                // cn
+  int* uo = reinterpret_cast<int*>(bs + d.cn);   // T x cq patch offsets
+  int* po = uo + d.T * d.cq;   // P: each tile pixel's output pixel, or -1
+  int* pr = po + d.P;       // P: its first partial in red
 
-  const int M = q.B * q.Ho * q.Wo;
-  const int K = q.kh * q.kw * q.Ci;
   const int tid = threadIdx.x;
-  const int tr = tid / 4;  // this thread's pixel in the tile
-  const int tc = tid % 4;  // its channels: tc, tc + 4, tc + 8, tc + 12
-  const int r0 = blockIdx.x * kBM;
-  const int o0 = blockIdx.y * kBN;
-  float acc[4] = {};
+  const int ntw = (q.Wo + tw - 1) / tw;
+  const int nth = (q.Ho + th - 1) / th;
+  const int w0 = (blockIdx.x % ntw) * tw;
+  const int h0 = (blockIdx.x / ntw % nth) * th;
+  const int b0 = blockIdx.x / ntw / nth * tb;
+  const int o0 = blockIdx.y * d.cn;
+  const bool masked = kFlip && mask != nullptr;
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int e = tid; e < kBM * kBK; e += kThreads) {
-      const int kk = e % kBK;
-      const int rr = e / kBK;
-      const int r = r0 + rr;
-      const int k = k0 + kk;
-      xt[kk][rr] = (r < M && k < K) ? im2col(in, mask, q, r, k) : 0.0f;
+  // chunk ch (channels c0 .. c0 + nc, taps t0 .. t0 + tc) of the patch,
+  // its mask and the filter panel into ring stage ch % nst
+  auto stage_chunk = [&](int ch) {
+    float* xs = sm + (ch % d.nst) * d.stage_n;
+    float* ms = xs + d.xs_n;
+    float* ws = ms + d.ms_n;
+    const int c0 = ch / d.ntc * d.cc;
+    const int t0 = ch % d.ntc * d.tc;
+    const int nc = min(d.cc, q.Ci - c0);
+    // one row per patch pixel: its nc channels, zero outside the input
+    auto px = [&](int r, long long& off, int& lo, int& hi) {
+      const int ww = r % d.PW;
+      const int hh = r / d.PW % d.PH;
+      const int bb = b0 + r / d.PW / d.PH;
+      const int hi_ = h0 - q.pt + hh;
+      const int wi = w0 - q.pl + ww;
+      if (bb >= q.B || hi_ < 0 || hi_ >= q.Hi || wi < 0 || wi >= q.Wi) return;
+      off = (((long long)bb * q.Hi + hi_) * q.Wi + wi) * q.Ci + c0;
+      hi = nc;
+    };
+    const int rows = tb * d.PH * d.PW;
+    if (vec_x) {
+      stage_rows<true, 4>(xs, d.cs, in, rows, d.cs, px);
+      if (masked) stage_rows<true, 4>(ms, d.cs, mask, rows, d.cs, px);
+    } else {
+      stage_rows<false, 4>(xs, d.cs, in, rows, d.cs, px);
+      if (masked) stage_rows<false, 4>(ms, d.cs, mask, rows, d.cs, px);
     }
-    for (int e = tid; e < kBK * kBN; e += kThreads) {
-      const int oo = e % kBN;
-      const int kk = e / kBN;
-      const int k = k0 + kk;
-      const int o = o0 + oo;
-      float v = 0.0f;
-      if (k < K && o < q.Co) {
-        if (kFlip) {
-          const int c = k % q.Ci;
-          const int t = k / q.Ci;
-          const int j = t % q.kw;
-          const int i = t / q.kw;
-          v = w[((((size_t)(q.kh - 1 - i) * q.kw + (q.kw - 1 - j)) * q.Co) +
-                 o) * q.Ci + c];
-        } else {
-          v = w[(size_t)k * q.Co + o];
-        }
+    // the filter panel ws[(t * 4 cq + c) * cn + o] of taps t0 + t
+    const int cc4 = 4 * d.cq;
+    if (!kFlip) {   // rows (t, c) of w[t0 + t, c0 + c, o0 : o0 + cn]
+      auto wrow = [&](int r, long long& off, int& lo, int& hi) {
+        const int t = r / cc4;
+        const int c = r - t * cc4;
+        if (c >= nc || t0 + t >= d.T) return;
+        off = ((long long)(t0 + t) * q.Ci + c0 + c) * q.Co + o0;
+        hi = min(d.cn, q.Co - o0);
+      };
+      if (vec_w)
+        stage_rows<true, 4>(ws, d.cn, w, d.tc * cc4, d.cn, wrow);
+      else
+        stage_rows<false, 4>(ws, d.cn, w, d.tc * cc4, d.cn, wrow);
+    } else {  // w[T - 1 - t0 - t, o0 + o, c0 + c]: contiguous along c
+      const int n = d.tc * d.cn * cc4;
+      for (int e = tid; e < n; e += kThreads) {
+        const int c = e % cc4;
+        const int o = e / cc4 % d.cn;
+        const int t = e / cc4 / d.cn;
+        const bool ok = c < nc && o0 + o < q.Co && t0 + t < d.T;
+        const long long i =
+            ok ? ((long long)(d.T - 1 - t0 - t) * q.Co + o0 + o) * q.Ci +
+                     c0 + c
+               : 0;
+        cp_async::copy4(ws + (t * cc4 + c) * d.cn + o, w + i, ok);
       }
-      wt[kk][oo] = v;
     }
+  };
+
+  stage_chunk(0);
+  for (int o = tid; o < d.cn; o += kThreads) {
+    const bool ok = bias != nullptr && o0 + o < q.Co;
+    cp_async::copy4(bs + o, ok ? bias + o0 + o : w, ok);
+  }
+  cp_async::commit();
+  // the tables, while the copies fly
+  for (int r = tid; r < d.T * d.cq; r += kThreads) {
+    const int t = r / d.cq;
+    uo[r] = ((t / q.kw) * d.PW + t % q.kw) * d.cs + 4 * (r - t * d.cq);
+  }
+  for (int p = tid; p < d.P; p += kThreads) {
+    const int ww = p % tw;
+    const int hh = p / tw % th;
+    const int bb = p / tw / th;
+    const bool ok = b0 + bb < q.B && h0 + hh < q.Ho && w0 + ww < q.Wo;
+    po[p] = ok ? ((b0 + bb) * q.Ho + h0 + hh) * q.Wo + w0 + ww : -1;
+    pr[p] = p / d.U * 4 * d.jobs + p % d.U;
+  }
+  // this thread's job: pixels u + k U (k < 4) x channel quad cg, and its
+  // reduction slice
+  const int job = tid % d.jobs;
+  const int sl = tid / d.jobs;
+  const int u = job % d.U;
+  const int cg = job / d.U;
+  int xo[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int p = u + k * d.U;
+    xo[k] = p < d.P ? (((p / tw / th) * d.PH + p / tw % th) * d.PW + p % tw)
+                          * d.cs
+                    : 0;
+  }
+  float4 acc[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) acc[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  for (int ch = 0; ch < d.nch; ++ch) {
+    if (ch + 1 < d.nch) stage_chunk(ch + 1);
+    cp_async::commit();
+    cp_async::wait<1>();      // every group but the newest: chunk ch
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float a = xt[kk][tr];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[j] = fmaf(a, wt[kk][tc + 4 * j], acc[j]);
+    float* xs = sm + (ch % d.nst) * d.stage_n;
+    if (masked) {             // the cotangent where the output is > 0
+      const float* ms = xs + d.xs_n;
+      for (int e = tid; e < d.xs_n; e += kThreads)
+        if (!(ms[e] > 0.0f)) xs[e] = 0.0f;
+      __syncthreads();
     }
-    __syncthreads();
+    const int t0 = ch % d.ntc * d.tc;
+    if (sl < d.rs)
+      conv_accumulate(acc, xs, xs + d.xs_n + d.ms_n, uo + t0 * d.cq, xo, sl,
+                      d.rs, min(d.tc, d.T - t0) * d.cq, d.cn, cg);
+    __syncthreads();          // stage ch % nst is free again
   }
 
-  const int r = r0 + tr;
-  if (r < M) {
+  // the slices' partials: red[(s * 16 + k * 4 + c) * jobs + job]
+  if (sl < d.rs) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = o0 + tc + 4 * j;
-      if (o < q.Co) {
-        float v = acc[j];
-        if (bias != nullptr) v += bias[o];
-        if (relu) v = fmaxf(v, 0.0f);
-        out[(size_t)r * q.Co + o] = v;
-      }
+    for (int k = 0; k < 4; ++k) {
+      float* r = red + (sl * 16 + k * 4) * d.jobs + job;
+      r[0] = acc[k].x;
+      r[d.jobs] = acc[k].y;
+      r[2 * d.jobs] = acc[k].z;
+      r[3 * d.jobs] = acc[k].w;
+    }
+  }
+  __syncthreads();
+  // output (pixel p, channel o): the slices in slice order, bias, relu
+  const int n = d.P * d.cn;
+  const int dp = kThreads / d.cn;
+  const int dq = kThreads % d.cn;
+  int p = tid / d.cn;
+  int o = tid % d.cn;
+  for (int e = tid; e < n; e += kThreads) {
+    const int at = po[p];
+    if (at >= 0 && o0 + o < q.Co) {
+      const float* rp = red + pr[p] + (o & 3) * d.jobs + (o >> 2) * d.U;
+      float v = rp[0];
+      for (int s = 1; s < d.rs; ++s) v += rp[s * 16 * d.jobs];
+      if (bias != nullptr) v += bs[o];
+      if (relu) v = fmaxf(v, 0.0f);
+      out[(size_t)at * q.Co + o0 + o] = v;
+    }
+    o += dq;
+    p += dp;
+    if (o >= d.cn) {
+      o -= d.cn;
+      ++p;
     }
   }
 }
 
+// ----------------------------------------------------------------------
 // K6 pass 1.  Geometry is the forward's: x (B, Hi, Wi, Ci), the cotangent
 // g (B, Ho, Wo, Co).  Block (tile, tap chunk, channel chunk) owns the
-// output pixels of one tile (tb images x th rows x tw columns, clipped at
-// the edges) and stages, once, the tile's x patch with its (kh - 1) x
-// (kw - 1) halo (zero outside the input) and the masked g of its channel
-// chunk (ct <= 16 channels) in shared memory: rows of contiguous floats,
-// neighbouring lanes on neighbouring addresses, every copy in flight at
-// once (4-byte cp.async; a tile of a 4 x 4 layer is mostly latency).
-// Each thread owns 4 taps x 4 channels of the (K + 1) x Co table (row K
-// is the constant 1 whose sums are db) and sums them over every pg_n-th
-// pixel of the tile from shared memory; the pg_n pixel groups are then
-// added in group order and the tile's sums written to part[tile].  No
-// division per element of the sums: each pixel's patch offset is staged
-// beside it.
+// output pixels of one tile (clipped at the edges) and stages, once, the
+// tile's x patch with its halo and the masked g of its channel chunk (ct
+// <= 16 channels): rows of contiguous floats (4-byte copies).  Each thread
+// owns 4 taps x 4 channels of the (K + 1) x Co table (row K is the
+// constant 1 whose sums are db) and sums them over every pg_n-th pixel of
+// the tile from shared memory; the pg_n pixel groups are then added in
+// group order and the tile's sums written to part[tile].  No division per
+// element of the sums: each pixel's patch offset is staged beside it.
+// ----------------------------------------------------------------------
 template <bool kVec>
 __device__ __forceinline__ void dw_accumulate(
     float (&acc)[4][4], const float* __restrict__ xs,
@@ -245,7 +469,6 @@ struct DwPlan {
   }
 };
 
-
 __global__ void __launch_bounds__(kThreads)
 conv_dw_partial_kernel(const float* __restrict__ x,
                        const float* __restrict__ g,
@@ -260,8 +483,6 @@ conv_dw_partial_kernel(const float* __restrict__ x,
   float* red = sm;                         // pg_n x jobs x 16, after the sums
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
   const int ntw = (q.Wo + tw - 1) / tw;
   const int nth = (q.Ho + th - 1) / th;
   const int w0 = (blockIdx.x % ntw) * tw;
@@ -270,37 +491,19 @@ conv_dw_partial_kernel(const float* __restrict__ x,
   const int tg0 = blockIdx.y * d.tgb;
   const int co0 = blockIdx.z * d.ct;
 
-  // Stage `rows` rows of `len` floats into dst (row r at r * len) with
-  // 4-byte cp.async copies, every one of them in flight at once: warp w
-  // takes rows w, w + 8, ...; row(r, off, lo, hi) places row r in the
-  // source once (element e at src + off + e; elements [lo, hi) lie inside
-  // it, the rest is zero-filled).
-  auto stage = [&](float* dst, const float* src, int rows, int len,
-                   auto row) {
-    for (int r = warp; r < rows; r += kThreads / 32) {
-      long long off = 0;
-      int lo = 0, hi = 0;
-      row(r, off, lo, hi);
-      for (int e = lane; e < len; e += 32) {
-        const bool ok = e >= lo && e < hi;
-        cp_async::copy4(dst + r * len + e, src + (ok ? off + e : 0), ok);
-      }
-    }
-  };
-
   // x patch: tb x PH rows of PW x Ci floats, each a contiguous run of one
   // input row (zero outside it)
   const int row_len = q.Wi * q.Ci;
   const int lo_x = (w0 - q.pl) * q.Ci;
-  stage(xs, x, tb * d.PH, d.PW * q.Ci,
-        [&](int r, long long& off, int& lo, int& hi) {
-          const int bb = b0 + r / d.PH;
-          const int h = h0 - q.pt + r % d.PH;
-          if (bb >= q.B || h < 0 || h >= q.Hi) return;
-          off = ((long long)bb * q.Hi + h) * row_len + lo_x;
-          lo = -lo_x;
-          hi = row_len - lo_x;
-        });
+  stage_rows<false, 32>(xs, d.PW * q.Ci, x, tb * d.PH, d.PW * q.Ci,
+                    [&](int r, long long& off, int& lo, int& hi) {
+                      const int bb = b0 + r / d.PH;
+                      const int h = h0 - q.pt + r % d.PH;
+                      if (bb >= q.B || h < 0 || h >= q.Hi) return;
+                      off = ((long long)bb * q.Hi + h) * row_len + lo_x;
+                      lo = -lo_x;
+                      hi = row_len - lo_x;
+                    });
   // g and its mask: tb x th rows of tw pixels x ct channels; where the
   // block owns every channel (ct == Co) a row is one contiguous run, else
   // element by element
@@ -314,8 +517,9 @@ conv_dw_partial_kernel(const float* __restrict__ x,
       off = (((long long)bb * q.Ho + h) * q.Wo + w0) * q.Co;
       hi = lim;
     };
-    stage(gs, g, tb * th, tw * d.ct, g_row);
-    if (mask != nullptr) stage(ms, mask, tb * th, tw * d.ct, g_row);
+    stage_rows<false, 32>(gs, tw * d.ct, g, tb * th, tw * d.ct, g_row);
+    if (mask != nullptr)
+      stage_rows<false, 32>(ms, tw * d.ct, mask, tb * th, tw * d.ct, g_row);
   } else {
     for (int e = tid; e < d.P * d.ct; e += kThreads) {
       const int c = e % d.ct;
@@ -426,57 +630,95 @@ conv_dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
   else db[o - K * Co] = t;
 }
 
-// Let K6's pass 1 take up to the device's opt-in shared memory per block;
-// once per device.  Sets *limit to that many bytes.
-int allow_dw_smem(size_t* limit) {
+// Let `kernel` take up to the device's opt-in shared memory a block,
+// dynamically; once per (kernel, device), `slot` naming the kernel.  Sets
+// *limit to that many bytes.
+constexpr int kSlots = 3;   // K6 pass 1, K4, K5
+
+template <typename Kernel>
+int opt_in_smem(Kernel* kernel, int slot, size_t* limit) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  static int optin[64] = {};
-  if (dev < 64 && optin[dev] > 0) {
-    *limit = (size_t)optin[dev];
+  static int optin[kSlots][64] = {};
+  if (dev < 64 && optin[slot][dev] > 0) {
+    *limit = (size_t)optin[slot][dev];
     return 0;
   }
   int bytes = 0;
   err = cudaDeviceGetAttribute(&bytes,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(conv_dw_partial_kernel,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 64) optin[dev] = bytes;
+  if (dev < 64) optin[slot][dev] = bytes;
   *limit = (size_t)bytes;
   return 0;
 }
 
+bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
 }  // namespace
 
-extern "C" int conv2d_igemm_f32(const void* in, const void* w,
-                                const void* bias, const void* mask,
-                                void* out, int B, int Hi, int Wi, int Ci,
-                                int Ho, int Wo, int Co, int kh, int kw,
-                                int pt, int pl, int flip, int relu,
-                                void* stream) {
+// K4 (flip = 0: in = x, w (kh, kw, Ci, Co), bias, no mask) and K5 (flip =
+// 1: in = the cotangent g (B, Hi, Wi, Ci), w the forward's filter (kh,
+// kw, Co, Ci), mask the forward's output or null).  (tb, th, tw) is a
+// block's tile of output pixels, and `chunk` input channels of `taps` taps
+// are what it stages at a time (kernels/conv2d.py conv_tile).
+extern "C" int conv2d_tile_f32(const void* in, const void* w,
+                               const void* bias, const void* mask,
+                               void* out, int B, int Hi, int Wi, int Ci,
+                               int Ho, int Wo, int Co, int kh, int kw,
+                               int pt, int pl, int flip, int relu, int tb,
+                               int th, int tw, int chunk, int taps,
+                               void* stream) {
   if (B <= 0 || Ho <= 0 || Wo <= 0 || Ci <= 0 || Co <= 0 || kh <= 0 ||
-      kw <= 0)
+      kw <= 0 || tb <= 0 || th <= 0 || tw <= 0 || chunk <= 0 || chunk > Ci ||
+      taps <= 0 || taps > kh * kw || (long long)tb * th * tw > 256 ||
+      (long long)B * Ho * Wo > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const Geometry q{B, Hi, Wi, Ci, Ho, Wo, Co, kh, kw, pt, pl};
-  const int M = B * Ho * Wo;
-  dim3 grid((M + kBM - 1) / kBM, (Co + kBN - 1) / kBN);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ConvPlan d(q, tb, th, tw, chunk, taps, flip != 0);
+  size_t limit = 0;
+  const int set = flip ? opt_in_smem(conv_tile_kernel<true>, 2, &limit)
+                       : opt_in_smem(conv_tile_kernel<false>, 1, &limit);
+  if (set != 0) return set;
+  if (d.smem() > limit) return (int)cudaErrorInvalidValue;
+  const long long tiles = (long long)((B + tb - 1) / tb) *
+                          ((Ho + th - 1) / th) * ((Wo + tw - 1) / tw);
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const auto* ip = static_cast<const float*>(in);
   const auto* wp = static_cast<const float*>(w);
   const auto* bp = static_cast<const float*>(bias);
   const auto* mp = static_cast<const float*>(mask);
   auto* op = static_cast<float*>(out);
+  const int vec_x = Ci % 4 == 0 && chunk % 4 == 0 && aligned16(in) &&
+                    (mask == nullptr || aligned16(mask));
+  const int vec_w = !flip && Co % 4 == 0 && aligned16(w);
+  dim3 grid((unsigned)tiles, (Co + d.cn - 1) / d.cn);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (flip)
-    conv_igemm_kernel<true><<<grid, kThreads, 0, s>>>(ip, wp, bp, mp, op, q,
-                                                      relu);
+    conv_tile_kernel<true><<<grid, kThreads, d.smem(), s>>>(
+        ip, wp, bp, mp, op, q, tb, th, tw, chunk, taps, relu, vec_x,
+        vec_w);
   else
-    conv_igemm_kernel<false><<<grid, kThreads, 0, s>>>(ip, wp, bp, mp, op, q,
-                                                       relu);
+    conv_tile_kernel<false><<<grid, kThreads, d.smem(), s>>>(
+        ip, wp, bp, mp, op, q, tb, th, tw, chunk, taps, relu, vec_x,
+        vec_w);
   return (int)cudaGetLastError();
+}
+
+// Bytes of shared memory a K4 (flip = 0) or K5 (flip = 1) block takes for
+// the (tb, th, tw) tile, `chunk` channels and `taps` taps
+// (ConvPlan::smem), for holding the launcher's chooser (kernels/conv2d.py
+// conv_smem) to the kernel.
+extern "C" long long conv2d_tile_smem(int Ci, int Co, int kh, int kw,
+                                      int tb, int th, int tw, int chunk,
+                                      int taps, int flip) {
+  const Geometry q{1, 1, 1, Ci, 1, 1, Co, kh, kw, 0, 0};
+  return (long long)ConvPlan(q, tb, th, tw, chunk, taps, flip != 0).smem();
 }
 
 // K6: (tb, th, tw) is the output-pixel tile of one pass-1 block
@@ -493,7 +735,7 @@ extern "C" int conv2d_dw_f32(const void* x, const void* g, const void* mask,
   const Geometry q{B, Hi, Wi, Ci, Ho, Wo, Co, kh, kw, pt, pl};
   const DwPlan d(q, tb, th, tw);
   size_t limit = 0;
-  const int set = allow_dw_smem(&limit);
+  const int set = opt_in_smem(conv_dw_partial_kernel, 0, &limit);
   if (set != 0) return set;
   if (d.smem() > limit) return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)((B + tb - 1) / tb) *

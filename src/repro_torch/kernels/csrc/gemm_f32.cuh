@@ -1,43 +1,62 @@
 // Split-K f32 tile product for Hopper (sm_90a), shared by K1's f32
-// instance (dense_fwd.cu, dense_fwd_f32) and K2 (dense_bwd.cu,
-// dense_dx_f32).  Header only: each source wraps these device functions in
-// __global__ kernels of its own name, so a profile tells K1 from K2.
+// instance (dense_fwd.cu, dense_fwd_f32), K2 (dense_bwd.cu, dense_dx_f32)
+// and K3 (dense_bwd.cu, dense_dwdb_f32).  Header only: each source wraps
+// these device functions in __global__ kernels of its own name, so a
+// profile tells the three apart.  K1 and K2 run splitk_tile, K3
+// splitk_tile_at (its operand form and register tiles); the ring, the
+// slices, the masking and pass 2 are the same.
 //
-//   C[m, n] = sum_k A[m, k] * B(k, n)
-//   A (M, K) row-major with row stride K (x for K1, g for K2);
-//   B(k, n) = w[k * N + n] (kWT false: w is (K, N), K1)
-//          or w[n * K + k] (kWT true: w^T read by index, w is (N, K), K2);
-//   kMasked: A[m, k] counts only where mask[m, k] > 0 (K2's relu mask, the
-//   saved forward output; mask may still be null).
+//   C[m, n] = sum_k A(m, k) * B(k, n), three operand forms:
+//   K1 <kWT false>: A = x (M, K) row-major, B(k, n) = w[k * N + n];
+//   K2 <kWT true, kMasked>: A = g (M, K) masked by mask[m, k] > 0 (the
+//     relu mask, the saved forward output; may be null), B(k, n) =
+//     w[n * K + k] (w^T read by index, w is (N, K));
+//   K3 <kAT, kMasked>: A(m, k) = x[k * (M - 1) + m] for m < M - 1 (x^T
+//     read by index, x is (K, M - 1)) and 1 for m = M - 1, B(k, n) =
+//     g[k * N + n] masked by mask[k, n] > 0: rows 0 .. M - 2 of C are dw =
+//     x^T g, row M - 1 is db = the sum of g's rows, both in one fixed order.
 //
-// Pass 1 (splitk_tile): a block owns one 64 x 64 output tile and one
-// contiguous slice of K, `depth` deep (a multiple of kDepth) except the
-// last; blockIdx.z picks the slice.  kernels/dense.py picks splits and
-// depth from the shapes (dense_splits, split_depth); the launcher refuses
-// a pair that leaves part of K out or a slice empty.  256 threads hold 4 x 4 outputs each in
-// registers: rows ty + 16 i, columns 4 tx + j (kWT false) or tx + 16 j
-// (kWT true), the columns picked so that every shared-memory read is a
-// conflict-free 16-byte load.  The slice walks K in steps of kDepth = 16
-// through a two-stage shared-memory ring: while the block multiplies one
-// step, cp.async 16-byte copies (cp.async.cg, zero fill past an edge) bring
-// the next.  An operand takes that path where its row stride is a multiple
-// of 4 floats and its pointer 16-byte aligned (vecA, vecB, decided once per
+// What bounds them.  At the CNN's FC widths (M = 64 rows at case7) each
+// product does 2 x 64 x 2000 x 2000 flops over a 16 MB weight or weight
+// gradient, 32 flops a byte, above the 20 where the H100's f32 FMA peak
+// (67 TFLOP/s) meets its memory rate: the FMA rate bounds them (7.6 us a
+// 2000 x 2000 launch, the bytes 4.9 us).  Next in line is shared memory:
+// it delivers 128 bytes a clock to an SM, so a 4 x 4 register tile fed
+// by two 16-byte reads a k (16 FMAs) keeps the FMA pipes at most half
+// busy.  No TF32: the gradient gate is 1e-4 x scale.
+//
+// What the design does about it.  Pass 1 (splitk_tile): a block owns one
+// 64 x 64 output tile and one contiguous slice of K, `depth` deep (a
+// multiple of kDepth) except the last; blockIdx.z picks the slice.
+// kernels/dense.py picks splits and depth from the shapes (dense_splits,
+// split_depth), so blocks fill the card where the tiles alone do not; the
+// launcher refuses a pair that leaves part of K out or a slice empty.  256
+// threads hold 4 x 4 outputs each in registers, the columns (and K3's
+// rows) picked so that every shared-memory read is a conflict-free
+// 16-byte load.  The slice walks K in steps of kDepth = 16 through a
+// two-stage shared-memory ring: while the block multiplies one step,
+// cp.async 16-byte copies (cp.async.cg, zero fill past an edge) bring the
+// next.  An operand takes that path where its row stride is a multiple of
+// 4 floats and its pointer 16-byte aligned (vecA, vecB, decided once per
 // launch); otherwise the same kernel loads it element by element into the
-// same ring.  A block whose slice is empty writes zeros.
-// With one slice (splits == 1) pass 1 applies the epilogue (bias, relu) and
-// writes the output; otherwise it writes its partial sums to
-// part[z][M][N] and pass 2 (splitk_sum) adds them in slice order, then
-// applies the epilogue.  No float atomics: a rerun gives identical bits.
+// same ring.  A mask is copied beside its operand and each thread zeroes
+// its own chunk where the mask is not > 0 before the block reads it.  With
+// one slice (splits == 1) pass 1 applies the epilogue (bias, relu) and
+// writes the output; otherwise it writes its partial sums to part[z][M][N]
+// and pass 2 (splitk_sum) adds them in slice order, then applies the
+// epilogue.  No float atomics: a rerun gives identical bits.
 //
-// Shared memory: A and the mask 2 x 64 x 20 floats each, B 2 x 16 x 68
-// (kWT false) or 2 x 64 x 20 floats (kWT true); rows padded so 16-byte
-// rows stay aligned and the reads above hit distinct banks (w^T's rows,
-// 20 floats apart, land eight threads of a 16-byte read on eight distinct
-// bank quads).  The 64 x 64 tile of the first design is kept: ptxas
-// (-Xptxas -v, sm_90a) gives pass 1 64 registers and 19,024 (K1) or
-// 30,720 (K2) bytes of shared memory, no spill in K2 and 4 bytes in K1,
-// so two to four blocks fit an SM and a 2000 -> 2000 layer's 256 blocks
-// run in one wave.
+// Shared memory: K1/K2 stage A (and the mask) as 64 rows of 16 k (rows
+// padded to 20 floats), K1's w as 16 k x 64 columns (68), K2's w^T as 64
+// columns x 16 k.  K3 stages x^T as 16 k x 64 or 128 rows, g and its mask
+// as 16 k x 64 columns, so its threads read both operands along their
+// rows and columns.  Rows are padded so 16-byte rows stay aligned and the
+// reads above hit distinct banks.  K3's output is up to 2001 x 2000 over a
+// 64-deep reduction, where the 64 x 64 tile of 4 x 4 ran at the speed of
+// torch.matmul and no faster, held by shared memory as above: where the
+// output has 528 64 x 64 tiles or more (four 128-thread blocks an SM),
+// K3 takes a 128 x 64 tile of 8 x 8 registers a thread, four 16-byte
+// reads a k for 64 FMAs.
 
 #pragma once
 
@@ -52,7 +71,7 @@ constexpr int kTile = 64;     // output tile, rows and columns
 constexpr int kDepth = 16;    // K step through shared memory
 constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kLd = kDepth + 4;   // k-contiguous tile rows (A, mask, w^T)
-constexpr int kLdN = kTile + 4;   // n-contiguous tile rows (w)
+constexpr int kLdN = kTile + 4;   // n-contiguous tile rows (w, g)
 
 __device__ __forceinline__ float lane(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -264,6 +283,212 @@ inline int splitk_launch(P1 pass1, P2 pass2, const float* A, const float* W,
   const size_t n = (size_t)M * N;
   pass2<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
       part, bias, out, M, N, relu, splits);
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------------------------
+// K3's form: C (M, N) = A B with A = [x^T; 1] (x (K, M - 1) read by index,
+// row M - 1 ones) and B = g (K, N) masked by mask > 0.
+// ----------------------------------------------------------------------
+
+// Four elements of rows m .. m + 3 of A = [x^T; 1] at column k (x's row
+// stride is rows - 1); zero at rows >= rows or k >= kend.
+__device__ __forceinline__ float4 load4_at(const float* __restrict__ x,
+                                           int k, int m, int kend,
+                                           int rows) {
+  const int ld = rows - 1;
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = m + e;
+    v[e] = k >= kend || r >= rows ? 0.0f
+           : r == ld ? 1.0f : x[(size_t)k * ld + r];
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// The register tile of a K3 block: 64 x 64 outputs by 256 threads of 4 x 4
+// (rows 4 ty + i, columns 4 tx + j), or (kBig) 128 x 64 by 128 threads of
+// 8 x 8 (rows 64 gi + 4 ty + i, columns 32 gj + 4 tx + j), which reads
+// shared memory half as often per FMA.
+template <bool kBig>
+struct AtTile {
+  static constexpr int kThreads = kBig ? 128 : 256;
+  static constexpr int kRows = kBig ? 128 : 64;   // output rows a block
+  static constexpr int kRG = kBig ? 2 : 1;   // 4-row groups a thread
+  static constexpr int kCG = kBig ? 2 : 1;   // 4-column groups a thread
+  static constexpr int kTX = kTile / (4 * kCG);   // threads along a row
+};
+
+template <bool kBig>
+struct SmemAt {
+  float a[2][kDepth][AtTile<kBig>::kRows + 4];   // a[s][k][m]
+  float b[2][kDepth][kLdN];                      // b[s][k][n]
+  float m[2][kDepth][kLdN];                      // b's mask
+};
+
+// Pass 1 of K3: grid (ceil(N/64), ceil(M/kRows), splits), the same ring,
+// slices and partials as splitk_tile; no epilogue.
+template <bool kBig>
+__device__ __forceinline__ void splitk_tile_at(
+    const float* __restrict__ x, const float* __restrict__ g,
+    const float* __restrict__ mask, float* __restrict__ part,
+    float* __restrict__ out, int M, int N, int K, int splits, int depth,
+    int vecA, int vecB) {
+  using T = AtTile<kBig>;
+  constexpr int kR = T::kRows;
+  __shared__ __align__(16) SmemAt<kBig> sm;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % T::kTX;
+  const int ty = tid / T::kTX;
+  const int m0 = blockIdx.y * kR;
+  const int n0 = blockIdx.x * kTile;
+  const int kbeg = min(K, (int)blockIdx.z * depth);
+  const int kend = min(K, kbeg + depth);
+  const int steps = (kend - kbeg + kDepth - 1) / kDepth;
+  const bool masked = mask != nullptr;
+  const int ld = M - 1;   // x's row stride, and A's row of ones
+
+  // 16-byte chunks: A's kDepth x kR / 4, B's (and the mask's) kDepth x 16
+  auto load = [&](int s, int k0) {
+#pragma unroll
+    for (int c = tid; c < kDepth * kR / 4; c += T::kThreads) {
+      const int kk = c / (kR / 4), mm = c % (kR / 4) * 4;
+      const int k = k0 + kk, m = m0 + mm;
+      float* dst = &sm.a[s][kk][mm];
+      if (vecA && m != ld) {   // ld % 4 == 0: all in x or all past it
+        const bool ok = k < kend && m < ld;
+        cp_async::copy16(dst, x + (ok ? (size_t)k * ld + m : 0), ok);
+      } else {
+        *reinterpret_cast<float4*>(dst) = load4_at(x, k, m, kend, M);
+      }
+    }
+#pragma unroll
+    for (int c = tid; c < kDepth * kTile / 4; c += T::kThreads) {
+      const int kk = c / (kTile / 4), nn = c % (kTile / 4) * 4;
+      const int k = k0 + kk, n = n0 + nn;
+      if (vecB) {
+        const bool ok = k < kend && n < N;
+        const size_t i = ok ? (size_t)k * N + n : 0;
+        cp_async::copy16(&sm.b[s][kk][nn], g + i, ok);
+        if (masked) cp_async::copy16(&sm.m[s][kk][nn], mask + i, ok);
+      } else {
+        *reinterpret_cast<float4*>(&sm.b[s][kk][nn]) =
+            load4(g, mask, k, n, kend, N, N);
+      }
+    }
+  };
+
+  float acc[4 * T::kRG][4 * T::kCG] = {};
+  if (steps > 0) load(0, kbeg);
+  cp_async::commit();
+  for (int t = 0; t < steps; ++t) {
+    const int s = t & 1;
+    if (t + 1 < steps) load(s ^ 1, kbeg + (t + 1) * kDepth);
+    cp_async::commit();
+    cp_async::wait<1>();   // every group but the newest: step t has landed
+    if (masked && vecB) {  // this thread's own copies are visible to it
+#pragma unroll
+      for (int c = tid; c < kDepth * kTile / 4; c += T::kThreads) {
+        const int kk = c / (kTile / 4), nn = c % (kTile / 4) * 4;
+        float4* b = reinterpret_cast<float4*>(&sm.b[s][kk][nn]);
+        const float4 mk = *reinterpret_cast<const float4*>(&sm.m[s][kk][nn]);
+        float4 v = *b;
+        v.x = mk.x > 0.0f ? v.x : 0.0f;
+        v.y = mk.y > 0.0f ? v.y : 0.0f;
+        v.z = mk.z > 0.0f ? v.z : 0.0f;
+        v.w = mk.w > 0.0f ? v.w : 0.0f;
+        *b = v;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kDepth; ++kk) {
+      float a[4 * T::kRG], b[4 * T::kCG];
+#pragma unroll
+      for (int gi = 0; gi < T::kRG; ++gi) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(&sm.a[s][kk][64 * gi + 4 * ty]);
+        a[4 * gi] = v.x; a[4 * gi + 1] = v.y;
+        a[4 * gi + 2] = v.z; a[4 * gi + 3] = v.w;
+      }
+#pragma unroll
+      for (int gj = 0; gj < T::kCG; ++gj) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            &sm.b[s][kk][kTile / T::kCG * gj + 4 * tx]);
+        b[4 * gj] = v.x; b[4 * gj + 1] = v.y;
+        b[4 * gj + 2] = v.z; b[4 * gj + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4 * T::kRG; ++i)
+#pragma unroll
+        for (int j = 0; j < 4 * T::kCG; ++j)
+          acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float* dst = splits == 1 ? out : part + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < 4 * T::kRG; ++i) {
+    const int r = m0 + 64 * (i / 4) + 4 * ty + i % 4;
+    if (r >= M) continue;
+    float* row = dst + (size_t)r * N;
+#pragma unroll
+    for (int gj = 0; gj < T::kCG; ++gj) {
+      const int c = n0 + kTile / T::kCG * gj + 4 * tx;
+      if (N % 4 == 0) {   // 16-byte stores, neighbouring lanes adjacent
+        if (c < N)
+          *reinterpret_cast<float4*>(row + c) =
+              make_float4(acc[i][4 * gj], acc[i][4 * gj + 1],
+                          acc[i][4 * gj + 2], acc[i][4 * gj + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + j < N) row[c + j] = acc[i][4 * gj + j];
+      }
+    }
+  }
+}
+
+// 64 x 64 tiles (K3's M rows by N) at or past which K3 takes the 128 x 64
+// register tile: four of its 128-thread blocks on every SM.  The slices
+// never split there (dense_splits stops at 264 blocks).
+constexpr long long kBigTiles = 4 * 132;
+
+// Launch K3: pass1 / big are the __global__ wrappers of
+// splitk_tile_at<false> / <true>, pass2 of splitk_sum.  Returns
+// cudaGetLastError() after the last launch; never synchronises.
+template <typename P1, typename PB, typename P2>
+inline int splitk_launch_at(P1 pass1, PB big, P2 pass2, const float* x,
+                            const float* g, const float* mask, float* part,
+                            float* out, int M, int N, int K, int splits,
+                            int depth, cudaStream_t stream) {
+  if (M < 2 || N <= 0 || K <= 0 || splits <= 0 || depth <= 0 ||
+      depth % kDepth != 0 || (long long)splits * depth < K ||
+      (long long)(splits - 1) * depth >= K ||
+      (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int vecA = vec_ok(M - 1, x);
+  const int vecB = vec_ok(N, g) && vec_ok(N, mask);
+  const long long tiles =
+      (long long)((N + kTile - 1) / kTile) * ((M + kTile - 1) / kTile);
+  if (splits == 1 && tiles >= kBigTiles) {
+    constexpr int kR = AtTile<true>::kRows;
+    dim3 grid((N + kTile - 1) / kTile, (M + kR - 1) / kR, 1);
+    big<<<grid, AtTile<true>::kThreads, 0, stream>>>(
+        x, g, mask, part, out, M, N, K, splits, depth, vecA, vecB);
+    return (int)cudaGetLastError();
+  }
+  dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, splits);
+  pass1<<<grid, AtTile<false>::kThreads, 0, stream>>>(
+      x, g, mask, part, out, M, N, K, splits, depth, vecA, vecB);
+  int err = (int)cudaGetLastError();
+  if (err != 0 || splits == 1) return err;
+  const size_t n = (size_t)M * N;
+  pass2<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      part, nullptr, out, M, N, 0, splits);
   return (int)cudaGetLastError();
 }
 

@@ -6,12 +6,13 @@ Counterpart of ``repro/kernels/dense.py``.  ``ops.dense`` calls
 ``DenseFunction`` otherwise; inside it a CUDA tensor launches the kernels
 and a CPU tensor takes their plain versions in ``ref.py``.
 
-K1's f32 instance and K2 are one split-K product (``csrc/gemm_f32.cuh``):
-``dense_splits`` picks how many slices of the reduction run on separate
-blocks, and the launcher hands the kernel a scratch buffer for their
-partial sums.  K1's bf16 instance splits its reduction the same way, as
-``bf16_splits`` says: the decode stream at M <= 16 always, the prefill
-tile GEMM where its tiles alone would leave SMs idle.
+K1's f32 instance, K2 and K3 are one split-K product
+(``csrc/gemm_f32.cuh``): ``dense_splits`` picks how many slices of the
+reduction run on separate blocks (``dwdb_splits`` for K3), and the
+launcher hands the kernel a scratch buffer for their partial sums.  K1's
+bf16 instance splits its reduction the same way, as ``bf16_splits`` says:
+the decode stream at M <= 16 always, the prefill tile GEMM where its tiles
+alone would leave SMs idle.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from . import launch, ref
 
 __all__ = ["dense_cuda", "dense_dx_cuda", "dense_dwdb_cuda",
            "DenseFunction", "ACTIVATIONS", "dense_splits", "split_depth",
-           "bf16_splits"]
+           "dwdb_splits", "bf16_splits"]
 
 ACTIVATIONS = ("none", "relu")
 
@@ -65,6 +66,14 @@ def dense_splits(M: int, N: int, K: int) -> int:
     while splits > 1 and (splits - 1) * split_depth(K, splits) >= K:
         splits -= 1
     return splits
+
+
+def dwdb_splits(M: int, Din: int, Dout: int) -> int:
+    """How many slices K3 cuts its reduction over the M rows of x (M, Din)
+    and g (M, Dout) into: ``dense_splits`` of its (Din + 1, Dout) output,
+    dw and the row db.  1 at the CNN's 64 rows; a long M on a small output
+    splits until the blocks fill the card."""
+    return dense_splits(Din + 1, Dout, M)
 
 
 @functools.lru_cache(maxsize=1024)   # every projection asks each call
@@ -192,7 +201,10 @@ def dense_dx_cuda(g, w, out=None):
 def dense_dwdb_cuda(x, g, out=None):
     """K3 on the card, one launch: dw = x^T g (Din, Dout) and db = the sum
     of g's rows (Dout,), f32, g masked by ``out > 0``; x (M, Din), g and
-    ``out`` (M, Dout).  ``dense_dwdb_cuda.launches`` counts the launches."""
+    ``out`` (M, Dout).  One (Din + 1, Dout) product over the M rows, split
+    as ``dwdb_splits`` says: dw and db are its first Din rows and its last
+    row.  ``dense_dwdb_cuda.launches`` counts the launches (two passes
+    where it splits count as one)."""
     dev = launch.check_f32_cuda("dense_dwdb_cuda", x=x, g=g, out=out)
     if x.ndim != 2 or g.ndim != 2 or x.shape[0] != g.shape[0] or (
             out is not None and out.shape != g.shape):
@@ -200,12 +212,13 @@ def dense_dwdb_cuda(x, g, out=None):
                          f"and out like g, got {tuple(x.shape)}, "
                          f"{tuple(g.shape)}")
     (M, Din), Dout = x.shape, g.shape[1]
-    dw = torch.empty((Din, Dout), dtype=torch.float32, device=dev)
-    db = torch.empty((Dout,), dtype=torch.float32, device=dev)
-    launch.run("dense_bwd", "dense_dwdb_f32", dev, (x, g, out, dw, db),
-               (M, Din, Dout))
+    dwdb = torch.empty((Din + 1, Dout), dtype=torch.float32, device=dev)
+    splits = dwdb_splits(M, Din, Dout)
+    part = _scratch(splits, Din + 1, Dout, dev)
+    launch.run("dense_bwd", "dense_dwdb_f32", dev, (x, g, out, part, dwdb),
+               (M, Din, Dout, splits, split_depth(M, splits)))
     dense_dwdb_cuda.launches += 1
-    return dw, db
+    return dwdb[:Din], dwdb[Din]
 
 
 dense_dx_cuda.launches = 0

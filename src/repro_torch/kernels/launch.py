@@ -58,7 +58,7 @@ def check_f32_cuda(name: str, **tensors) -> torch.device:
 
 def workspace(numel: int, device) -> torch.Tensor:
     """An f32 scratch buffer of at least ``numel`` elements for the partial
-    sums of a kernel that splits its reduction (K1, K2, K6).  One buffer
+    sums of a kernel that splits its reduction (K1, K2, K3, K6).  One buffer
     per (device, stream), grown as needed and reused: launches on one
     stream run in order, each adding up its partials before the next
     starts, so a decode step or a training step saves an allocation per

@@ -300,6 +300,115 @@ def test_conv_dw_tile_chooser_counts_the_kernels_bytes():
                                                             k, k), tile
 
 
+# K4/K5 at every case7 shape, the ragged cases (odd B, Cin 3, k = 2/4/7,
+# VALID, tiles clipped at the edges, several images a tile, tiles of 6
+# pixels) and wide ones: Cin in chunks through the ring (K4 at Cin 2048 and
+# 1000; K5's 2048-wide output in column tiles), Cout past 16 (column tiles)
+# and a 25 x 25 filter in tap chunks
+CONV_TILE_SHAPES = [
+    (64, 32, 32, 3, 12, 3, "SAME"), (64, 16, 16, 12, 12, 3, "SAME"),
+    (64, 8, 8, 12, 12, 3, "SAME"), (64, 4, 4, 12, 12, 3, "SAME"),
+    (3, 9, 7, 3, 5, 2, "SAME"), (3, 9, 7, 3, 5, 4, "SAME"),
+    (3, 9, 7, 3, 5, 7, "SAME"), (2, 9, 7, 4, 20, 7, "SAME"),
+    (3, 9, 7, 4, 20, 3, "VALID"), (1, 8, 8, 12, 12, 7, "VALID"),
+    (5, 6, 6, 12, 12, 7, "SAME"), (140, 3, 3, 4, 5, 3, "SAME"),
+    (7, 5, 300, 3, 16, 5, "SAME"),
+    (1, 8, 8, 2048, 16, 3, "SAME"), (2, 9, 7, 4, 300, 3, "SAME"),
+    (1, 6, 6, 1000, 8, 7, "SAME"), (1, 30, 30, 8, 16, 25, "SAME")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,Cin,Cout,k,padding", CONV_TILE_SHAPES)
+def test_conv_fwd_and_dx_kernels_match_plain_and_rerun(B, H, W, Cin, Cout,
+                                                       k, padding):
+    """K4 (with bias and relu, and without either) and K5 (with the relu
+    mask and without): within the forward and gradient gates of their plain
+    versions, one launch a call, identical bits on a rerun."""
+    _card()
+    from repro_torch.kernels import conv2d as cv
+    gen = _gen(13)
+    x = _randn(gen, (B, H, W, Cin))
+    w = _randn(gen, (k, k, Cin, Cout)) / (k * k * Cin) ** 0.5
+    b = _randn(gen, (Cout,))
+    for bias, act in ((b, "relu"), (None, "none")):
+        before = cv.conv2d_cuda.launches
+        got = cv.conv2d_cuda(x, w, bias, padding=padding, activation=act)
+        again = cv.conv2d_cuda(x, w, bias, padding=padding, activation=act)
+        assert cv.conv2d_cuda.launches == before + 2
+        _close(got, ref.conv2d_fused_ref(x, w, bias, padding=padding,
+                                          activation=act), False)
+        assert torch.equal(got, again)
+    g = _randn(gen, tuple(got.shape))
+    out = torch.relu(_randn(gen, tuple(got.shape)))
+    for mask in (out, None):
+        before = cv.conv2d_dx_cuda.launches
+        dx = cv.conv2d_dx_cuda(g, w, x.shape, padding, mask)
+        again = cv.conv2d_dx_cuda(g, w, x.shape, padding, mask)
+        assert cv.conv2d_dx_cuda.launches == before + 2
+        _close(dx, ref.conv2d_dx_ref(g, w, x.shape, padding, mask), True)
+        assert torch.equal(dx, again)
+
+
+@pytest.mark.cuda
+def test_conv_tile_chooser_counts_the_kernels_bytes():
+    """conv2d.conv_smem (which sizes K4/K5's tiles and chunks) equals the
+    kernel's own count of a block's shared memory, ConvPlan::smem, at every
+    (tile, chunk, taps) the chooser picks for the case7, ragged and wide
+    shapes and at other tiles, chunks and tap counts."""
+    _card()
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels import conv2d as cv
+    fn = build.load("conv2d").conv2d_tile_smem
+    fn.argtypes = [ctypes.c_int] * 10
+    fn.restype = ctypes.c_longlong
+    for B, H, W, Cin, Cout, k, pad in CONV_TILE_SHAPES:
+        for flip in (False, True):
+            ci, co = (Cout, Cin) if flip else (Cin, Cout)
+            picked = cv.conv_tile(B, H, W, ci, co, k, k, flip)
+            plans = {picked, (1, 1, 1, 1, 1), (1, 1, 4, ci, k * k),
+                     (1, 1, W, max(1, ci // 2), k), (B, H, W, 1, 1)}
+            for tb, th, tw, chunk, taps in plans:
+                if tb * th * tw > 256:
+                    continue
+                assert fn(ci, co, k, k, tb, th, tw, chunk, taps, flip) == \
+                    cv.conv_smem((tb, th, tw), chunk, taps, ci, co, k, k,
+                                 flip), (picked, tb, th, tw, chunk, taps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Din,Dout", [
+    # the case7 shapes; ragged rows, Din and Dout (Din or Dout not a
+    # multiple of 4: the element-by-element loads; Din % 64 == 0, so the
+    # row of ones is a tile of its own); a long reduction on a small
+    # output (32 slices), and one on a 64 x 64 output; the 128 x 64
+    # register tile (528 64 x 64 tiles or more) with ragged Din and Dout,
+    # and at its threshold
+    (64, 192, 2000), (64, 2000, 2000), (64, 2000, 10),
+    (37, 100, 77), (5, 3, 130), (64, 192, 70), (37, 77, 1000),
+    (64, 200, 1002), (64, 10, 2000), (3, 1001, 77), (64, 64, 64),
+    (4096, 77, 10), (1000, 64, 64), (70, 2001, 2003), (64, 1663, 1344)])
+def test_dense_dwdb_kernel_matches_plain_and_reruns(M, Din, Dout):
+    """K3 ([x, 1]^T (g masked) on the split-K product, db its last row):
+    within the gradient gate of its plain version with and without the relu
+    mask, one launch a call, identical bits on a rerun."""
+    _card()
+    from repro_torch.kernels import dense as dn
+    gen = _gen(14)
+    x, g = _randn(gen, (M, Din)), _randn(gen, (M, Dout))
+    out = torch.relu(_randn(gen, (M, Dout)))
+    for mask in (out, None):
+        before = dn.dense_dwdb_cuda.launches
+        got = dn.dense_dwdb_cuda(x, g, mask)
+        again = dn.dense_dwdb_cuda(x, g, mask)
+        assert dn.dense_dwdb_cuda.launches == before + 2
+        assert got[0].shape == (Din, Dout) and got[1].shape == (Dout,)
+        _close(got, ref.dense_dwdb_ref(x, g, mask), True)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                             again[1])
+    assert dn.dwdb_splits(M, Din, Dout) > 1 or M <= 128
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,ties", [((64, 32, 32, 12), False),
                                         ((3, 9, 7, 5), False),

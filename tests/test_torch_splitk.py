@@ -344,6 +344,156 @@ def test_dw_tile_partials_in_order_give_the_gradient(B, H, W, Cin, Cout, k,
     assert (db.double() - want_b).abs().max().item() <= 1e-4 * scale
 
 
+# ----------------------------------------------------------------------
+# K4/K5: one tile of output pixels a block, the reduction in chunks of
+# channels (and taps) where one block's shared memory is too small
+# ----------------------------------------------------------------------
+CONV_WIDE = [(2, 9, 7, 4, 300, 3, "SAME"), (1, 30, 30, 8, 16, 25, "SAME"),
+             (140, 3, 3, 4, 5, 3, "SAME")]
+
+
+def _tile_plans(B, H, W, Cin, Cout, k, pad):
+    """K4's and K5's (flip, in channels, out channels, output rows and
+    columns, conv_tile's pick) for a forward conv of these shapes."""
+    Ho, Wo = _out_hw(H, W, k, pad)
+    return [(False, Cin, Cout, Ho, Wo,
+             conv2d.conv_tile(B, Ho, Wo, Cin, Cout, k, k, False)),
+            (True, Cout, Cin, H, W,
+             conv2d.conv_tile(B, H, W, Cout, Cin, k, k, True))]
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout,k,pad",
+                         CASE7_CONV + RAGGED_CONV + WIDE_CONV + CONV_WIDE)
+def test_conv_tiles_cover_every_pixel_once_and_fit(B, H, W, Cin, Cout, k,
+                                                   pad):
+    for flip, ci, co, Ho, Wo, plan in _tile_plans(B, H, W, Cin, Cout, k, pad):
+        tb, th, tw, chunk, taps = plan
+        assert plan == conv2d.conv_tile(B, Ho, Wo, ci, co, k, k, flip)
+        assert tb * th * tw <= 256 and 1 <= chunk <= ci and \
+            1 <= taps <= k * k
+        assert conv2d.conv_smem((tb, th, tw), chunk, taps, ci, co, k, k,
+                                flip) <= DW_SMEM_LIMIT
+        seen = np.zeros((B, Ho, Wo), np.int64)
+        tiles = _tiles(B, Ho, Wo, (tb, th, tw))
+        assert len(tiles) == conv2d.conv_tiles(B, Ho, Wo, ci, co, k, k,
+                                               flip)
+        for (b0, b1), (h0, h1), (w0, w1) in tiles:
+            assert b1 > b0 and h1 > h0 and w1 > w0          # none empty
+            seen[b0:b1, h0:h1, w0:w1] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout,k,flip,want", [
+    (64, 32, 32, 3, 12, 3, False, (1, 8, 32, 3, 9)),    # 256 pixels
+    (64, 32, 32, 12, 3, 3, True, (1, 8, 32, 12, 9)),    # K5 of layer 0
+    (64, 16, 16, 12, 12, 3, False, (1, 4, 16, 12, 9)),  # 64 pixels
+    (64, 8, 8, 12, 12, 3, False, (1, 2, 8, 12, 9)),     # 16 pixels
+    (64, 4, 4, 12, 12, 3, True, (1, 1, 4, 12, 9)),      # 4: 256 tiles
+    (3, 9, 7, 3, 5, 2, False, (1, 1, 4, 3, 4)),
+    (140, 3, 3, 4, 5, 3, False, (1, 2, 3, 4, 9)),       # 6 pixels
+    (1, 8, 8, 2048, 16, 3, False, (1, 1, 4, 176, 9)),   # 12 chunks of Cin
+    (1, 8, 8, 16, 2048, 3, True, (1, 1, 4, 16, 9)),     # 128 column tiles
+    (2, 56, 56, 512, 512, 3, False, (1, 1, 32, 116, 9)),
+    (1, 30, 30, 8, 16, 25, False, (1, 1, 1, 1, 409)),   # chunks of taps
+])
+def test_conv_tile_depends_on_shapes_only(B, H, W, Cin, Cout, k, flip, want):
+    assert conv2d.conv_tile(B, H, W, Cin, Cout, k, k, flip) == want
+
+
+def test_conv_tile_refuses_a_patch_past_the_block_limit():
+    """One pixel's single-channel 79 x 79 patch fits K4's ring and 57 x 57
+    fits K5's (which holds the mask beside it); 81 x 81 and 59 x 59 do not,
+    and the chooser says so rather than hand the kernel a block it
+    refuses."""
+    assert conv2d.conv_tile(1, 100, 100, 8, 16, 79, 79, False)[3] == 1
+    assert conv2d.conv_tile(1, 100, 100, 8, 16, 57, 57, True)[3] == 1
+    for k, flip in ((81, False), (59, True)):
+        with pytest.raises(ValueError, match="does not fit"):
+            conv2d.conv_tile(1, 100, 100, 8, 16, k, k, flip)
+
+
+def test_conv_tile_blocks_fill_the_card_where_the_layer_allows():
+    """One tile an SM wherever B.Ho.Wo has 4 pixels for each of 132 SMs."""
+    for B, H, W, Cin, Cout, k, pad in CASE7_CONV + WIDE_CONV + CONV_WIDE:
+        for flip, ci, co, Ho, Wo, _ in _tile_plans(B, H, W, Cin, Cout, k,
+                                                   pad):
+            if B * Ho * Wo >= 132 * 4:
+                assert conv2d.conv_tiles(B, Ho, Wo, ci, co, k, k,
+                                         flip) >= 132
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout,k,pad",
+                         [(1, 8, 8, 2048, 16, 3, "SAME"),
+                          (1, 30, 30, 8, 16, 25, "SAME"),
+                          (3, 9, 7, 4, 20, 3, "VALID")])
+def test_conv_chunks_in_order_give_the_conv(B, H, W, Cin, Cout, k, pad):
+    """What K4's ring computes, through the plain version: the conv of each
+    chunk's channels and taps alone, added in the kernel's chunk order
+    (channel chunks outer, tap chunks inner), then bias and relu, equals
+    the whole."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((B, H, W, Cin)).astype(
+        np.float32))
+    w = torch.from_numpy((rng.standard_normal((k, k, Cin, Cout))
+                          / np.sqrt(k * k * Cin)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(Cout).astype(np.float32))
+    Ho, Wo = _out_hw(H, W, k, pad)
+    _, _, _, chunk, taps = conv2d.conv_tile(B, Ho, Wo, Cin, Cout, k, k,
+                                            False)
+    total = torch.zeros((B, Ho, Wo, Cout))
+    for c0 in range(0, Cin, chunk):
+        for t0 in range(0, k * k, taps):
+            keep = torch.zeros((k * k, 1, 1))
+            keep[t0:t0 + taps] = 1.0
+            wc = (w * keep.reshape(k, k, 1, 1))[:, :, c0:c0 + chunk]
+            total += ref.conv2d_ref(x[..., c0:c0 + chunk], wc, pad)
+    got = torch.relu(total + b)
+    want = ref.conv2d_fused_ref(x.double(), w.double(), b.double(), pad,
+                                activation="relu")
+    assert (got.double() - want).abs().max().item() <= \
+        1e-5 * want.abs().max().item()
+
+
+# ----------------------------------------------------------------------
+# K3: [x, 1]^T (g masked) on the split-K product
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("M,Din,Dout,want", [
+    (64, 192, 2000, 1), (64, 2000, 2000, 1), (64, 2000, 10, 1),  # case7
+    (4096, 77, 10, 32),   # two tiles: 32 slices of 128 rows
+    (1000, 64, 64, 7),    # the row of ones adds a tile row: 2 tiles
+    (37, 77, 1000, 1), (128, 10, 10, 1), (256, 10, 10, 2)])
+def test_dwdb_splits_fill_the_card_and_depend_on_shapes_only(M, Din, Dout,
+                                                             want):
+    assert dense.dwdb_splits(M, Din, Dout) == want
+    splits = dense.dwdb_splits(M, Din, Dout)
+    slices = _slices(M, splits)
+    assert slices[0][0] == 0 and slices[-1][1] == M
+    assert all(b > a for a, b in slices)
+
+
+@pytest.mark.parametrize("M,Din,Dout", [(64, 192, 70), (4096, 77, 10),
+                                        (1000, 64, 64), (5, 3, 130)])
+def test_dwdb_slices_with_a_row_of_ones_give_dw_and_db(M, Din, Dout):
+    """What K3's two passes compute, in plain f32: [x, 1]^T (g masked) over
+    each slice of the rows, added in slice order, is dw in its first Din
+    rows and db in its last."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((M, Din)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((M, Dout)).astype(np.float32))
+    out = torch.relu(torch.from_numpy(rng.standard_normal(
+        (M, Dout)).astype(np.float32)))
+    gm = g * (out > 0)
+    xa = torch.cat([x, torch.ones((M, 1))], dim=1)
+    total = torch.zeros((Din + 1, Dout))
+    for lo, hi in _slices(M, dense.dwdb_splits(M, Din, Dout)):
+        total += xa[lo:hi].t() @ gm[lo:hi]
+    want_w, want_b = ref.dense_dwdb_ref(x.double(), g.double(),
+                                        out.double())
+    scale = max(want_w.abs().max().item(), want_b.abs().max().item(), 1.0)
+    assert (total[:Din].double() - want_w).abs().max().item() <= 1e-4 * scale
+    assert (total[Din].double() - want_b).abs().max().item() <= 1e-4 * scale
+
+
 def _scratch_csrc(tmp_path, monkeypatch):
     """Point build.py at a copy of csrc/ (and a build dir) in tmp_path."""
     shutil.copytree(build.CSRC, tmp_path / "csrc")
@@ -375,7 +525,8 @@ def test_a_new_header_changes_the_library_name(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name,header", [
     ("dense_fwd", "gemm_f32.cuh"), ("dense_bwd", "gemm_f32.cuh"),
-    ("dense_fwd", "cp_async.cuh"), ("flash_attention", "cp_async.cuh")])
+    ("dense_fwd", "cp_async.cuh"), ("flash_attention", "cp_async.cuh"),
+    ("conv2d", "cp_async.cuh")])
 def test_sources_include_the_shared_header(name, header):
     text = (build._HERE / build.SOURCES[name]).read_text()
     assert f'#include "{header}"' in text
