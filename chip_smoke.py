@@ -34,7 +34,8 @@ from the root of a checkout.  Phases, each of which raises on failure
    each of its two passes' device time; K1 f32 and K2-K6 rerun bit for
    bit;
 2c. K9 (RMSNorm) at decode and prefill rows of d = 4608, 4096, 3072 in
-   bf16 and f32 plus ragged rows, and K10 (flash attention) at Gemma-2's
+   bf16 and f32 plus ragged rows (each rerun bit for bit; the launch
+   geometry printed), and K10 (flash attention) at Gemma-2's
    (bf16 and f32, q x 8 so the soft-cap of 50 acts), Yi-6B's and Phi-3's
    attention shapes (S up to 8192, windows) plus a small case with fully
    masked rows, each against its plain version (K10 in bf16 within one
@@ -70,9 +71,9 @@ from the root of a checkout.  Phases, each of which raises on failure
 6. a JSON line with every ported kernel (device-clock times as the extra
    fields ``device_ms`` and ``library_device_ms``, "not measured" being
    null; K1 also its prefill sums as ``prefill_*`` and ``gemma_prefill_*``,
-   K6 its passes as ``pass_device_ms``), then the card again, then the
-   result line
-   ``{"ok": true, "device": {...}}``.
+   K9 its Gemma-2 prefill forward's 33 launches at 5000 x 4608 as
+   ``prefill_*``, K6 its passes as ``pass_device_ms``), then the card
+   again, then the result line ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports no JAX and nothing of the JAX package ``repro``.
 
@@ -84,7 +85,11 @@ the root of another checkout, it times that checkout's K1 the same way.
 
     python3 chip_smoke.py --train-kernels K3,K4,K5
 
-does the same for phase 2b and the named kernels.
+does the same for phase 2b and the named kernels, and
+
+    python3 chip_smoke.py --k9
+
+for phase 2c's K9 cases.
 """
 from __future__ import annotations
 
@@ -433,7 +438,8 @@ RAGGED = {   # correctness only: odd B, Cin = 3, k = 2/4/7, VALID, ragged tiles
     # output in column tiles) and past 16 output channels (column tiles)
     "conv_wide": ((1, 8, 8, 2048, 16, 3, "SAME"),
                   (2, 9, 7, 4, 300, 3, "SAME")),
-    "pool": ((3, 9, 7, 5), (2, 8, 8, 12)),
+    # (B, H, W, C[, window]): ragged, tied, and window 3 off the 16-byte lanes
+    "pool": ((3, 9, 7, 5), (2, 8, 8, 12), (3, 10, 11, 7, 3)),
 }
 
 
@@ -499,10 +505,13 @@ def _train_specs(torch, ref, mods):
         return (rnd(gen, (B, H, W, Cin)), rnd(gen, (B, Ho, Wo, Cout)),
                 (k, k, Cin, Cout), pad, relu_out(gen, (B, Ho, Wo, Cout)))
 
+    def window(s):
+        return s[4] if len(s) > 4 else 2
+
     def k8(gen, s):
-        x = pool_x(gen, s)
-        out = ref.max_pool2d_ref(x, 2, 2)
-        return (x, out, rnd(gen, tuple(out.shape)), 2)
+        x = pool_x(gen, s[:4])
+        out = ref.max_pool2d_ref(x, window(s), window(s))
+        return (x, out, rnd(gen, tuple(out.shape)), window(s))
 
     def pool_bwd_graph(x, out, g, k):   # the forward, outside the timing
         xg = nchw(x).detach().requires_grad_()
@@ -577,7 +586,7 @@ def _train_specs(torch, ref, mods):
                    nbytes=lambda s: conv_bytes(s, 1, 1),
                    flops=lambda s: cflops(s) + s[0] * s[1] * s[2] * s[4],
                    grad=True),
-        "K7": dict(make=lambda gen, s: (pool_x(gen, s), 2),
+        "K7": dict(make=lambda gen, s: (pool_x(gen, s[:4]), window(s)),
                    kern=pl.max_pool2d_cuda,
                    plain=lambda x, k: ref.max_pool2d_ref(x, k, k),
                    lib=F.max_pool2d, lib_args=lambda x, k: (nchw(x), k),
@@ -916,7 +925,8 @@ RMS_CASES = [(rows, d, dt) for d in (4608, 4096, 3072)   # decode, prefill
              for rows in (4, 4500) for dt in ("bfloat16", "float32")]
 RMS_CASES += [(5000, 4608, "bfloat16"),                   # the long prompt
               (5, 4095, "bfloat16"), (37, 1000, "float32"),
-              (3, 13, "bfloat16")]                        # ragged rows
+              (3, 13, "bfloat16"),                        # ragged rows
+              (3001, 4095, "bfloat16")]   # many unaligned rows: chunked
 # (name, B, H, KH, Sq, Sk, D, dtype, window, softcap)
 FLASH_CASES = [
     ("gemma2 global", 1, 32, 16, 8192, 8192, 128, "bfloat16", 0, 50.0),
@@ -1006,13 +1016,12 @@ def flex_yardstick(torch, Sq, Sk, window, cap):
                               block_mask=block, enable_gqa=True)
 
 
-def phase_attn_kernels(torch, ref, mods):
-    """K9 and K10 against their plain versions at the LM shapes; returns
-    per case (err, ok, kernel, plain, library, bound ms)."""
+def phase_k9(torch, ref, rms):
+    """K9 against its plain version at RMS_CASES, rerun bit for bit;
+    returns per case (err, tol, kernel, plain, library, bound ms)."""
     F = torch.nn.functional
-    rms, flash = mods["rmsnorm"], mods["flash_attention"]
     gen = torch.Generator("cuda").manual_seed(3)
-    out = {"K9": {}, "K10": {}}
+    out = {}
     log(f"[k9] {'rows x d':<12} {'dtype':<9} {'max_abs_err':<11} "
         f"{'tol':<10} {'kernel_ms':<10} {'device_ms':<12} {'plain_ms':<10} "
         f"{'library_ms':<10} {'lib_dev_ms':<12} bound_ms")
@@ -1033,6 +1042,9 @@ def phase_attn_kernels(torch, ref, mods):
         if not err <= tol:
             raise AssertionError(f"K9 ({rows}, {d}) {dt}: max_abs_err {err} "
                                  f"> tol {tol}")
+        if not torch.equal(got, rms.rmsnorm_cuda(*sets[0])):
+            raise AssertionError(f"K9 ({rows}, {d}) {dt} gave different bits "
+                                 "on a rerun")
         k_ms = time_ms(torch, rms.rmsnorm_cuda, sets)
         k_dev, _ = device_ms(torch, rms.rmsnorm_cuda, sets)
         p_ms = time_ms(torch, ref.rmsnorm_ref, sets, iters=20)
@@ -1040,16 +1052,28 @@ def phase_attn_kernels(torch, ref, mods):
         l_ms = time_ms(torch, F.rms_norm, lib_sets)
         l_dev, _ = device_ms(torch, F.rms_norm, lib_sets)
         b_ms, by = roof_ms(nbytes, 4.0 * rows * d)
+        plan = getattr(rms, "rms_plan", None)   # a parent may not have it
+        geo = f" {tuple(plan(rows, d, itemsize))}" if plan else ""
         log(f"[k9] {rows:>5}x{d:<6} {dt:<9} {err:<11.4g} {tol:<10.4g} "
             f"{k_ms:<10.5f} {fmt_ms(k_dev):<12} {p_ms:<10.5f} {l_ms:<10.5f} "
-            f"{fmt_ms(l_dev):<12} {b_ms:.5f} ({by})")
-        out["K9"][(rows, d, dt)] = dict(err=err, tol=tol, ms=k_ms,
-                                        device_ms=k_dev, plain_ms=p_ms,
-                                        library_ms=l_ms,
-                                        library_device_ms=l_dev,
-                                        bound_ms=b_ms, bound_by=by)
+            f"{fmt_ms(l_dev):<12} {b_ms:.5f} ({by}){geo}")
+        out[(rows, d, dt)] = dict(err=err, tol=tol, ms=k_ms, device_ms=k_dev,
+                                  plain_ms=p_ms, library_ms=l_ms,
+                                  library_device_ms=l_dev, bound_ms=b_ms,
+                                  bound_by=by)
         del sets, lib_sets, got, want
+    log("[k9] reruns bit for bit in every case")
+    return out
 
+
+def phase_attn_kernels(torch, ref, mods):
+    """K9 (``phase_k9``) and K10 against their plain versions at the LM
+    shapes; returns per case (err, ok, kernel, plain, library, bound
+    ms)."""
+    F = torch.nn.functional
+    flash = mods["flash_attention"]
+    out = {"K9": phase_k9(torch, ref, mods["rmsnorm"]), "K10": {}}
+    gen = torch.Generator("cuda").manual_seed(3)
     log(f"[k10] {'case':<14} {'B H KH Sq Sk D':<26} {'window':>6} "
         f"{'cap':>4} {'max_abs_err':<11} {'kernel_ms':<10} {'device_ms':<12} "
         f"{'plain_ms':<10} {'library_ms':<10} {'lib_dev_ms':<12} bound_ms")
@@ -1139,13 +1163,20 @@ def _worst(cases):
                key=lambda r: r.get("ratio", r["err"] / r["tol"]))
 
 
-def attn_json_rows(attn, k9_launches, k9_yi_launches, k10_launches,
-                   k10_path_diff):
+def attn_json_rows(attn, k9_launches, k9_yi_launches, k9_prefill,
+                   k10_launches, k10_path_diff):
     """The kernels-line rows of K9 and K10: times of the launches one
-    Gemma-2 decode step makes (K9) and of the two launches on the long
-    prompt's layers (K10)."""
+    Gemma-2 decode step makes (K9; its prefill instance: the launches of
+    one Gemma-2 prefill forward of GEMMA_LONG rows, ``k9_prefill`` the K9
+    launches phase 4c counted in each such call) and of the two launches
+    on the long prompt's layers (K10)."""
     n9 = 33
+    seen = k9_prefill.get(GEMMA_LONG, [])
+    if not seen or set(seen) != {n9}:
+        raise AssertionError(f"prefill calls of {GEMMA_LONG} rows launched K9 "
+                             f"{seen} times, not {n9}")
     k9 = attn["K9"][(4, 4608, "bfloat16")]
+    k9p = attn["K9"][(GEMMA_LONG, 4608, "bfloat16")]
     w9 = _worst(attn["K9"])
     local = attn["K10"][("gemma2 local", GEMMA_LONG, GEMMA_LONG, 128,
                          "bfloat16", 4096)]
@@ -1165,6 +1196,16 @@ def attn_json_rows(attn, k9_launches, k9_yi_launches, k10_launches,
         "work": "one Gemma-2 (8 layers) decode step: 33 bf16 launches at "
                 "4 x 4608",
         "yi_launches": k9_yi_launches,
+        "prefill_launches": seen[0], "prefill_ms": n9 * k9p["ms"],
+        "prefill_device_ms": add_ms(0.0, n9, k9p["device_ms"]),
+        "prefill_plain_ms": n9 * k9p["plain_ms"],
+        "prefill_bound_ms": n9 * k9p["bound_ms"],
+        "prefill_library_ms": n9 * k9p["library_ms"],
+        "prefill_library_device_ms": add_ms(0.0, n9,
+                                            k9p["library_device_ms"]),
+        "prefill_work": f"one Gemma-2 prefill forward of {GEMMA_LONG} tokens, "
+                        f"8 layers: {seen[0]} bf16 launches at {GEMMA_LONG} x "
+                        "4608, counted in phase 4c",
     }, {
         "name": "flash_attention (K10)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1249,17 +1290,18 @@ def phase_reduced(torch, configs, lm, serving, weights, arch="yi-6b"):
 def _serve(torch, eng, reqs, counters):
     """Run ``reqs`` through ``eng`` with every launch counter zeroed just
     before; check that logits stay finite.  Returns (events, launches,
-    forward calls, decode step ms, peak bytes, {prompt rows: K1 launches
-    counted in each prefill call of that many rows})."""
-    finite, decode_ms, pre_k1 = [], [], {}
+    forward calls, decode step ms, peak bytes, {kernel: {prompt rows:
+    its launches counted in each prefill call of that many rows}} for K1
+    and K9)."""
+    finite, decode_ms, pre = [], [], {"K1": {}, "K9": {}}
     prefill, decode = eng.prefill, eng.decode
-    k1 = counters["K1"]
 
     def checked_prefill(tokens):
-        before = k1.launches
+        before = {k: counters[k].launches for k in pre}
         logits, sl, ms = prefill(tokens)
-        pre_k1.setdefault(math.prod(tokens.shape), []).append(
-            k1.launches - before)
+        for k, n in before.items():
+            pre[k].setdefault(math.prod(tokens.shape), []).append(
+                counters[k].launches - n)
         finite.append(bool(torch.isfinite(logits).all()))
         return logits, sl, ms
 
@@ -1281,7 +1323,7 @@ def _serve(torch, eng, reqs, counters):
     if not all(finite):
         raise AssertionError("non-finite logits in the full-width run")
     return events, launches, eng.prefill_calls + eng.decode_calls, \
-        decode_ms, peak, pre_k1
+        decode_ms, peak, pre
 
 
 def _report(events, n_req, eng, calls, launches, per_call, decode_ms, peak,
@@ -1330,12 +1372,12 @@ def phase_slice(torch, configs, lm, serving, counters, card):
     eng.generate(np.zeros((1, 8), np.int32), 2)   # warm-up: CUDA/cuBLAS init
     reqs = serving.poisson_requests(8, rate_rps=50, seed=0,
                                     vocab_size=cfg.vocab_size)
-    events, launches, calls, decode_ms, peak, pre_k1 = _serve(
+    events, launches, calls, decode_ms, peak, pre = _serve(
         torch, eng, reqs, counters)
     L = cfg.num_layers             # 32: 224 K1 and 65 K9 a forward
     _report(events, 8, eng, calls, launches, {"K1": 7 * L, "K9": 2 * L + 1},
             decode_ms, peak, card, "slice")
-    return launches, pre_k1
+    return launches, pre["K1"]
 
 
 def phase_gemma(torch, configs, serving, counters, card, layers=8):
@@ -1370,7 +1412,7 @@ def phase_gemma(torch, configs, serving, counters, card, layers=8):
     rng = np.random.default_rng(1)
     reqs[0].tokens = rng.integers(0, cfg.vocab_size, GEMMA_LONG,
                                   dtype=np.int32)
-    events, launches, calls, decode_ms, peak, pre_k1 = _serve(
+    events, launches, calls, decode_ms, peak, pre = _serve(
         torch, eng, reqs, counters)
     _report(events, 4, eng, calls, launches,
             {"K1": 7 * layers, "K9": 4 * layers + 1}, decode_ms, peak, card,
@@ -1430,7 +1472,7 @@ def phase_gemma(torch, configs, serving, counters, card, layers=8):
             worst["plain"] = max(worst["plain"], p_err)
             x, _, _ = blocks.block_forward(lp, x, pos, cfg, window=win)
             del q, k, v, model, got, plain
-    return launches, pre_k1, k10_launches, worst
+    return launches, pre, k10_launches, worst
 
 
 def prefill_launches(k1_sums, arch, pre_k1):
@@ -1473,6 +1515,8 @@ def main() -> int:
                     "result line")
     ap.add_argument("--k1-rows", help="comma-separated rows M: run phase 2 "
                     "(K1) alone at these rows and print no result line")
+    ap.add_argument("--k9", action="store_true", help="run phase 2c's K9 "
+                    "cases alone and print no result line")
     args = ap.parse_args()
     # torch.compile (the flex_attention yardstick) caches inside the checkout
     cache = SRC / "repro_torch" / "kernels" / "_build" / "compile_cache"
@@ -1528,6 +1572,10 @@ def main() -> int:
                             set(args.train_kernels.split(",")))
         log(card_line())
         return 0
+    if args.k9:
+        phase_k9(torch, ref, rms_mod)
+        log(card_line())
+        return 0
     k1_sums, worst = phase_kernel(torch, dense_mod, ref)
     train_rows = phase_train_kernels(torch, ref, mods, cnn)
     attn_rows = phase_attn_kernels(torch, ref, mods)
@@ -1539,14 +1587,15 @@ def main() -> int:
     train_launches, train = phase_train_slice(torch, port, mods, card)
     gc.collect()
     torch.cuda.empty_cache()
-    gemma_launches, gem_pre_k1, k10_launches, k10_diff = phase_gemma(
+    gemma_launches, gem_pre, k10_launches, k10_diff = phase_gemma(
         torch, configs, serving, counters, card)
     phase_cli()
 
     k1 = train_rows["K1"]
     yi, gem = k1_sums[("yi-6b", "decode")], k1_sums[("gemma2-27b", "decode")]
     yi_pre = prefill_launches(k1_sums, "yi-6b", yi_pre_k1)
-    gem_pre = prefill_launches(k1_sums, "gemma2-27b", gem_pre_k1)
+    gem_pre_k9 = gem_pre["K9"]
+    gem_pre = prefill_launches(k1_sums, "gemma2-27b", gem_pre["K1"])
     rows = [{
         "name": "dense_fwd (K1)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dense_fwd.cu",
@@ -1613,7 +1662,8 @@ def main() -> int:
                             for M, Din, Dout, _ in case7_step_shapes(cnn)[
                                 "K2"]) + " slices" if key == "K2" else "")})
     rows += attn_json_rows(attn_rows, gemma_launches["K9"],
-                           launches["K9"], k10_launches, k10_diff)
+                           launches["K9"], gem_pre_k9, k10_launches,
+                           k10_diff)
     log(json.dumps({"kernels": rows}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

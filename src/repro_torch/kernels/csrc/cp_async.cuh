@@ -1,8 +1,9 @@
 // cp.async helpers shared by the kernels that stream tiles through a
 // shared-memory ring (gemm_f32.cuh, dense_fwd.cu, flash_attention.cu) or
-// stage a tile (conv2d.cu): 16-byte global -> shared copies that bypass
-// L1 (cp.async.cg) and 4-byte ones (cp.async.ca), zero-filled where
-// `valid` is false, committed in groups and waited on by count.
+// stage a tile or a vector (conv2d.cu, rmsnorm.cu): 16-byte global ->
+// shared copies that bypass L1 (cp.async.cg) and 4-byte ones
+// (cp.async.ca), zero-filled where `valid` is false, committed in groups
+// and waited on by count.
 
 #pragma once
 

@@ -16,15 +16,22 @@
 // and never synchronises.
 //
 // What bounds them: bytes.  K7 reads x once and writes a quarter of it;
-// K8 reads x, out and g and writes dx, a few compares per element.  At
-// case7, B = 64 the largest pass (32 x 32 x 12) moves 3.1 MB in and
-// 0.8 MB out, about 1 us at 3.35 TB/s.
+// K8 reads x, out and g once and writes dx once, a few compares per
+// element.  At case7, B = 64 the largest K8 pass (32 x 32 x 12) reads
+// 4.7 MB (x 3.1, out and g 0.8 each) and writes 3.1 MB: about 2.4 us at
+// 3.35 TB/s.
 //
-// What the design does about it: one thread per output element (K7) or
-// per input element (K8), channels innermost, so neighbouring threads
-// read and write neighbouring floats.  K8's thread re-reads its window
-// (window^2 floats, from L1/L2) to count the ties instead of keeping an
-// index buffer, as the reference keeps none.
+// What the designs do about it.  K7: one thread per output element,
+// channels innermost, so neighbouring threads read and write neighbouring
+// floats.  K8: one thread per (image, output window, group of 4
+// channels): it reads its window's out and g once as 16-byte vectors,
+// reads its k x k x vectors (held in registers for the CNN's window of 2;
+// any other window reads them again for the writes), counts each lane's
+// ties in registers and writes its k x k dx vectors once, with one 32-bit
+// division chain (64-bit only past 2^31 elements).  The dropped
+// remainder rows and columns are zeroed by an extra range of threads of
+// the same launch.  C % 4 != 0 or a pointer off 16 bytes takes the same
+// kernel one channel a thread.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,38 +64,160 @@ pool_fwd_kernel(const float* __restrict__ x, float* __restrict__ out, int B,
   out[idx] = m;
 }
 
+// L lanes of float: one 16-byte vector (L = 4) or one float.
+template <int L>
+struct Lanes {
+  float v[L];
+};
+
+template <int L>
+__device__ __forceinline__ Lanes<L> load_lanes(const float* p) {
+  Lanes<L> r;
+  if constexpr (L == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    r.v[0] = t.x; r.v[1] = t.y; r.v[2] = t.z; r.v[3] = t.w;
+  } else {
+    r.v[0] = __ldg(p);
+  }
+  return r;
+}
+
+template <int L>
+__device__ __forceinline__ void store_lanes(float* p, const Lanes<L>& r) {
+  if constexpr (L == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(r.v[0], r.v[1], r.v[2],
+                                                r.v[3]);
+  else
+    *p = r.v[0];
+}
+
+// dx of one lane group at one window position: g / count where x is the
+// window's max, else 0 (the reference's g * mask / counts).
+template <int L>
+__device__ __forceinline__ Lanes<L> routed(const Lanes<L>& xv,
+                                           const Lanes<L>& m,
+                                           const Lanes<L>& gv,
+                                           const float (&count)[L]) {
+  Lanes<L> r;
+#pragma unroll
+  for (int l = 0; l < L; ++l)
+    r.v[l] = xv.v[l] == m.v[l] ? gv.v[l] / count[l] : 0.0f;
+  return r;
+}
+
+// Threads [0, n_main): one (image, output window, group of L channels)
+// each, channel groups fastest; K > 0 holds the window's K * K x vectors
+// in registers, K == 0 (any window) reads them again for the writes.
+// Threads [n_main, n_total): one (image, remainder position, channel
+// group) each, remainder rows (h >= Ho * k) first, then the remainder
+// columns of the pooled rows; they write zeros.  I is the index type:
+// 32-bit unless x passes 2^31 elements.
+template <int K, int L, typename I>
 __global__ void __launch_bounds__(kThreads)
 pool_bwd_kernel(const float* __restrict__ x, const float* __restrict__ out,
-                const float* __restrict__ g, float* __restrict__ dx, int B,
-                int H, int W, int C, int k) {
-  const int Ho = H / k;
-  const int Wo = W / k;
-  const size_t n = (size_t)B * H * W * C;
-  const size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= n) return;
-  const int c = idx % C;
-  size_t t = idx / C;
-  const int w = t % W;
-  t /= W;
-  const int h = t % H;
-  const int b = t / H;
-  const int ho = h / k;
-  const int wo = w / k;
-  float v = 0.0f;
-  if (ho < Ho && wo < Wo) {
-    const size_t o = (((size_t)b * Ho + ho) * Wo + wo) * C + c;
-    const float m = out[o];
-    if (x[idx] == m) {
-      const float* base =
-          x + (((size_t)b * H + ho * k) * W + wo * k) * C + c;
-      float count = 0.0f;
-      for (int i = 0; i < k; ++i)
-        for (int j = 0; j < k; ++j)
-          count += (base[((size_t)i * W + j) * C] == m) ? 1.0f : 0.0f;
-      v = g[o] / count;
+                const float* __restrict__ g, float* __restrict__ dx, I H,
+                I W, I C, I k_any, I n_main, I n_total) {
+  const I k = K > 0 ? (I)K : k_any;
+  const I idx = (I)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n_total) return;
+  const I Ho = H / k, Wo = W / k, Q = C / L;
+  if (idx < n_main) {
+    const I q = idx % Q;
+    I t = idx / Q;
+    const I wo = t % Wo;
+    t /= Wo;
+    const I ho = t % Ho;
+    const I b = t / Ho;
+    const I o = ((b * Ho + ho) * Wo + wo) * C + q * L;
+    const Lanes<L> m = load_lanes<L>(out + o);
+    const Lanes<L> gv = load_lanes<L>(g + o);
+    const float* xw = x + ((b * H + ho * k) * W + wo * k) * C + q * L;
+    float* dw = dx + ((b * H + ho * k) * W + wo * k) * C + q * L;
+    float count[L];
+#pragma unroll
+    for (int l = 0; l < L; ++l) count[l] = 0.0f;
+    if constexpr (K > 0) {
+      Lanes<L> xv[K * K];
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          xv[i * K + j] = load_lanes<L>(xw + ((I)i * W + j) * C);
+#pragma unroll
+      for (int p = 0; p < K * K; ++p)
+#pragma unroll
+        for (int l = 0; l < L; ++l)
+          count[l] += xv[p].v[l] == m.v[l] ? 1.0f : 0.0f;
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          store_lanes<L>(dw + ((I)i * W + j) * C,
+                         routed<L>(xv[i * K + j], m, gv, count));
+    } else {
+      for (I i = 0; i < k; ++i)
+        for (I j = 0; j < k; ++j) {
+          const Lanes<L> xv = load_lanes<L>(xw + (i * W + j) * C);
+#pragma unroll
+          for (int l = 0; l < L; ++l)
+            count[l] += xv.v[l] == m.v[l] ? 1.0f : 0.0f;
+        }
+      for (I i = 0; i < k; ++i)
+        for (I j = 0; j < k; ++j)
+          store_lanes<L>(dw + (i * W + j) * C,
+                         routed<L>(load_lanes<L>(xw + (i * W + j) * C), m,
+                                   gv, count));
     }
+    return;
   }
-  dx[idx] = v;
+  const I r = idx - n_main;
+  const I q = r % Q;
+  I p = r / Q;
+  const I Hk = Ho * k, Wk = Wo * k;
+  const I per_image = (H - Hk) * W + Hk * (W - Wk);
+  const I b = p / per_image;
+  p %= per_image;
+  I h, w;
+  if (p < (H - Hk) * W) {
+    h = Hk + p / W;
+    w = p % W;
+  } else {
+    p -= (H - Hk) * W;
+    h = p / (W - Wk);
+    w = Wk + p % (W - Wk);
+  }
+  Lanes<L> zero;
+#pragma unroll
+  for (int l = 0; l < L; ++l) zero.v[l] = 0.0f;
+  store_lanes<L>(dx + ((b * H + h) * W + w) * C + q * L, zero);
+}
+
+template <int K, int L, typename I>
+int launch_bwd(const void* x, const void* out, const void* g, void* dx,
+               long long H, long long W, long long C, long long k,
+               long long n_main, long long n_total, int threads, int blocks,
+               cudaStream_t stream) {
+  pool_bwd_kernel<K, L, I><<<blocks, threads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(out),
+      static_cast<const float*>(g), static_cast<float*>(dx), (I)H, (I)W,
+      (I)C, (I)k, (I)n_main, (I)n_total);
+  return (int)cudaGetLastError();
+}
+
+template <int L>
+int dispatch_bwd(long long k, bool wide, const void* x, const void* out,
+                 const void* g, void* dx, long long H, long long W,
+                 long long C, long long n_main, long long n_total,
+                 int threads, int blocks, cudaStream_t s) {
+  if (wide)
+    return launch_bwd<0, L, unsigned long long>(x, out, g, dx, H, W, C, k,
+                                                n_main, n_total, threads,
+                                                blocks, s);
+  if (k == 2)                          // the CNN's window
+    return launch_bwd<2, L, unsigned>(x, out, g, dx, H, W, C, k, n_main,
+                                      n_total, threads, blocks, s);
+  return launch_bwd<0, L, unsigned>(x, out, g, dx, H, W, C, k, n_main,
+                                    n_total, threads, blocks, s);
 }
 
 }  // namespace
@@ -104,15 +233,33 @@ extern "C" int max_pool2d_fwd_f32(const void* x, void* out, int B, int H,
   return (int)cudaGetLastError();
 }
 
+// lanes 4 or 1 channels a thread (4: C % 4 == 0 and every pointer on 16
+// bytes), `threads` a block, `blocks` blocks covering the windows' and the
+// remainder's threads (pool2d.py ``bwd_plan``).
 extern "C" int max_pool2d_bwd_f32(const void* x, const void* out,
                                   const void* g, void* dx, int B, int H,
-                                  int W, int C, int k, void* stream) {
+                                  int W, int C, int k, int lanes,
+                                  int threads, int blocks, void* stream) {
   if (B <= 0 || C <= 0 || k <= 0 || H / k <= 0 || W / k <= 0)
     return (int)cudaErrorInvalidValue;
-  const size_t n = (size_t)B * H * W * C;
-  pool_bwd_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(out),
-      static_cast<const float*>(g), static_cast<float*>(dx), B, H, W, C, k);
-  return (int)cudaGetLastError();
+  const long long Ho = H / k, Wo = W / k;
+  const long long per_image =
+      (long long)(H - Ho * k) * W + Ho * k * (W - Wo * k);
+  const bool vec = lanes == 4 && C % 4 == 0 &&
+                   ((uintptr_t)x | (uintptr_t)out | (uintptr_t)g |
+                    (uintptr_t)dx) % 16 == 0;
+  if (!(vec || lanes == 1) || threads <= 0 || threads > kThreads)
+    return (int)cudaErrorInvalidValue;
+  const long long Q = C / lanes;
+  const long long n_main = B * Ho * Wo * Q;
+  const long long n_total = n_main + B * per_image * Q;
+  if ((long long)blocks * threads < n_total ||
+      (long long)(blocks - 1) * threads >= n_total)
+    return (int)cudaErrorInvalidValue;
+  const bool wide = (long long)B * H * W * C >= (1LL << 31);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec ? dispatch_bwd<4>(k, wide, x, out, g, dx, H, W, C, n_main,
+                               n_total, threads, blocks, s)
+             : dispatch_bwd<1>(k, wide, x, out, g, dx, H, W, C, n_main,
+                               n_total, threads, blocks, s);
 }

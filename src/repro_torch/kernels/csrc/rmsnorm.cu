@@ -9,30 +9,46 @@
 //
 // Plain C interface (nvcc, loaded with ctypes by repro_torch/kernels/
 // build.py); the entry point returns cudaGetLastError() after its launch
-// and never synchronises.
+// and never synchronises.  The launch geometry comes from the wrapper
+// (rmsnorm.py ``rms_plan``).
 //
 // What bounds it: bytes.  It reads x and writes out once (plus the small
 // scale vector), about 2 flops per byte.  One Gemma-2 decode-step norm,
 // 4 rows of d = 4608 in bf16, moves 92 KB: under 0.03 us at 3.35 TB/s, so
-// at decode the launch itself dominates; a 4500-row prefill norm moves
-// 83 MB, at least 25 us.
+// at decode one round trip to memory and the launch dominate; a 5000-row
+// prefill norm moves 92 MB, at least 27.5 us.
 //
-// What the design does about it: one block per row.  Each thread sums x^2
-// over 16-byte vectors of the row (8 bf16 or 4 f32, neighbouring threads
-// on neighbouring addresses); the unaligned head and the ragged tail of a
-// row (any d, any row start) go element by element.  A warp-shuffle and
-// shared-memory reduction gives the row's sum; the second pass re-reads
-// the row (from L1/L2: a row is at most a few tens of KB) and writes
-// x * r * scale with the same vector shape.  The block is as wide as the
-// row's vectors need, between one warp and 256 threads.
+// What the design does about it (rmsnorm_rows_kernel: x and the scale on
+// 16 bytes, d a whole number of 16-byte vectors, at most 12288):
+//   * the row is read once and stays in registers: a group of `group`
+//     threads (a warp or more) holds it as NV 16-byte vectors a thread (NV
+//     fixed at compile time, at most 9, so a thread's loads issue back to
+//     back), sums x^2 with shuffles (past one warp, once through shared
+//     memory) and writes x * r * scale from the same registers, with no
+//     second pass;
+//   * the scale is copied into shared memory once per block with cp.async,
+//     in flight with the rows' loads, and read as 16-byte vectors instead
+//     of 8 scalar L2 loads per output vector;
+//   * a block of 256 threads holds 256 / group consecutive rows, one pass
+//     (on the card, one pass beat blocks that walk over the rows at every
+//     prefill shape tried); up to 132 rows each gets its own block of up
+//     to 256 threads, so a decode step's norm is one round trip.
+// Other rows (an unaligned start, a ragged or wider d) take
+// rmsnorm_chunked_kernel: a block a row, 16-byte vectors between an
+// unaligned head and a ragged tail, two passes over the row (the second
+// from L1/L2).  Every geometry sums in a fixed order: reruns give
+// identical bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kThreads = 256;          // the widest block of either kernel
+constexpr int kStageBytes = 48 * 1024; // the staged scale, without opt-in
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -47,9 +63,119 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-__device__ __forceinline__ float block_sum(float v, float* red) {
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The V scale values of columns [c, c + V) from the staged scale, in f32.
+template <int V, typename S>
+__device__ __forceinline__ void read_scale(const S* staged, int c,
+                                           float (&s)[V]) {
+  if constexpr (sizeof(S) == 4) {
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q) {
+      const float4 f = reinterpret_cast<const float4*>(staged + c)[q];
+      s[4 * q + 0] = f.x;
+      s[4 * q + 1] = f.y;
+      s[4 * q + 2] = f.z;
+      s[4 * q + 3] = f.w;
+    }
+  } else {                             // V bf16: 16 bytes (V = 8) or 8
+    uint4 raw;
+    if constexpr (V == 8)
+      raw = *reinterpret_cast<const uint4*>(staged + c);
+    else
+      *reinterpret_cast<uint2*>(&raw) =
+          *reinterpret_cast<const uint2*>(staged + c);
+    const S* e = reinterpret_cast<const S*>(&raw);
+#pragma unroll
+    for (int q = 0; q < V; ++q) s[q] = to_f(e[q]);
+  }
+}
+
+// x (rows, d) with every row 16-byte aligned and d = nv * V; a block of
+// blockDim.x threads holds blockDim.x / group consecutive rows, `group`
+// threads a row (a multiple of 32), thread t of a group vectors t,
+// t + group, ... (NV of them, the last ones masked past nv).  The scale
+// (16-byte aligned, d * sizeof(S) a multiple of 16) is staged as it is.
+template <typename T, typename S, int NV>
+__global__ void __launch_bounds__(kThreads, 2)
+rmsnorm_rows_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                    T* __restrict__ out, int rows, int d, int group,
+                    float eps) {
+  constexpr int V = 16 / sizeof(T);    // elements in one 16-byte vector
+  extern __shared__ uint4 staged4[];   // the scale: d values of S
+  __shared__ float red[kThreads / 32];
+  const S* staged = reinterpret_cast<const S*>(staged4);
+  const int tid = threadIdx.x;
+  const int t = tid % group;
+  const int warps = group / 32;        // warps a row
+  const int nv = d / V;
+  const long long r = (long long)blockIdx.x * (blockDim.x / group) +
+                      tid / group;
+  const uint4* xr = reinterpret_cast<const uint4*>(x) + r * nv;
+  uint4* orow = reinterpret_cast<uint4*>(out) + r * nv;
+
+  // the scale's copy into shared memory and the row's loads, all in
+  // flight together
+  const int n16 = d * (int)sizeof(S) / 16;
+  for (int c = tid; c < n16; c += blockDim.x)
+    cp_async::copy16(staged4 + c, reinterpret_cast<const uint4*>(scale) + c,
+                     true);
+  cp_async::commit();
+  uint4 v[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int i = t + j * group;
+    v[j] = (r < rows && i < nv) ? __ldg(xr + i)
+                                : make_uint4(0u, 0u, 0u, 0u);
+  }
+  float ss = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const T* e = reinterpret_cast<const T*>(&v[j]);
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      const float f = to_f(e[q]);
+      ss += f * f;
+    }
+  }
+  // only the raw vectors stay live across the reduction: the f32 values
+  // are converted again below, not kept (twice the registers in bf16)
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+    asm volatile("" : "+r"(v[j].x), "+r"(v[j].y), "+r"(v[j].z),
+                 "+r"(v[j].w));
+  ss = warp_sum(ss);
+  if (warps > 1 && tid % 32 == 0) red[tid / 32] = ss;
+  cp_async::wait<0>();
+  __syncthreads();                     // the scale, and the warps' sums
+  if (warps > 1) {
+    ss = 0.0f;
+    for (int w = 0; w < warps; ++w) ss += red[tid / group * warps + w];
+  }
+  if (r >= rows) return;
+  const float rs = rsqrtf(ss / (float)d + eps);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int i = t + j * group;
+    if (i < nv) {
+      const T* e = reinterpret_cast<const T*>(&v[j]);
+      float s[V];
+      read_scale<V>(staged, i * V, s);
+      uint4 packed;
+      T* o = reinterpret_cast<T*>(&packed);
+#pragma unroll
+      for (int q = 0; q < V; ++q) o[q] = from_f<T>(to_f(e[q]) * rs * s[q]);
+      orow[i] = packed;
+    }
+  }
+}
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (lane == 0) red[warp] = v;
@@ -60,20 +186,21 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return total;
 }
 
+// Any row: a block a row, [0, head) unaligned, [head, head + nv * V)
+// 16-byte vectors, the rest a ragged tail; out shares x's alignment only
+// when both pointers agree modulo 16, otherwise everything goes element
+// by element.
 template <typename T, typename S>
-__global__ void __launch_bounds__(kMaxThreads)
-rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
-               T* __restrict__ out, int d, float eps) {
-  constexpr int V = 16 / sizeof(T);   // elements in one 16-byte vector
-  __shared__ float red[kMaxThreads / 32];
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_chunked_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                       T* __restrict__ out, int d, float eps) {
+  constexpr int V = 16 / sizeof(T);
+  __shared__ float red[kThreads / 32];
   const size_t base = (size_t)blockIdx.x * d;
   const T* xr = x + base;
   T* orow = out + base;
   const int tid = threadIdx.x;
 
-  // [0, head) unaligned, [head, head + nv * V) 16-byte vectors, the rest
-  // a ragged tail; out shares x's alignment only when both pointers agree
-  // modulo 16, otherwise everything goes element by element
   const uintptr_t ax = (uintptr_t)xr;
   int head = (int)(((16 - ax % 16) % 16) / sizeof(T));
   const bool vec = (ax % sizeof(T) == 0) &&
@@ -119,14 +246,38 @@ rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
     orow[i] = from_f<T>(to_f(xr[i]) * r * to_f(scale[i]));
 }
 
+template <typename T, typename S, int NV>
+int launch_rows(const void* x, const void* scale, void* out, int rows, int d,
+                int group, int block, int grid, float eps,
+                cudaStream_t stream) {
+  rmsnorm_rows_kernel<T, S, NV><<<grid, block, d * sizeof(S), stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(scale),
+      static_cast<T*>(out), rows, d, group, eps);
+  return (int)cudaGetLastError();
+}
+
+// The instances of NV: rmsnorm.py's _PER_THREAD.
 template <typename T, typename S>
-int launch(const void* x, const void* scale, void* out, int rows, int d,
-           float eps, cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
-  int threads = ((d + V - 1) / V + 31) / 32 * 32;
-  threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads
-                                                        : threads);
-  rmsnorm_kernel<T, S><<<rows, threads, 0, stream>>>(
+int dispatch_rows(int per_thread, const void* x, const void* scale,
+                  void* out, int rows, int d, int group, int block, int grid,
+                  float eps, cudaStream_t s) {
+#define RMS_ROWS(n)                                                         \
+  case n:                                                                   \
+    return launch_rows<T, S, n>(x, scale, out, rows, d, group, block, grid, \
+                                eps, s);
+  switch (per_thread) {
+    RMS_ROWS(1) RMS_ROWS(2) RMS_ROWS(3) RMS_ROWS(4) RMS_ROWS(6) RMS_ROWS(8)
+    RMS_ROWS(9)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef RMS_ROWS
+}
+
+template <typename T, typename S>
+int launch_chunked(const void* x, const void* scale, void* out, int rows,
+                   int d, int block, float eps, cudaStream_t stream) {
+  rmsnorm_chunked_kernel<T, S><<<rows, block, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const S*>(scale),
       static_cast<T*>(out), d, eps);
   return (int)cudaGetLastError();
@@ -135,17 +286,52 @@ int launch(const void* x, const void* scale, void* out, int rows, int d,
 }  // namespace
 
 // x, out (rows, d) of one dtype (x_bf16: bf16, else f32); scale (d,)
-// (scale_bf16: bf16, else f32).
+// (scale_bf16: bf16, else f32).  per_thread > 0: rmsnorm_rows_kernel with
+// that NV, `group` threads a row, blocks of `block` threads, `grid` blocks;
+// per_thread == 0: rmsnorm_chunked_kernel, a block of `block` threads a
+// row (group and grid unused).
 extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out,
                            int rows, int d, int x_bf16, int scale_bf16,
+                           int group, int per_thread, int block, int grid,
                            float eps, void* stream) {
-  if (rows <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || d <= 0 || block <= 0 || block > kThreads ||
+      block % 32 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (per_thread == 0) {
+    if (x_bf16)
+      return scale_bf16
+          ? launch_chunked<__nv_bfloat16, __nv_bfloat16>(x, scale, out, rows,
+                                                         d, block, eps, s)
+          : launch_chunked<__nv_bfloat16, float>(x, scale, out, rows, d,
+                                                 block, eps, s);
+    return scale_bf16
+        ? launch_chunked<float, __nv_bfloat16>(x, scale, out, rows, d, block,
+                                               eps, s)
+        : launch_chunked<float, float>(x, scale, out, rows, d, block, eps, s);
+  }
+  // the row kernel's preconditions: aligned rows of whole vectors, a
+  // group of whole warps that tiles the block, room for the scale, every
+  // vector of a row covered, and a grid of one pass over the rows
+  const int V = x_bf16 ? 8 : 4;
+  const long long scale_bytes = (long long)d * (scale_bf16 ? 2 : 4);
+  const long long per_block = group > 0 ? block / group : 0;
+  if (group <= 0 || group % 32 != 0 || block % group != 0 || d % V != 0 ||
+      ((uintptr_t)x | (uintptr_t)out | (uintptr_t)scale) % 16 != 0 ||
+      scale_bytes % 16 != 0 || scale_bytes > kStageBytes ||
+      (long long)group * per_thread < d / V ||
+      grid != (rows + per_block - 1) / per_block)
+    return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
   if (x_bf16)
     return scale_bf16
-        ? launch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, rows, d, eps, s)
-        : launch<__nv_bfloat16, float>(x, scale, out, rows, d, eps, s);
+        ? dispatch_rows<bf16, bf16>(per_thread, x, scale, out, rows, d,
+                                    group, block, grid, eps, s)
+        : dispatch_rows<bf16, float>(per_thread, x, scale, out, rows, d,
+                                     group, block, grid, eps, s);
   return scale_bf16
-      ? launch<float, __nv_bfloat16>(x, scale, out, rows, d, eps, s)
-      : launch<float, float>(x, scale, out, rows, d, eps, s);
+      ? dispatch_rows<float, bf16>(per_thread, x, scale, out, rows, d, group,
+                                   block, grid, eps, s)
+      : dispatch_rows<float, float>(per_thread, x, scale, out, rows, d, group,
+                                    block, grid, eps, s);
 }

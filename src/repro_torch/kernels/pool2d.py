@@ -8,12 +8,51 @@ directly where no gradient is needed and ``MaxPool2dFunction`` otherwise.
 """
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple
+
 import torch
 from torch.autograd.function import once_differentiable
 
 from . import launch, ref
 
-__all__ = ["max_pool2d_cuda", "max_pool2d_bwd_cuda", "MaxPool2dFunction"]
+__all__ = ["BwdPlan", "bwd_plan", "max_pool2d_cuda", "max_pool2d_bwd_cuda",
+           "MaxPool2dFunction"]
+
+_SMS = 132                     # H100 SXM
+
+
+class BwdPlan(NamedTuple):
+    """One K8 launch: ``lanes`` channels a thread (4: a 16-byte vector),
+    ``windows`` threads of (image, output window, lane group), then
+    ``remainder`` threads of (image, dropped position, lane group) that
+    write zeros; ``threads`` a block, ``blocks`` blocks."""
+    lanes: int
+    windows: int
+    remainder: int
+    threads: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=64)   # every training step asks per layer
+def bwd_plan(B: int, H: int, W: int, C: int, window: int,
+             aligned: bool = True) -> BwdPlan:
+    """The geometry of K8 for x (B, H, W, C): 4 channels a thread where C
+    is a multiple of 4 and every tensor starts on 16 bytes (``aligned``),
+    else 1; one thread per output window and lane group, then one per
+    dropped (remainder) position and lane group; blocks of 256 threads,
+    or 128 or 64 where that gives every SM a block."""
+    lanes = 4 if C % 4 == 0 and aligned else 1
+    Ho, Wo = H // window, W // window
+    dropped = (H - Ho * window) * W + Ho * window * (W - Wo * window)
+    windows = B * Ho * Wo * (C // lanes)
+    remainder = B * dropped * (C // lanes)
+    total = windows + remainder
+    threads = next((t for t in (256, 128) if math.ceil(total / t) >= _SMS),
+                   64)
+    return BwdPlan(lanes, windows, remainder, threads,
+                   math.ceil(total / threads))
 
 
 def _check_window(name, x, window):
@@ -48,8 +87,10 @@ def max_pool2d_bwd_cuda(x, out, g, window: int = 2):
         raise ValueError(f"max_pool2d_bwd_cuda: out {tuple(out.shape)} and "
                          f"g {tuple(g.shape)} do not pool x {tuple(x.shape)}")
     dx = torch.empty_like(x)
+    plan = bwd_plan(B, H, W, C, window, all(
+        t.data_ptr() % 16 == 0 for t in (x, out, g, dx)))
     launch.run("pool2d", "max_pool2d_bwd_f32", dev, (x, out, g, dx),
-               (B, H, W, C, window))
+               (B, H, W, C, window, plan.lanes, plan.threads, plan.blocks))
     max_pool2d_bwd_cuda.launches += 1
     return dx
 

@@ -410,22 +410,32 @@ def test_dense_dwdb_kernel_matches_plain_and_reruns(M, Din, Dout):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,ties", [((64, 32, 32, 12), False),
-                                        ((3, 9, 7, 5), False),
-                                        ((2, 8, 8, 12), True)])
-def test_pool_kernels_match_plain(shape, ties):
+@pytest.mark.parametrize("shape,ties,window", [
+    ((64, 32, 32, 12), False, 2), ((3, 9, 7, 5), False, 2),
+    ((2, 8, 8, 12), True, 2),
+    ((3, 10, 11, 7), False, 3)])   # window 3, ragged H and W, C % 4 != 0
+def test_pool_kernels_match_plain(shape, ties, window):
     _card()
+    from repro_torch.kernels import launch
     from repro_torch.kernels import pool2d as pl
     gen = _gen(4)
     x = _randn(gen, shape)
     x = torch.relu(torch.round(x) if ties else x)
-    out = pl.max_pool2d_cuda(x)
-    want = ref.max_pool2d_ref(x)
+    out = pl.max_pool2d_cuda(x, window)
+    want = ref.max_pool2d_ref(x, window, window)
     torch.cuda.synchronize()
     assert torch.equal(out, want)
     g = _randn(gen, tuple(out.shape))
-    _close(pl.max_pool2d_bwd_cuda(x, out, g),
-           ref.max_pool2d_bwd_ref(x, out, g), True)
+    want_dx = ref.max_pool2d_bwd_ref(x, out, g, window)
+    _close(pl.max_pool2d_bwd_cuda(x, out, g, window), want_dx, True)
+    # K8 writes every dx element, the dropped remainder too: a NaN-filled
+    # dx comes back equal to the plain version
+    dx = torch.full_like(x, float("nan"))
+    plan = pl.bwd_plan(*shape, window)
+    launch.run("pool2d", "max_pool2d_bwd_f32", x.device, (x, out, g, dx),
+               (*shape, window, plan.lanes, plan.threads, plan.blocks))
+    torch.cuda.synchronize()
+    assert torch.equal(dx, want_dx)
 
 
 @pytest.mark.cuda
@@ -474,10 +484,13 @@ def test_strided_conv_on_card_raises():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("rows,d", [(4, 4608), (300, 4096), (7, 3072),
-                                    (5, 4095), (3, 13), (1, 1)])
+                                    (5, 4095), (3, 13), (1, 1),
+                                    (3001, 4095), (5000, 4608)])
 def test_rmsnorm_kernel_matches_plain(rows, d, dtype):
-    """Decode and prefill rows at the LM widths, and ragged rows whose
-    starts are not 16-byte aligned (d = 4095, 13)."""
+    """Decode and prefill rows at the LM widths (the row kernel: a block a
+    row up to 132 rows, several rows a block beyond), and ragged rows
+    whose starts are not 16-byte aligned (d = 4095, 13: the chunked
+    kernel); identical bits on a rerun."""
     _card()
     from repro_torch.kernels import rmsnorm as rms
     gen = _gen(5)
@@ -492,6 +505,7 @@ def test_rmsnorm_kernel_matches_plain(rows, d, dtype):
     # bf16: one rounding of the output; f32: sums in another order
     tol = (1e-5 if dtype == "float32" else 1e-2) * want.float().abs().max()
     assert (got.float() - want.float()).abs().max().item() <= tol.item()
+    assert torch.equal(got, ops.rmsnorm(x, scale))
 
 
 @pytest.mark.cuda

@@ -81,3 +81,50 @@ def test_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pool2d.max_pool2d_bwd_cuda(x, torch.zeros((1, 2, 2, 1)),
                                    torch.zeros((1, 2, 2, 1)))
+
+
+def _k8_writes(plan, B, H, W, C, k):
+    """How often K8 writes each dx element: ``pool2d.cu``'s map from a
+    thread to (image, output window, lane group), channel groups fastest,
+    and from a thread of the remainder range to (image, dropped position,
+    lane group), dropped rows first, then the dropped columns of the
+    pooled rows."""
+    L, Q = plan.lanes, C // plan.lanes
+    Ho, Wo, Hk, Wk = H // k, W // k, H // k * k, W // k * k
+    hits = np.zeros((B, H, W, C), np.int64)
+    for idx in range(plan.blocks * plan.threads):
+        if idx < plan.windows:
+            q, t = idx % Q, idx // Q
+            wo, t = t % Wo, t // Wo
+            ho, b = t % Ho, t // Ho
+            hits[b, ho * k:(ho + 1) * k, wo * k:(wo + 1) * k,
+                 q * L:(q + 1) * L] += 1
+        elif idx < plan.windows + plan.remainder:
+            r = idx - plan.windows
+            q, p = r % Q, r // Q
+            per_image = (H - Hk) * W + Hk * (W - Wk)
+            b, p = p // per_image, p % per_image
+            if p < (H - Hk) * W:
+                h, w = Hk + p // W, p % W
+            else:
+                p -= (H - Hk) * W
+                h, w = p // (W - Wk), Wk + p % (W - Wk)
+            hits[b, h, w, q * L:(q + 1) * L] += 1
+    return hits
+
+
+@pytest.mark.parametrize("C", [5, 12])
+@pytest.mark.parametrize("H,W", [(12, 12), (9, 7), (10, 13)])
+@pytest.mark.parametrize("window", [2, 3, 4])
+def test_bwd_plan_writes_every_dx_element_once(window, H, W, C):
+    """K8's launch geometry: the window threads and the remainder range
+    together write every dx element exactly once, with no idle block."""
+    B = 2
+    plan = pool2d.bwd_plan(B, H, W, C, window)
+    assert plan.lanes == (4 if C % 4 == 0 else 1)
+    assert pool2d.bwd_plan(B, H, W, C, window, aligned=False).lanes == 1
+    total = plan.windows + plan.remainder
+    assert plan.threads in (64, 128, 256)
+    assert (plan.blocks - 1) * plan.threads < total <= \
+        plan.blocks * plan.threads
+    assert (_k8_writes(plan, B, H, W, C, window) == 1).all()

@@ -9,6 +9,9 @@ Tolerances: f32 atol 1e-5, rtol 1e-4, the reference's own for K9
 (``tests/test_kernels.py``); bf16 one rounding of the output (rtol 2^-7).
 Seeded numpy cases, not ``@given``.
 """
+import math
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -132,3 +135,55 @@ class TestCudaWrapperContract:
             ops.rmsnorm(x, s)
         with pytest.raises(ValueError, match="CUDA"):
             ops.rmsnorm(x.detach(), s)
+
+
+ROWS_PLAN = [1, 4, 16, 132, 133, 300, 3001, 4500, 5000]
+
+
+@pytest.mark.parametrize("d,itemsize", [(4608, 2), (4608, 4), (4096, 2),
+                                        (3072, 4), (64, 2), (9216, 4)])
+@pytest.mark.parametrize("rows", ROWS_PLAN)
+def test_plan_covers_every_row_once(rows, d, itemsize):
+    """K9's row kernel: its blocks cover every row once, no block is
+    empty, and a row fits its group within the register budget (at most
+    9 vectors a thread, an instance of ``rmsnorm.cu``)."""
+    plan = rms.rms_plan(rows, d, itemsize)
+    nv = d * itemsize // 16
+    assert plan.per_thread in rms._PER_THREAD
+    assert plan.group % 32 == 0 and plan.block % plan.group == 0
+    assert plan.block <= 256 and plan.group * plan.per_thread >= nv
+    assert all(p * plan.group < nv for p in rms._PER_THREAD
+               if p < plan.per_thread)     # the smallest instance that fits
+    if rows <= 132:            # a block a row
+        assert plan.block == plan.group and plan.grid == rows
+    else:                      # the narrowest group that holds the row
+        assert plan.block == 256
+        assert plan.group == 32 or plan.group // 2 * 9 < nv
+    per_block = plan.block // plan.group
+    seen = np.zeros(rows, np.int64)
+    for b in range(plan.grid):
+        assert b * per_block < rows, f"block {b} has no row"
+        seen[b * per_block:(b + 1) * per_block] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("rows,d,itemsize,aligned", [
+    (4, 16384, 4, True), (5000, 16384, 2, True),   # scale past 48 KB
+    (4, 12288, 4, True),                           # past 9 vectors a thread
+    (3001, 4095, 2, True), (3, 13, 2, True),       # d off the 16-byte vector
+    (37, 1002, 4, True),
+    (4500, 4608, 2, False)])                       # rows off 16 bytes
+def test_plan_takes_the_chunked_kernel_past_the_row_kernel(rows, d, itemsize,
+                                                           aligned):
+    plan = rms.rms_plan(rows, d, itemsize, aligned)
+    assert plan.per_thread == 0 and plan.grid == rows
+    assert plan.group == plan.block
+    vectors = math.ceil(d / (16 // itemsize))
+    assert plan.block == min(256, max(32, math.ceil(vectors / 32) * 32))
+
+
+def test_plan_instances_are_the_kernels():
+    """``_PER_THREAD`` lists exactly the NV instances rmsnorm.cu has."""
+    src = (build.CSRC / "rmsnorm.cu").read_text()
+    assert tuple(sorted(int(n) for n in re.findall(r"RMS_ROWS\((\d+)\)",
+                                                   src))) == rms._PER_THREAD
