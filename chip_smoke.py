@@ -32,14 +32,17 @@ from the root of a checkout.  Phases, each of which raises on failure
    library also on the device's clock), per K1/K2/K3 shape the slices S
    it splits into (K4/K5: its tiles of output pixels), and per K6 shape
    each of its two passes' device time; K1 f32 and K2-K6 rerun bit for
-   bit;
+   bit; first, one launch's device floor (a one-float ``zero_()``), to
+   read the small layers' rows against;
 2c. K9 (RMSNorm) at decode and prefill rows of d = 4608, 4096, 3072 in
    bf16 and f32 plus ragged rows (each rerun bit for bit; the launch
    geometry printed), and K10 (flash attention) at Gemma-2's
    (bf16 and f32, q x 8 so the soft-cap of 50 acts), Yi-6B's and Phi-3's
    attention shapes (S up to 8192, windows) plus a small case with fully
    masked rows, each against its plain version (K10 in bf16 within one
-   bf16 ulp of it plus 1e-3 of its rms, and bit for bit on a rerun), with
+   bf16 ulp of it plus 1e-3 of its rms, in f32 within atol 1e-4 and rtol
+   1e-3; both bit for bit on a rerun; the f32 rows also print the bound
+   of their three TF32 products at the TF32 rate), with
    kernel, plain, library (``F.rms_norm``; for K10 ``flex_attention``
    with a soft-cap ``score_mod`` where a soft-cap is on, in f32 at the
    long prompt's S only, else ``F.scaled_dot_product_attention``) and
@@ -72,7 +75,8 @@ from the root of a checkout.  Phases, each of which raises on failure
    fields ``device_ms`` and ``library_device_ms``, "not measured" being
    null; K1 also its prefill sums as ``prefill_*`` and ``gemma_prefill_*``,
    K9 its Gemma-2 prefill forward's 33 launches at 5000 x 4608 as
-   ``prefill_*``, K6 its passes as ``pass_device_ms``), then the card
+   ``prefill_*``, K6 its passes as ``pass_device_ms``, K10 its f32
+   instance on the S = 5000 pair as ``f32_*``), then the card
    again, then the result line ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports no JAX and nothing of the JAX package ``repro``.
@@ -88,8 +92,9 @@ the root of another checkout, it times that checkout's K1 the same way.
 does the same for phase 2b and the named kernels, and
 
     python3 chip_smoke.py --k9
+    python3 chip_smoke.py --k10
 
-for phase 2c's K9 cases.
+for phase 2c's K9 and K10 cases.
 """
 from __future__ import annotations
 
@@ -110,7 +115,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
+              "tf32": 495e12}      # dense tensor-core TF32
 BF16_TOL = 1e-2                    # x max|ref|: one bf16 rounding of the output
 F32_TOL = 1e-5                     # x max|ref|: f32 sums in another order
 SERVE_TOL = 1e-4                   # card vs CPU logits, reduced f32 model
@@ -632,6 +638,10 @@ def phase_train_kernels(torch, ref, mods, cnn, only=None):
     step = case7_step_shapes(cnn)
     gen = torch.Generator("cuda").manual_seed(2)
     rows = {}
+    one = [(torch.zeros(1, device="cuda"),) for _ in range(2)]
+    floor_dev, _ = device_ms(torch, lambda t: t.zero_(), one)
+    log(f"[train-k] one launch's device floor (a one-float zero_(), "
+        f"device_ms): {fmt_ms(floor_dev)} ms")
     log(f"[train-k] {'kernel':<4} {'shape':<34} {'x':>2} {'S':>4}  "
         f"{'max_abs_err':<11} {'tol':<10} {'kernel_ms':<10} {'device_ms':<12} "
         f"{'plain_ms':<10} {'library_ms':<10} {'lib_dev_ms':<12} bound_ms")
@@ -955,12 +965,17 @@ def live_pairs(Sq, Sk, causal=True, window=0) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def flash_bound_ms(B, H, KH, Sq, Sk, D, dtype, window, causal=True):
+def flash_bound_ms(B, H, KH, Sq, Sk, D, dtype, window, causal=True,
+                   tf32x3=False):
     """QK and PV over the live pairs at the dtype's peak, or q, k, v and
-    out read and written once, whichever is larger."""
+    out read and written once, whichever is larger.  ``tf32x3``: f32 done
+    as three TF32 products (3xTF32) at the tensor cores' TF32 peak, a
+    lower bound than the FMA one for the same function."""
     itemsize = 2 if dtype == "bfloat16" else 4
     nbytes = itemsize * B * D * (2 * H * Sq + 2 * KH * Sk)
     flops = 4.0 * D * B * H * live_pairs(Sq, Sk, causal, window)
+    if tf32x3:
+        return roof_ms(nbytes, 3 * flops, "tf32")
     return roof_ms(nbytes, flops, dtype)
 
 
@@ -1066,13 +1081,12 @@ def phase_k9(torch, ref, rms):
     return out
 
 
-def phase_attn_kernels(torch, ref, mods):
-    """K9 (``phase_k9``) and K10 against their plain versions at the LM
-    shapes; returns per case (err, ok, kernel, plain, library, bound
-    ms)."""
+def phase_k10(torch, ref, flash):
+    """K10 against its plain version at FLASH_CASES, rerun bit for bit;
+    returns per case (err, ratio, kernel, plain, library, bound ms; f32
+    also the 3xTF32 bound)."""
     F = torch.nn.functional
-    flash = mods["flash_attention"]
-    out = {"K9": phase_k9(torch, ref, mods["rmsnorm"]), "K10": {}}
+    out = {}
     gen = torch.Generator("cuda").manual_seed(3)
     log(f"[k10] {'case':<14} {'B H KH Sq Sk D':<26} {'window':>6} "
         f"{'cap':>4} {'max_abs_err':<11} {'kernel_ms':<10} {'device_ms':<12} "
@@ -1095,8 +1109,7 @@ def phase_attn_kernels(torch, ref, mods):
             raise AssertionError(f"K10 {name} {(B, H, KH, Sq, Sk, D)} {dt}: "
                                  f"max_abs_err {err}, {ratio:.3g} x its "
                                  f"allowance ({gate})")
-        if dt == "bfloat16" and not torch.equal(
-                got, flash.flash_attention_cuda(*sets[0], **kw)):
+        if not torch.equal(got, flash.flash_attention_cuda(*sets[0], **kw)):
             raise AssertionError(f"K10 {name} {(B, H, KH, Sq, Sk, D)} gave "
                                  "different bits on a rerun")
         big = Sq * Sk * H > 2**29
@@ -1139,22 +1152,28 @@ def phase_attn_kernels(torch, ref, mods):
             l_dev, _ = device_ms(torch, sdpa, sets, iters=iters, warmup=1)
             del mask
         b_ms, by = flash_bound_ms(B, H, KH, Sq, Sk, D, dt, window)
+        t3_ms = t3_by = None
+        if dt == "float32":
+            t3_ms, t3_by = flash_bound_ms(B, H, KH, Sq, Sk, D, dt, window,
+                                          tf32x3=True)
         log(f"[k10] {name:<14} {str((B, H, KH, Sq, Sk, D)):<26} {window:>6} "
             f"{cap:>4g} {err:<11.4g} {k_ms:<10.5f} {fmt_ms(k_dev):<12} "
             f"{p_ms:<10.5f} {'-' if l_ms is None else f'{l_ms:.5f}':<10} "
             f"{'-' if l_ms is None else fmt_ms(l_dev):<12} {b_ms:.5f} ({by})"
-            f"  [{dt}, gate {gate}: peak {ratio:.3g} of it"
+            + ("" if t3_ms is None else
+               f", 3xTF32 {t3_ms:.5f} ({t3_by})")
+            + f"  [{dt}, gate {gate}: peak {ratio:.3g} of it"
             + (f"; q x {QSCALE:g}" if cap else "")
             + ("" if lib_err is None else
                f"; flex_attention vs plain {lib_err:.4g}") + "]")
-        out["K10"][(name, Sq, Sk, D, dt, window)] = dict(
+        out[(name, Sq, Sk, D, dt, window)] = dict(
             err=err, tol=tol, ratio=ratio, ms=k_ms, device_ms=k_dev,
             plain_ms=p_ms, library_ms=l_ms, library_device_ms=l_dev,
-            bound_ms=b_ms, bound_by=by)
+            bound_ms=b_ms, bound_by=by, tf32x3_bound_ms=t3_ms)
         del sets
         torch.cuda.empty_cache()
-    log("[k10] bf16 reruns bit for bit in every bf16 case; device kernels: "
-        + ", ".join(sorted(names)))
+    log("[k10] reruns bit for bit in every case (bf16 and f32); device "
+        "kernels: " + ", ".join(sorted(names)))
     return out
 
 
@@ -1182,7 +1201,13 @@ def attn_json_rows(attn, k9_launches, k9_yi_launches, k9_prefill,
                          "bfloat16", 4096)]
     glob = attn["K10"][("gemma2 global", GEMMA_LONG, GEMMA_LONG, 128,
                         "bfloat16", 0)]
+    pair32 = [attn["K10"][(name, GEMMA_LONG, GEMMA_LONG, 128, "float32", w)]
+              for name, w in (("gemma2 local", 4096), ("gemma2 global", 0))]
     w10 = _worst(attn["K10"])
+
+    def f32_sum(key):
+        a, b = (r[key] for r in pair32)
+        return None if a is None or b is None else a + b
     return [{
         "name": "rmsnorm (K9)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1225,6 +1250,17 @@ def attn_json_rows(attn, k9_launches, k9_yi_launches, k9_prefill,
                 "score_mod and the causal/window block mask",
         "path_max_abs_diff_vs_model": k10_path_diff["model"],
         "path_max_abs_err_vs_plain": k10_path_diff["plain"],
+        **{f"f32_{key}": f32_sum(key) for key in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+            "library_device_ms")},
+        "f32_bound_by": pair32[0]["bound_by"],
+        "f32_tf32x3_bound_ms": f32_sum("tf32x3_bound_ms"),
+        "f32_work": f"the same pair in f32 (phase 2c; 3xTF32 products): "
+                    f"layers 0 (window 4096) and 1 (global) shapes at S = "
+                    f"{GEMMA_LONG}, q x {QSCALE:g}, soft-cap 50; bound_ms at "
+                    "the FMA rate, tf32x3_bound_ms for the three TF32 "
+                    "products at the tensor cores' TF32 rate; library: "
+                    "flex_attention in f32",
     }]
 
 
@@ -1517,6 +1553,8 @@ def main() -> int:
                     "(K1) alone at these rows and print no result line")
     ap.add_argument("--k9", action="store_true", help="run phase 2c's K9 "
                     "cases alone and print no result line")
+    ap.add_argument("--k10", action="store_true", help="run phase 2c's K10 "
+                    "cases alone and print no result line")
     args = ap.parse_args()
     # torch.compile (the flex_attention yardstick) caches inside the checkout
     cache = SRC / "repro_torch" / "kernels" / "_build" / "compile_cache"
@@ -1576,9 +1614,14 @@ def main() -> int:
         phase_k9(torch, ref, rms_mod)
         log(card_line())
         return 0
+    if args.k10:
+        phase_k10(torch, ref, flash_mod)
+        log(card_line())
+        return 0
     k1_sums, worst = phase_kernel(torch, dense_mod, ref)
     train_rows = phase_train_kernels(torch, ref, mods, cnn)
-    attn_rows = phase_attn_kernels(torch, ref, mods)
+    attn_rows = {"K9": phase_k9(torch, ref, rms_mod),
+                 "K10": phase_k10(torch, ref, flash_mod)}
     phase_reduced(torch, configs, lm, serving, weights, "yi-6b")
     phase_reduced(torch, configs, lm, serving, weights, "gemma2-27b")
     phase_train_reduced(torch, port)

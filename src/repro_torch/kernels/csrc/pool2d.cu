@@ -21,48 +21,30 @@
 // 4.7 MB (x 3.1, out and g 0.8 each) and writes 3.1 MB: about 2.4 us at
 // 3.35 TB/s.
 //
-// What the designs do about it.  K7: one thread per output element,
-// channels innermost, so neighbouring threads read and write neighbouring
-// floats.  K8: one thread per (image, output window, group of 4
-// channels): it reads its window's out and g once as 16-byte vectors,
-// reads its k x k x vectors (held in registers for the CNN's window of 2;
-// any other window reads them again for the writes), counts each lane's
-// ties in registers and writes its k x k dx vectors once, with one 32-bit
-// division chain (64-bit only past 2^31 elements).  The dropped
-// remainder rows and columns are zeroed by an extra range of threads of
-// the same launch.  C % 4 != 0 or a pointer off 16 bytes takes the same
-// kernel one channel a thread.
+// What the designs do about it.  Both give a thread one (image, output
+// window, group of 4 channels), with one 32-bit division chain (64-bit
+// only past 2^31 elements), and read each input once as 16-byte vectors.
+// K7 (its first design: a thread per output float, three 64-bit div/mod
+// chains and 4-byte loads, 16% of its bound) takes the max of its k x k
+// vectors lane by lane, in the reference's row-major order, and writes
+// one vector.  K8 reads its window's out and g once, reads its k x k x
+// vectors (held in registers for the CNN's window of 2; any other window
+// reads them again for the writes), counts each lane's ties in registers
+// and writes its k x k dx vectors once.  K8's dropped remainder rows and
+// columns are zeroed by an extra range of threads of the same launch.
+// The launch geometry (lanes, threads a block, blocks) comes from
+// pool2d.py's fwd_plan and bwd_plan: blocks of 256, 128 or 64 threads,
+// the largest that still gives every SM a block.  C % 4 != 0 or a
+// pointer off 16 bytes takes the same kernels one channel a thread.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
-pool_fwd_kernel(const float* __restrict__ x, float* __restrict__ out, int B,
-                int H, int W, int C, int k) {
-  const int Ho = H / k;
-  const int Wo = W / k;
-  const size_t n = (size_t)B * Ho * Wo * C;
-  const size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= n) return;
-  const int c = idx % C;
-  size_t t = idx / C;
-  const int wo = t % Wo;
-  t /= Wo;
-  const int ho = t % Ho;
-  const int b = t / Ho;
-  const float* base = x + (((size_t)b * H + ho * k) * W + wo * k) * C + c;
-  float m = base[0];
-  for (int i = 0; i < k; ++i)
-    for (int j = 0; j < k; ++j) {
-      const float v = base[((size_t)i * W + j) * C];
-      if (v > m) m = v;
-    }
-  out[idx] = m;
-}
 
 // L lanes of float: one 16-byte vector (L = 4) or one float.
 template <int L>
@@ -89,6 +71,53 @@ __device__ __forceinline__ void store_lanes(float* p, const Lanes<L>& r) {
                                                 r.v[3]);
   else
     *p = r.v[0];
+}
+
+// Threads [0, n): one (image, output window, group of L channels) each,
+// channel groups fastest: the max of the window's K * K vectors (K == 0:
+// any window, in a loop), lane by lane in row-major order with a strict
+// compare, as the first design took it.  I is the index type: 32-bit
+// unless x passes 2^31 elements.
+template <int K, int L, typename I>
+__global__ void __launch_bounds__(kThreads)
+pool_fwd_kernel(const float* __restrict__ x, float* __restrict__ out, I H,
+                I W, I C, I k_any, I n) {
+  const I k = K > 0 ? (I)K : k_any;
+  const I idx = (I)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const I Ho = H / k, Wo = W / k, Q = C / L;
+  const I q = idx % Q;
+  I t = idx / Q;
+  const I wo = t % Wo;
+  t /= Wo;
+  const I ho = t % Ho;
+  const I b = t / Ho;
+  const float* xw = x + ((b * H + ho * k) * W + wo * k) * C + q * L;
+  Lanes<L> m;
+  if constexpr (K > 0) {
+    Lanes<L> xv[K * K];
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        xv[i * K + j] = load_lanes<L>(xw + ((I)i * W + j) * C);
+    m = xv[0];
+#pragma unroll
+    for (int p = 1; p < K * K; ++p)
+#pragma unroll
+      for (int l = 0; l < L; ++l)
+        if (xv[p].v[l] > m.v[l]) m.v[l] = xv[p].v[l];
+  } else {
+    m = load_lanes<L>(xw);
+    for (I i = 0; i < k; ++i)
+      for (I j = 0; j < k; ++j) {
+        const Lanes<L> xv = load_lanes<L>(xw + (i * W + j) * C);
+#pragma unroll
+        for (int l = 0; l < L; ++l)
+          if (xv.v[l] > m.v[l]) m.v[l] = xv.v[l];
+      }
+  }
+  store_lanes<L>(out + idx * L, m);   // ((b Ho + ho) Wo + wo) C + q L
 }
 
 // dx of one lane group at one window position: g / count where x is the
@@ -192,45 +221,50 @@ pool_bwd_kernel(const float* __restrict__ x, const float* __restrict__ out,
   store_lanes<L>(dx + ((b * H + h) * W + w) * C + q * L, zero);
 }
 
-template <int K, int L, typename I>
-int launch_bwd(const void* x, const void* out, const void* g, void* dx,
-               long long H, long long W, long long C, long long k,
-               long long n_main, long long n_total, int threads, int blocks,
-               cudaStream_t stream) {
-  pool_bwd_kernel<K, L, I><<<blocks, threads, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(out),
-      static_cast<const float*>(g), static_cast<float*>(dx), (I)H, (I)W,
-      (I)C, (I)k, (I)n_main, (I)n_total);
-  return (int)cudaGetLastError();
-}
-
-template <int L>
-int dispatch_bwd(long long k, bool wide, const void* x, const void* out,
-                 const void* g, void* dx, long long H, long long W,
-                 long long C, long long n_main, long long n_total,
-                 int threads, int blocks, cudaStream_t s) {
-  if (wide)
-    return launch_bwd<0, L, unsigned long long>(x, out, g, dx, H, W, C, k,
-                                                n_main, n_total, threads,
-                                                blocks, s);
-  if (k == 2)                          // the CNN's window
-    return launch_bwd<2, L, unsigned>(x, out, g, dx, H, W, C, k, n_main,
-                                      n_total, threads, blocks, s);
-  return launch_bwd<0, L, unsigned>(x, out, g, dx, H, W, C, k, n_main,
-                                    n_total, threads, blocks, s);
+// launch(window, index) for the instance of window k: the window a
+// std::integral_constant, 2 (the CNN's) or 0 (any, read at run time); the
+// index type's zero, 32-bit unless `wide` (past 2^31 elements).
+template <typename Launch>
+int by_instance(long long k, bool wide, Launch launch) {
+  using Any = std::integral_constant<int, 0>;
+  if (wide) return launch(Any{}, 0ull);
+  if (k == 2) return launch(std::integral_constant<int, 2>{}, 0u);
+  return launch(Any{}, 0u);
 }
 
 }  // namespace
 
+// lanes 4 or 1 channels a thread (4: C % 4 == 0 and both pointers on 16
+// bytes), `threads` a block, `blocks` blocks covering the output windows'
+// lane groups (pool2d.py ``fwd_plan``).
 extern "C" int max_pool2d_fwd_f32(const void* x, void* out, int B, int H,
-                                  int W, int C, int k, void* stream) {
+                                  int W, int C, int k, int lanes,
+                                  int threads, int blocks, void* stream) {
   if (B <= 0 || C <= 0 || k <= 0 || H / k <= 0 || W / k <= 0)
     return (int)cudaErrorInvalidValue;
-  const size_t n = (size_t)B * (H / k) * (W / k) * C;
-  pool_fwd_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), B, H, W, C, k);
-  return (int)cudaGetLastError();
+  const bool vec = lanes == 4 && C % 4 == 0 &&
+                   ((uintptr_t)x | (uintptr_t)out) % 16 == 0;
+  if (!(vec || lanes == 1) || threads <= 0 || threads > kThreads)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * (H / k) * (W / k) * (C / lanes);
+  if ((long long)blocks * threads < n ||
+      (long long)(blocks - 1) * threads >= n)
+    return (int)cudaErrorInvalidValue;
+  const bool wide = (long long)B * H * W * C >= (1LL << 31);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  return by_instance(k, wide, [&](auto window, auto index) {
+    constexpr int K = decltype(window)::value;
+    using I = decltype(index);
+    if (vec)
+      pool_fwd_kernel<K, 4, I><<<blocks, threads, 0, s>>>(
+          xf, of, (I)H, (I)W, (I)C, (I)k, (I)n);
+    else
+      pool_fwd_kernel<K, 1, I><<<blocks, threads, 0, s>>>(
+          xf, of, (I)H, (I)W, (I)C, (I)k, (I)n);
+    return (int)cudaGetLastError();
+  });
 }
 
 // lanes 4 or 1 channels a thread (4: C % 4 == 0 and every pointer on 16
@@ -258,8 +292,19 @@ extern "C" int max_pool2d_bwd_f32(const void* x, const void* out,
     return (int)cudaErrorInvalidValue;
   const bool wide = (long long)B * H * W * C >= (1LL << 31);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? dispatch_bwd<4>(k, wide, x, out, g, dx, H, W, C, n_main,
-                               n_total, threads, blocks, s)
-             : dispatch_bwd<1>(k, wide, x, out, g, dx, H, W, C, n_main,
-                               n_total, threads, blocks, s);
+  const float* xf = static_cast<const float*>(x);
+  const float* of = static_cast<const float*>(out);
+  const float* gf = static_cast<const float*>(g);
+  float* df = static_cast<float*>(dx);
+  return by_instance(k, wide, [&](auto window, auto index) {
+    constexpr int K = decltype(window)::value;
+    using I = decltype(index);
+    if (vec)
+      pool_bwd_kernel<K, 4, I><<<blocks, threads, 0, s>>>(
+          xf, of, gf, df, (I)H, (I)W, (I)C, (I)k, (I)n_main, (I)n_total);
+    else
+      pool_bwd_kernel<K, 1, I><<<blocks, threads, 0, s>>>(
+          xf, of, gf, df, (I)H, (I)W, (I)C, (I)k, (I)n_main, (I)n_total);
+    return (int)cudaGetLastError();
+  });
 }

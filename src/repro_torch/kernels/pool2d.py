@@ -17,10 +17,38 @@ from torch.autograd.function import once_differentiable
 
 from . import launch, ref
 
-__all__ = ["BwdPlan", "bwd_plan", "max_pool2d_cuda", "max_pool2d_bwd_cuda",
-           "MaxPool2dFunction"]
+__all__ = ["FwdPlan", "fwd_plan", "BwdPlan", "bwd_plan", "max_pool2d_cuda",
+           "max_pool2d_bwd_cuda", "MaxPool2dFunction"]
 
 _SMS = 132                     # H100 SXM
+
+
+def _threads(total: int) -> int:
+    """Threads a block: 256, or 128 or 64 where that gives every SM a
+    block."""
+    return next((t for t in (256, 128) if math.ceil(total / t) >= _SMS), 64)
+
+
+class FwdPlan(NamedTuple):
+    """One K7 launch: ``lanes`` channels a thread (4: a 16-byte vector),
+    ``windows`` threads of (image, output window, lane group), ``threads``
+    a block, ``blocks`` blocks."""
+    lanes: int
+    windows: int
+    threads: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=64)   # every training step asks per layer
+def fwd_plan(B: int, H: int, W: int, C: int, window: int,
+             aligned: bool = True) -> FwdPlan:
+    """The geometry of K7 for x (B, H, W, C): 4 channels a thread where C
+    is a multiple of 4 and x and out start on 16 bytes (``aligned``), else
+    1; one thread per output window and lane group."""
+    lanes = 4 if C % 4 == 0 and aligned else 1
+    windows = B * (H // window) * (W // window) * (C // lanes)
+    threads = _threads(windows)
+    return FwdPlan(lanes, windows, threads, math.ceil(windows / threads))
 
 
 class BwdPlan(NamedTuple):
@@ -49,8 +77,7 @@ def bwd_plan(B: int, H: int, W: int, C: int, window: int,
     windows = B * Ho * Wo * (C // lanes)
     remainder = B * dropped * (C // lanes)
     total = windows + remainder
-    threads = next((t for t in (256, 128) if math.ceil(total / t) >= _SMS),
-                   64)
+    threads = _threads(total)
     return BwdPlan(lanes, windows, remainder, threads,
                    math.ceil(total / threads))
 
@@ -70,8 +97,10 @@ def max_pool2d_cuda(x, window: int = 2):
     B, H, W, C = x.shape
     out = torch.empty((B, H // window, W // window, C), dtype=torch.float32,
                       device=dev)
+    plan = fwd_plan(B, H, W, C, window,
+                    x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     launch.run("pool2d", "max_pool2d_fwd_f32", dev, (x, out),
-               (B, H, W, C, window))
+               (B, H, W, C, window, plan.lanes, plan.threads, plan.blocks))
     max_pool2d_cuda.launches += 1
     return out
 

@@ -439,6 +439,36 @@ def test_pool_kernels_match_plain(shape, ties, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [12, 7])
+@pytest.mark.parametrize("window", [2, 3])
+def test_pool_fwd_kernel_writes_every_output_element(window, C):
+    """K7 through its plan into a NaN-filled out: every output element
+    comes back equal to the plain version (C = 12: 16-byte lanes; 7: a
+    channel a thread; ragged H and W); a plan a block short or a block
+    over is refused; the wrapper counts one launch."""
+    _card()
+    from repro_torch.kernels import launch
+    from repro_torch.kernels import pool2d as pl
+    shape = (5, 13, 11, C)
+    x = torch.relu(_randn(_gen(10), shape))
+    want = ref.max_pool2d_ref(x, window, window)
+    out = torch.full_like(want, float("nan"))
+    plan = pl.fwd_plan(*shape, window)
+    assert plan.lanes == (4 if C % 4 == 0 else 1)
+    launch.run("pool2d", "max_pool2d_fwd_f32", x.device, (x, out),
+               (*shape, window, plan.lanes, plan.threads, plan.blocks))
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    for blocks in (plan.blocks - 1, plan.blocks + 1):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            launch.run("pool2d", "max_pool2d_fwd_f32", x.device, (x, out),
+                       (*shape, window, plan.lanes, plan.threads, blocks))
+    before = pl.max_pool2d_cuda.launches
+    assert torch.equal(pl.max_pool2d_cuda(x, window), want)
+    assert pl.max_pool2d_cuda.launches == before + 1
+
+
+@pytest.mark.cuda
 def test_cnn_step_on_card_matches_cpu():
     """One Table-2 case1 gradient on the card and on the CPU from the same
     params and batch."""
@@ -566,3 +596,61 @@ def test_flash_attention_gradient_on_card_raises():
     k = torch.zeros((1, 8, 1, 16), device="cuda")
     with pytest.raises(NotImplementedError, match="backward"):
         ops.flash_attention(q, k, k)
+
+
+# (B, H, KH, Sq, Sk, D, window, softcap, offset): K10's f32 instance at
+# every head-dim instance the models reach (64, 96, 128) and the widest
+# (256), causal Sq > Sk (fully masked rows), D % 4 != 0 and tensors off 16
+# bytes (``offset`` floats: the 4-byte copies)
+FLASH_F32 = [
+    (1, 8, 4, 300, 300, 64, 0, 50.0, 0), (2, 4, 2, 333, 333, 96, 100, 50.0, 0),
+    (1, 8, 4, 300, 300, 128, 128, 50.0, 0), (1, 2, 2, 130, 130, 256, 0, 30.0, 0),
+    (1, 4, 2, 300, 200, 64, 0, 0.0, 0), (1, 4, 2, 300, 200, 128, 0, 50.0, 0),
+    (1, 4, 2, 77, 77, 13, 0, 0.0, 0), (1, 4, 2, 150, 150, 128, 40, 50.0, 1)]
+
+
+def _f32_qkv(B, H, KH, Sq, Sk, D, softcap, offset, seed):
+    """q (x 8 where a soft-cap is on, so it acts), k, v: contiguous f32 on
+    the card, each starting ``offset`` floats into its buffer."""
+    gen = _gen(seed)
+    out = []
+    for n, S, scale in ((H, Sq, 8.0 if softcap else 1.0), (KH, Sk, 1.0),
+                        (KH, Sk, 1.0)):
+        buf = _randn(gen, (offset + B * n * S * D,)) * scale
+        out.append(buf[offset:].view(B, n, S, D))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,window,softcap,offset", FLASH_F32)
+def test_flash_attention_f32_kernel_matches_plain(B, H, KH, Sq, Sk, D,
+                                                  window, softcap, offset):
+    """K10's f32 instance (3xTF32 products) at the f32 gate, atol 1e-4 and
+    rtol 1e-3, against its plain version."""
+    _card()
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _f32_qkv(B, H, KH, Sq, Sk, D, softcap, offset, 11)
+    assert q.is_contiguous() and (q.data_ptr() % 16 != 0) == (offset != 0)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    before = fa.flash_attention_cuda.launches
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == before + 1
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,window,softcap,offset", FLASH_F32)
+def test_flash_attention_f32_reruns_bit_for_bit(B, H, KH, Sq, Sk, D, window,
+                                                softcap, offset):
+    """K10's f32 instance sums in a fixed order: identical bits on a
+    rerun."""
+    _card()
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _f32_qkv(B, H, KH, Sq, Sk, D, softcap, offset, 12)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    first = fa.flash_attention_cuda(q, k, v, **kw)
+    second = fa.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

@@ -128,3 +128,35 @@ def test_bwd_plan_writes_every_dx_element_once(window, H, W, C):
     assert (plan.blocks - 1) * plan.threads < total <= \
         plan.blocks * plan.threads
     assert (_k8_writes(plan, B, H, W, C, window) == 1).all()
+
+
+def _k7_writes(plan, B, H, W, C, k):
+    """How often K7 writes each output element: ``pool2d.cu``'s map from a
+    thread to (image, output window, lane group), channel groups fastest,
+    each thread writing its ``lanes`` channels."""
+    L, Q = plan.lanes, C // plan.lanes
+    Ho, Wo = H // k, W // k
+    hits = np.zeros((B, Ho, Wo, C), np.int64)
+    for idx in range(min(plan.blocks * plan.threads, plan.windows)):
+        q, t = idx % Q, idx // Q
+        wo, t = t % Wo, t // Wo
+        ho, b = t % Ho, t // Ho
+        hits[b, ho, wo, q * L:(q + 1) * L] += 1
+    return hits
+
+
+@pytest.mark.parametrize("C", [5, 12])
+@pytest.mark.parametrize("H,W", [(12, 12), (9, 7), (10, 13)])
+@pytest.mark.parametrize("window", [2, 3, 4])
+def test_fwd_plan_writes_every_output_element_once(window, H, W, C):
+    """K7's launch geometry: one thread per output window and lane group
+    writes every output element exactly once, with no idle block."""
+    B = 2
+    plan = pool2d.fwd_plan(B, H, W, C, window)
+    assert plan.lanes == (4 if C % 4 == 0 else 1)
+    assert pool2d.fwd_plan(B, H, W, C, window, aligned=False).lanes == 1
+    assert plan.windows == B * (H // window) * (W // window) * C // plan.lanes
+    assert plan.threads in (64, 128, 256)
+    assert (plan.blocks - 1) * plan.threads < plan.windows <= \
+        plan.blocks * plan.threads
+    assert (_k7_writes(plan, B, H, W, C, window) == 1).all()
