@@ -70,13 +70,33 @@ from the root of a checkout.  Phases, each of which raises on failure
    held against the model's own blockwise attention (atol 8e-2, rtol
    2e-2: it rounds p to bf16) and against its plain version on the same
    q, k, v (phase 2c's gate);
+4d. (run after 4b) the outer layer on 4 virtual nodes at speeds 1.0, 1.3,
+   1.7 and 2.2, IDPA balanced, AdamW at lr 2e-3, 4 local steps, B = 64:
+   (a) the quickstart configuration (16 px, 2 conv layers of 8, FC 2 x 64,
+   3 allocation batches) under ``vmap`` and ``sequential`` for 3 rounds
+   and ``heap`` for 12 pushes, on the card and on the CPU from the same
+   numpy params with the clock pinned (a stub ``time`` in the engine
+   module, fixed per-node durations): allocations, AGWU's node order, the
+   clock, the sync-wait and the comm identical, losses within rtol 1e-4 /
+   atol 1e-6, merged params within rtol 1e-3 / atol 1e-5; (b) Table-2
+   case7 at full width over 8192 images in 4 batches, 3 SGWU rounds and 12
+   AGWU pushes on the measured clock, ``cnn_accuracy`` on 512 held-out
+   images weighting Eq. 7 and Eq. 10: finite losses, allocations summing
+   to N, Eq. 11's comm exactly (pulls + pushes) x c_w, K1-K8 launches per
+   event exactly (an SGWU round: 4 nodes x 4 steps x 56, plus 5 evals of
+   20 forward launches, 996), per event the wall, virtual clock, sync-wait
+   and allocation, per round (after a warm-up round) the device time by
+   kernel and the busy share, peak memory, and the Eq. 7 merge +
+   rebroadcast and the Eq. 10 apply on case7's tree against their byte
+   bounds (9 and 4 c_w at 3.35 TB/s);
 5. the serving CLI once on the reduced config;
 6. a JSON line with every ported kernel (device-clock times as the extra
    fields ``device_ms`` and ``library_device_ms``, "not measured" being
    null; K1 also its prefill sums as ``prefill_*`` and ``gemma_prefill_*``,
    K9 its Gemma-2 prefill forward's 33 launches at 5000 x 4608 as
    ``prefill_*``, K6 its passes as ``pass_device_ms``, K10 its f32
-   instance on the S = 5000 pair as ``f32_*``), then the card
+   instance on the S = 5000 pair as ``f32_*``, K1-K8 phase 4d's launches
+   as ``outer_launches``), then the card
    again, then the result line ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports no JAX and nothing of the JAX package ``repro``.
@@ -94,7 +114,11 @@ does the same for phase 2b and the named kernels, and
     python3 chip_smoke.py --k9
     python3 chip_smoke.py --k10
 
-for phase 2c's K9 and K10 cases.
+for phase 2c's K9 and K10 cases, and
+
+    python3 chip_smoke.py --outer
+
+for phase 4d.
 """
 from __future__ import annotations
 
@@ -921,6 +945,273 @@ def phase_train_slice(torch, port, mods, card, steps=20):
 
 
 # ----------------------------------------------------------------------
+# The outer layer: IDPA, SGWU (Eq. 7) and AGWU (Eq. 9-10) on 4 virtual nodes
+# ----------------------------------------------------------------------
+OUTER_SPEEDS = (1.0, 1.3, 1.7, 2.2)    # the quickstart's node speed factors
+OUTER_NODES = 4
+OUTER_LOCAL_STEPS = 4
+OUTER_TICK = 0.05                      # phase 4d(a)'s stub clock step (s)
+EVAL_LAUNCHES = {"K1": 7, "K4": 10, "K7": 3}   # one case7 cnn_accuracy call
+QUICKSTART = dict(name="quickstart", image_size=16, conv_layers=2, filters=8,
+                  fc_layers=2, fc_neurons=64)
+
+
+class _StubClock:
+    """Stands in for ``time`` in the port's engine module: ``perf_counter``
+    steps by OUTER_TICK a call, so every stacked round's wall is fixed."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        self.now += OUTER_TICK
+        return self.now
+
+
+def _outer_trainer(port, cfg, params, data, engine_name, batches,
+                   eval_fn=None, pinned=False, **tc):
+    """A BPTTrainer on 4 nodes at OUTER_SPEEDS over IDPA (balanced) with
+    the quickstart's optimizer; ``pinned`` fixes each node's local-round
+    duration at 0.01 s x its speed through the ``_local_round`` seam."""
+    import numpy as np
+    speeds = np.asarray(OUTER_SPEEDS)
+    xs, ys = data
+    ds = port.pipeline.IDPADataset(
+        {"images": xs, "labels": ys}, num_nodes=OUTER_NODES, batches=batches,
+        frequencies=1.0 / speeds, partitioning="idpa", idpa_mode="balanced")
+    kw = port.engine.engine_config(engine_name, outer_nodes=OUTER_NODES,
+                                   local_steps=OUTER_LOCAL_STEPS,
+                                   warmup_steps=10, **tc)
+    tr = port.trainer.BPTTrainer(
+        lambda p, b: (port.cnn.cnn_loss(p, b, cfg), {}), params, ds,
+        _train_cfg(port.types, **kw), batch_size=TRAIN_BATCH,
+        eval_fn=eval_fn, speed_factors=speeds)
+    if pinned:
+        orig = tr._local_round
+
+        def pin(p, opt, node, step):
+            p, opt, loss, _ = orig(p, opt, node, step)
+            return p, opt, loss, 0.01 * float(speeds[node])
+
+        tr._local_round = pin
+    return tr
+
+
+def phase_outer_parity(torch, port):
+    """Phase 4d(a): the quickstart configuration's outer layer on the card
+    and on the CPU from the same numpy params, with the clock pinned:
+    ``vmap`` and ``sequential`` 3 rounds, ``heap`` 12 pushes."""
+    import numpy as np
+    cnn, weights = port.cnn, port.weights
+    cfg = cnn.CNNConfig(**QUICKSTART)
+    tree = weights.params_to_numpy(cnn.init_cnn(
+        cfg, torch.Generator("cpu").manual_seed(0), device="cpu"))
+    data = port.synthetic.image_dataset(2000, size=16, seed=0)
+    for name in ("vmap", "sequential", "heap"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            tr = _outer_trainer(port, cfg,
+                                weights.params_from_numpy(tree, cfg, dev),
+                                data, name, batches=3,
+                                pinned=name != "vmap", total_steps=400)
+            real, port.engine.time = port.engine.time, _StubClock()
+            try:
+                evs = list(tr.run(3))
+            finally:
+                port.engine.time = real
+            runs[dev] = (evs, [h.tolist() for h in tr.dataset.part.history])
+        (card_evs, card_hist), (cpu_evs, cpu_hist) = runs["cuda"], runs["cpu"]
+        keys = [[(e.round, e.node, e.virtual_clock, e.sync_wait,
+                  e.comm_bytes) for e in evs] for evs in (card_evs, cpu_evs)]
+        if keys[0] != keys[1] or card_hist != cpu_hist:
+            raise AssertionError(f"[outer-parity] {name}: bookkeeping differs"
+                                 f" card {keys[0]} {card_hist} vs cpu "
+                                 f"{keys[1]} {cpu_hist}")
+        loss_diff = param_diff = 0.0
+        for a, b in zip(card_evs, cpu_evs):
+            np.testing.assert_allclose(a.node_losses, b.node_losses,
+                                       rtol=1e-4, atol=1e-6)
+            loss_diff = max(loss_diff,
+                            float(np.abs(a.node_losses - b.node_losses).max()))
+            for x, y in zip(port.tree.tree_leaves(weights.params_to_numpy(
+                    a.params)), port.tree.tree_leaves(weights.params_to_numpy(
+                        b.params)), strict=True):
+                np.testing.assert_allclose(x, y, rtol=1e-3, atol=1e-5)
+                param_diff = max(param_diff, float(np.abs(x - y).max()))
+        log(f"[outer-parity] {name}: {len(card_evs)} events identical on "
+            f"the card and the CPU (clock {card_evs[-1].virtual_clock:.4f} s,"
+            f" sync_wait {card_evs[-1].sync_wait:.4f} s, comm "
+            f"{card_evs[-1].comm_bytes} B, allocations {card_hist}"
+            + (f", node order {[e.node for e in card_evs]}"
+               if name == "heap" else "")
+            + f"); losses max_abs_diff {loss_diff:.3g} (rtol 1e-4, atol "
+            f"1e-6), merged params max_abs_diff {param_diff:.3g} (rtol 1e-3,"
+            " atol 1e-5)")
+
+
+def _outer_expected(name, i):
+    """K1-K8 launches of event ``i``: the node rounds' steps and the evals'
+    forwards.  SGWU: 4 nodes x 4 steps x 56, and 5 evals (one a node for
+    Eq. 7, one of the merged weights). AGWU: 4 steps x 56, the pushing
+    node's eval for Eq. 10, and every 4th push the merged weights' eval."""
+    if name == "vmap":
+        steps, evals = OUTER_NODES * OUTER_LOCAL_STEPS, OUTER_NODES + 1
+    else:
+        steps = OUTER_LOCAL_STEPS
+        evals = 1 + ((i + 1) % OUTER_NODES == 0)
+    return {k: steps * n + evals * EVAL_LAUNCHES.get(k, 0)
+            for k, n in STEP_LAUNCHES.items()}
+
+
+def _outer_profile(torch, port, tr, per_step):
+    """Device time of one round (SGWU) or one virtual round of 4 pushes
+    (AGWU) under ``torch.profiler``, after a warm-up step of its schedule
+    (``device_ms``'s reading): {kernel: ms}, busy ms and the traced wall."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    events = tr.run(2)
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        for _ in range(2):                # the warm-up step, then the traced
+            t0 = time.perf_counter()
+            for _ in range(per_step):
+                next(events)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    dev_ms = dict.fromkeys(list(STEP_LAUNCHES) + ["other"], 0.0)
+    for evt in prof.key_averages():
+        us = port.profile.device_us(evt)
+        if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA \
+                or evt.key.startswith("ProfilerStep"):
+            continue
+        key = next((k for pat, k in KERNEL_NAMES if pat in evt.key), "other")
+        dev_ms[key] += us / 1e3
+    return dev_ms, port.profile.busy_us(prof) / 1e3, wall_ms
+
+
+def phase_outer_slice(torch, port, mods, card):
+    """Phase 4d(b): Table-2 case7 at full width on 4 virtual nodes, 3 SGWU
+    rounds (``vmap``) and 12 AGWU pushes (``heap``) on the measured clock:
+    exact K1-K8 launches per event, exact Eq. 11 comm, IDPA allocations
+    that sum to N; per event the wall, the virtual clock, the sync-wait
+    and the allocation; per round the device time by kernel and the busy
+    share; the Eq. 7 merge and the Eq. 10 apply against their byte
+    bounds.  Returns the K1-K8 launches of the two runs."""
+    import numpy as np
+    cnn, gwu = port.cnn, port.gwu
+    cfg = cnn.make_case("case7")
+    params = cnn.init_cnn(cfg, torch.Generator("cuda").manual_seed(0),
+                          device="cuda")
+    leaves = port.tree.tree_leaves(params)
+    c_w = sum(p.numel() * p.element_size() for p in leaves)
+    n_img = 8192
+    data = port.synthetic.image_dataset(n_img, size=cfg.image_size, seed=0)
+    xe, ye = port.synthetic.image_dataset(512, size=cfg.image_size, seed=42)
+    eval_batch = {"images": torch.as_tensor(xe, device="cuda"),
+                  "labels": torch.as_tensor(ye, device="cuda")}
+
+    def eval_fn(p):
+        return cnn.cnn_accuracy(p, eval_batch, cfg)
+
+    def make(name):
+        return _outer_trainer(port, cfg, params, data, name, batches=4,
+                              eval_fn=eval_fn, total_steps=100, grad_clip=1.0)
+
+    log(f"[outer] case7 full width ({sum(p.numel() for p in leaves)} params "
+        f"f32, c_w {c_w} B), {OUTER_NODES} nodes at speeds {OUTER_SPEEDS}, "
+        f"IDPA balanced over {n_img} images in 4 batches, B={TRAIN_BATCH}, "
+        f"{OUTER_LOCAL_STEPS} local steps, AdamW lr 2e-3 (warmup 10 of 100 "
+        f"steps, grad_clip 1.0), cnn_accuracy on 512 held-out images; "
+        f"card: {card}")
+    total = dict.fromkeys(STEP_LAUNCHES, 0)
+    for name, what in (("vmap", "SGWU round"), ("heap", "AGWU push")):
+        tr = make(name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(mods)
+        before, last, walls = _counts(mods), None, []
+        t_prev = time.perf_counter()
+        for ev in tr.run(3):
+            now = time.perf_counter()
+            walls.append((now - t_prev) * 1e3)
+            counts = _counts(mods)
+            per = {k: counts[k] - before[k] for k in counts}
+            before = counts
+            if per != _outer_expected(name, ev.round):
+                raise AssertionError(f"[outer] {name} event {ev.round}: "
+                                     f"launches {per} != "
+                                     f"{_outer_expected(name, ev.round)}")
+            if not np.isfinite(ev.node_losses).all():
+                raise AssertionError(f"[outer] {name} event {ev.round}: "
+                                     f"losses {ev.node_losses}")
+            log(f"[outer] {what} {ev.round}"
+                + (f" (node {ev.node})" if ev.node >= 0 else "")
+                + f": wall {walls[-1]:.3f} ms, virtual clock "
+                f"{ev.virtual_clock:.6f} s, sync_wait {ev.sync_wait:.6f} s, "
+                f"loss {ev.loss:.6f}, accuracy {ev.accuracy}, comm "
+                f"{ev.comm_bytes} B, allocation {tr.dataset.totals.tolist()}"
+                f", K1-K8 launches {sum(per.values())}")
+            t_prev, last = time.perf_counter(), ev
+        peak = torch.cuda.max_memory_allocated()
+        for k, n in _counts(mods).items():
+            total[k] += n
+        hist = tr.dataset.part.history
+        if any(int(h.sum()) != n_img // 4 for h in hist) \
+                or int(tr.dataset.totals.sum()) != n_img:
+            raise AssertionError(f"[outer] {name}: allocations "
+                                 f"{[h.tolist() for h in hist]} do not "
+                                 f"sum to {n_img}")
+        # Eq. 11: SGWU pulls and pushes every node every round; AGWU's 12
+        # pushes each re-pull but the last of each node, after 4 pulls
+        pulls = pushes = OUTER_NODES * 3
+        if last.comm_bytes != (pulls + pushes) * c_w:
+            raise AssertionError(f"[outer] {name}: comm {last.comm_bytes} "
+                                 f"!= ({pulls} + {pushes}) x {c_w}")
+        log(f"[outer] {name}: {last.round + 1} events, comm "
+            f"{last.comm_bytes} B = ({pulls} pulls + {pushes} pushes) x c_w "
+            f"(Eq. 11, exact); allocations {[h.tolist() for h in hist]}; "
+            f"max_memory_allocated {peak / 1e9:.3f} GB ({card})")
+        per_step = 1 if name == "vmap" else OUTER_NODES
+        dev_ms, busy_ms, wall_ms = _outer_profile(torch, port, make(name),
+                                                  per_step)
+        kern = sum(v for k, v in dev_ms.items() if k != "other")
+        # the unprofiled wall of the same unit: the mean of the measured
+        # events after the first (which carries the first launches)
+        plain_ms = per_step * float(np.mean(walls[1:]))
+        log(f"[outer] {name} profiled {'round' if name == 'vmap' else '4 pushes'}"
+            f" (after a warm-up one): wall {wall_ms:.3f} ms, device busy "
+            f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%; "
+            f"{100 * busy_ms / plain_ms:.1f}% of the unprofiled "
+            f"{plain_ms:.3f} ms), device ms by kernel: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in dev_ms.items())
+            + f" (K1-K8 {kern:.4f})")
+
+    # the merges on case7's tree, against their byte bounds: Eq. 7 reads
+    # the 4-node stack and writes the merged tree and the new stack (9 c_w);
+    # Eq. 10 reads global, local and base and writes the new global (4 c_w)
+    stack = gwu.broadcast_tree(params, OUTER_NODES)
+    qs = [0.25, 0.3, 0.2, 0.25]
+    local = port.tree.tree_map(lambda x: x * 1.01, params)
+    base = port.tree.tree_map(lambda x: x * 0.99, params)
+    for label, fn, args, nbytes in (
+            ("Eq. 7 merge + rebroadcast", gwu.sgwu_merge_and_rebroadcast,
+             (stack, qs), 9 * c_w),
+            ("Eq. 10 apply", lambda g, lw, b: gwu.agwu_update(
+                g, lw, b, 0.7, 1.1), (params, local, base), 4 * c_w)):
+        ev_ms = time_ms(torch, fn, [args], iters=20)
+        dv_ms, names = device_ms(torch, fn, [args], iters=20)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"[outer] {label}: event {ev_ms:.5f} ms, device {fmt_ms(dv_ms)} "
+            f"ms against the byte bound {bound:.5f} ms ({nbytes / 1e6:.1f} MB"
+            f" at 3.35 TB/s)" + (f", {bound / dv_ms:.0%} of it" if dv_ms
+                                 else "") + "; device kernels: " + ", ".join(
+                f"{k[:40]} {v:.4f}" for k, v in names.items()))
+    del stack, local, base
+    return total
+
+
+# ----------------------------------------------------------------------
 # K9 and K10 at the LM shapes
 # ----------------------------------------------------------------------
 ATTN_TOL = {"bfloat16": (8e-2, 2e-2), "float32": (1e-4, 1e-3)}  # atol, rtol
@@ -1555,6 +1846,8 @@ def main() -> int:
                     "cases alone and print no result line")
     ap.add_argument("--k10", action="store_true", help="run phase 2c's K10 "
                     "cases alone and print no result line")
+    ap.add_argument("--outer", action="store_true", help="run phase 4d (the "
+                    "outer layer) alone and print no result line")
     args = ap.parse_args()
     # torch.compile (the flex_attention yardstick) caches inside the checkout
     cache = SRC / "repro_torch" / "kernels" / "_build" / "compile_cache"
@@ -1569,8 +1862,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch import configs, serving, weights
-    from repro_torch.core import bpt_trainer, tree, types
-    from repro_torch.data import synthetic
+    from repro_torch.core import bpt_trainer, engine, gwu, tree, types
+    from repro_torch.data import pipeline, synthetic
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import conv2d as conv_mod
     from repro_torch.kernels import dense as dense_mod
@@ -1583,7 +1876,8 @@ def main() -> int:
 
     port = SimpleNamespace(cnn=cnn, weights=weights, trainer=bpt_trainer,
                            synthetic=synthetic, types=types, optim=optimizers,
-                           tree=tree, profile=profile_decode)
+                           tree=tree, profile=profile_decode, engine=engine,
+                           gwu=gwu, pipeline=pipeline)
     mods = {"dense": dense_mod, "conv2d": conv_mod, "pool2d": pool_mod,
             "rmsnorm": rms_mod, "flash_attention": flash_mod}
     counters = {"K1": dense_mod.dense_cuda, "K9": rms_mod.rmsnorm_cuda,
@@ -1618,6 +1912,11 @@ def main() -> int:
         phase_k10(torch, ref, flash_mod)
         log(card_line())
         return 0
+    if args.outer:
+        phase_outer_parity(torch, port)
+        phase_outer_slice(torch, port, mods, card)
+        log(card_line())
+        return 0
     k1_sums, worst = phase_kernel(torch, dense_mod, ref)
     train_rows = phase_train_kernels(torch, ref, mods, cnn)
     attn_rows = {"K9": phase_k9(torch, ref, rms_mod),
@@ -1628,6 +1927,8 @@ def main() -> int:
     launches, yi_pre_k1 = phase_slice(torch, configs, lm, serving, counters,
                                       card)
     train_launches, train = phase_train_slice(torch, port, mods, card)
+    phase_outer_parity(torch, port)
+    outer_launches = phase_outer_slice(torch, port, mods, card)
     gc.collect()
     torch.cuda.empty_cache()
     gemma_launches, gem_pre, k10_launches, k10_diff = phase_gemma(
@@ -1672,6 +1973,7 @@ def main() -> int:
                               " counted in phase 4c (tile GEMM, 128-row "
                               "tiles)",
         "train_launches": train_launches["K1"],
+        "outer_launches": outer_launches["K1"],
         "train_max_abs_err": k1["err"], "train_tolerance": k1["tol"],
         "train_ms": k1["ms"], "train_plain_ms": k1["plain_ms"],
         "train_bound_ms": k1["bound_ms"],
@@ -1691,6 +1993,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": train_launches[key],
+            "outer_launches": outer_launches[key],
             "max_abs_err": r["err"], "tolerance": r["tol"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": dominant(r["bound_by"]),

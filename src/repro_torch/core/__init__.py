@@ -1,1 +1,2 @@
-"""Configuration and device helpers of the port."""
+"""The port's core: configs, device helpers, trees, and the BPT trainer's
+two layers (the local step, the outer layer's engines, merges and server)."""

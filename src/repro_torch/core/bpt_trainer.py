@@ -1,27 +1,55 @@
-"""The local step of the BPT trainer, from ``repro/core/bpt_trainer.py``.
+"""BPTTrainer — the paper's bi-layered training loop, from
+``repro/core/bpt_trainer.py``.
 
-This is the seam the outer layer calls once per node and round:
-``make_step_body`` is ``BPTTrainer._make_step_body`` (value and grad,
-clip by global norm, the ``warmup_cosine`` learning rate, the optimizer
-update, ``apply_updates``) and ``make_node_round`` is
-``BPTTrainer._make_node_round`` (``local_steps`` of it, returning the last
-loss).  The trainer class, its engines and the merges come with the next
-slice of the port.
+Outer layer: m virtual computing nodes (data-parallel groups).  Each node
+pulls the global weights from the ParameterServer, runs ``local_steps``
+train steps on its IDPA-assigned data stripe, and pushes back under SGWU
+(barrier, Eq. 7) or AGWU (event-ordered, Eq. 9-10).  Node heterogeneity is
+emulated with per-node speed factors scaling measured step times into
+virtual completion times — the event order (and therefore the staleness
+pattern AGWU sees) is exactly the paper's.
+
+The execution substrates are the engines of ``core.engine``;
+``engine.resolve_engine`` maps a TrainConfig to one of them and records a
+device-count fallback on ``TrainReport.fallback``.
+
+Two entry points:
+
+- ``run(rounds, hooks)`` — a generator yielding one ``RoundEvent`` per
+  merge (per round for SGWU/sync, per push for AGWU) so callers stream
+  losses, evaluate on their own cadence and early-stop.
+- ``train(rounds, hooks)`` — drains ``run`` into a ``TrainReport``.
+
+Inner layer: the local step, ``make_step_body`` (value and grad, clip by
+global norm, the ``warmup_cosine`` learning rate, the optimizer update,
+``apply_updates``) and ``make_node_round`` (``local_steps`` of it,
+returning the last loss); on a CUDA device the CNN's layers run through
+the hand-written kernels K1-K8.
 
 ``loss_fn(params, batch) -> (loss, aux)`` as in the reference.  Params,
 optimizer state and batches are nested dicts and lists of tensors; a step
-returns new ones and changes none of its inputs.
+returns new ones and changes none of its inputs.  Batches come from the
+dataset as numpy and are placed on the params' device in one transfer per
+round (per local step on the per-node paths).
 """
 from __future__ import annotations
 
+import dataclasses
+import time
+from typing import Callable, Iterator, Optional, Sequence
+
+import numpy as np
 import torch
 
-from repro_torch.core.tree import tree_leaves, tree_unflatten
+from repro_torch.core.engine import RoundEvent, TrainHooks, resolve_engine
+from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.core.types import TrainConfig
+from repro_torch.data.pipeline import IDPADataset
 from repro_torch.optim.optimizers import (apply_updates, clip_by_global_norm,
                                           make_optimizer, warmup_cosine)
 
-__all__ = ["value_and_grad", "make_step_body", "make_node_round"]
+__all__ = ["value_and_grad", "make_step_body", "make_node_round",
+           "BPTTrainer", "TrainReport", "TrainHooks", "RoundEvent"]
 
 
 def value_and_grad(loss_fn, params, batch):
@@ -70,3 +98,208 @@ def make_node_round(loss_fn, train_cfg: TrainConfig):
         return params, opt_state, loss
 
     return node_round
+
+
+@dataclasses.dataclass
+class TrainReport:
+    strategy: str
+    steps: int
+    losses: list
+    accuracies: list            # (virtual_time, accuracy) pairs
+    virtual_makespan: float
+    sync_wait: float
+    comm_bytes: int
+    allocation: np.ndarray
+    final_params: object = None
+    # which outer-layer execution backend actually ran: "vmap" (stacked
+    # single-device round), "sequential" (per-node loop), "heap" (AGWU),
+    # "scan" (sync baseline)
+    backend: str = ""
+    # non-empty when the executed backend differs from the requested one
+    # (the EnginePlan's recorded device-count fallback reason)
+    fallback: str = ""
+    # global index just past the last event (= its round + 1)
+    last_event: int = 0
+
+    def summary(self) -> dict:
+        out = {
+            "strategy": self.strategy,
+            "backend": self.backend,
+            "steps": self.steps,
+            "final_loss": round(float(self.losses[-1]), 4) if self.losses else None,
+            "final_acc": round(float(self.accuracies[-1][1]), 4)
+            if self.accuracies else None,
+            "makespan": round(self.virtual_makespan, 3),
+            "sync_wait": round(self.sync_wait, 3),
+            "comm_MB": round(self.comm_bytes / 2**20, 2),
+        }
+        if self.fallback:
+            out["fallback"] = self.fallback
+        return out
+
+
+class BPTTrainer:
+    def __init__(self,
+                 loss_fn: Callable,                 # (params, batch) -> (loss, aux)
+                 init_params,
+                 dataset: IDPADataset,
+                 train_cfg: TrainConfig,
+                 batch_size: int,
+                 eval_fn: Optional[Callable] = None,   # (params) -> accuracy
+                 speed_factors: Optional[Sequence[float]] = None,
+                 accuracy_weighting: str = "normalized",
+                 model_cfg=None,
+                 plan_family: str = "",
+                 fault_schedule=None):
+        # accuracy_weighting:
+        #   "paper"      — Eq. (10) verbatim: scale = gamma * Q.
+        #   "normalized" — Q is divided by its running mean, so the relative
+        #     contribution weighting the paper wants is kept while the
+        #     update magnitude stays ~gamma.
+        if model_cfg is not None or plan_family:
+            raise NotImplementedError(
+                "model_cfg and plan_family drive the 2-D (nodes, model) "
+                "mesh planner, which is not ported yet: ROADMAP.md §1 "
+                "item 5 (multi-device and planning)")
+        self.loss_fn = loss_fn
+        self.dataset = dataset
+        self.tc = train_cfg
+        self.batch_size = batch_size
+        self.eval_fn = eval_fn
+        self.m = train_cfg.outer_nodes
+        # optional FaultSchedule (core.faults): node churn the engines
+        # replay — fail/rejoin/slow transitions keyed on event indices
+        self.faults = fault_schedule
+        if fault_schedule is not None and not fault_schedule.empty:
+            fault_schedule.validate_nodes(self.m)
+        self.speed = np.asarray(speed_factors if speed_factors is not None
+                                else np.ones(self.m), np.float64)
+        self.opt = make_optimizer(train_cfg.optimizer)
+        self.params0 = init_params
+        # batches follow the params: their device is the trainer's
+        self.device = tree_leaves(init_params)[0].device
+        self.rng = np.random.default_rng(train_cfg.seed)
+        self.accuracy_weighting = accuracy_weighting
+        self._q_ema = None
+        self.last_plan = None        # EnginePlan of the most recent run()
+        self.last_engine = None      # engine instance of the most recent run()
+        self._train_step = make_step_body(loss_fn, train_cfg)
+        self._node_round = make_node_round(loss_fn, train_cfg)
+
+    def _q_effective(self, q: float) -> float:
+        """Relative contribution weight Q (see accuracy_weighting above)."""
+        q = max(q, 1e-3)
+        if self.accuracy_weighting == "paper":
+            return q
+        self._q_ema = q if self._q_ema is None else \
+            0.9 * self._q_ema + 0.1 * q
+        return float(np.clip(q / max(self._q_ema, 1e-3), 0.25, 2.0))
+
+    def _to_device(self, batch: dict) -> dict:
+        """A numpy batch on the trainer's device (one copy a leaf)."""
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in batch.items()}
+
+    # ------------------------------------------------------------------
+    def _local_round(self, params, opt_state, node: int, step: int):
+        """One node's local iteration: ``local_steps`` steps on its stripe.
+        Returns (params, opt_state, loss, duration)."""
+        t0 = time.perf_counter()
+        loss = None
+        for _ in range(self.tc.local_steps):
+            batch = self._to_device(
+                self.dataset.node_batch(node, self.batch_size, self.rng))
+            params, opt_state, loss = self._train_step(
+                params, opt_state, batch, step)
+        # the Eq. 8 measurement boundary: the host read waits for the device
+        loss = float(loss)
+        wall = time.perf_counter() - t0
+        return params, opt_state, loss, wall * self.speed[node]
+
+    def _stacked_round(self, stacked_w, stacked_opt, batches, step):
+        """The m node rounds of one stacked SGWU round: node j's round runs
+        on slice j of the stacked params, optimizer state and batches
+        (leaves ``(m, local_steps, B, ...)``), and its results are written
+        back into slice j.  Returns the stacks and the (m,) last losses."""
+        losses = []
+        for j in range(self.m):
+            w, s, loss = self._node_round(
+                self._node_slice(stacked_w, j),
+                self._node_slice(stacked_opt, j),
+                self._node_slice(batches, j), step)
+            tree_map(lambda dst, src: dst[j].copy_(src), stacked_w, w)
+            tree_map(lambda dst, src: dst[j].copy_(src), stacked_opt, s)
+            losses.append(loss)
+        return stacked_w, stacked_opt, torch.stack(losses)
+
+    def _eval(self, params):
+        if not self.eval_fn:
+            return 0.0
+        return float(self.eval_fn(params))
+
+    @staticmethod
+    def _node_slice(stacked, node: int):
+        """Node ``j``'s view of a node-stacked tree."""
+        return tree_map(lambda x: x[node], stacked)
+
+    def _eval_nodes(self, stacked) -> list:
+        """Per-node accuracies for a node-stacked tree, node by node."""
+        return [max(self._eval(self._node_slice(stacked, j)), 1e-3)
+                for j in range(self.m)]
+
+    # ------------------------------------------------------------------
+    def run(self, rounds: int,
+            hooks: Optional[TrainHooks] = None) -> Iterator[RoundEvent]:
+        """Stream the outer layer: one ``RoundEvent`` per merge.
+
+        Resolves the execution engine (``engine.resolve_engine``), then
+        yields each merge event — round index, per-node losses, virtual
+        clock, cumulative sync-wait and comm-bytes, and the post-merge
+        global weights.  ``hooks`` layers accuracy evals every
+        ``eval_every`` events (0 keeps the engine's default) and an
+        ``on_round`` observer; breaking out of the iterator stops training.
+
+        A generator: config errors raise at the first ``next()``.
+        """
+        hooks = hooks or TrainHooks()
+        if hooks.checkpoint_every or hooks.checkpoint_dir or hooks.resume:
+            raise NotImplementedError(
+                "checkpoint and resume hooks need the checkpoint module, "
+                "which is not ported yet: ROADMAP.md §1 item 4 (outer "
+                "layer, checkpoints and tooling)")
+        # the devices resolve_engine counts: the CUDA devices (its default)
+        # when the params are on the card, one CPU device when on the CPU
+        plan = resolve_engine(self.tc, None if self.device.type == "cuda"
+                              else [self.device])
+        self.last_plan = plan
+        engine = plan.engine_cls(self, plan)
+        self.last_engine = engine
+        eval_every = hooks.eval_every or engine.default_eval_every
+        for ev in engine.events(rounds):
+            n = ev.round + 1
+            if self.eval_fn and n % eval_every == 0:
+                ev.accuracy = self._eval(ev.params)
+            if hooks.on_round:
+                hooks.on_round(ev)
+            yield ev
+
+    def train(self, rounds: int,
+              hooks: Optional[TrainHooks] = None) -> TrainReport:
+        """Drain ``run`` into a ``TrainReport``."""
+        losses, accs = [], []
+        last = None
+        for ev in self.run(rounds, hooks):
+            losses.append(ev.loss)
+            if ev.accuracy is not None:
+                accs.append((ev.virtual_clock, ev.accuracy))
+            last = ev
+        plan = self.last_plan
+        return TrainReport(
+            plan.strategy, len(losses), losses, accs,
+            last.virtual_clock if last else 0.0,
+            last.sync_wait if last else 0.0,
+            last.comm_bytes if last else 0,
+            self.dataset.totals,
+            last.params if last is not None else self.params0,
+            backend=plan.backend, fallback=plan.fallback,
+            last_event=last.round + 1 if last is not None else 0)

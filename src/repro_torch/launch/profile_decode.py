@@ -48,10 +48,13 @@ def device_us(evt) -> float:
 
 
 def busy_us(prof) -> float:
-    """Union of the device kernel intervals, in microseconds."""
+    """Union of the device kernel intervals, in microseconds.  A
+    profiler schedule's ``ProfilerStep`` span also lands on the device's
+    timeline, from the step's first kernel to its last; it is no work."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith("ProfilerStep"))
     busy, end = 0.0, -1.0
     for s, e in spans:
         if s >= end:

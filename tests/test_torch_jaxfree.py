@@ -13,7 +13,9 @@ torch = pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-SCANNED = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+SCANNED = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                        REPO / "examples" /
+                                        "quickstart_torch.py"]
 SLICE_MODULES = (
     "repro_torch", "repro_torch.core.types", "repro_torch.core.device",
     "repro_torch.configs", "repro_torch.configs.yi_6b",
@@ -31,6 +33,10 @@ SLICE_MODULES = (
     "repro_torch.optim.optimizers", "repro_torch.data",
     "repro_torch.data.synthetic", "repro_torch.kernels.rmsnorm",
     "repro_torch.kernels.flash_attention", "repro_torch.configs.gemma2_27b",
+    "repro_torch.core.idpa", "repro_torch.core.faults",
+    "repro_torch.core.gwu", "repro_torch.core.param_server",
+    "repro_torch.core.engine", "repro_torch.data.pipeline",
+    "repro_torch.configs.bpt_cnn",
 )
 BANNED = ("jax", "jaxlib", "repro")
 
