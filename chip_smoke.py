@@ -47,11 +47,27 @@ from the root of a checkout.  Phases, each of which raises on failure
    with a soft-cap ``score_mod`` where a soft-cap is on, in f32 at the
    long prompt's S only, else ``F.scaled_dot_product_attention``) and
    bound times, kernel and library also on the device's clock;
+2d. the LM's training kernels: K1, K2 and K3 in bf16 at every Phi-3-mini
+   and Yi-6B projection shape at M = 1024 (B 8 x S 128; K1 without bias,
+   as the LM calls it, at K1 bf16's gate), K2 and K3 also at ragged M and
+   with the relu mask, and K9's backward at d = 3072, 4096, 4608 (1024
+   rows, and ragged rows) in bf16 and f32, against their plain versions: dx
+   within one bf16 rounding (bf16) or at the f32 gradient gate, dw, db
+   and dscale at the gradient gate (1e-4 x max(max|ref|, 1)); every case
+   reruns bit for bit; kernel, plain, library (``torch.matmul`` on the
+   same bf16 operands; autograd of ``F.rms_norm``, its backward alone)
+   and bound times, kernel and library also on the device's clock,
+   summed over one phase-4e step;
 3. reduced Yi-6B and reduced Gemma-2 (prompts longer than its window of
    16) in f32 served on the card and on the CPU from the same weights and
    request stream: identical token streams, logits within 1e-4;
 3b. a reduced CNN and case1 trained 4 AdamW steps on the card and on the
    CPU from the same numpy params and batches: losses and params agree;
+3c. reduced Yi-6B, Phi-3 and Gemma-2 in f32 and bf16: ``lm.loss_fn`` and
+   every gradient leaf on the card against the port's CPU run from the
+   same numpy params and batch (CE chunks that pad, labels of -1), remat
+   off and on (f32 within atol 2e-5 / rtol 1e-4, bf16 loss within 5e-3
+   and gradients within atol / rtol 3e-2);
 4. full-width Yi-6B from a seed, 8 Poisson requests through the
    continuous-batching engine with measured timing; every request
    completes, logits are finite, K1 ran 224 and K9 65 times per forward
@@ -89,6 +105,28 @@ from the root of a checkout.  Phases, each of which raises on failure
    kernel and the busy share, peak memory, and the Eq. 7 merge +
    rebroadcast and the Eq. 10 apply on case7's tree against their byte
    bounds (9 and 4 c_w at 3.35 TB/s);
+4e. (run after 4d) the LM's local step: Phi-3-mini at full width and 8
+   layers (1.10 B params), B 8 x S 128 from ``lm_corpus``, AdamW, 10
+   steps through ``make_node_round`` with ``lm.loss_fn``: finite losses
+   that fall, every grad leaf nonzero (at the initial params), exactly
+   7 L K1, 7 L K2 and 7 L K3 launches in bf16 and 2 L + 1 K9 forward and
+   backward a step (no f32 dense kernel in the trace), step wall, device
+   time by kernel and busy share (a step traced after a warm-up one),
+   tokens/s, peak memory, and AdamW's update and apply alone against
+   its byte floor (7 c_w at 3.35 TB/s);
+4f. the training CLI ``launch/train.py``'s ``run``: (a) reduced Yi-6B
+   in f32 on the card and on the CPU with the clock pinned, SGWU
+   (``vmap``) 3 rounds and AGWU (``heap``) 8 pushes: allocations, node
+   order, clock, sync-wait and comm identical, losses within rtol 1e-4 /
+   atol 1e-6, merged params within rtol 1e-3 / atol 1e-5, every leaf;
+   (b) Phi-3-mini at full width and 2 layers on 4 nodes at the CLI's
+   defaults, the same counts on the measured clock: per event the wall,
+   clock, sync-wait, comm and K1-K3 and K9 launches (exact), Eq. 11's
+   comm exactly (pulls + pushes) x c_w, peak memory, then in a second,
+   shorter run one round's (4 pushes') device time by kernel and busy
+   share (traced after a warm-up one); (c) the CLI once at its defaults
+   with ``--ckpt-dir``, its checkpoint restored with the port's
+   ``restore``;
 5. the serving CLI once on the reduced config;
 6. a JSON line with every ported kernel (device-clock times as the extra
    fields ``device_ms`` and ``library_device_ms``, "not measured" being
@@ -96,7 +134,10 @@ from the root of a checkout.  Phases, each of which raises on failure
    K9 its Gemma-2 prefill forward's 33 launches at 5000 x 4608 as
    ``prefill_*``, K6 its passes as ``pass_device_ms``, K10 its f32
    instance on the S = 5000 pair as ``f32_*``, K1-K8 phase 4d's launches
-   as ``outer_launches``), then the card
+   as ``outer_launches``; K1 its bf16 training instance as
+   ``train_bf16_*``, K2 and K3 their bf16 instances as ``bf16_*`` and K9
+   its backward as ``bwd_*``, launches from phase 4e, their
+   ``*_outer_launches`` from 4f(b)), then the card
    again, then the result line ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports no JAX and nothing of the JAX package ``repro``.
@@ -118,7 +159,11 @@ for phase 2c's K9 and K10 cases, and
 
     python3 chip_smoke.py --outer
 
-for phase 4d.
+for phase 4d, and
+
+    python3 chip_smoke.py --lm
+
+for phases 2d, 3c, 4e and 4f.
 """
 from __future__ import annotations
 
@@ -1820,6 +1865,737 @@ def prefill_launches(k1_sums, arch, pre_k1):
     return st
 
 
+# ----------------------------------------------------------------------
+# The LM's training path: K2/K3 in bf16, K9's backward, loss_fn, the
+# local step at full width and the training CLI
+# ----------------------------------------------------------------------
+LM_BWD_SHAPES = {                  # one layer's projections: (name, Din, Dout)
+    "phi3-mini-3.8b": (("wq", 3072, 3072), ("wk", 3072, 3072),
+                       ("wv", 3072, 3072), ("wo", 3072, 3072),
+                       ("wg", 3072, 8192), ("wi", 3072, 8192),
+                       ("mlp_wo", 8192, 3072)),
+    "yi-6b": DECODE_SHAPES["yi-6b"],
+}
+LM_ROWS = 1024                     # B 8 x S 128, a training step's rows
+LM_BATCH, LM_SEQ = 8, 128
+LM_BWD_RAGGED = (                  # (M, Din, Dout, relu): ragged M, the
+    (24, 4096, 4096, True), (1000, 3072, 3072, True),   # relu mask, shapes
+    (1000, 3072, 8192, False), (37, 100, 77, True),     # off 8 (element-
+    (5, 13, 9, False))                                  # by-element loads)
+RMS_BWD_CASES = [(LM_ROWS, d, dt) for d in (3072, 4096, 4608)
+                 for dt in ("bfloat16", "float32")]
+RMS_BWD_CASES += [(1000, 4608, "bfloat16"), (133, 3072, "bfloat16"),
+                  (37, 1000, "float32"), (3, 13, "bfloat16")]   # ragged
+LM_ARCH = "phi3-mini-3.8b"         # phases 4e and 4f(b), at full width
+LM_LAYERS = 8                      # phase 4e's depth
+LM_OUTER_LAYERS = 2                # phase 4f(b)'s depth, 4 nodes
+LM_STEPS = 10
+LM_LR = 1e-3                       # the training CLI's default
+LM_TOL = {"float32": (2e-5, 2e-5, 1e-4),      # loss, grads atol, rtol
+          "bfloat16": (5e-3, 3e-2, 3e-2)}
+LM_KERNEL_NAMES = (   # device kernel name -> the port's kernel (bf16 path)
+    ("dense_fwd_bf16", "K1"), ("dense_bwd_bf16_tile<true", "K2"),
+    ("dense_bwd_bf16_tile<false", "K3"), ("rmsnorm_bwd", "K9 bwd"),
+    ("rmsnorm_", "K9"), ("dense_fwd_f32", "K1 f32"),
+    ("dense_dx_", "K2 f32"), ("dense_dwdb_", "K3 f32"))
+CUBLAS_NAMES = ("gemm", "nvjet", "cutlass", "xmma")   # the head's matmul
+
+
+def lm_step_launches(L: int) -> dict:
+    """K1-K3 and K9 launches of one LM training step at depth L (remat
+    off): 7 projections a layer forward (K1) and backward (K2, K3), and
+    2 L + 1 norms forward (K9) and backward."""
+    return {"K1": 7 * L, "K2": 7 * L, "K3": 7 * L, "K9": 2 * L + 1,
+            "K9 bwd": 2 * L + 1}
+
+
+def _lm_counts(mods):
+    dn, rms = mods["dense"], mods["rmsnorm"]
+    return {"K1": dn.dense_cuda.launches, "K2": dn.dense_dx_cuda.launches,
+            "K3": dn.dense_dwdb_cuda.launches,
+            "K9": rms.rmsnorm_cuda.launches,
+            "K9 bwd": rms.rmsnorm_bwd_cuda.launches}
+
+
+def _zero_lm_counts(mods):
+    dn, rms = mods["dense"], mods["rmsnorm"]
+    for fn in (dn.dense_cuda, dn.dense_dx_cuda, dn.dense_dwdb_cuda,
+               rms.rmsnorm_cuda, rms.rmsnorm_bwd_cuda):
+        fn.launches = 0
+
+
+def _grad_gate(torch, got, want, one_rounding):
+    """(max_abs_err, tol): one bf16 rounding (BF16_TOL x max|ref|), or
+    the f32 gradient gate (GRAD_TOL x max(max|ref|, 1))."""
+    got, want = _flat(torch, got).float(), _flat(torch, want).float()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    return err, (BF16_TOL * scale if one_rounding
+                 else GRAD_TOL * max(scale, 1.0))
+
+
+def _new_row():
+    return {"err": 0.0, "tol": 0.0, "ratio": -1.0, "ms": 0.0,
+            "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "library_device_ms": 0.0, "bound_ms": 0.0, "bound_by": {}}
+
+
+def _note_err(row, err, tol):
+    ratio = err / tol if tol > 0 else 0.0
+    if ratio > row["ratio"]:
+        row.update(err=err, tol=tol, ratio=ratio)
+
+
+def _time_case(torch, row, n, kern, plain, lib, sets, lib_sets, nbytes,
+               flops, dtype):
+    """Time one case (kernel, plain, library; CUDA events and the
+    device's clock) and add n launches of it to ``row``'s sums; returns
+    the per-launch numbers."""
+    k_ms = time_ms(torch, kern, sets)
+    k_dev, _ = device_ms(torch, kern, sets)
+    p_ms = time_ms(torch, plain, sets, iters=20)
+    l_ms = time_ms(torch, lib, lib_sets)
+    l_dev, _ = device_ms(torch, lib, lib_sets)
+    b_ms, by = roof_ms(nbytes, flops, dtype)
+    row["ms"] += n * k_ms
+    row["device_ms"] = add_ms(row["device_ms"], n, k_dev)
+    row["plain_ms"] += n * p_ms
+    row["library_ms"] += n * l_ms
+    row["library_device_ms"] = add_ms(row["library_device_ms"], n, l_dev)
+    row["bound_ms"] += n * b_ms
+    row["bound_by"][by] = row["bound_by"].get(by, 0.0) + n * b_ms
+    return k_ms, k_dev, p_ms, l_ms, l_dev, b_ms, by
+
+
+def _dense_bwd_case(torch, gen, key, M, Din, Dout, relu):
+    """Random bf16 operands of K1 (x, w), K2 (g, w, out) or K3 (x, g,
+    out)."""
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).bfloat16()
+    out = torch.relu(rnd((M, Dout))) if relu else None
+    if key == "K1":
+        return rnd((M, Din)), rnd((Din, Dout), Din ** -0.5)
+    if key == "K2":
+        return rnd((M, Dout)), rnd((Din, Dout), Din ** -0.5), out
+    return rnd((M, Din)), rnd((M, Dout)), out
+
+
+def phase_lm_kernels(torch, ref, dn, rms):
+    """Phase 2d: K1, K2 and K3 in bf16 at every Phi-3-mini and Yi-6B
+    projection shape at M = 1024 (B 8 x S 128; K1 without bias, as the LM
+    calls it), K2 and K3 also at ragged M and with the relu mask, and
+    K9's backward at d = 3072, 4096, 4608 (1024 rows and ragged), bf16
+    and f32, against their plain versions; every case reruns bit for
+    bit.  Returns per kernel its row, summed over one
+    phase-4e step (Phi-3-mini, LM_LAYERS layers)."""
+    gen = torch.Generator("cuda").manual_seed(4)
+    kern = {"K1": dn.dense_cuda, "K2": dn.dense_dx_cuda,
+            "K3": dn.dense_dwdb_cuda}
+    plain = {"K1": ref.dense_ref, "K2": ref.dense_dx_ref,
+             "K3": ref.dense_dwdb_ref}
+    lib = {"K1": torch.matmul,
+           "K2": lambda g, w, out: torch.matmul(g, w.t()),
+           "K3": lambda x, g, out: (torch.matmul(x.t(), g), g.sum(0))}
+    rows = {}
+    log(f"[lm-k] {'kernel':<6} {'model':<15} {'M x Din x Dout':<18} "
+        f"{'max_abs_err':<11} {'tol':<10} {'kernel_ms':<10} "
+        f"{'device_ms':<12} {'plain_ms':<10} {'library_ms':<10} "
+        f"{'lib_dev_ms':<12} bound_ms")
+    for key in ("K1", "K2", "K3"):
+        row = _new_row()
+        for arch, shapes in LM_BWD_SHAPES.items():
+            unique = {}
+            for name, Din, Dout in shapes:
+                unique.setdefault((Din, Dout), []).append(name)
+            for (Din, Dout), which in unique.items():
+                M = LM_ROWS
+                args = _dense_bwd_case(torch, gen, key, M, Din, Dout, False)
+                err, tol = _grad_gate(torch, kern[key](*args),
+                                      plain[key](*args), key != "K3")
+                if not err <= tol:
+                    raise AssertionError(f"{key} bf16 ({M}, {Din}, {Dout}):"
+                                         f" max_abs_err {err} > tol {tol}")
+                _note_err(row, err, tol)
+                wbytes = 2 * Din * Dout
+                copies = max(2, min(16, math.ceil(256e6 / wbytes)))
+                sets = [args] + [_dense_bwd_case(torch, gen, key, M, Din,
+                                                 Dout, False)
+                                 for _ in range(copies - 1)]
+                if key != "K3":
+                    nbytes = 2 * (M * Dout + Din * Dout + M * Din)
+                    flops = 2.0 * M * Din * Dout
+                else:
+                    nbytes = 2 * (M * Din + M * Dout) + 4 * (Din + 1) * Dout
+                    flops = 2.0 * M * (Din + 1) * Dout
+                n = LM_LAYERS * len(which) if arch == LM_ARCH else 0
+                t = _time_case(torch, row, n, kern[key], plain[key],
+                               lib[key], sets, sets, nbytes, flops,
+                               "bfloat16")
+                log(f"[lm-k] {key:<6} {arch:<15} "
+                    f"{f'{M}x{Din}x{Dout}':<18} {err:<11.4g} {tol:<10.4g} "
+                    f"{t[0]:<10.5f} {fmt_ms(t[1]):<12} {t[2]:<10.5f} "
+                    f"{t[3]:<10.5f} {fmt_ms(t[4]):<12} {t[5]:.5f} ({t[6]})"
+                    f"  x{len(which)} a layer" + (
+                        f", S={dn.bf16_splits(M, Dout, Din)[0]}"
+                        if key == "K1" else ""))
+                a = _flat(torch, kern[key](*args))
+                if not torch.equal(a, _flat(torch, kern[key](*args))):
+                    raise AssertionError(f"{key} bf16 ({M}, {Din}, {Dout}) "
+                                         "gave different bits on a rerun")
+                del sets, args
+        for M, Din, Dout, relu in LM_BWD_RAGGED if key != "K1" else ():
+            args = _dense_bwd_case(torch, gen, key, M, Din, Dout, relu)
+            got = kern[key](*args)
+            err, tol = _grad_gate(torch, got, plain[key](*args),
+                                  key == "K2")
+            log(f"[lm-k] {key:<6} ragged {M}x{Din}x{Dout}"
+                f"{' relu' if relu else ''}: max_abs_err {err:.4g} tol "
+                f"{tol:.4g}")
+            if not err <= tol:
+                raise AssertionError(f"{key} bf16 ragged ({M}, {Din}, "
+                                     f"{Dout}): {err} > {tol}")
+            _note_err(row, err, tol)
+            if not torch.equal(_flat(torch, got),
+                               _flat(torch, kern[key](*args))):
+                raise AssertionError(f"{key} bf16 ragged ({M}, {Din}, "
+                                     f"{Dout}) gave different bits on a "
+                                     "rerun")
+        log(f"[lm-k] {key} bf16 reruns bit for bit in every case; one "
+            f"{LM_ARCH} step at {LM_LAYERS} layers ({7 * LM_LAYERS} "
+            f"launches): kernel {row['ms']:.5f} ms (device "
+            f"{fmt_ms(row['device_ms'])}), plain {row['plain_ms']:.5f}, "
+            f"torch.matmul {row['library_ms']:.5f} (device "
+            f"{fmt_ms(row['library_device_ms'])}), bound "
+            f"{row['bound_ms']:.5f} ({dominant(row['bound_by'])}); worst "
+            f"max_abs_err {row['err']:.4g} at tol {row['tol']:.4g}")
+        rows[key] = row
+
+    F = torch.nn.functional
+    row = _new_row()
+    for rows_n, d, dt in RMS_BWD_CASES:
+        tdt = getattr(torch, dt)
+        itemsize = 2 if dt == "bfloat16" else 4
+
+        def case():
+            return (torch.randn((rows_n, d), generator=gen,
+                                device="cuda").to(tdt),
+                    torch.randn((d,), generator=gen, device="cuda") * 0.1
+                    + 1.0,
+                    torch.randn((rows_n, d), generator=gen,
+                                device="cuda").to(tdt))
+        args = case()
+        dx, ds = rms.rmsnorm_bwd_cuda(*args)
+        want_dx, want_ds = ref.rmsnorm_bwd_ref(*args)
+        e1, t1 = _grad_gate(torch, dx, want_dx, dt == "bfloat16")
+        e2, t2 = _grad_gate(torch, ds, want_ds, False)
+        if not (e1 <= t1 and e2 <= t2):
+            raise AssertionError(f"K9 bwd ({rows_n}, {d}) {dt}: dx {e1} "
+                                 f"(tol {t1}), dscale {e2} (tol {t2})")
+        _note_err(row, e1, t1)
+        _note_err(row, e2, t2)
+        again = rms.rmsnorm_bwd_cuda(*args)
+        if not (torch.equal(dx, again[0]) and torch.equal(ds, again[1])):
+            raise AssertionError(f"K9 bwd ({rows_n}, {d}) {dt} gave "
+                                 "different bits on a rerun")
+        geo = tuple(rms.bwd_plan(rows_n, d, itemsize))
+        if rows_n < LM_ROWS:   # ragged: the gates and the rerun only
+            log(f"[lm-k] K9 bwd ragged {rows_n}x{d} {dt}: dx {e1:.4g} (tol "
+                f"{t1:.4g}), dscale {e2:.4g} (tol {t2:.4g}) {geo}")
+            continue
+        nbytes = 3 * rows_n * d * itemsize + 8 * d
+        copies = max(2, min(16, math.ceil(256e6 / nbytes)))
+        sets = [args] + [case() for _ in range(copies - 1)]
+        lib_sets = []
+        for x, s, g in sets:
+            xr = x.detach().requires_grad_()
+            sr = s.to(tdt, copy=True).requires_grad_()
+            lib_sets.append((F.rms_norm(xr, (d,), sr, eps=1e-6), xr, sr, g))
+
+        def lib(out, xr, sr, g):   # the backward alone; the graph is kept
+            return torch.autograd.grad(out, (xr, sr), g, retain_graph=True)
+        n = 2 * LM_LAYERS + 1 if (d, dt) == (3072, "bfloat16") else 0
+        t = _time_case(torch, row, n, rms.rmsnorm_bwd_cuda,
+                       ref.rmsnorm_bwd_ref, lib, sets, lib_sets, nbytes,
+                       12.0 * rows_n * d, "float32")
+        log(f"[lm-k] K9 bwd {f'{rows_n}x{d}':<12} {dt:<9} dx {e1:<10.4g} "
+            f"(tol {t1:<9.4g}) dscale {e2:<10.4g} (tol {t2:<9.4g}) "
+            f"{t[0]:<10.5f} {fmt_ms(t[1]):<12} {t[2]:<10.5f} {t[3]:<10.5f} "
+            f"{fmt_ms(t[4]):<12} {t[5]:.5f} ({t[6]}) {geo}")
+        del sets, lib_sets
+    log(f"[lm-k] K9 bwd reruns bit for bit in every case; one {LM_ARCH} "
+        f"step ({2 * LM_LAYERS + 1} launches at {LM_ROWS}x3072 bf16): "
+        f"kernel {row['ms']:.5f} ms (device {fmt_ms(row['device_ms'])}), "
+        f"plain {row['plain_ms']:.5f}, autograd of F.rms_norm "
+        f"{row['library_ms']:.5f} (device "
+        f"{fmt_ms(row['library_device_ms'])}), bound {row['bound_ms']:.5f}"
+        f" ({dominant(row['bound_by'])}); worst max_abs_err "
+        f"{row['err']:.4g} at tol {row['tol']:.4g}")
+    rows["K9 bwd"] = row
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _lm_batch(np, vocab, B=2, S=12):
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, vocab, (B, S)).astype(np.int32)
+    labels = rng.integers(0, vocab, (B, S)).astype(np.int32)
+    labels[0, 3] = -1
+    labels[1, -2:] = -1
+    return toks, labels
+
+
+def phase_lm_parity(torch, port):
+    """Phase 3c: reduced Yi-6B, Phi-3 and Gemma-2 in f32 and bf16:
+    ``lm.loss_fn`` and every gradient leaf on the card against the port's
+    CPU run from the same numpy params and batch (CE chunks of 5 over 12
+    positions, labels of -1), remat off and on."""
+    import numpy as np
+    lm, weights, configs = port.lm, port.weights, port.configs
+    for arch in ("yi-6b", "phi3-mini-3.8b", "gemma2-27b"):
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(configs.get_reduced(arch),
+                                      dtype=dtype, ce_chunk=5)
+            tree = weights.params_to_numpy(lm.init_params(
+                cfg, torch.Generator("cpu").manual_seed(0), device="cpu"))
+            toks, labels = _lm_batch(np, cfg.vocab_size)
+            out = {}
+            for remat in (False, True):
+                for dev in ("cuda", "cpu"):
+                    params = weights.params_from_numpy(tree, cfg, dev)
+                    batch = {"tokens": torch.as_tensor(toks, device=dev),
+                             "labels": torch.as_tensor(labels, device=dev)}
+                    (loss, _), grads = port.trainer.value_and_grad(
+                        lambda p, b: lm.loss_fn(p, b, cfg, remat=remat),
+                        params, batch)
+                    out[(dev, remat)] = (
+                        float(loss), [g.float().cpu() for g in
+                                      port.tree.tree_leaves(grads)])
+            tl, atol, rtol = LM_TOL[dtype]
+            worst = 0.0
+            for remat in (False, True):
+                (cl, cg), (hl, hg) = out[("cuda", remat)], out[("cpu", remat)]
+                if not abs(cl - hl) <= tl * max(1.0, abs(hl)):
+                    raise AssertionError(f"[lm-parity] {arch} {dtype} remat="
+                                         f"{remat}: loss {cl} vs cpu {hl}")
+                for a, b in zip(cg, hg, strict=True):
+                    ok = (a - b).abs() <= atol + rtol * b.abs()
+                    if not bool(ok.all()):
+                        raise AssertionError(
+                            f"[lm-parity] {arch} {dtype} remat={remat}: a "
+                            f"grad leaf differs by {(a - b).abs().max()}")
+                    worst = max(worst, float((a - b).abs().max()))
+            rd = max(float((a - b).abs().max()) for a, b in zip(
+                out[("cuda", False)][1], out[("cuda", True)][1]))
+            log(f"[lm-parity] {arch} {dtype}: loss card "
+                f"{out[('cuda', False)][0]:.7f} cpu "
+                f"{out[('cpu', False)][0]:.7f}; every grad leaf within atol "
+                f"{atol:g} / rtol {rtol:g} (max_abs_diff {worst:.3g}), remat"
+                f" on and off; card remat vs no remat max_abs_diff {rd:.3g}")
+
+
+def _lm_profile(torch, port, prof):
+    """The traced step of ``prof``: ({kernel: device ms}, {kernel: its
+    launches}, busy ms)."""
+    dev_ms, counts = {}, {}
+    for evt in prof.key_averages():
+        us = port.profile.device_us(evt)
+        if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA \
+                or evt.key.startswith("ProfilerStep"):
+            continue
+        key = _lm_kernel(evt.key)
+        dev_ms[key] = dev_ms.get(key, 0.0) + us / 1e3
+        counts[key] = counts.get(key, 0) + evt.count
+    return dev_ms, counts, port.profile.busy_us(prof) / 1e3
+
+
+def _lm_kernel(name):
+    key = next((k for pat, k in LM_KERNEL_NAMES if pat in name), None)
+    if key is None:
+        key = "cuBLAS" if any(p in name for p in CUBLAS_NAMES) else "other"
+    return key
+
+
+def phase_lm_step(torch, port, mods, card):
+    """Phase 4e: Phi-3-mini at full width and LM_LAYERS layers, B 8 x S
+    128 from ``lm_corpus``, AdamW, LM_STEPS steps through
+    ``make_node_round`` with ``lm.loss_fn``: finite losses that fall,
+    every grad leaf nonzero, exact launches a step, step wall, device time
+    by kernel, busy share, tokens/s, peak memory, and the optimizer's time
+    against AdamW's byte floor.  The loss that must fall is a held-out
+    batch's, before and after the steps (each step's own loss is on a new
+    batch).  Returns (launches, step device ms by kernel)."""
+    import numpy as np
+    lm, pipeline = port.lm, port.pipeline
+    cfg = dataclasses.replace(port.configs.get_config(LM_ARCH),
+                              num_layers=LM_LAYERS)
+    L, B, S = LM_LAYERS, LM_BATCH, LM_SEQ
+    expect = lm_step_launches(L)
+    params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            device="cuda")
+    leaves = port.tree.tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    c_w = sum(p.numel() * p.element_size() for p in leaves)
+    # LM_STEPS training batches, 2 for the profile, 1 held out
+    corpus = port.synthetic.lm_corpus((LM_STEPS + 3) * B * S + 1,
+                                      cfg.vocab_size, seed=0)
+    rows = pipeline.pack_sequences(corpus, S)
+    batches = [{"rows": torch.as_tensor(rows[None, i * B:(i + 1) * B],
+                                        device="cuda")}
+               for i in range(LM_STEPS + 3)]
+
+    def loss_fn(p, b):
+        return lm.loss_fn(p, pipeline.host_batch(b["rows"]), cfg)
+
+    def held_out(p):
+        with torch.no_grad():
+            return float(loss_fn(p, {"rows": batches[-1]["rows"][0]})[0])
+    before_loss = held_out(params)
+
+    tc = port.types.TrainConfig(optimizer="adamw", learning_rate=LM_LR,
+                                warmup_steps=2, total_steps=LM_STEPS,
+                                grad_clip=1.0, local_steps=1)
+    opt = port.optim.make_optimizer(tc.optimizer)
+    state = opt.init(params)
+    node_round = port.trainer.make_node_round(loss_fn, tc)
+    one = {k: v[0] for k, v in batches[0].items()}
+    _, grads = port.trainer.value_and_grad(loss_fn, params, one)
+    zero = [i for i, g in enumerate(port.tree.tree_leaves(grads))
+            if not bool(g.abs().sum() > 0)]
+    if zero:
+        raise AssertionError(f"[lm-step] grad leaves {zero} are all zero")
+    # the optimizer alone (AdamW's update and its apply) on these grads,
+    # against its byte floor: read params, grads and both moments, write
+    # params and both moments, 7 c_w
+    def adamw():
+        upd, new = opt.update(grads, state, params, 1e-4)
+        return port.optim.apply_updates(params, upd), new
+    o_ms = time_ms(torch, adamw, [()], iters=3, warmup=1)
+    o_dev, _ = device_ms(torch, adamw, [()], iters=3, warmup=1)
+    o_floor = 7 * c_w / HBM_BYTES_PER_S * 1e3
+    del grads
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    _zero_lm_counts(mods)
+    for i in range(LM_STEPS):
+        before = _lm_counts(mods)
+        t0 = time.perf_counter()
+        params, state, loss = node_round(params, state, batches[i], i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per = {k: v - before[k] for k, v in _lm_counts(mods).items()}
+        if per != expect:
+            raise AssertionError(f"[lm-step] step {i}: launches {per} != "
+                                 f"{expect}")
+        losses.append(float(loss))
+    launches = _lm_counts(mods)
+    peak = torch.cuda.max_memory_allocated()
+    after_loss = held_out(params)
+    log(f"[lm-step] losses {losses}; held-out batch {before_loss:.6f} -> "
+        f"{after_loss:.6f}")
+    if not (np.isfinite(losses).all() and after_loss < before_loss):
+        raise AssertionError(f"[lm-step] losses not finite, or the "
+                             f"held-out loss did not fall: {losses}, "
+                             f"{before_loss} -> {after_loss}")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        for i in range(2):     # the warm-up step, then the traced one
+            t0 = time.perf_counter()
+            params, state, _ = node_round(params, state,
+                                          batches[LM_STEPS + i], LM_STEPS)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    dev_ms, counts, busy_ms = _lm_profile(torch, port, prof)
+    f32 = {k: counts.get(k, 0) for k in ("K1 f32", "K2 f32", "K3 f32")}
+    if any(f32.values()):
+        raise AssertionError(f"[lm-step] f32 dense kernels ran: {f32}")
+    mean = float(np.mean(step_ms[1:]))
+    log(f"[lm-step] {LM_ARCH} full width, {L} layers ({n_params} params "
+        f"f32, c_w {c_w} B), B={B} x S={S} from lm_corpus, AdamW lr {LM_LR:g} "
+        f"(warmup 2 of {LM_STEPS}), grad_clip 1.0; card: {card}")
+    log(f"[lm-step] launches {launches} = {LM_STEPS} x {expect} (bf16 K1-K3:"
+        " no f32 dense kernel in the trace); every grad leaf nonzero at "
+        "the initial params")
+    log(f"[lm-step] step mean {mean:.3f} ms over steps 2-{LM_STEPS} (first "
+        f"{step_ms[0]:.3f} ms), p50 {np.percentile(step_ms[1:], 50):.3f} ms"
+        f", {B * S / mean * 1e3:.1f} tokens/s | max_memory_allocated "
+        f"{peak / 1e9:.3f} GB ({card})")
+    total = sum(dev_ms.values())
+    log(f"[lm-step] profiled step (after a warm-up one): wall {wall_ms:.3f}"
+        f" ms, device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}"
+        f"%), kernel time {total:.3f} ms: " + ", ".join(
+            f"{k} {v:.4f} ({counts[k]})" for k, v in sorted(
+                dev_ms.items(), key=lambda kv: -kv[1])))
+    log(f"[lm-step] AdamW update + apply alone: event {o_ms:.3f} ms, device "
+        f"{fmt_ms(o_dev)} ms against its byte floor {o_floor:.3f} ms (7 c_w"
+        f" = {7 * c_w / 1e9:.2f} GB at 3.35 TB/s)"
+        + (f", {o_floor / o_dev:.0%} of it" if o_dev else ""))
+    del params, state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dev_ms
+
+
+class _PinnedClock:
+    """Pins the training CLI's clock as phase 4d(a) does: the engine module's
+    ``time`` steps by OUTER_TICK a call, and ``BPTTrainer._local_round``
+    reports 0.01 s x the node's speed."""
+
+    def __init__(self, port):
+        self.port = port
+
+    def __enter__(self):
+        cls = self.port.trainer.BPTTrainer
+        self.real = self.port.engine.time, cls._local_round
+        orig = cls._local_round
+
+        def pinned(tr, params, opt_state, node, step):
+            p, o, loss, _ = orig(tr, params, opt_state, node, step)
+            return p, o, loss, 0.01 * float(tr.speed[node])
+        self.port.engine.time = _StubClock()
+        cls._local_round = pinned
+
+    def __exit__(self, *exc):
+        self.port.engine.time, self.port.trainer.BPTTrainer._local_round = \
+            self.real
+
+
+def _drive(port, argv, cfg, params, on_round=None):
+    """``launch/train.py``'s ``run`` quietly (its report is checked here)."""
+    import contextlib
+    import io
+    args = port.train.make_parser().parse_args(argv)
+    hooks = port.engine.TrainHooks(on_round=on_round)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return port.train.run(args, cfg, params, hooks)
+
+
+def _named_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def _params_close(np, a, b):
+    """Merged params within rtol 1e-3 / atol 1e-5, every leaf (the
+    tables too).  Returns the max diff."""
+    worst = 0.0
+    for (name, u), (_, v) in zip(_named_leaves(a), _named_leaves(b),
+                                 strict=True):
+        u, v = u.float().cpu().numpy(), v.float().cpu().numpy()
+        d = np.abs(u - v)
+        if (d > 1e-5 + 1e-3 * np.abs(v)).any():
+            raise AssertionError(f"{name}: max diff {d.max()}")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def phase_lm_train(torch, port, mods, card):
+    """Phase 4f: ``launch/train.py``'s ``run``.  (a) reduced Yi-6B in f32
+    on the card and on the CPU with the clock pinned, SGWU (``vmap``) 3
+    rounds and AGWU (``heap``) 8 pushes; (b) Phi-3-mini at full width and
+    LM_OUTER_LAYERS layers on 4 nodes, the same counts on the measured
+    clock; (c) the CLI at its defaults with ``--ckpt-dir``, its file
+    restored.  Returns the K1-K3 and K9 launches of (b)."""
+    import numpy as np
+    lm, weights = port.lm, port.weights
+    # (a) card vs CPU, clock pinned
+    cfg = dataclasses.replace(port.configs.get_reduced("yi-6b"),
+                              dtype="float32")
+    tree = weights.params_to_numpy(lm.init_params(
+        cfg, torch.Generator("cpu").manual_seed(0), device="cpu"))
+    for outer, rounds in (("sgwu", 3), ("agwu", 2)):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            evs = []
+            with _PinnedClock(port):
+                rep = _drive(port, ["--device", dev, "--outer", outer,
+                                    "--rounds", str(rounds)], cfg,
+                             weights.params_from_numpy(tree, cfg, dev),
+                             evs.append)
+            runs[dev] = (rep, evs)
+        (crep, cevs), (hrep, hevs) = runs["cuda"], runs["cpu"]
+        keys = [[(e.round, e.node, e.virtual_clock, e.sync_wait,
+                  e.comm_bytes) for e in evs] for evs in (cevs, hevs)]
+        if keys[0] != keys[1] or crep.allocation.tolist() != \
+                hrep.allocation.tolist():
+            raise AssertionError(f"[lm-train] {outer}: bookkeeping differs:"
+                                 f" card {keys[0]} {crep.allocation} vs cpu "
+                                 f"{keys[1]} {hrep.allocation}")
+        loss_diff = param_diff = 0.0
+        for a, b in zip(cevs, hevs):
+            np.testing.assert_allclose(a.node_losses, b.node_losses,
+                                       rtol=1e-4, atol=1e-6)
+            loss_diff = max(loss_diff, float(np.abs(
+                a.node_losses - b.node_losses).max()))
+            param_diff = max(param_diff, _params_close(np, a.params,
+                                                       b.params))
+        log(f"[lm-train] {outer}: {len(cevs)} events identical on the card "
+            f"and the CPU (clock {cevs[-1].virtual_clock:.4f} s, sync_wait "
+            f"{cevs[-1].sync_wait:.4f} s, comm {cevs[-1].comm_bytes} B, "
+            f"allocation {crep.allocation.tolist()}"
+            + (f", node order {[e.node for e in cevs]}" if outer == "agwu"
+               else "") + f"); losses {[round(e.loss, 5) for e in cevs]} "
+            f"max_abs_diff {loss_diff:.3g} (rtol 1e-4, atol 1e-6), merged "
+            f"params max_abs_diff {param_diff:.3g} (rtol 1e-3, atol 1e-5, "
+            "every leaf)")
+        del runs, crep, hrep, cevs, hevs
+
+    # (b) Phi-3-mini at full width, 2 layers, 4 nodes, measured clock
+    cfg = dataclasses.replace(port.configs.get_config(LM_ARCH),
+                              num_layers=LM_OUTER_LAYERS)
+    step = lm_step_launches(LM_OUTER_LAYERS)
+    nodes, local = 4, 2                           # the CLI's defaults
+    total = dict.fromkeys(step, 0)
+    for outer, rounds, what in (("sgwu", 3, "SGWU round"),
+                                ("agwu", 2, "AGWU push")):
+        argv = ["--device", "cuda", "--full", "--arch", LM_ARCH, "--outer",
+                outer, "--rounds", str(rounds)]
+        params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                device="cuda")
+        leaves = port.tree.tree_leaves(params)
+        c_w = sum(p.numel() * p.element_size() for p in leaves)
+        per_event = (nodes * local if outer == "sgwu" else local)
+        want = {k: per_event * n for k, n in step.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_lm_counts(mods)
+        seen = {"before": _lm_counts(mods), "t": time.perf_counter()}
+        lines = []       # logged after the run, whose own prints are muted
+
+        def on_round(ev):
+            now = time.perf_counter()
+            counts = _lm_counts(mods)
+            per = {k: counts[k] - seen["before"][k] for k in counts}
+            seen["before"] = counts
+            if per != want:
+                raise AssertionError(f"[lm-train] {outer} event {ev.round}:"
+                                     f" launches {per} != {want}")
+            if not np.isfinite(ev.node_losses).all():
+                raise AssertionError(f"[lm-train] {outer} event {ev.round}"
+                                     f": losses {ev.node_losses}")
+            lines.append(
+                f"[lm-train] {what} {ev.round}"
+                + (f" (node {ev.node})" if ev.node >= 0 else "")
+                + f": wall {(now - seen['t']) * 1e3:.3f} ms, virtual clock "
+                f"{ev.virtual_clock:.6f} s, sync_wait {ev.sync_wait:.6f} s, "
+                f"loss {ev.loss:.6f}, comm {ev.comm_bytes} B, launches "
+                + ", ".join(f"{k} {v}" for k, v in per.items()))
+            seen["t"] = time.perf_counter()
+        log(f"[lm-train] {LM_ARCH} full width, {LM_OUTER_LAYERS} layers "
+            f"({sum(p.numel() for p in leaves)} params f32, c_w {c_w} B) on "
+            f"{nodes} nodes, {outer}, launch/train.py defaults (B=8 x S=128,"
+            f" {local} local steps, lr 1e-3, IDPA over 512 rows); card: "
+            f"{card}")
+        rep = _drive(port, argv, cfg, params, on_round)
+        peak = torch.cuda.max_memory_allocated()
+        for line in lines:
+            log(line)
+        for k, n in _lm_counts(mods).items():
+            total[k] += n
+        # Eq. 11: SGWU pulls and pushes every node every round; AGWU's
+        # pushes each re-pull but the last of each node, after m pulls
+        pulls = pushes = nodes * rounds
+        if rep.comm_bytes != (pulls + pushes) * c_w:
+            raise AssertionError(f"[lm-train] {outer}: comm "
+                                 f"{rep.comm_bytes} != ({pulls} + {pushes})"
+                                 f" x {c_w}")
+        log(f"[lm-train] {outer}: {rep.last_event} events, losses "
+            f"{[round(x, 4) for x in rep.losses]}, comm {rep.comm_bytes} B = "
+            f"({pulls} pulls + {pushes} pushes) x c_w (Eq. 11, exact); "
+            f"allocation {rep.allocation.tolist()}; max_memory_allocated "
+            f"{peak / 1e9:.3f} GB ({card})")
+        del rep, params, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+        # one round (SGWU) or 4 pushes (AGWU) traced after a warm-up one,
+        # in a run of their own: on an H100 a trace inside the counted run
+        # stretched the traced round's wall by up to 1.8x
+        per = 1 if outer == "sgwu" else nodes
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        sched = torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                        repeat=1)
+        clock = {"n": 0, "t": time.perf_counter(), "wall": 0.0}
+        params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                device="cuda")
+        with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+            def stepper(ev):
+                clock["n"] += 1
+                if clock["n"] % per == 0:
+                    torch.cuda.synchronize()
+                    now = time.perf_counter()
+                    clock["wall"] = (now - clock["t"]) * 1e3
+                    clock["t"] = now
+                    prof.step()
+            _drive(port, argv[:-1] + ["2"], cfg, params, stepper)
+        dev_ms, _, busy_ms = _lm_profile(torch, port, prof)
+        log(f"[lm-train] {outer} profiled {'round' if per == 1 else '4 pushes'}"
+            f" (after a warm-up one): wall {clock['wall']:.3f} ms, device "
+            f"busy {busy_ms:.3f} ms ({100 * busy_ms / clock['wall']:.1f}%), "
+            f"device ms by kernel: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sorted(dev_ms.items(),
+                                                  key=lambda kv: -kv[1])))
+        del params, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) the CLI at its defaults, with --ckpt-dir
+    import tempfile
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+    with tempfile.TemporaryDirectory() as ckdir:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--ckpt-dir",
+             ckdir], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"training CLI exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        cfg = port.configs.get_reduced("yi-6b")
+        like = lm.init_params(cfg, torch.Generator("cpu").manual_seed(1),
+                              device="cpu")
+        got, step = port.checkpoint.restore(ckdir, like)
+        if step != 8 * 4 or not all(bool(torch.isfinite(t).all())
+                                    for t in port.tree.tree_leaves(got)):
+            raise AssertionError(f"[lm-cli] checkpoint step {step} or "
+                                 "non-finite leaves")
+        lines = proc.stdout.strip().splitlines()
+        log("[lm-cli] " + next(ln for ln in lines
+                               if ln.startswith("[train] loss")))
+        log(f"[lm-cli] checkpoint at step {step} restored "
+            f"({len(port.tree.tree_leaves(got))} leaves, "
+            f"{port.checkpoint.load_manifest(ckdir, step)['metadata']})")
+    return total
+
+
+def instance_fields(prefix, row, launches, step_device_ms,
+                    outer_launches, work):
+    """A kernels-line row's fields for another instance of its kernel,
+    under ``prefix``: the same keys as the row's own."""
+    fields = {"launches": launches, "max_abs_err": row["err"],
+              "tolerance": row["tol"], "ms": row["ms"],
+              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+              "bound_by": dominant(row["bound_by"]),
+              "library_ms": row["library_ms"],
+              "device_ms": row["device_ms"],
+              "library_device_ms": row["library_device_ms"],
+              "step_device_ms": step_device_ms,
+              "outer_launches": outer_launches, "work": work}
+    return {f"{prefix}_{k}": v for k, v in fields.items()}
+
+
 def phase_cli():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
@@ -1848,6 +2624,9 @@ def main() -> int:
                     "cases alone and print no result line")
     ap.add_argument("--outer", action="store_true", help="run phase 4d (the "
                     "outer layer) alone and print no result line")
+    ap.add_argument("--lm", action="store_true", help="run phases 2d, 3c, 4e "
+                    "and 4f (the LM's training path) alone and print no "
+                    "result line")
     args = ap.parse_args()
     # torch.compile (the flex_attention yardstick) caches inside the checkout
     cache = SRC / "repro_torch" / "kernels" / "_build" / "compile_cache"
@@ -1862,6 +2641,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch import configs, serving, weights
+    from repro_torch.checkpointing import checkpoint
     from repro_torch.core import bpt_trainer, engine, gwu, tree, types
     from repro_torch.data import pipeline, synthetic
     from repro_torch.kernels import build, ref
@@ -1871,13 +2651,16 @@ def main() -> int:
     from repro_torch.kernels import pool2d as pool_mod
     from repro_torch.kernels import rmsnorm as rms_mod
     from repro_torch.launch import profile_decode
+    from repro_torch.launch import train as train_mod
     from repro_torch.models import cnn, lm
     from repro_torch.optim import optimizers
 
     port = SimpleNamespace(cnn=cnn, weights=weights, trainer=bpt_trainer,
                            synthetic=synthetic, types=types, optim=optimizers,
                            tree=tree, profile=profile_decode, engine=engine,
-                           gwu=gwu, pipeline=pipeline)
+                           gwu=gwu, pipeline=pipeline, lm=lm,
+                           configs=configs, checkpoint=checkpoint,
+                           train=train_mod)
     mods = {"dense": dense_mod, "conv2d": conv_mod, "pool2d": pool_mod,
             "rmsnorm": rms_mod, "flash_attention": flash_mod}
     counters = {"K1": dense_mod.dense_cuda, "K9": rms_mod.rmsnorm_cuda,
@@ -1917,18 +2700,31 @@ def main() -> int:
         phase_outer_slice(torch, port, mods, card)
         log(card_line())
         return 0
+    if args.lm:
+        phase_lm_kernels(torch, ref, dense_mod, rms_mod)
+        phase_lm_parity(torch, port)
+        phase_lm_step(torch, port, mods, card)
+        phase_lm_train(torch, port, mods, card)
+        log(card_line())
+        return 0
     k1_sums, worst = phase_kernel(torch, dense_mod, ref)
     train_rows = phase_train_kernels(torch, ref, mods, cnn)
     attn_rows = {"K9": phase_k9(torch, ref, rms_mod),
                  "K10": phase_k10(torch, ref, flash_mod)}
+    lm_rows = phase_lm_kernels(torch, ref, dense_mod, rms_mod)
     phase_reduced(torch, configs, lm, serving, weights, "yi-6b")
     phase_reduced(torch, configs, lm, serving, weights, "gemma2-27b")
     phase_train_reduced(torch, port)
+    phase_lm_parity(torch, port)
     launches, yi_pre_k1 = phase_slice(torch, configs, lm, serving, counters,
                                       card)
     train_launches, train = phase_train_slice(torch, port, mods, card)
     phase_outer_parity(torch, port)
     outer_launches = phase_outer_slice(torch, port, mods, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_launches, lm_step_ms = phase_lm_step(torch, port, mods, card)
+    lm_outer_launches = phase_lm_train(torch, port, mods, card)
     gc.collect()
     torch.cuda.empty_cache()
     gemma_launches, gem_pre, k10_launches, k10_diff = phase_gemma(
@@ -1986,6 +2782,13 @@ def main() -> int:
                           str(dense_mod.dense_splits(M, N, K))
                           for M, K, N, _ in case7_step_shapes(cnn)["K1"])
                       + " slices",
+        **instance_fields(
+            "train_bf16", lm_rows["K1"], lm_launches["K1"],
+            lm_step_ms.get("K1"), lm_outer_launches["K1"],
+            f"one {LM_ARCH} training step at full width, {LM_LAYERS} "
+            f"layers, B=8 x S=128 (phase 4e): {7 * LM_LAYERS} bf16 "
+            f"launches at M={LM_ROWS} without bias (tile GEMM, 128-row "
+            "tiles, not split)"),
     }]
     for key, name, src, replaces in TRAIN_KERNELS[1:]:
         r = train_rows[key]
@@ -2007,9 +2810,23 @@ def main() -> int:
                             str(dense_mod.dense_splits(M, Din, Dout))
                             for M, Din, Dout, _ in case7_step_shapes(cnn)[
                                 "K2"]) + " slices" if key == "K2" else "")})
+        if key in ("K2", "K3"):
+            rows[-1].update(instance_fields(
+                "bf16", lm_rows[key], lm_launches[key],
+                lm_step_ms.get(key), lm_outer_launches[key],
+                f"one {LM_ARCH} training step at full width, {LM_LAYERS} "
+                f"layers, B=8 x S=128 (phase 4e): {7 * LM_LAYERS} bf16 "
+                f"launches at M={LM_ROWS} (tile GEMM, not split)"))
     rows += attn_json_rows(attn_rows, gemma_launches["K9"],
                            launches["K9"], gem_pre_k9, k10_launches,
                            k10_diff)
+    rows[-2].update(instance_fields(
+        "bwd", lm_rows["K9 bwd"], lm_launches["K9 bwd"],
+        lm_step_ms.get("K9 bwd"), lm_outer_launches["K9 bwd"],
+        f"K9's backward in one {LM_ARCH} training step at full width, "
+        f"{LM_LAYERS} layers (phase 4e): {2 * LM_LAYERS + 1} bf16 launches "
+        f"at {LM_ROWS} x 3072; library: autograd of F.rms_norm (its "
+        "backward alone)"))
     log(json.dumps({"kernels": rows}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -264,9 +264,10 @@ class BPTTrainer:
         hooks = hooks or TrainHooks()
         if hooks.checkpoint_every or hooks.checkpoint_dir or hooks.resume:
             raise NotImplementedError(
-                "checkpoint and resume hooks need the checkpoint module, "
-                "which is not ported yet: ROADMAP.md §1 item 4 (outer "
-                "layer, checkpoints and tooling)")
+                "checkpoint and resume hooks need the engines' snapshots "
+                "(the checkpoint module itself is ported), which are not "
+                "ported yet: ROADMAP.md §1 item 4 (outer layer, "
+                "checkpoints and tooling)")
         # the devices resolve_engine counts: the CUDA devices (its default)
         # when the params are on the card, one CPU device when on the CPU
         plan = resolve_engine(self.tc, None if self.device.type == "cuda"

@@ -1,11 +1,37 @@
-"""Synthetic image data with learnable structure, a numpy copy of
-``repro/data/synthetic.py``'s ``image_dataset`` and ``batched``: the same
-seed gives the same arrays, bit for bit, as the reference's."""
+"""Synthetic datasets with learnable structure, a numpy copy of
+``repro/data/synthetic.py``: ``lm_corpus`` (tokens for the LM training CLI),
+``image_dataset`` and ``batched``.  The same seed gives the same arrays,
+bit for bit, as the reference's."""
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["image_dataset", "batched"]
+__all__ = ["lm_corpus", "image_dataset", "batched"]
+
+
+def lm_corpus(num_tokens: int, vocab: int, seed: int = 0) -> np.ndarray:
+    """Order-2 Markov chain over a Zipf vocabulary: with probability 0.75
+    a token follows its predecessor into the predecessor's band of the
+    vocabulary, else it jumps uniformly.  int32 tokens."""
+    rng = np.random.default_rng(seed)
+    # sparse transition structure: each (prev % 64) picks a preferred band
+    ranks = np.arange(1, vocab + 1)
+    base_p = 1.0 / ranks
+    base_p /= base_p.sum()
+    toks = np.empty(num_tokens, np.int32)
+    toks[0] = 0
+    band = max(vocab // 64, 4)
+    uniform = rng.random(num_tokens)
+    jumps = rng.integers(0, vocab, num_tokens)
+    zipf_draws = rng.choice(vocab, size=num_tokens, p=base_p)
+    for i in range(1, num_tokens):
+        prev = toks[i - 1]
+        if uniform[i] < 0.75:
+            toks[i] = (prev * 31 + zipf_draws[i]) % band + (prev % 64) * band \
+                if (prev % 64) * band + band <= vocab else zipf_draws[i]
+        else:
+            toks[i] = jumps[i]
+    return toks
 
 
 def image_dataset(n: int, size: int = 32, channels: int = 3,

@@ -1,33 +1,30 @@
 // Dense backward for Hopper (sm_90a): K2 (input gradient) and K3 (weight
-// and bias gradient) of the fused dense layer, in f32.
+// and bias gradient) of the fused dense layer, in f32 and in bf16.
 //
 // Replaces the TPU kernels of src/repro/kernels/dense.py:
-//   * _dense_dx_kernel (pallas_call in _backward_dx): dx = g @ w^T;
+//   * _dense_dx_kernel (pallas_call in _backward_dx): dx = g @ w^T, f32
+//     accumulation, written in x's dtype;
 //   * _dense_dwdb_kernel (pallas_call in _backward_dwdb): dw = x^T g and
 //     db = sum over rows of g, one task per output-neuron block, f32
-//     outputs.
+//     outputs (the caller casts them to the weight's dtype).
 // The relu mask that _dense_bwd applies to g before both calls
 // (g * (out > 0), out being the saved forward output) is staged beside g
-// and applied in shared memory: `mask` is that output, or null for no
-// activation.
+// and applied in shared memory (f32) or to the fragments (bf16): `mask`
+// is that output, or null for no activation.
 //
 // Plain C interface (nvcc, loaded with ctypes by repro_torch/kernels/
 // build.py).  Each entry point returns cudaGetLastError() after its
-// launches and never synchronises.  Operands are row-major f32: g (M,
-// Dout), w (Din, Dout), x (M, Din).  All f32 FMA on the CUDA cores with
-// f32 accumulation, no TF32: the reference's gradient gate is 1e-4 x
-// scale.
+// launches and never synchronises.  Operands are row-major: g (M, Dout),
+// w (Din, Dout), x (M, Din), all f32 or all bf16.
 //
-// What bounds them.  The CNN's FC stack trains at M = 64 rows: each
-// launch does 2 x 64 x Din x Dout flops over a Din x Dout weight (K2) or
-// weight gradient (K3) of 4 bytes an element.  At 2000 -> 2000 that is
-// 0.51 GFLOP (7.6 us at 67 TFLOP/s) against 16.5 MB (4.9 us at 3.35
-// TB/s): the f32 FMA rate bounds both.  K3's reduction is only the 64
-// rows, so its time is the 16 MB gradient written after a short product.
-//
-// What the design does about it.  Both are instances of the split-K tile
-// product in gemm_f32.cuh (shared with K1's f32 instance), under their
-// own kernel names:
+// f32 (the CNN's FC stack).  All f32 FMA on the CUDA cores with f32
+// accumulation, no TF32: the reference's gradient gate is 1e-4 x scale.
+// The CNN trains at M = 64 rows: each launch does 2 x 64 x Din x Dout
+// flops over a Din x Dout weight (K2) or weight gradient (K3) of 4 bytes
+// an element.  At 2000 -> 2000 that is 0.51 GFLOP (7.6 us at 67 TFLOP/s)
+// against 16.5 MB (4.9 us at 3.35 TB/s): the f32 FMA rate bounds both.
+// Both are instances of the split-K tile product in gemm_f32.cuh (shared
+// with K1's f32 instance), under their own kernel names:
 //   * K2: C (M, Din) = (g masked) w^T, w^T read by index in 16-byte
 //     copies along Dout, the reduction (Dout) split into slices chosen by
 //     kernels/dense.py dense_splits so the blocks fill the card;
@@ -41,11 +38,39 @@
 // Pass 2 adds the slices' partials in slice order: no atomics, and a
 // rerun gives identical bits.  Ragged M, Din and Dout are loaded element
 // by element with zero fill and stored masked.
+//
+// bf16 (the LM's projections, B x S = 1024 rows at a training step).  At
+// Phi-3-mini's 3072 -> 8192 a launch does 51.5 GFLOP (52 us at 989
+// TFLOP/s); K2 moves 73 MB (22 us), K3 124 MB with its f32 output (37
+// us): the tensor cores bound both.  One tile
+// GEMM, dense_bwd_bf16_tile, in two instances:
+//   * K2 (dense_dx_bf16): C (M, Din) = (g masked) w^T.  g is the A
+//     operand, staged as it lies ([m][k], k = Dout contiguous); w is
+//     already the B operand's "col" layout ([n][k]: Din rows, Dout
+//     contiguous), so both load with plain ldmatrix; dx is written once
+//     in bf16 from the f32 accumulators;
+//   * K3 (dense_dwdb_bf16): C (Din + 1, Dout) = [x, 1]^T (g masked), the
+//     reduction over the M rows.  Both operands lie k-major (x [k][m], g
+//     [k][n]), so both load with ldmatrix.trans; the ones column at m =
+//     Din is written into x's staged tile by a plain store, so row Din of
+//     C is db, summed in the same order as dw; dw and db are f32.
+// Each block owns a 128 x 128 output tile: 8 warps of 64 x 32, 4 x 4
+// mma.sync m16n8k16 products per 16-deep step with f32 accumulators,
+// operands (and the mask, beside its operand) streamed through a 4-stage
+// cp.async ring of 32-deep stages on rows padded by 16 bytes; the mask's
+// fragments come from the same ldmatrix and zero the masked operand's
+// (bf16 g x (out > 0), as the plain version multiplies).  The reduction
+// is not split: every tile walks all of K in a fixed order, so a rerun
+// gives identical bits with no second pass.  Ragged shapes or unaligned
+// pointers load element by element with zero fill.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "gemm_f32.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -98,6 +123,283 @@ dense_dwdb_sum_kernel(const float* __restrict__ part,
   gemm_f32::splitk_sum(part, bias, dwdb, rows, Dout, relu, splits);
 }
 
+// ------------------------------------------------------------------ bf16
+// dense_bwd_bf16_tile<kDx, kMasked>: C (Mo, No) = A (Mo, K) B (K, No),
+// f32 accumulators.  kDx (K2): A = g [m][k], B = w [n][k], mask beside
+// A, C = dx in bf16.  !kDx (K3): A = [x, 1]^T lying [k][m] (m < Din from
+// x, m = Din ones), B = g [k][n], mask beside B, C = dwdb in f32.
+constexpr int kBM = 128;           // output rows a block owns
+constexpr int kBN = 128;           // output columns a block owns
+constexpr int kBK = 32;            // K rows per ring stage
+constexpr int kStages = 4;         // ring depth
+constexpr int kThreads = 256;      // 8 warps: 2 x 4 warp tiles of 64 x 32
+constexpr int kPad = 8;            // bf16 pad: 16 bytes a row
+constexpr int kLdK = kBK + kPad;   // 40: a [row][k] tile's row stride
+constexpr int kLdR = kBN + kPad;   // 136: a [k][row] tile's row stride
+constexpr int kTileKC = kBM * kLdK;  // a 128 x 32 [row][k] tile
+constexpr int kTileKR = kBK * kLdR;  // a 32 x 128 [k][row] tile
+constexpr int kGroup = 8;          // row tiles in one group of the block order
+
+using bf16 = __nv_bfloat16;
+
+template <bool kMasked>
+inline size_t bwd_smem() {
+  // K2: A, B (and the mask) are [row][k] tiles; K3: [k][row] tiles
+  return sizeof(bf16) * kStages * (kMasked ? 3 : 2) *
+         (size_t)(kTileKC > kTileKR ? kTileKC : kTileKR);
+}
+
+// 128 rows x 32 k of src (rows r0.., row stride ld, k contiguous) into
+// dst [row][k], zero outside rows < rlim and k < klim.
+__device__ __forceinline__ void stage_kc(bf16* dst, const bf16* src,
+                                         size_t ld, int r0, int rlim, int k0,
+                                         int klim, bool vec) {
+  const bf16 zero = __float2bfloat16(0.0f);
+#pragma unroll
+  for (int i = 0; i < kBM * (kBK / 8) / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int r = c / (kBK / 8);
+    const int kc = (c % (kBK / 8)) * 8;
+    const int gr = r0 + r;
+    const int gk = k0 + kc;
+    bf16* d = dst + r * kLdK + kc;
+    if (vec) {
+      const bool ok = gr < rlim && gk < klim;
+      cp_async::copy16(d, src + (ok ? (size_t)gr * ld + gk : 0), ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        d[e] = (gr < rlim && gk + e < klim) ? src[(size_t)gr * ld + gk + e]
+                                            : zero;
+    }
+  }
+}
+
+// 32 k x 128 columns of src (k rows k0.., row stride ld, columns
+// contiguous) into dst [k][col], zero outside k < klim and col < clim;
+// column `ones` (-1: none) is 1 where k < klim (K3's row of db).
+__device__ __forceinline__ void stage_kr(bf16* dst, const bf16* src,
+                                         size_t ld, int k0, int klim, int c0,
+                                         int clim, int ones, bool vec) {
+  const bf16 zero = __float2bfloat16(0.0f);
+  const bf16 one = __float2bfloat16(1.0f);
+#pragma unroll
+  for (int i = 0; i < kBK * (kBN / 8) / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int r = c / (kBN / 8);
+    const int nc = (c % (kBN / 8)) * 8;
+    const int gk = k0 + r;
+    const int gc = c0 + nc;
+    bf16* d = dst + r * kLdR + nc;
+    if (vec && gc != ones) {   // vec: `ones` (= clim) starts a chunk
+      const bool ok = gk < klim && gc < clim;
+      cp_async::copy16(d, src + (ok ? (size_t)gk * ld + gc : 0), ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        d[e] = gk >= klim ? zero
+               : gc + e < clim ? src[(size_t)gk * ld + gc + e]
+               : gc + e == ones ? one : zero;
+    }
+  }
+}
+
+// v (two bf16) x (m > 0), as the plain version's g * (out > 0)
+__device__ __forceinline__ unsigned relu_mask(unsigned v, unsigned m) {
+  const __nv_bfloat162 r =
+      __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+              __hgt2(*reinterpret_cast<const __nv_bfloat162*>(&m),
+                     __float2bfloat162_rn(0.0f)));
+  return *reinterpret_cast<const unsigned*>(&r);
+}
+
+template <bool kDx, bool kMasked>
+__global__ void __launch_bounds__(kThreads)
+dense_bwd_bf16_tile(const bf16* __restrict__ a, const bf16* __restrict__ b,
+                    const bf16* __restrict__ mask, void* __restrict__ c,
+                    int Mo, int No, int K, int ones, int vec) {
+  constexpr int kStage = kTileKC > kTileKR ? kTileKC : kTileKR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sa = reinterpret_cast<bf16*>(smem);
+  bf16* sb = sa + kStages * kStage;
+  bf16* sm = sb + kStages * kStage;   // the mask's ring (kMasked)
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int wr = (warp / 4) * 64;    // the warp tile's first row in the block
+  const int wc = (warp % 4) * 32;    // ... and first column
+  // blocks in groups of kGroup row tiles, row tiles fastest, as K1's tile
+  // GEMM orders them: the blocks in flight share B panels through L2
+  const int tm = (Mo + kBM - 1) / kBM;
+  const int tn = (No + kBN - 1) / kBN;
+  const int first = blockIdx.x / (kGroup * tn) * kGroup;
+  const int rows = min(kGroup, tm - first);
+  const int in_group = blockIdx.x % (kGroup * tn);
+  const int m0 = (first + in_group % rows) * kBM;
+  const int n0 = in_group / rows * kBN;
+  const int steps = (K + kBK - 1) / kBK;
+
+  auto load = [&](int slot, int t) {
+    const int k0 = t * kBK;
+    bf16* da = sa + slot * kStage;
+    bf16* db = sb + slot * kStage;
+    if constexpr (kDx) {   // g [m][k] (ld K), w [n][k] (ld K)
+      stage_kc(da, a, K, m0, Mo, k0, K, vec);
+      stage_kc(db, b, K, n0, No, k0, K, vec);
+      if constexpr (kMasked)
+        stage_kc(sm + slot * kStage, mask, K, m0, Mo, k0, K, vec);
+    } else {               // x [k][m] (ld Din = ones), g [k][n] (ld No)
+      stage_kr(da, a, ones, k0, K, m0, ones, ones, vec);
+      stage_kr(db, b, No, k0, K, n0, No, -1, vec);
+      if constexpr (kMasked)
+        stage_kr(sm + slot * kStage, mask, No, k0, K, n0, No, -1, vec);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < steps) load(t, t);
+    cp_async::commit();
+  }
+  for (int t = 0; t < steps; ++t) {
+    cp_async::wait<kStages - 2>();   // stage t landed
+    __syncthreads();                 // ... for every thread; slot t-1 free
+    if (t + kStages - 1 < steps)
+      load((t + kStages - 1) % kStages, t + kStages - 1);
+    cp_async::commit();
+    const bf16* ta = sa + (t % kStages) * kStage;
+    const bf16* tb = sb + (t % kStages) * kStage;
+    const bf16* tmk = sm + (t % kStages) * kStage;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      unsigned af[4][4], bf[4][2];
+      // lane l addresses row l % 8 of 8 x 8 matrix q = l / 8
+      const int q = lane / 8, r8 = lane % 8;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (kDx) {   // [m][k]: matrices (m, k) 0-7/8-15 by l / 16
+          const int off = (wr + i * 16 + lane % 16) * kLdK + kk +
+                          (lane / 16) * 8;
+          mma_bf16::ldmatrix_x4(af[i], ta + off);
+          if constexpr (kMasked) {
+            unsigned mf[4];
+            mma_bf16::ldmatrix_x4(mf, tmk + off);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) af[i][e] = relu_mask(af[i][e], mf[e]);
+          }
+        } else {               // [k][m], transposed: (m0, k0), (m8, k0),
+          //                      (m0, k8), (m8, k8)
+          mma_bf16::ldmatrix_x4_trans(
+              af[i], ta + (kk + r8 + (q / 2) * 8) * kLdR + wr + i * 16 +
+                         (q % 2) * 8);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {   // two n8 tiles an ldmatrix
+        unsigned r[4];
+        int off;
+        if constexpr (kDx) {   // [n][k]: (n0, k0), (n0, k8), (n8, k0), (n8, k8)
+          off = (wc + j * 16 + r8 + (q / 2) * 8) * kLdK + kk + (q % 2) * 8;
+          mma_bf16::ldmatrix_x4(r, tb + off);
+        } else {               // [k][n], transposed, as K1's w panel
+          off = (kk + lane % 16) * kLdR + wc + j * 16 + (lane / 16) * 8;
+          mma_bf16::ldmatrix_x4_trans(r, tb + off);
+          if constexpr (kMasked) {
+            unsigned mf[4];
+            mma_bf16::ldmatrix_x4_trans(mf, tmk + off);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) r[e] = relu_mask(r[e], mf[e]);
+          }
+        }
+        bf[2 * j][0] = r[0];
+        bf[2 * j][1] = r[1];
+        bf[2 * j + 1][0] = r[2];
+        bf[2 * j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_bf16::mma(acc[i][j], af[i], bf[j][0], bf[j][1]);
+    }
+  }
+  cp_async::wait<0>();
+
+  // element e of fragment (i, j) is row lane / 4 (+ 8 for e >= 2), column
+  // 2 (lane % 4) + e % 2
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = m0 + wr + i * 16 + lane / 4 + h * 8;
+      if (gr >= Mo) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int gn = n0 + wc + j * 8 + (lane % 4) * 2;
+        if (gn >= No) continue;
+        const float v0 = acc[i][j][2 * h];
+        const float v1 = acc[i][j][2 * h + 1];
+        if constexpr (kDx) {
+          bf16* o = static_cast<bf16*>(c) + (size_t)gr * No + gn;
+          if (vec) {   // No % 8 == 0: the pair is in the row
+            *reinterpret_cast<__nv_bfloat162*>(o) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            o[0] = __float2bfloat16(v0);
+            if (gn + 1 < No) o[1] = __float2bfloat16(v1);
+          }
+        } else {
+          float* o = static_cast<float*>(c) + (size_t)gr * No + gn;
+          if (vec) {
+            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+          } else {
+            o[0] = v0;
+            if (gn + 1 < No) o[1] = v1;
+          }
+        }
+      }
+    }
+  }
+}
+
+// Let the bf16 tile GEMM use more than 48 KB of dynamic shared memory:
+// once per device and instance.
+template <bool kDx, bool kMasked>
+int bwd_bf16_launch(const bf16* a, const bf16* b, const bf16* mask, void* c,
+                    int Mo, int No, int K, int ones, int vec,
+                    cudaStream_t s) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  static bool ready[64] = {};
+  if (dev >= 64 || !ready[dev]) {
+    err = cudaFuncSetAttribute(dense_bwd_bf16_tile<kDx, kMasked>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bwd_smem<kMasked>());
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) ready[dev] = true;
+  }
+  const long long tiles = (long long)((Mo + kBM - 1) / kBM) *
+                          ((No + kBN - 1) / kBN);
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  dense_bwd_bf16_tile<kDx, kMasked>
+      <<<(unsigned)tiles, kThreads, bwd_smem<kMasked>(), s>>>(
+          a, b, mask, c, Mo, No, K, ones, vec);
+  return (int)cudaGetLastError();
+}
+
+inline bool aligned16(const void* p) {
+  return p == nullptr || (uintptr_t)p % 16 == 0;
+}
+
 }  // namespace
 
 extern "C" int dense_dx_f32(const void* g, const void* w, const void* mask,
@@ -122,4 +424,40 @@ extern "C" int dense_dwdb_f32(const void* x, const void* g, const void* mask,
       static_cast<const float*>(mask), static_cast<float*>(part),
       static_cast<float*>(dwdb), Din + 1, Dout, M, splits, depth,
       static_cast<cudaStream_t>(stream));
+}
+
+// K2 in bf16: dx (M, Din) bf16 = (g masked) @ w^T; g and mask (M, Dout),
+// w (Din, Dout), all bf16; mask null for no activation.
+extern "C" int dense_dx_bf16(const void* g, const void* w, const void* mask,
+                             void* dx, int M, int Din, int Dout,
+                             void* stream) {
+  if (M <= 0 || Din <= 0 || Dout <= 0) return (int)cudaErrorInvalidValue;
+  const int vec = Dout % 8 == 0 && Din % 8 == 0 && aligned16(g) &&
+                  aligned16(w) && aligned16(mask) && aligned16(dx);
+  const auto* gp = static_cast<const bf16*>(g);
+  const auto* wp = static_cast<const bf16*>(w);
+  const auto* mp = static_cast<const bf16*>(mask);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return mask ? bwd_bf16_launch<true, true>(gp, wp, mp, dx, M, Din, Dout, -1,
+                                            vec, s)
+              : bwd_bf16_launch<true, false>(gp, wp, mp, dx, M, Din, Dout,
+                                             -1, vec, s);
+}
+
+// K3 in bf16: dwdb (Din + 1, Dout) f32 = [x, 1]^T (g masked): dw in its
+// first Din rows, db in the last; x (M, Din), g and mask (M, Dout) bf16.
+extern "C" int dense_dwdb_bf16(const void* x, const void* g,
+                               const void* mask, void* dwdb, int M, int Din,
+                               int Dout, void* stream) {
+  if (M <= 0 || Din <= 0 || Dout <= 0) return (int)cudaErrorInvalidValue;
+  const int vec = Din % 8 == 0 && Dout % 8 == 0 && aligned16(x) &&
+                  aligned16(g) && aligned16(mask) && aligned16(dwdb);
+  const auto* xp = static_cast<const bf16*>(x);
+  const auto* gp = static_cast<const bf16*>(g);
+  const auto* mp = static_cast<const bf16*>(mask);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return mask ? bwd_bf16_launch<false, true>(xp, gp, mp, dwdb, Din + 1, Dout,
+                                             M, Din, vec, s)
+              : bwd_bf16_launch<false, false>(xp, gp, mp, dwdb, Din + 1,
+                                              Dout, M, Din, vec, s);
 }

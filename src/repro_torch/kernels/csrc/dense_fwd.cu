@@ -113,6 +113,7 @@
 
 #include "cp_async.cuh"
 #include "gemm_f32.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -290,38 +291,6 @@ inline size_t tile_smem() {
          ((size_t)64 * WM * kLdA + (size_t)kTBK * kLdB);
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
-// matrix l / 8 and receives, per matrix, row l / 4's elements 2 (l % 4)
-// and 2 (l % 4) + 1 (with .trans: column l / 4's).
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16 x 8, f32) += a (16 x 16, row-major bf16) b (16 x 8, bf16)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 template <int WM>
 __global__ void __launch_bounds__(128 * WM)
 dense_fwd_bf16_tile(const __nv_bfloat16* __restrict__ x,
@@ -431,13 +400,13 @@ dense_fwd_bf16_tile(const __nv_bfloat16* __restrict__ x,
       unsigned af[4][4], bf[4][2];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(af[i], a + (i * 16 + lane % 16) * kLdA + kk +
-                               (lane / 16) * 8);
+        mma_bf16::ldmatrix_x4(
+            af[i], a + (i * 16 + lane % 16) * kLdA + kk + (lane / 16) * 8);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {   // two n8 tiles an ldmatrix
         unsigned r[4];
-        ldmatrix_x4_trans(r, bs + (kk + lane % 16) * kLdB + j * 16 +
-                                 (lane / 16) * 8);
+        mma_bf16::ldmatrix_x4_trans(
+            r, bs + (kk + lane % 16) * kLdB + j * 16 + (lane / 16) * 8);
         bf[2 * j][0] = r[0];
         bf[2 * j][1] = r[1];
         bf[2 * j + 1][0] = r[2];
@@ -448,7 +417,7 @@ dense_fwd_bf16_tile(const __nv_bfloat16* __restrict__ x,
         if (WM > 1 || i < live)   // the stream skips fragments past M
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            mma_bf16(acc[i][j], af[i], bf[j][0], bf[j][1]);
+            mma_bf16::mma(acc[i][j], af[i], bf[j][0], bf[j][1]);
     }
   }
   cp_async::wait<0>();

@@ -12,7 +12,8 @@ reduction run on separate blocks (``dwdb_splits`` for K3), and the
 launcher hands the kernel a scratch buffer for their partial sums.  K1's
 bf16 instance splits its reduction the same way, as ``bf16_splits`` says:
 the decode stream at M <= 16 always, the prefill tile GEMM where its tiles
-alone would leave SMs idle.
+alone would leave SMs idle.  K2's and K3's bf16 instances (the LM's
+projections) are one unsplit ``mma.sync`` tile GEMM each: no scratch.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ __all__ = ["dense_cuda", "dense_dx_cuda", "dense_dwdb_cuda",
 ACTIVATIONS = ("none", "relu")
 
 _ENTRY = {torch.bfloat16: "dense_fwd_bf16", torch.float32: "dense_fwd_f32"}
+_BWD_DTYPES = (torch.float32, torch.bfloat16)   # K2, K3
 
 _SM_BLOCKS = 264   # two blocks on each of the H100's 132 SMs
 _MIN_DEPTH = 128   # shallowest slice of K one split-K block reduces
@@ -179,33 +181,42 @@ dense_cuda.launches = 0
 
 
 def dense_dx_cuda(g, w, out=None):
-    """K2 on the card: dx = (g masked by ``out > 0``) @ w^T, f32; g and
-    ``out`` (M, Dout), w (Din, Dout).  The reduction over Dout is split as
-    ``dense_splits(M, Din, Dout)`` says; the two passes count as one
-    launch on ``dense_dx_cuda.launches``."""
-    dev = launch.check_f32_cuda("dense_dx_cuda", g=g, w=w, out=out)
+    """K2 on the card: dx = (g masked by ``out > 0``) @ w^T; g and ``out``
+    (M, Dout), w (Din, Dout), all float32 or all bfloat16; dx in their
+    dtype.  f32: the reduction over Dout is split as ``dense_splits(M,
+    Din, Dout)`` says, and the two passes count as one launch on
+    ``dense_dx_cuda.launches``.  bf16: one tile GEMM with f32
+    accumulators, dx rounded once."""
+    dev, dt = launch.check_cuda("dense_dx_cuda", _BWD_DTYPES, g=g, w=w,
+                                out=out)
     if g.ndim != 2 or w.ndim != 2 or g.shape[1] != w.shape[1] or (
             out is not None and out.shape != g.shape):
         raise ValueError(f"dense_dx_cuda takes g (M, Dout), w (Din, Dout) "
                          f"and out like g, got {tuple(g.shape)}, "
                          f"{tuple(w.shape)}")
     (M, Dout), Din = g.shape, w.shape[0]
-    dx = torch.empty((M, Din), dtype=torch.float32, device=dev)
-    splits, depth, part = _split(M, Din, Dout, dev)
-    launch.run("dense_bwd", "dense_dx_f32", dev, (g, w, out, part, dx),
-               (M, Din, Dout, splits, depth))
+    dx = torch.empty((M, Din), dtype=dt, device=dev)
+    if dt == torch.bfloat16:
+        launch.run("dense_bwd", "dense_dx_bf16", dev, (g, w, out, dx),
+                   (M, Din, Dout))
+    else:
+        splits, depth, part = _split(M, Din, Dout, dev)
+        launch.run("dense_bwd", "dense_dx_f32", dev, (g, w, out, part, dx),
+                   (M, Din, Dout, splits, depth))
     dense_dx_cuda.launches += 1
     return dx
 
 
 def dense_dwdb_cuda(x, g, out=None):
     """K3 on the card, one launch: dw = x^T g (Din, Dout) and db = the sum
-    of g's rows (Dout,), f32, g masked by ``out > 0``; x (M, Din), g and
-    ``out`` (M, Dout).  One (Din + 1, Dout) product over the M rows, split
-    as ``dwdb_splits`` says: dw and db are its first Din rows and its last
-    row.  ``dense_dwdb_cuda.launches`` counts the launches (two passes
-    where it splits count as one)."""
-    dev = launch.check_f32_cuda("dense_dwdb_cuda", x=x, g=g, out=out)
+    of g's rows (Dout,), both f32, g masked by ``out > 0``; x (M, Din), g
+    and ``out`` (M, Dout), all float32 or all bfloat16.  One (Din + 1,
+    Dout) product over the M rows: dw and db are its first Din rows and
+    its last row.  f32 splits the M rows as ``dwdb_splits`` says (two
+    passes count as one launch on ``dense_dwdb_cuda.launches``); bf16 is
+    one tile GEMM with f32 accumulators."""
+    dev, dt = launch.check_cuda("dense_dwdb_cuda", _BWD_DTYPES, x=x, g=g,
+                                out=out)
     if x.ndim != 2 or g.ndim != 2 or x.shape[0] != g.shape[0] or (
             out is not None and out.shape != g.shape):
         raise ValueError(f"dense_dwdb_cuda takes x (M, Din), g (M, Dout) "
@@ -213,10 +224,15 @@ def dense_dwdb_cuda(x, g, out=None):
                          f"{tuple(g.shape)}")
     (M, Din), Dout = x.shape, g.shape[1]
     dwdb = torch.empty((Din + 1, Dout), dtype=torch.float32, device=dev)
-    splits = dwdb_splits(M, Din, Dout)
-    part = _scratch(splits, Din + 1, Dout, dev)
-    launch.run("dense_bwd", "dense_dwdb_f32", dev, (x, g, out, part, dwdb),
-               (M, Din, Dout, splits, split_depth(M, splits)))
+    if dt == torch.bfloat16:
+        launch.run("dense_bwd", "dense_dwdb_bf16", dev, (x, g, out, dwdb),
+                   (M, Din, Dout))
+    else:
+        splits = dwdb_splits(M, Din, Dout)
+        part = _scratch(splits, Din + 1, Dout, dev)
+        launch.run("dense_bwd", "dense_dwdb_f32", dev,
+                   (x, g, out, part, dwdb),
+                   (M, Din, Dout, splits, split_depth(M, splits)))
     dense_dwdb_cuda.launches += 1
     return dwdb[:Din], dwdb[Din]
 
@@ -230,7 +246,8 @@ class DenseFunction(torch.autograd.Function):
     plain versions on the CPU).  x (M, Din) and w (Din, Dout) of one
     dtype, b (Dout,) or None.  The relu mask comes from the saved output
     (out > 0 iff the pre-activation was > 0), as in the reference's
-    ``_dense_bwd``."""
+    ``_dense_bwd``; dx comes back in x's dtype, dw and db (f32 from K3)
+    cast to w's and b's, as ``_dense_bwd`` casts them."""
 
     @staticmethod
     def forward(ctx, x, w, b, activation):

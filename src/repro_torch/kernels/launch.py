@@ -1,7 +1,8 @@
 """What the kernel wrappers share: binding a C entry point, checking the
 tensors it is handed, launching it on the current stream.
 
-A launcher takes contiguous f32 tensors on one CUDA device that do not
+A launcher takes contiguous tensors of one dtype (f32 for the CNN's
+kernels; f32 or bf16 for K2 and K3) on one CUDA device that do not
 require grad (the autograd ``Function``s call it on detached tensors),
 launches on PyTorch's current stream and raises if the launch was
 refused.  It never synchronises and never falls back.
@@ -14,7 +15,7 @@ import torch
 
 from . import build
 
-__all__ = ["check_f32_cuda", "detached", "run", "workspace"]
+__all__ = ["check_cuda", "check_f32_cuda", "detached", "run", "workspace"]
 
 _FNS: dict = {}
 _WORKSPACE: dict = {}   # (device, stream) -> f32 scratch of the split kernels
@@ -35,25 +36,34 @@ def detached(t):
     return None if t is None else t.detach()
 
 
-def check_f32_cuda(name: str, **tensors) -> torch.device:
-    """Raise unless every given tensor (None skipped) is a contiguous f32
-    tensor on one CUDA device outside autograd; returns that device."""
+def check_cuda(name: str, dtypes, **tensors):
+    """Raise unless every given tensor (None skipped) is a contiguous
+    tensor on one CUDA device outside autograd, all of one dtype among
+    ``dtypes``; returns (that device, that dtype)."""
     given = {k: t for k, t in tensors.items() if t is not None}
     devices = {t.device for t in given.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{name} takes tensors on one CUDA device, got "
                          f"{ {k: str(t.device) for k, t in given.items()} }")
+    kinds = {t.dtype for t in given.values()}
+    if len(kinds) != 1 or not kinds <= set(dtypes):
+        raise TypeError(f"{name} takes tensors of one dtype among "
+                        f"{[str(d) for d in dtypes]}, got "
+                        f"{ {k: str(t.dtype) for k, t in given.items()} }")
     for key, t in given.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {key} must be float32, got {t.dtype} "
-                            "(the training kernels are f32 only)")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
         if t.requires_grad:
             raise RuntimeError(
                 f"{name} launches outside autograd: pass tensors that do "
                 "not require grad, or differentiate through kernels.ops")
-    return next(iter(devices))
+    return next(iter(devices)), next(iter(kinds))
+
+
+def check_f32_cuda(name: str, **tensors) -> torch.device:
+    """``check_cuda`` for the f32-only kernels (K4-K8); returns the
+    device."""
+    return check_cuda(name, (torch.float32,), **tensors)[0]
 
 
 def workspace(numel: int, device) -> torch.Tensor:

@@ -111,12 +111,16 @@ def _forward_only(name: str, *tensors):
 
 def rmsnorm(x, scale, eps: float = 1e-6):
     """RMSNorm over the last axis: x * rsqrt(mean(x^2) + eps) * scale in
-    f32, cast to x's dtype.  ``x`` may carry leading dims.  K9 on the card
-    (forward only); the plain version on the CPU."""
+    f32, cast to x's dtype.  ``x`` may carry leading dims.  K9 on the
+    card, the plain version on the CPU.  Differentiable: K9's backward on
+    the card (``rmsnorm.RmsNormFunction``)."""
+    d = x.shape[-1]
+    if _wants_grad(x, scale):
+        out = _rmsnorm.RmsNormFunction.apply(x.reshape(-1, d).contiguous(),
+                                             scale.contiguous(), eps)
+        return out.reshape(x.shape)
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps=eps)
-    _forward_only("rmsnorm", x, scale)
-    d = x.shape[-1]
     out = _rmsnorm.rmsnorm_cuda(x.reshape(-1, d).contiguous(),
                                 scale.contiguous(), eps=eps)
     return out.reshape(x.shape)

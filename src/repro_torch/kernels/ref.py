@@ -20,6 +20,7 @@ import torch.nn.functional as F
 __all__ = ["dense_ref", "dense_dx_ref", "dense_dwdb_ref", "conv_pads",
            "conv2d_ref", "conv2d_fused_ref", "conv2d_dx_ref", "conv2d_dw_ref",
            "max_pool2d_ref", "max_pool2d_bwd_ref", "rmsnorm_ref",
+           "rmsnorm_bwd_ref",
            "attention_ref", "flash_attention_ref", "flash_pad_len",
            "NEG_INF"]
 
@@ -46,8 +47,10 @@ def dense_ref(x, w, b=None, activation: str = "none"):
 
 
 def dense_dx_ref(g, w, out=None):
-    """K2: dx = (g masked by ``out > 0``) @ w^T; g (M, Dout), w (Din, Dout)."""
-    return _masked(g, out) @ w.t()
+    """K2: dx = (g masked by ``out > 0``) @ w^T; g (M, Dout), w (Din,
+    Dout).  Computed in f32 and rounded once to g's dtype, as the
+    reference's ``preferred_element_type=f32`` product and cast."""
+    return (_masked(g, out).float() @ w.float().t()).to(g.dtype)
 
 
 def dense_dwdb_ref(x, g, out=None):
@@ -164,6 +167,20 @@ def rmsnorm_ref(x, scale, eps: float = 1e-6):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x, scale, g, eps: float = 1e-6):
+    """K9's backward: the gradient of ``rmsnorm_ref`` for the cotangent g
+    of its output, all in f32 as ``jax.grad`` of the reference's jnp norm
+    computes it.  Per row, r = rsqrt(mean(x^2) + eps), x^ = x r and dy =
+    g scale: dx = r (dy - x^ mean(dy x^)) in x's dtype, and dscale = the
+    sum of g x^ over every row, f32."""
+    xf, gf = x.float(), g.float()
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    dy = gf * scale.float()
+    dx = r * (dy - xhat * (dy * xhat).mean(dim=-1, keepdim=True))
+    return dx.to(x.dtype), (gf * xhat).reshape(-1, x.shape[-1]).sum(0)
 
 
 # ------------------------------------------------------------- attention

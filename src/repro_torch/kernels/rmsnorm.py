@@ -1,9 +1,12 @@
-"""RMSNorm: the wrapper around ``csrc/rmsnorm.cu`` (K9).
+"""RMSNorm: the wrappers around ``csrc/rmsnorm.cu`` (K9, forward and
+backward), and its ``torch.autograd.Function``.
 
-Counterpart of ``repro/kernels/rmsnorm.py``.  Forward only, as in the
-reference: ``ops.rmsnorm`` calls ``rmsnorm_cuda`` on a CUDA tensor and
-``ref.rmsnorm_ref`` on a CPU tensor, and raises where a gradient is
-wanted on the card.
+Counterpart of ``repro/kernels/rmsnorm.py``, whose kernel is forward
+only; the reference's models differentiate their jnp norm with
+``jax.grad``, and ``rmsnorm_bwd_cuda`` computes that gradient.
+``ops.rmsnorm`` calls ``rmsnorm_cuda`` on a CUDA tensor (``ref.rmsnorm_ref``
+on a CPU one) where no gradient is wanted, and ``RmsNormFunction``
+otherwise, whose forward and backward route by device the same way.
 """
 from __future__ import annotations
 
@@ -13,15 +16,20 @@ from typing import NamedTuple
 
 import torch
 
-from . import launch
+from torch.autograd.function import once_differentiable
 
-__all__ = ["RmsPlan", "rms_plan", "rmsnorm_cuda"]
+from . import launch, ref
+
+__all__ = ["RmsPlan", "rms_plan", "rmsnorm_cuda", "RmsBwdPlan", "bwd_plan",
+           "rmsnorm_bwd_cuda", "RmsNormFunction"]
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _THREADS = 256                 # the widest block
 _PER_THREAD = (1, 2, 3, 4, 6, 8, 9)   # rmsnorm.cu's NV instances
 _MAX_D = 12288                 # the staged scale: at most 48 KB
 _ROW_BLOCKS = 132              # up to one row an SM: a block a row
+_BWD_MAX_D = (48 * 1024 - 1024) // 4   # the backward's staged scale
+_BWD_PER_THREAD = (1, 2, 3, 4, 6, 8, 12)   # rmsnorm.cu's backward NVs
 
 
 class RmsPlan(NamedTuple):
@@ -89,8 +97,8 @@ def rmsnorm_cuda(x, scale, eps: float = 1e-6):
             raise ValueError("rmsnorm_cuda takes contiguous tensors")
         if t.requires_grad:
             raise RuntimeError(
-                "rmsnorm_cuda is forward only (the reference has no "
-                "backward either): call it outside autograd")
+                "rmsnorm_cuda launches outside autograd: differentiate "
+                "through kernels.ops.rmsnorm")
     out = torch.empty_like(x)
     rows, d = x.shape
     plan = rms_plan(rows, d, x.element_size(),
@@ -104,3 +112,95 @@ def rmsnorm_cuda(x, scale, eps: float = 1e-6):
 
 
 rmsnorm_cuda.launches = 0
+
+
+class RmsBwdPlan(NamedTuple):
+    """One launch of K9's backward: ``grid`` blocks of ``block`` threads,
+    ``rows_per_block`` consecutive rows each; ``per_thread`` vectors (16
+    bytes of columns) of a row's x and g in each thread's registers."""
+    per_thread: int
+    block: int
+    rows_per_block: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)   # every norm of a training step asks
+def bwd_plan(rows: int, d: int, itemsize: int) -> RmsBwdPlan:
+    """The geometry of K9's backward for x and g (rows, d) of
+    ``itemsize`` bytes, d at most 12032: a block of the narrowest group of
+    64, 128 or 256 threads that holds the row's vectors (the last one
+    ragged where d is not a whole number of them) at up to 4 a thread, or
+    256 threads with up to 12, at most 264 blocks (two an SM), none empty.
+    Each block writes one dscale partial of d floats.  The kernel itself
+    moves whole 16-byte vectors where the pointers and d allow, else
+    single elements.  Depends on the shapes only, so every run adds the
+    same partials in the same order."""
+    nv = math.ceil(d * itemsize / 16)
+    group = next((g for g in (64, 128, 256) if g * 4 >= nv), _THREADS)
+    per = next(p for p in _BWD_PER_THREAD if p * group >= nv)
+    rpb = math.ceil(rows / (2 * _ROW_BLOCKS))
+    return RmsBwdPlan(per, group, rpb, math.ceil(rows / rpb))
+
+
+def rmsnorm_bwd_cuda(x, scale, g, eps: float = 1e-6):
+    """K9's backward on the card: x and g (rows, d) of one dtype,
+    bfloat16 or float32, scale (d,) float32 or bfloat16, all contiguous on
+    one CUDA device, outside autograd; d at most 12032.  Returns (dx in
+    x's dtype, dscale f32 summed over the rows), ``ref.rmsnorm_bwd_ref``'s
+    function, with the geometry ``bwd_plan`` gives.  Where it takes more
+    than one block, their partial dscale sums go to the stream's
+    workspace and a second pass adds them in block order;
+    ``rmsnorm_bwd_cuda.launches`` counts the call as one."""
+    dev, dt = launch.check_cuda("rmsnorm_bwd_cuda", _DTYPES, x=x, g=g)
+    if launch.check_cuda("rmsnorm_bwd_cuda", _DTYPES, scale=scale)[0] \
+            != dev:
+        raise ValueError(f"rmsnorm_bwd_cuda takes tensors on one CUDA "
+                         f"device, got {dev} and {scale.device}")
+    if x.ndim != 2 or g.shape != x.shape or scale.shape != (x.shape[1],) \
+            or x.numel() == 0 or x.shape[1] > _BWD_MAX_D \
+            or x.shape[0] >= 2**31:
+        raise ValueError(f"rmsnorm_bwd_cuda takes x and g (rows, d) and "
+                         f"scale (d,), d <= {_BWD_MAX_D}, got "
+                         f"{tuple(x.shape)}, {tuple(g.shape)} and "
+                         f"{tuple(scale.shape)}")
+    rows, d = x.shape
+    plan = bwd_plan(rows, d, x.element_size())
+    dx = torch.empty_like(x)
+    dscale = torch.empty((d,), dtype=torch.float32, device=dev)
+    part = None if plan.grid == 1 else launch.workspace(plan.grid * d, dev)
+    launch.run("rmsnorm", "rmsnorm_bwd", dev, (x, scale, g, dx, part, dscale),
+               (rows, d, dt == torch.bfloat16, scale.dtype == torch.bfloat16,
+                *plan), (float(eps),))
+    rmsnorm_bwd_cuda.launches += 1
+    return dx, dscale
+
+
+rmsnorm_bwd_cuda.launches = 0
+
+
+class RmsNormFunction(torch.autograd.Function):
+    """RMSNorm of x (rows, d) by scale (d,) with K9 forward and K9's
+    backward on the card (``ref.rmsnorm_ref`` and ``ref.rmsnorm_bwd_ref``
+    on the CPU).  Saves x and scale only: the backward recomputes the
+    rows' rsqrt.  dscale (f32) comes back cast to scale's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        if x.device.type == "cpu":
+            out = ref.rmsnorm_ref(x, scale, eps=eps)
+        else:
+            out = rmsnorm_cuda(x.detach(), scale.detach(), eps=eps)
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, scale = (launch.detached(t) for t in ctx.saved_tensors)
+        fn = ref.rmsnorm_bwd_ref if x.device.type == "cpu" \
+            else rmsnorm_bwd_cuda
+        dx, dscale = fn(x, scale, g.contiguous(), ctx.eps)
+        need_x, need_scale = ctx.needs_input_grad[:2]
+        return (dx if need_x else None,
+                dscale.to(scale.dtype) if need_scale else None, None)

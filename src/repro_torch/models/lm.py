@@ -1,11 +1,14 @@
-"""Decoder-only language model for serving: init / forward / prefill /
+"""Decoder-only language model: init / forward / loss / prefill /
 decode, from ``repro/models/lm.py``.
 
 The reference's ``lax.scan`` over stacked layer params is a Python loop
 here; every leaf of ``params["layers"]`` keeps the leading ``L`` axis.
 The decode cache is updated in place (``decode_step``, ``cache_insert``
 and ``cache_evict`` return the same tensors they were given), where the
-reference builds new arrays; the values are the same.
+reference builds new arrays; the values are the same.  The loss is the
+reference's sequence-chunked cross-entropy: the (B, S, V) logits are
+never held at once, and each chunk's logits are recomputed for the
+backward.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
 
@@ -20,9 +24,12 @@ from .blocks import (block_decode, block_forward, check_supported,
                      init_block, init_block_cache, layer_windows)
 from .layers import embed, init_embedding, init_rms_norm, rms_norm, softcap
 
-__all__ = ["init_params", "forward", "DecodeCache", "init_cache", "prefill",
-           "cache_insert", "cache_evict", "decode_step", "compute_params",
-           "layer_params"]
+__all__ = ["init_params", "forward", "loss_fn", "chunked_cross_entropy",
+           "DecodeCache", "init_cache", "prefill", "cache_insert",
+           "cache_evict", "decode_step", "compute_params", "layer_params"]
+
+_FRONTEND = ("frontend_embeds (the vlm/audio front ends) is not ported "
+             "yet: ROADMAP.md §1 item 3 (the other LM families)")
 
 
 def _dtype(cfg):
@@ -100,11 +107,18 @@ def _logits(params, x, cfg):
 
 
 # ----------------------------------------------------------------------
-def forward(params, tokens, cfg, collect_cache=False,
-            cache_dtype=torch.bfloat16):
+def forward(params, tokens, cfg, frontend_embeds=None, collect_cache=False,
+            remat=False, cache_dtype=torch.bfloat16):
     """tokens: (B, S) int.  Returns (hidden (B, S, d), per-layer decode
-    caches stacked on a leading L axis or None, aux_loss)."""
+    caches stacked on a leading L axis or None, aux_loss).
+
+    ``remat`` recomputes each block's activations in the backward
+    (``torch.utils.checkpoint``, non-reentrant): the counterpart of the
+    reference's ``jax.checkpoint`` with ``nothing_saveable``, so only the
+    blocks' inputs are kept."""
     check_supported(cfg)
+    if frontend_embeds is not None:
+        raise NotImplementedError(_FRONTEND)
     dt = _dtype(cfg)
     x = embed(params["embed"], tokens).to(dt)
     B, S, _ = x.shape
@@ -113,9 +127,13 @@ def forward(params, tokens, cfg, collect_cache=False,
     ks, vs = [], []
     for i, win in enumerate(layer_windows(cfg)):
         lp = layer_params(params["layers"], i)
-        x, kv, a = block_forward(lp, x, positions, cfg, window=win,
+
+        def block(x, lp=lp, win=win):
+            return block_forward(lp, x, positions, cfg, window=win,
                                  collect_cache=collect_cache,
                                  cache_dtype=cache_dtype)
+        x, kv, a = (checkpoint(block, x, use_reentrant=False) if remat
+                    else block(x))
         aux = aux + a
         if collect_cache:
             ks.append(kv["kv"]["k"])
@@ -124,6 +142,56 @@ def forward(params, tokens, cfg, collect_cache=False,
     caches = ({"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
               if collect_cache else None)
     return x, caches, aux
+
+
+def _ce_chunk(h, lbl, table, cap):
+    """(sum of the chunk's token NLLs, its count of labels >= 0): logits
+    in the activation dtype, soft-capped there, then f32."""
+    logits = h @ table.T
+    if cap:
+        logits = softcap(logits, cap)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lbl.clamp_min(0).long()[..., None])[..., 0]
+    valid = (lbl >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def chunked_cross_entropy(hidden, head_table, labels, cfg, chunk: int = 0):
+    """Mean CE over (B, S) without materialising (B, S, V) at once: the
+    sequence in chunks of ``chunk`` (else ``cfg.ce_chunk``, else 512)
+    positions, the last padded with label -1; a label < 0 is left out of
+    the mean.  Each chunk is checkpointed, so its logits are recomputed
+    in the backward, as the reference's ``jax.checkpoint`` does."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk or cfg.ce_chunk or 512, S)
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    table = head_table.to(hidden.dtype)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        t, n = checkpoint(_ce_chunk, hidden[:, sl], labels[:, sl], table,
+                          cfg.final_softcap, use_reentrant=False)
+        tot = tot + t
+        cnt = cnt + n
+    return tot / cnt.clamp_min(1.0)
+
+
+def loss_fn(params, batch, cfg, aux_weight: float = 0.01,
+            remat: bool = False):
+    """batch: {'tokens': (B, S), 'labels': (B, S)} int tensors.  Returns
+    (ce + aux_weight x aux, {'ce', 'aux'})."""
+    if batch.get("frontend_embeds") is not None:
+        raise NotImplementedError(_FRONTEND)
+    hidden, _, aux = forward(params, batch["tokens"], cfg, remat=remat)
+    ce = chunked_cross_entropy(hidden, _head_table(params), batch["labels"],
+                               cfg)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # ----------------------------------------------------------------------

@@ -36,7 +36,8 @@ SLICE_MODULES = (
     "repro_torch.core.idpa", "repro_torch.core.faults",
     "repro_torch.core.gwu", "repro_torch.core.param_server",
     "repro_torch.core.engine", "repro_torch.data.pipeline",
-    "repro_torch.configs.bpt_cnn",
+    "repro_torch.configs.bpt_cnn", "repro_torch.checkpointing",
+    "repro_torch.checkpointing.checkpoint", "repro_torch.launch.train",
 )
 BANNED = ("jax", "jaxlib", "repro")
 

@@ -654,3 +654,143 @@ def test_flash_attention_f32_reruns_bit_for_bit(B, H, KH, Sq, Sk, D, window,
     second = fa.flash_attention_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# ----------------------------------------------------------------------
+# The LM's training kernels: K2 and K3 in bf16, K9's backward
+# ----------------------------------------------------------------------
+def _bf16_grad_gates(got, want, one_rounding):
+    """dx within one bf16 rounding of the plain value (1e-2 x max|ref|,
+    K1 bf16's gate); f32 gradients within GRAD_TOL x max(max|ref|, 1)."""
+    torch.cuda.synchronize()
+    scale = want.float().abs().max().item()
+    tol = 1e-2 * scale if one_rounding else GRAD_TOL * max(scale, 1.0)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Din,Dout,relu", [
+    # Phi-3-mini's and Yi-6B's projections at a B 8 x S 128 step
+    (1024, 3072, 8192, False), (1024, 8192, 3072, False),
+    (1024, 4096, 512, False),
+    # ragged M, the relu mask, and shapes off 8 (element-by-element loads)
+    (24, 4096, 4096, True), (1000, 3072, 3072, True), (37, 100, 77, True),
+    (5, 13, 9, False)])
+def test_dense_bf16_backward_kernels_match_plain_and_rerun(M, Din, Dout,
+                                                           relu):
+    """K2's and K3's bf16 instances: dx within one bf16 rounding of the
+    plain version, dw and db at the f32 gradient gate, one launch a call,
+    identical bits on a rerun."""
+    _card()
+    from repro_torch.kernels import dense as dn
+    gen = _gen(21)
+    x = _randn(gen, (M, Din)).bfloat16()
+    w = (_randn(gen, (Din, Dout)) / Din ** 0.5).bfloat16()
+    g = _randn(gen, (M, Dout)).bfloat16()
+    out = torch.relu(_randn(gen, (M, Dout))).bfloat16() if relu else None
+    before = (dn.dense_dx_cuda.launches, dn.dense_dwdb_cuda.launches)
+    dx = dn.dense_dx_cuda(g, w, out)
+    dw, db = dn.dense_dwdb_cuda(x, g, out)
+    assert (dn.dense_dx_cuda.launches, dn.dense_dwdb_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    _bf16_grad_gates(dx, ref.dense_dx_ref(g, w, out), True)
+    want_dw, want_db = ref.dense_dwdb_ref(x, g, out)
+    _bf16_grad_gates(dw, want_dw, False)
+    _bf16_grad_gates(db, want_db, False)
+    assert torch.equal(dx, dn.dense_dx_cuda(g, w, out))
+    again = dn.dense_dwdb_cuda(x, g, out)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
+@pytest.mark.cuda
+def test_ops_dense_bf16_gradient_on_card_launches_k2_and_k3():
+    """A bf16 projection's gradient through ``ops.dense`` launches K2 and
+    K3 once each; dw comes back in the f32 weight's dtype through the
+    bf16 cast, as the reference's ``_dense_bwd`` and ``astype``."""
+    _card()
+    from repro_torch.kernels import dense as dn
+    gen = _gen(22)
+    x = _randn(gen, (2, 12, 64)).bfloat16().requires_grad_()
+    w = (_randn(gen, (64, 40)) / 8).requires_grad_()
+    g = _randn(gen, (2, 12, 40)).bfloat16()
+    before = (dn.dense_dx_cuda.launches, dn.dense_dwdb_cuda.launches)
+    dx, dw = torch.autograd.grad(ops.dense(x, w), (x, w), g)
+    assert (dn.dense_dx_cuda.launches, dn.dense_dwdb_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    want_dx = ref.dense_dx_ref(g.reshape(-1, 40), w.detach().bfloat16())
+    want_dw, _ = ref.dense_dwdb_ref(x.detach().reshape(-1, 64),
+                                    g.reshape(-1, 40))
+    _bf16_grad_gates(dx.reshape(-1, 64), want_dx, True)
+    _bf16_grad_gates(dw, want_dw, True)   # rounded to bf16 on the way
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows,d", [(1024, 3072), (1024, 4608), (7, 4096),
+                                    (133, 1000), (3, 13), (1, 64),
+                                    (5, 12032), (9, 6150)])
+def test_rmsnorm_backward_kernel_matches_plain_and_reruns(rows, d, dtype):
+    """K9's backward: dx within one bf16 rounding (bf16) or at the f32
+    gradient gate, dscale at the gradient gate, one launch a call (its
+    two passes where the rows take more than one block), identical bits
+    on a rerun."""
+    _card()
+    from repro_torch.kernels import rmsnorm as rms
+    gen = _gen(23)
+    tdt = getattr(torch, dtype)
+    x = _randn(gen, (rows, d)).to(tdt)
+    scale = _randn(gen, (d,)) * 0.1 + 1.0
+    g = _randn(gen, (rows, d)).to(tdt)
+    before = rms.rmsnorm_bwd_cuda.launches
+    dx, ds = rms.rmsnorm_bwd_cuda(x, scale, g)
+    assert rms.rmsnorm_bwd_cuda.launches == before + 1
+    assert dx.dtype == tdt and ds.dtype == torch.float32
+    want_dx, want_ds = ref.rmsnorm_bwd_ref(x, scale, g)
+    _bf16_grad_gates(dx, want_dx, dtype == "bfloat16")
+    _bf16_grad_gates(ds, want_ds, False)
+    again = rms.rmsnorm_bwd_cuda(x, scale, g)
+    assert torch.equal(dx, again[0]) and torch.equal(ds, again[1])
+
+
+@pytest.mark.cuda
+def test_ops_rmsnorm_gradient_on_card_launches_the_backward():
+    """A norm's gradient through ``ops.rmsnorm`` launches K9 forward and
+    K9's backward once each; dscale reaches the f32 scale."""
+    _card()
+    from repro_torch.kernels import rmsnorm as rms
+    gen = _gen(24)
+    x = _randn(gen, (2, 9, 256)).bfloat16().requires_grad_()
+    scale = (_randn(gen, (256,)) * 0.1 + 1.0).requires_grad_()
+    g = _randn(gen, (2, 9, 256)).bfloat16()
+    before = (rms.rmsnorm_cuda.launches, rms.rmsnorm_bwd_cuda.launches)
+    dx, ds = torch.autograd.grad(ops.rmsnorm(x, scale), (x, scale), g)
+    assert (rms.rmsnorm_cuda.launches, rms.rmsnorm_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_dx, want_ds = ref.rmsnorm_bwd_ref(x.detach().reshape(-1, 256),
+                                           scale.detach(), g.reshape(-1, 256))
+    _bf16_grad_gates(dx.reshape(-1, 256), want_dx, True)
+    _bf16_grad_gates(ds, want_ds, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_rmsnorm_backward_takes_unaligned_rows(dtype):
+    """x and g starting off 16 bytes: K9's backward moves single
+    elements instead of 16-byte vectors, at the same gates."""
+    _card()
+    from repro_torch.kernels import rmsnorm as rms
+    gen = _gen(25)
+    tdt = getattr(torch, dtype)
+    rows, d = 300, 3072
+    x = _randn(gen, (rows * d + 1,)).to(tdt)[1:].view(rows, d)
+    g = _randn(gen, (rows * d + 1,)).to(tdt)[1:].view(rows, d)
+    scale = _randn(gen, (d,)) * 0.1 + 1.0
+    assert x.data_ptr() % 16
+    dx, ds = rms.rmsnorm_bwd_cuda(x, scale, g)
+    want_dx, want_ds = ref.rmsnorm_bwd_ref(x, scale, g)
+    _bf16_grad_gates(dx, want_dx, dtype == "bfloat16")
+    _bf16_grad_gates(ds, want_ds, False)
+    again = rms.rmsnorm_bwd_cuda(x, scale, g)
+    assert torch.equal(dx, again[0]) and torch.equal(ds, again[1])

@@ -127,14 +127,19 @@ class TestCudaWrapperContract:
             rms.rmsnorm_cuda(x, s)
 
     def test_gradient_on_the_card_is_not_implemented(self):
-        """Off the CPU a call that needs a gradient names the missing
-        backward (a meta tensor stands in for the card here)."""
+        """Off the CPU a call that needs a gradient goes to the kernels
+        (``RmsNormFunction``), as one that needs none does: neither gives
+        way to the plain version (a meta tensor stands in for the card
+        here, and the launcher refuses it).  K9's backward is written, so
+        no path raises ``NotImplementedError`` any more."""
         x = torch.ones((2, 8), device="meta", requires_grad=True)
         s = torch.ones((8,), device="meta")
-        with pytest.raises(NotImplementedError, match="backward"):
+        with pytest.raises(ValueError, match="CUDA"):
             ops.rmsnorm(x, s)
         with pytest.raises(ValueError, match="CUDA"):
             ops.rmsnorm(x.detach(), s)
+        with pytest.raises(ValueError, match="CUDA"):
+            rms.rmsnorm_bwd_cuda(x.detach(), s, x.detach())
 
 
 ROWS_PLAN = [1, 4, 16, 132, 133, 300, 3001, 4500, 5000]
@@ -187,3 +192,44 @@ def test_plan_instances_are_the_kernels():
     src = (build.CSRC / "rmsnorm.cu").read_text()
     assert tuple(sorted(int(n) for n in re.findall(r"RMS_ROWS\((\d+)\)",
                                                    src))) == rms._PER_THREAD
+
+
+@pytest.mark.parametrize("d,itemsize", [(3072, 2), (4608, 2), (3072, 4),
+                                        (4608, 4), (4096, 4), (1000, 4),
+                                        (64, 2), (12032, 4)])
+@pytest.mark.parametrize("rows", [1, 7, 133, 1000, 1024, 5000])
+def test_bwd_plan_covers_every_row_once(rows, d, itemsize):
+    """K9's backward: its blocks cover every row once, none is empty, at
+    most two blocks an SM (264 dscale partials); every vector of a row is
+    held at up to 4 a thread (up to 12 at 256 threads), an instance of
+    ``rmsnorm.cu``."""
+    plan = rms.bwd_plan(rows, d, itemsize)
+    nv = d * itemsize // 16
+    assert plan.block % 32 == 0 and plan.block <= 256
+    assert plan.per_thread in rms._BWD_PER_THREAD
+    assert plan.block * plan.per_thread >= nv and plan.grid <= 264
+    assert plan.per_thread <= 4 or plan.block == 256
+    seen = np.zeros(rows, np.int64)
+    for b in range(plan.grid):
+        assert b * plan.rows_per_block < rows, f"block {b} has no row"
+        seen[b * plan.rows_per_block:(b + 1) * plan.rows_per_block] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("rows,d,itemsize", [
+    (1024, 3070, 2), (3, 13, 2), (37, 1002, 4)])
+def test_bwd_plan_holds_a_ragged_row_in_registers(rows, d, itemsize):
+    """A row that is no whole number of 16-byte vectors gets a last,
+    partial vector: the plan covers ceil(d / V) of them, as the kernel
+    counts them."""
+    V = 16 // itemsize
+    plan = rms.bwd_plan(rows, d, itemsize)
+    assert plan.block * plan.per_thread >= math.ceil(d / V)
+    assert plan.per_thread in rms._BWD_PER_THREAD
+
+
+def test_bwd_plan_instances_are_the_kernels():
+    """``_BWD_PER_THREAD`` lists exactly the backward's NV instances."""
+    src = (build.CSRC / "rmsnorm.cu").read_text()
+    assert tuple(sorted(int(n) for n in re.findall(
+        r"RMS_BWD_ROWS\((\d+)\)", src))) == rms._BWD_PER_THREAD
