@@ -49,15 +49,19 @@ from the root of a checkout.  Phases, each of which raises on failure
    bound times, kernel and library also on the device's clock;
 2d. the LM's training kernels: K1, K2 and K3 in bf16 at every Phi-3-mini
    and Yi-6B projection shape at M = 1024 (B 8 x S 128; K1 without bias,
-   as the LM calls it, at K1 bf16's gate), K2 and K3 also at ragged M and
-   with the relu mask, and K9's backward at d = 3072, 4096, 4608 (1024
-   rows, and ragged rows) in bf16 and f32, against their plain versions: dx
-   within one bf16 rounding (bf16) or at the f32 gradient gate, dw, db
-   and dscale at the gradient gate (1e-4 x max(max|ref|, 1)); every case
+   as the LM calls it, at K1 bf16's gate; K2 and K3 each on the TMA +
+   wgmma route), K2 and K3 also at ragged M, with the relu mask, off 8
+   and at widths off every tile width the route plan can choose (each
+   printing its route), and K9's backward at d = 3072, 4096, 4608 (1024
+   rows, and ragged rows) in bf16 and f32, against their plain versions:
+   dx within one bf16 rounding (bf16) or at the f32 gradient gate, f32
+   dw, db and dscale at the gradient gate (1e-4 x max(max|ref|, 1)), K3's
+   bf16 dw equal bit for bit to its f32 dw cast to bf16; every case
    reruns bit for bit; kernel, plain, library (``torch.matmul`` on the
    same bf16 operands; autograd of ``F.rms_norm``, its backward alone)
    and bound times, kernel and library also on the device's clock,
-   summed over one phase-4e step;
+   summed over one phase-4e step (K3 as the LM calls it: dw in bf16, no
+   db);
 3. reduced Yi-6B and reduced Gemma-2 (prompts longer than its window of
    16) in f32 served on the card and on the CPU from the same weights and
    request stream: identical token streams, logits within 1e-4;
@@ -110,7 +114,8 @@ from the root of a checkout.  Phases, each of which raises on failure
    steps through ``make_node_round`` with ``lm.loss_fn``: finite losses
    that fall, every grad leaf nonzero (at the initial params), exactly
    7 L K1, 7 L K2 and 7 L K3 launches in bf16 and 2 L + 1 K9 forward and
-   backward a step (no f32 dense kernel in the trace), step wall, device
+   backward a step (no f32 dense kernel in the trace, every K2 and K3 a
+   ``dense_bwd_wgmma``), step wall, device
    time by kernel and busy share (a step traced after a warm-up one),
    tokens/s, peak memory, and AdamW's update and apply alone against
    its byte floor (7 c_w at 3.35 TB/s);
@@ -150,8 +155,10 @@ the root of another checkout, it times that checkout's K1 the same way.
 
     python3 chip_smoke.py --train-kernels K3,K4,K5
 
-does the same for phase 2b and the named kernels, and
+does the same for phase 2b and the named kernels, phase 2d and its
+named kernels (K1, K2, K3, K9: its backward), and
 
+    python3 chip_smoke.py --lm-kernels K2,K3
     python3 chip_smoke.py --k9
     python3 chip_smoke.py --k10
 
@@ -1882,6 +1889,10 @@ LM_BWD_RAGGED = (                  # (M, Din, Dout, relu): ragged M, the
     (24, 4096, 4096, True), (1000, 3072, 3072, True),   # relu mask, shapes
     (1000, 3072, 8192, False), (37, 100, 77, True),     # off 8 (element-
     (5, 13, 9, False))                                  # by-element loads)
+LM_BWD_EDGES = (                   # (M, Din, Dout), no mask, widths off 8's
+    (1000, 3000, 3080), (24, 1000, 200),  # multiples: K2 and K3 each take
+    (1000, 8200, 1000), (24, 3000, 3000))  # every tile width with a ragged
+#                                   last tile (tests/test_torch_dense_plan.py)
 RMS_BWD_CASES = [(LM_ROWS, d, dt) for d in (3072, 4096, 4608)
                  for dt in ("bfloat16", "float32")]
 RMS_BWD_CASES += [(1000, 4608, "bfloat16"), (133, 3072, "bfloat16"),
@@ -1894,8 +1905,10 @@ LM_LR = 1e-3                       # the training CLI's default
 LM_TOL = {"float32": (2e-5, 2e-5, 1e-4),      # loss, grads atol, rtol
           "bfloat16": (5e-3, 3e-2, 3e-2)}
 LM_KERNEL_NAMES = (   # device kernel name -> the port's kernel (bf16 path)
-    ("dense_fwd_bf16", "K1"), ("dense_bwd_bf16_tile<true", "K2"),
-    ("dense_bwd_bf16_tile<false", "K3"), ("rmsnorm_bwd", "K9 bwd"),
+    ("dense_fwd_bf16", "K1"), ("dense_bwd_wgmma<true", "K2"),
+    ("dense_bwd_wgmma<false", "K3"), ("dense_db_colsum", "K3"),
+    ("dense_bwd_bf16_tile<true", "K2 tile"),
+    ("dense_bwd_bf16_tile<false", "K3 tile"), ("rmsnorm_bwd", "K9 bwd"),
     ("rmsnorm_", "K9"), ("dense_fwd_f32", "K1 f32"),
     ("dense_dx_", "K2 f32"), ("dense_dwdb_", "K3 f32"))
 CUBLAS_NAMES = ("gemm", "nvjet", "cutlass", "xmma")   # the head's matmul
@@ -1982,28 +1995,76 @@ def _dense_bwd_case(torch, gen, key, M, Din, Dout, relu):
     return rnd((M, Din)), rnd((M, Dout)), out
 
 
-def phase_lm_kernels(torch, ref, dn, rms):
+def _bwd_route(dn, key, M, Din, Dout, relu):
+    """Which bf16 route K2 or K3 takes at this shape, as printed ("" in a
+    checkout whose dense module has no route plan)."""
+    if not hasattr(dn, "bwd_bf16_plan"):
+        return ""
+    p = dn.bwd_bf16_plan(key, M, Din, Dout, relu)
+    return (f"{p.route} {p.bm}x{p.bn} tiles, {p.stages} stages, "
+            f"{p.tiles} tiles on {p.grid} blocks")
+
+
+def _check_dense_bwd(torch, dn, ref, key, args, where):
+    """K2's dx within one bf16 rounding, or K3's f32 dw and db at the
+    gradient gate and (where the checkout writes dw in bf16) its bf16 dw
+    the f32 dw's ``.to(torch.bfloat16)`` bit for bit; every output again
+    bit for bit on a rerun.  Returns the worst (err, tol)."""
+    kern = dn.dense_dx_cuda if key == "K2" else dn.dense_dwdb_cuda
+    plain = ref.dense_dx_ref if key == "K2" else ref.dense_dwdb_ref
+    got = kern(*args)
+    err, tol = _grad_gate(torch, got, plain(*args), key == "K2")
+    if not err <= tol:
+        raise AssertionError(f"{key} bf16 {where}: max_abs_err {err} > "
+                             f"tol {tol}")
+    if not torch.equal(_flat(torch, got), _flat(torch, kern(*args))):
+        raise AssertionError(f"{key} bf16 {where} gave different bits on a "
+                             "rerun")
+    if key == "K3" and hasattr(dn, "bwd_bf16_plan"):
+        dw16, db = kern(*args, dw_dtype=torch.bfloat16, want_db=False)
+        again, _ = kern(*args, dw_dtype=torch.bfloat16, want_db=False)
+        if db is not None or not torch.equal(dw16, got[0].bfloat16()) \
+                or not torch.equal(dw16, again):
+            raise AssertionError(f"K3 bf16 {where}: the bf16 dw is not the "
+                                 "f32 dw cast bit for bit on every run (or "
+                                 "db came back unasked)")
+    return err, tol
+
+
+def phase_lm_kernels(torch, ref, dn, rms, only=None):
     """Phase 2d: K1, K2 and K3 in bf16 at every Phi-3-mini and Yi-6B
     projection shape at M = 1024 (B 8 x S 128; K1 without bias, as the LM
-    calls it), K2 and K3 also at ragged M and with the relu mask, and
-    K9's backward at d = 3072, 4096, 4608 (1024 rows and ragged), bf16
-    and f32, against their plain versions; every case reruns bit for
-    bit.  Returns per kernel its row, summed over one
-    phase-4e step (Phi-3-mini, LM_LAYERS layers)."""
+    calls it), K2 and K3 also at ragged M, with the relu mask, off 8, and
+    at widths off every tile the route plan can choose (each case prints
+    its route), and K9's backward at d = 3072, 4096, 4608 (1024 rows and
+    ragged), bf16 and f32, against their plain versions; every case
+    reruns bit for bit.  K2 and K3 are timed as the LM calls them (K3: dw
+    in bf16, no db, where the checkout's K3 takes ``dw_dtype``).
+    ``only``: the kernels to run (K1, K2, K3, K9), all if None.  Returns
+    per kernel its row, summed over one phase-4e step (Phi-3-mini,
+    LM_LAYERS layers)."""
     gen = torch.Generator("cuda").manual_seed(4)
-    kern = {"K1": dn.dense_cuda, "K2": dn.dense_dx_cuda,
-            "K3": dn.dense_dwdb_cuda}
+    new = hasattr(dn, "bwd_bf16_plan")   # K3 writes bf16 dw, db if asked
+    lm_k3 = (lambda x, g, out: dn.dense_dwdb_cuda(
+        x, g, out, dw_dtype=torch.bfloat16, want_db=False)[0]) if new \
+        else dn.dense_dwdb_cuda
+    kern = {"K1": dn.dense_cuda, "K2": dn.dense_dx_cuda, "K3": lm_k3}
     plain = {"K1": ref.dense_ref, "K2": ref.dense_dx_ref,
-             "K3": ref.dense_dwdb_ref}
+             "K3": (lambda x, g, out: ref.dense_dwdb_ref(
+                 x, g, out, dw_dtype=torch.bfloat16, want_db=False)[0])
+             if new else ref.dense_dwdb_ref}
     lib = {"K1": torch.matmul,
            "K2": lambda g, w, out: torch.matmul(g, w.t()),
-           "K3": lambda x, g, out: (torch.matmul(x.t(), g), g.sum(0))}
+           "K3": (lambda x, g, out: torch.matmul(x.t(), g)) if new else
+           (lambda x, g, out: (torch.matmul(x.t(), g), g.sum(0)))}
     rows = {}
     log(f"[lm-k] {'kernel':<6} {'model':<15} {'M x Din x Dout':<18} "
         f"{'max_abs_err':<11} {'tol':<10} {'kernel_ms':<10} "
         f"{'device_ms':<12} {'plain_ms':<10} {'library_ms':<10} "
         f"{'lib_dev_ms':<12} bound_ms")
     for key in ("K1", "K2", "K3"):
+        if only is not None and key not in only:
+            continue
         row = _new_row()
         for arch, shapes in LM_BWD_SHAPES.items():
             unique = {}
@@ -2012,21 +2073,35 @@ def phase_lm_kernels(torch, ref, dn, rms):
             for (Din, Dout), which in unique.items():
                 M = LM_ROWS
                 args = _dense_bwd_case(torch, gen, key, M, Din, Dout, False)
-                err, tol = _grad_gate(torch, kern[key](*args),
-                                      plain[key](*args), key != "K3")
-                if not err <= tol:
-                    raise AssertionError(f"{key} bf16 ({M}, {Din}, {Dout}):"
-                                         f" max_abs_err {err} > tol {tol}")
+                where = f"({M}, {Din}, {Dout})"
+                if key == "K1":
+                    err, tol = _grad_gate(torch, kern[key](*args),
+                                          plain[key](*args), True)
+                    if not err <= tol:
+                        raise AssertionError(f"K1 bf16 {where}: "
+                                             f"max_abs_err {err} > tol {tol}")
+                    a = _flat(torch, kern[key](*args))
+                    if not torch.equal(a, _flat(torch, kern[key](*args))):
+                        raise AssertionError(f"K1 bf16 {where} gave "
+                                             "different bits on a rerun")
+                else:
+                    err, tol = _check_dense_bwd(torch, dn, ref, key, args,
+                                                where)
+                    if new and dn.bwd_bf16_plan(key, M, Din,
+                                                Dout).route != "wgmma":
+                        raise AssertionError(f"{key} bf16 {where}: an LM "
+                                             "projection off the wgmma "
+                                             "route")
                 _note_err(row, err, tol)
                 wbytes = 2 * Din * Dout
                 copies = max(2, min(16, math.ceil(256e6 / wbytes)))
                 sets = [args] + [_dense_bwd_case(torch, gen, key, M, Din,
                                                  Dout, False)
                                  for _ in range(copies - 1)]
-                if key != "K3":
+                if key != "K3" or new:   # bf16 in, bf16 out
                     nbytes = 2 * (M * Dout + Din * Dout + M * Din)
                     flops = 2.0 * M * Din * Dout
-                else:
+                else:                    # f32 dw and its db row
                     nbytes = 2 * (M * Din + M * Dout) + 4 * (Din + 1) * Dout
                     flops = 2.0 * M * (Din + 1) * Dout
                 n = LM_LAYERS * len(which) if arch == LM_ARCH else 0
@@ -2039,29 +2114,18 @@ def phase_lm_kernels(torch, ref, dn, rms):
                     f"{t[3]:<10.5f} {fmt_ms(t[4]):<12} {t[5]:.5f} ({t[6]})"
                     f"  x{len(which)} a layer" + (
                         f", S={dn.bf16_splits(M, Dout, Din)[0]}"
-                        if key == "K1" else ""))
-                a = _flat(torch, kern[key](*args))
-                if not torch.equal(a, _flat(torch, kern[key](*args))):
-                    raise AssertionError(f"{key} bf16 ({M}, {Din}, {Dout}) "
-                                         "gave different bits on a rerun")
+                        if key == "K1" else
+                        f", {_bwd_route(dn, key, M, Din, Dout, False)}"))
                 del sets, args
-        for M, Din, Dout, relu in LM_BWD_RAGGED if key != "K1" else ():
+        extra = () if key == "K1" else LM_BWD_RAGGED + tuple(
+            (M, Din, Dout, False) for M, Din, Dout in LM_BWD_EDGES)
+        for M, Din, Dout, relu in extra:
             args = _dense_bwd_case(torch, gen, key, M, Din, Dout, relu)
-            got = kern[key](*args)
-            err, tol = _grad_gate(torch, got, plain[key](*args),
-                                  key == "K2")
-            log(f"[lm-k] {key:<6} ragged {M}x{Din}x{Dout}"
-                f"{' relu' if relu else ''}: max_abs_err {err:.4g} tol "
-                f"{tol:.4g}")
-            if not err <= tol:
-                raise AssertionError(f"{key} bf16 ragged ({M}, {Din}, "
-                                     f"{Dout}): {err} > {tol}")
+            where = f"ragged ({M}, {Din}, {Dout}{', relu' if relu else ''})"
+            err, tol = _check_dense_bwd(torch, dn, ref, key, args, where)
+            log(f"[lm-k] {key:<6} {where}: max_abs_err {err:.4g} tol "
+                f"{tol:.4g}; {_bwd_route(dn, key, M, Din, Dout, relu)}")
             _note_err(row, err, tol)
-            if not torch.equal(_flat(torch, got),
-                               _flat(torch, kern[key](*args))):
-                raise AssertionError(f"{key} bf16 ragged ({M}, {Din}, "
-                                     f"{Dout}) gave different bits on a "
-                                     "rerun")
         log(f"[lm-k] {key} bf16 reruns bit for bit in every case; one "
             f"{LM_ARCH} step at {LM_LAYERS} layers ({7 * LM_LAYERS} "
             f"launches): kernel {row['ms']:.5f} ms (device "
@@ -2070,7 +2134,15 @@ def phase_lm_kernels(torch, ref, dn, rms):
             f"{fmt_ms(row['library_device_ms'])}), bound "
             f"{row['bound_ms']:.5f} ({dominant(row['bound_by'])}); worst "
             f"max_abs_err {row['err']:.4g} at tol {row['tol']:.4g}")
+        if row["device_ms"] and row["library_device_ms"]:
+            log(f"[lm-k] {key} bf16 step: {row['device_ms']:.5f} device ms,"
+                f" {row['bound_ms'] / row['device_ms']:.1%} of the bound, "
+                f"{row['device_ms'] / row['library_device_ms']:.3f}x "
+                "torch.matmul's device time")
         rows[key] = row
+    if only is not None and "K9" not in only:
+        torch.cuda.empty_cache()
+        return rows
 
     F = torch.nn.functional
     row = _new_row()
@@ -2315,13 +2387,23 @@ def phase_lm_step(torch, port, mods, card):
     f32 = {k: counts.get(k, 0) for k in ("K1 f32", "K2 f32", "K3 f32")}
     if any(f32.values()):
         raise AssertionError(f"[lm-step] f32 dense kernels ran: {f32}")
+    # the counters above hold the launches; the trace holds their kernels
+    # (its tracer can miss a step's first launches: K1's, K9's)
+    bwd = {k: counts.get(k, 0) for k in ("K2", "K3", "K2 tile", "K3 tile")}
+    if bwd["K2 tile"] or bwd["K3 tile"] or not (
+            0 < bwd["K2"] <= expect["K2"] and 0 < bwd["K3"] <= expect["K3"]):
+        raise AssertionError(f"[lm-step] the traced step's K2/K3 kernels "
+                             f"{bwd}: want up to {expect['K2']} each, all "
+                             "on the TMA + wgmma route")
     mean = float(np.mean(step_ms[1:]))
     log(f"[lm-step] {LM_ARCH} full width, {L} layers ({n_params} params "
         f"f32, c_w {c_w} B), B={B} x S={S} from lm_corpus, AdamW lr {LM_LR:g} "
         f"(warmup 2 of {LM_STEPS}), grad_clip 1.0; card: {card}")
     log(f"[lm-step] launches {launches} = {LM_STEPS} x {expect} (bf16 K1-K3:"
-        " no f32 dense kernel in the trace); every grad leaf nonzero at "
-        "the initial params")
+        " no f32 dense kernel in the trace; the traced step's K2 and K3 "
+        f"dense_bwd_wgmma, {bwd['K2']} and {bwd['K3']} of {expect['K2']} "
+        "traced, no dense_bwd_bf16_tile); every grad leaf nonzero at the "
+        "initial params")
     log(f"[lm-step] step mean {mean:.3f} ms over steps 2-{LM_STEPS} (first "
         f"{step_ms[0]:.3f} ms), p50 {np.percentile(step_ms[1:], 50):.3f} ms"
         f", {B * S / mean * 1e3:.1f} tokens/s | max_memory_allocated "
@@ -2618,6 +2700,9 @@ def main() -> int:
                     "result line")
     ap.add_argument("--k1-rows", help="comma-separated rows M: run phase 2 "
                     "(K1) alone at these rows and print no result line")
+    ap.add_argument("--lm-kernels", help="comma-separated kernels (K1, K2,"
+                    " K3, K9): run phase 2d alone for them and print no "
+                    "result line")
     ap.add_argument("--k9", action="store_true", help="run phase 2c's K9 "
                     "cases alone and print no result line")
     ap.add_argument("--k10", action="store_true", help="run phase 2c's K10 "
@@ -2685,6 +2770,11 @@ def main() -> int:
     if args.train_kernels:
         phase_train_kernels(torch, ref, mods, cnn,
                             set(args.train_kernels.split(",")))
+        log(card_line())
+        return 0
+    if args.lm_kernels:
+        phase_lm_kernels(torch, ref, dense_mod, rms_mod,
+                         set(args.lm_kernels.split(",")))
         log(card_line())
         return 0
     if args.k9:
@@ -2816,7 +2906,9 @@ def main() -> int:
                 lm_step_ms.get(key), lm_outer_launches[key],
                 f"one {LM_ARCH} training step at full width, {LM_LAYERS} "
                 f"layers, B=8 x S=128 (phase 4e): {7 * LM_LAYERS} bf16 "
-                f"launches at M={LM_ROWS} (tile GEMM, not split)"))
+                f"launches at M={LM_ROWS} (TMA + wgmma GEMM, persistent, "
+                "not split" + (", dw written in bf16, no db)" if key == "K3"
+                               else ")")))
     rows += attn_json_rows(attn_rows, gemma_launches["K9"],
                            launches["K9"], gem_pre_k9, k10_launches,
                            k10_diff)

@@ -39,40 +39,84 @@
 // rerun gives identical bits.  Ragged M, Din and Dout are loaded element
 // by element with zero fill and stored masked.
 //
-// bf16 (the LM's projections, B x S = 1024 rows at a training step).  At
-// Phi-3-mini's 3072 -> 8192 a launch does 51.5 GFLOP (52 us at 989
-// TFLOP/s); K2 moves 73 MB (22 us), K3 124 MB with its f32 output (37
-// us): the tensor cores bound both.  One tile
-// GEMM, dense_bwd_bf16_tile, in two instances:
-//   * K2 (dense_dx_bf16): C (M, Din) = (g masked) w^T.  g is the A
-//     operand, staged as it lies ([m][k], k = Dout contiguous); w is
-//     already the B operand's "col" layout ([n][k]: Din rows, Dout
-//     contiguous), so both load with plain ldmatrix; dx is written once
-//     in bf16 from the f32 accumulators;
-//   * K3 (dense_dwdb_bf16): C (Din + 1, Dout) = [x, 1]^T (g masked), the
-//     reduction over the M rows.  Both operands lie k-major (x [k][m], g
-//     [k][n]), so both load with ldmatrix.trans; the ones column at m =
-//     Din is written into x's staged tile by a plain store, so row Din of
-//     C is db, summed in the same order as dw; dw and db are f32.
-// Each block owns a 128 x 128 output tile: 8 warps of 64 x 32, 4 x 4
-// mma.sync m16n8k16 products per 16-deep step with f32 accumulators,
-// operands (and the mask, beside its operand) streamed through a 4-stage
-// cp.async ring of 32-deep stages on rows padded by 16 bytes; the mask's
-// fragments come from the same ldmatrix and zero the masked operand's
-// (bf16 g x (out > 0), as the plain version multiplies).  The reduction
-// is not split: every tile walks all of K in a fixed order, so a rerun
-// gives identical bits with no second pass.  Ragged shapes or unaligned
-// pointers load element by element with zero fill.
+// bf16 (the LM's projections, B x S = 1024 rows at a training step):
+// the bf16 instances of src/repro/kernels/dense.py's _dense_dx_kernel
+// (:59) and _dense_dwdb_kernel (:69).  At Phi-3-mini's 3072 -> 8192 a
+// launch does 51.5 GFLOP (52 us at 989 TFLOP/s) against 73 MB moved by
+// K2, and by K3 writing bf16 dw (22 us at 3.35 TB/s): the tensor cores
+// bound both.  A Phi-3 8-layer step's 56 launches of each are
+// 1.876 ms of tensor-core time.  Two routes, chosen by shape in
+// kernels/dense.py bwd_bf16_plan, each its own C entry:
+//
+// * dense_bwd_wgmma (dense_dx_bf16_wgmma, dense_dwdb_bf16_wgmma): every
+//   unmasked operand set whose widths are multiples of 8 and whose
+//   pointers are 16-byte aligned, so every LM projection.  What held the
+//   tile GEMM below to 21-26% of the bound, and what this design does:
+//   1. mma.sync fed by ldmatrix from a cp.async ring that every thread
+//      fills: here one producer thread issues 2-D TMA loads (wgmma_bf16.cuh)
+//      into a ring of 4-6 stages, 64 K deep, 128-byte swizzled, on
+//      full/empty mbarriers; two consumer warpgroups (setmaxnreg 232, the
+//      producer's 40) run wgmma.mma_async m64nNk16 straight from the ring
+//      with f32 accumulators in registers, one stage's products kept in
+//      flight while the next stage's are issued.  K2's operands (g [m][k],
+//      w [n][k]) are both K-major; K3's (x lying [k][m], g lying [k][n])
+//      are both MN-major, read with wgmma's transpose bits (boxes of 64
+//      m or n x 64 k; the descriptor's leading offset steps 64 columns,
+//      its stride offset 8 K rows).  Out-of-bounds boxes (ragged M, Din or
+//      Dout) arrive zero-filled;
+//   2. 128 x 128 tiles that left the card part idle: the output tile is
+//      128 x N with N = 128, 192 or 256 chosen per shape so the tiles fill
+//      whole waves of 132 SMs (K2 at (1024, 3072): 128 tiles of 128 x
+//      192), and the grid is persistent, one block an SM walking its
+//      tiles, so one tile's epilogue overlaps the next tile's loads (K3
+//      reduces only M = 1024 rows, 16 stages a tile);
+//   3. K3's f32 dw, cast at once by the caller: dw is written in the
+//      caller's dtype, bf16 rounded once to nearest even from the f32
+//      accumulators, the same bits as .to(torch.bfloat16) of the f32 dw;
+//   4. K3's ones row for db, which no LM projection asks for: db is
+//      computed only where asked, by a fixed-order column sum of g
+//      (dense_db_colsum) in the same entry.
+//   The epilogue stages a warp's 16 rows x 32 columns in shared memory
+//   and stores whole 16-byte row segments.  Every tile walks all of K in
+//   one fixed order with no split and no atomics, so a rerun gives
+//   identical bits.
+//
+// * dense_bwd_bf16_tile (dense_dx_bf16, dense_dwdb_bf16): the relu-masked
+//   and the unaligned cases (no LM path runs them).
+//   - K2: C (M, Din) = (g masked) w^T.  g is the A operand, staged as it
+//     lies ([m][k], k = Dout contiguous); w is already the B operand's
+//     "col" layout ([n][k]: Din rows, Dout contiguous), so both load with
+//     plain ldmatrix; dx is written once in bf16 from the f32
+//     accumulators;
+//   - K3: C (Din + 1, Dout) = [x, 1]^T (g masked), the reduction over the
+//     M rows.  Both operands lie k-major (x [k][m], g [k][n]), so both
+//     load with ldmatrix.trans; the ones column at m = Din is written into
+//     x's staged tile by a plain store, so row Din of C is db, summed in
+//     the same order as dw; dw and db are f32.
+//   Each block owns a 128 x 128 output tile: 8 warps of 64 x 32, 4 x 4
+//   mma.sync m16n8k16 products per 16-deep step with f32 accumulators,
+//   operands (and the mask, beside its operand) streamed through a
+//   4-stage cp.async ring of 32-deep stages on rows padded by 16 bytes;
+//   the mask's fragments come from the same ldmatrix and zero the masked
+//   operand's (bf16 g x (out > 0), as the plain version multiplies).  The
+//   reduction is not split, so a rerun gives identical bits.  Ragged
+//   shapes or unaligned pointers load element by element with zero fill.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+#include <type_traits>
+
 #include "cp_async.cuh"
 #include "gemm_f32.cuh"
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
+
+namespace wg = wgmma_bf16;
 
 // K2: dx (M, Din) = (g masked) @ w^T, the reduction over Dout.
 __global__ void __launch_bounds__(gemm_f32::kThreads)
@@ -400,6 +444,274 @@ inline bool aligned16(const void* p) {
   return p == nullptr || (uintptr_t)p % 16 == 0;
 }
 
+// ----------------------------------------------- bf16, TMA and wgmma
+// dense_bwd_wgmma<kDx, kBN, OutT>: C (Mo, No) = A (Mo, K) B (K, No) with
+// f32 accumulators, for unmasked operands whose widths are multiples of 8
+// and whose pointers are 16-byte aligned (every LM projection; routed by
+// kernels/dense.py bwd_bf16_plan).  kDx (K2): A = g [m][k], B = w [n][k],
+// both K-major, C = dx in bf16.  !kDx (K3): A = x lying [k][m], B = g
+// lying [k][n], both MN-major (the transpose bits set), C = dw in f32 or
+// bf16.  A persistent block walks tiles t = blockIdx.x, + gridDim.x, ...:
+// tile t owns rows (t % tiles_m) 128 and columns (t / tiles_m) kBN, so
+// the row tiles of one column panel run side by side and share its B
+// panel through L2.
+constexpr int kWgBM = 128;            // output rows a tile: 64 a warpgroup
+constexpr int kWgBK = 64;             // K a ring stage: one swizzle row
+constexpr int kWgHalf = 64 * kWgBK * 2;   // a warpgroup's A rows (8 KB)
+constexpr int kWgThreads = 384;       // consumers: warpgroups 0, 1; producer 2
+constexpr int kWgMaxStages = 6;
+constexpr int kWgStageLd = 40;        // staging row stride in 4-byte words
+constexpr int kWgStaging = 16 * kWgStageLd * 4;   // a consumer warp's tile
+constexpr int kSmemLimit = 232448;    // an H100 block's opt-in shared memory
+
+inline size_t wgmma_smem(int bn, int stages) {
+  return 1024 + (size_t)stages * (kWgBM + bn) * kWgBK * 2 +
+         8 * kWgStaging + 2 * kWgMaxStages * sizeof(uint64_t);
+}
+
+// This warp's 16 rows of the tile (rows r0 .., columns n0 .. n0 + kBN - 1)
+// into c (Mo, No), 32 columns at a time through the warp's own staging
+// tile (rows padded to 40 words, so the fragments' pair writes hit 32
+// banks), then 16-byte stores of whole row segments (No % 8 == 0: a
+// segment is all in or all out).  bf16 rounds once, to nearest even, as
+// .to(torch.bfloat16) of the f32 value.
+template <int kBN, typename OutT>
+__device__ __forceinline__ void wgmma_store(const float (&acc)[kBN / 2],
+                                            float* stage,
+                                            OutT* __restrict__ c, int r0,
+                                            int n0, int Mo, int No,
+                                            int lane) {
+  constexpr bool kF32 = std::is_same<OutT, float>::value;
+  constexpr int kSeg = kF32 ? 8 : 4;   // 16-byte segments in 32 columns
+  constexpr int kLd = kF32 ? kWgStageLd : kWgStageLd / 2;   // 4-byte words
+#pragma unroll
+  for (int ch = 0; ch < kBN / 32; ++ch) {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = lane / 4 + 8 * h;
+        const int col = jj * 8 + (lane % 4) * 2;
+        const float v0 = acc[4 * (4 * ch + jj) + 2 * h];
+        const float v1 = acc[4 * (4 * ch + jj) + 2 * h + 1];
+        if constexpr (kF32) {
+          *reinterpret_cast<float2*>(stage + row * kLd + col) =
+              make_float2(v0, v1);
+        } else {
+          reinterpret_cast<__nv_bfloat162*>(stage)[row * kLd + col / 2] =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int p = 0; p < 16 * kSeg / 32; ++p) {
+      const int row = lane / kSeg + p * (32 / kSeg);
+      const int seg = lane % kSeg;
+      const int gr = r0 + row;
+      const int gc = n0 + ch * 32 + seg * (16 / (int)sizeof(OutT));
+      const uint4 v =
+          *reinterpret_cast<const uint4*>(stage + row * kLd + seg * 4);
+      if (gr < Mo && gc < No)
+        *reinterpret_cast<uint4*>(c + (size_t)gr * No + gc) = v;
+    }
+    __syncwarp();
+  }
+}
+
+template <bool kDx, int kBN, typename OutT>
+__global__ void __launch_bounds__(kWgThreads, 1)
+dense_bwd_wgmma(const __grid_constant__ CUtensorMap ta,
+                const __grid_constant__ CUtensorMap tb,
+                OutT* __restrict__ c, int Mo, int No, int K, int stages) {
+  constexpr int kABytes = kWgBM * kWgBK * 2;
+  constexpr int kStage = kABytes + kBN * kWgBK * 2;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + (1024 - wg::smem_u32(smem_raw) % 1024) % 1024;
+  float* staging = reinterpret_cast<float*>(ring + stages * kStage);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(staging + 8 * (kWgStaging / 4));
+  uint64_t* empty = full + kWgMaxStages;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tiles_m = (Mo + kWgBM - 1) / kWgBM;
+  const int tiles = tiles_m * ((No + kBN - 1) / kBN);
+  const int kblocks = (K + kWgBK - 1) / kWgBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      wg::bar_init(&full[s], 1);    // the producer's expect_tx + TMA bytes
+      wg::bar_init(&empty[s], 8);   // lane 0 of every consumer warp
+    }
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {   // producer: one thread keeps the ring full
+    wg::regs_dec<40>();
+    if (warp == 8 && lane == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t % tiles_m * kWgBM;
+        const int n0 = t / tiles_m * kBN;
+        for (int kb = 0; kb < kblocks; ++kb) {
+          wg::bar_wait(&empty[s], phase ^ 1);
+          unsigned char* sa = ring + s * kStage;
+          unsigned char* sb = sa + kABytes;
+          const int k0 = kb * kWgBK;
+          wg::bar_expect_tx(&full[s], kStage);
+          if constexpr (kDx) {   // boxes of 64 k x 128 rows, 64 k x kBN rows
+            wg::tma_load_2d(sa, &ta, &full[s], k0, m0);
+            wg::tma_load_2d(sb, &tb, &full[s], k0, n0);
+          } else {               // boxes of 64 m (or n) x 64 k
+            wg::tma_load_2d(sa, &ta, &full[s], m0, k0);
+            wg::tma_load_2d(sa + kWgHalf, &ta, &full[s], m0 + 64, k0);
+#pragma unroll
+            for (int j = 0; j < kBN / 64; ++j)
+              wg::tma_load_2d(sb + j * kWgHalf, &tb, &full[s], n0 + 64 * j,
+                              k0);
+          }
+          if (++s == stages) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {           // consumers: warpgroup `half` owns rows 64 half ..
+    wg::regs_inc<232>();
+    const int half = warp / 4;
+    float acc[kBN / 2];
+    int s = 0, last = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t % tiles_m * kWgBM;
+      const int n0 = t / tiles_m * kBN;
+      for (int kb = 0; kb < kblocks; ++kb) {
+        wg::bar_wait(&full[s], phase);
+        const uint32_t sa = wg::smem_u32(ring + s * kStage) + half * kWgHalf;
+        const uint32_t sb = wg::smem_u32(ring + s * kStage) + kABytes;
+        wg::fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgBK / 16; ++kk) {
+          // K-major: 16 k are 32 bytes along the row; MN-major: 16 rows.
+          // MN-major B's 64-column panels lie kWgHalf apart (leading).
+          const uint64_t da =
+              kDx ? wg::desc_sw128(sa + kk * 32, 16, 1024)
+                  : wg::desc_sw128(sa + kk * 2048, kWgHalf, 1024);
+          const uint64_t db =
+              kDx ? wg::desc_sw128(sb + kk * 32, 16, 1024)
+                  : wg::desc_sw128(sb + kk * 2048, kWgHalf, 1024);
+          wg::mma<kBN, kDx ? 0 : 1>(acc, da, db, kb > 0 || kk > 0);
+        }
+        wg::commit();
+        if (kb > 0) {   // this stage's products stay in flight; the last
+          wg::wait<1>();   // stage's are done: hand its slot back
+          if (lane == 0) wg::bar_arrive(&empty[last]);
+        }
+        last = s;
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+      wg::wait<0>();
+      wg::fence_regs(acc);
+      if (lane == 0) wg::bar_arrive(&empty[last]);
+      wgmma_store<kBN>(acc, staging + warp * (kWgStaging / 4), c,
+                       m0 + half * 64 + (warp % 4) * 16, n0, Mo, No, lane);
+    }
+  }
+}
+
+// db (Dout) f32 = the sum of g's M rows, in a fixed order: a block owns
+// 64 columns, its 256 threads 32 column pairs x 8 row slices (rows slice,
+// slice + 8, ...), the slices added in order.  Dout % 8 == 0.
+__global__ void __launch_bounds__(256)
+dense_db_colsum(const bf16* __restrict__ g, float* __restrict__ db, int M,
+                int Dout) {
+  __shared__ float2 part[8][32];
+  const int pair = threadIdx.x % 32;
+  const int slice = threadIdx.x / 32;
+  const int col = blockIdx.x * 64 + pair * 2;
+  float2 sum = make_float2(0.0f, 0.0f);
+  if (col < Dout) {
+    for (int r = slice; r < M; r += 8) {
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(g + (size_t)r * Dout +
+                                                    col));
+      sum.x += v.x;
+      sum.y += v.y;
+    }
+  }
+  part[slice][pair] = sum;
+  __syncthreads();
+  if (slice == 0 && col < Dout) {
+#pragma unroll
+    for (int i = 1; i < 8; ++i) {
+      sum.x += part[i][pair].x;
+      sum.y += part[i][pair].y;
+    }
+    db[col] = sum.x;
+    db[col + 1] = sum.y;
+  }
+}
+
+template <bool kDx, int kBN, typename OutT>
+int wgmma_launch_n(const CUtensorMap& ta, const CUtensorMap& tb, void* c,
+                   int Mo, int No, int K, int stages, int grid,
+                   cudaStream_t s) {
+  const size_t smem = wgmma_smem(kBN, stages);
+  if (stages < 2 || stages > kWgMaxStages || smem > (size_t)kSmemLimit ||
+      grid < 1)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  static bool ready[64] = {};
+  if (dev >= 64 || !ready[dev]) {
+    err = cudaFuncSetAttribute(dense_bwd_wgmma<kDx, kBN, OutT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemLimit);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) ready[dev] = true;
+  }
+  dense_bwd_wgmma<kDx, kBN, OutT><<<grid, kWgThreads, smem, s>>>(
+      ta, tb, static_cast<OutT*>(c), Mo, No, K, stages);
+  return (int)cudaGetLastError();
+}
+
+template <bool kDx, typename OutT>
+int wgmma_launch(const CUtensorMap& ta, const CUtensorMap& tb, void* c,
+                 int Mo, int No, int K, int bn, int stages, int grid,
+                 cudaStream_t s) {
+  switch (bn) {
+    case 128:
+      return wgmma_launch_n<kDx, 128, OutT>(ta, tb, c, Mo, No, K, stages,
+                                            grid, s);
+    case 192:
+      return wgmma_launch_n<kDx, 192, OutT>(ta, tb, c, Mo, No, K, stages,
+                                            grid, s);
+    case 256:
+      return wgmma_launch_n<kDx, 256, OutT>(ta, tb, c, Mo, No, K, stages,
+                                            grid, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// What TMA and the 16-byte stores take: widths a multiple of 8 (rows of
+// 16-byte multiples), every pointer 16-byte aligned and set.
+inline bool wgmma_ok(int M, int Din, int Dout, int bn,
+                     std::initializer_list<const void*> ptrs) {
+  if (M <= 0 || Din <= 0 || Dout <= 0 || Din % 8 || Dout % 8) return false;
+  if (bn != 128 && bn != 192 && bn != 256) return false;
+  for (const void* p : ptrs)
+    if (p == nullptr || !aligned16(p)) return false;
+  return true;
+}
+
 }  // namespace
 
 extern "C" int dense_dx_f32(const void* g, const void* w, const void* mask,
@@ -460,4 +772,45 @@ extern "C" int dense_dwdb_bf16(const void* x, const void* g,
                                              M, Din, vec, s)
               : bwd_bf16_launch<false, false>(xp, gp, mp, dwdb, Din + 1,
                                               Dout, M, Din, vec, s);
+}
+
+// K2 in bf16 through TMA and wgmma: dx (M, Din) bf16 = g w^T, no mask; g
+// (M, Dout), w (Din, Dout) bf16; (bn, stages, grid) from kernels/dense.py
+// bwd_bf16_plan.  Returns 0, a cudaError, or wgmma_bf16::kEncodeError +
+// the CUresult of a refused tensor map.
+extern "C" int dense_dx_bf16_wgmma(const void* g, const void* w, void* dx,
+                                   int M, int Din, int Dout, int bn,
+                                   int stages, int grid, void* stream) {
+  if (!wgmma_ok(M, Din, Dout, bn, {g, w, dx}))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  int err = wg::map_2d(&ta, g, M, Dout, kWgBM, kWgBK);
+  if (err == 0) err = wg::map_2d(&tb, w, Din, Dout, bn, kWgBK);
+  if (err != 0) return err;
+  return wgmma_launch<true, bf16>(ta, tb, dx, M, Din, Dout, bn, stages,
+                                  grid, static_cast<cudaStream_t>(stream));
+}
+
+// K3 in bf16 through TMA and wgmma: dw (Din, Dout) = x^T g, f32 or (dw_bf16)
+// bf16, and where db is set db (Dout) f32 = the sum of g's rows (a second
+// small kernel, dense_db_colsum); no mask; x (M, Din), g (M, Dout) bf16.
+extern "C" int dense_dwdb_bf16_wgmma(const void* x, const void* g, void* dw,
+                                     void* db, int M, int Din, int Dout,
+                                     int bn, int stages, int grid,
+                                     int dw_bf16, void* stream) {
+  if (!wgmma_ok(M, Din, Dout, bn, {x, g, dw}) || !aligned16(db))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  int err = wg::map_2d(&ta, x, M, Din, kWgBK, 64);
+  if (err == 0) err = wg::map_2d(&tb, g, M, Dout, kWgBK, 64);
+  if (err != 0) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = dw_bf16 ? wgmma_launch<false, bf16>(ta, tb, dw, Din, Dout, M, bn,
+                                            stages, grid, s)
+                : wgmma_launch<false, float>(ta, tb, dw, Din, Dout, M, bn,
+                                             stages, grid, s);
+  if (err != 0 || db == nullptr) return err;
+  dense_db_colsum<<<(Dout + 63) / 64, 256, 0, s>>>(
+      static_cast<const bf16*>(g), static_cast<float*>(db), M, Dout);
+  return (int)cudaGetLastError();
 }

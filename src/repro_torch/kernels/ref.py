@@ -53,11 +53,13 @@ def dense_dx_ref(g, w, out=None):
     return (_masked(g, out).float() @ w.float().t()).to(g.dtype)
 
 
-def dense_dwdb_ref(x, g, out=None):
-    """K3: dw = x^T g and db = sum over rows of g (g masked by ``out > 0``),
-    in f32; x (M, Din), g (M, Dout)."""
+def dense_dwdb_ref(x, g, out=None, dw_dtype=torch.float32,
+                   want_db: bool = True):
+    """K3: dw = x^T g, computed in f32 and returned in ``dw_dtype``, and
+    db = sum over rows of g in f32 where ``want_db`` (else None); g masked
+    by ``out > 0``; x (M, Din), g (M, Dout)."""
     g = _masked(g, out).float()
-    return x.float().t() @ g, g.sum(0)
+    return (x.float().t() @ g).to(dw_dtype), g.sum(0) if want_db else None
 
 
 # ------------------------------------------------------------------ conv

@@ -703,6 +703,102 @@ def test_dense_bf16_backward_kernels_match_plain_and_rerun(M, Din, Dout,
     assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
 
 
+def _ints(gen, shape):
+    """Small integers in bf16: products and their sums are exact in f32,
+    so a wrong operand layout cannot hide inside a tolerance."""
+    return torch.randint(-2, 3, shape, generator=gen,
+                         device="cuda").bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_dense_bwd_wgmma_one_tile_is_exact(kernel):
+    """One output tile of the TMA + wgmma route on exact integers: K3's
+    MN-major operands (x read [k][m], g read [k][n], 128-byte swizzled,
+    the transpose bits set) and K2's K-major ones give torch.matmul's
+    product bit for bit (K3's dw in f32; K2's dx rounded to bf16 from the
+    exact sum, as the plain version)."""
+    _card()
+    from repro_torch.kernels import dense as dn
+    gen = _gen(26)
+    if kernel == "K3":
+        x, g = _ints(gen, (64, 128)), _ints(gen, (64, 128))
+        plan = dn.bwd_bf16_plan("K3", 64, 128, 128)
+        dw, db = dn.dense_dwdb_cuda(x, g)
+        torch.cuda.synchronize()
+        assert torch.equal(dw, torch.matmul(x.float().t(), g.float()))
+        assert torch.equal(db, g.float().sum(0))
+    else:
+        g, w = _ints(gen, (128, 64)), _ints(gen, (128, 64))
+        plan = dn.bwd_bf16_plan("K2", 128, 128, 64)
+        dx = dn.dense_dx_cuda(g, w)
+        torch.cuda.synchronize()
+        assert torch.equal(dx, torch.matmul(g.float(), w.float().t())
+                           .bfloat16())
+    assert (plan.route, plan.tiles) == ("wgmma", 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Din,Dout", [
+    # every tile width with a ragged last tile, ragged M and K
+    (1000, 3000, 3080), (24, 1000, 200), (1000, 8200, 1000),
+    (24, 3000, 3000)])
+def test_dense_bwd_wgmma_ragged_edges_are_exact(M, Din, Dout):
+    """Exact integers through both kernels where TMA zero-fills boxes past
+    M, Din or Dout and the epilogue stores only what lies inside: dx, f32
+    dw and db bit for bit, bf16 dw the f32 dw's cast bit for bit."""
+    _card()
+    from repro_torch.kernels import dense as dn
+    gen = _gen(27)
+    x, g, w = (_ints(gen, (M, Din)), _ints(gen, (M, Dout)),
+               _ints(gen, (Din, Dout)))
+    for kernel in ("K2", "K3"):
+        assert dn.bwd_bf16_plan(kernel, M, Din, Dout).route == "wgmma"
+    dx = dn.dense_dx_cuda(g, w)
+    dw, db = dn.dense_dwdb_cuda(x, g)
+    dw16, none = dn.dense_dwdb_cuda(x, g, dw_dtype=torch.bfloat16,
+                                    want_db=False)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, (g.float() @ w.float().t()).bfloat16())
+    assert torch.equal(dw, x.float().t() @ g.float())
+    assert torch.equal(db, g.float().sum(0))
+    assert none is None and torch.equal(dw16, dw.bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Din,Dout", [(3072, 3072), (3072, 8192),
+                                      (8192, 3072), (4096, 512)])
+def test_dense_bwd_wgmma_phi3_shapes_match_plain_and_rerun(Din, Dout):
+    """Phi-3-mini's projections (and Yi-6B's narrowest) at a B 8 x S 128
+    step on the wgmma route: dx within one bf16 rounding, f32 dw and db at
+    the gradient gate, bf16 dw the f32 dw's cast bit for bit, one launch
+    a call, identical bits on a rerun."""
+    _card()
+    from repro_torch.kernels import dense as dn
+    M = 1024
+    gen = _gen(28)
+    x = _randn(gen, (M, Din)).bfloat16()
+    w = (_randn(gen, (Din, Dout)) / Din ** 0.5).bfloat16()
+    g = _randn(gen, (M, Dout)).bfloat16()
+    for kernel in ("K2", "K3"):
+        assert dn.bwd_bf16_plan(kernel, M, Din, Dout).route == "wgmma"
+    before = (dn.dense_dx_cuda.launches, dn.dense_dwdb_cuda.launches)
+    dx = dn.dense_dx_cuda(g, w)
+    dw, db = dn.dense_dwdb_cuda(x, g)
+    dw16, _ = dn.dense_dwdb_cuda(x, g, dw_dtype=torch.bfloat16,
+                                 want_db=False)
+    assert (dn.dense_dx_cuda.launches, dn.dense_dwdb_cuda.launches) == (
+        before[0] + 1, before[1] + 2)
+    _bf16_grad_gates(dx, ref.dense_dx_ref(g, w), True)
+    want_dw, want_db = ref.dense_dwdb_ref(x, g)
+    _bf16_grad_gates(dw, want_dw, False)
+    _bf16_grad_gates(db, want_db, False)
+    assert torch.equal(dw16, dw.bfloat16())
+    assert torch.equal(dx, dn.dense_dx_cuda(g, w))
+    again = dn.dense_dwdb_cuda(x, g)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
 @pytest.mark.cuda
 def test_ops_dense_bf16_gradient_on_card_launches_k2_and_k3():
     """A bf16 projection's gradient through ``ops.dense`` launches K2 and

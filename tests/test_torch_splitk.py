@@ -526,7 +526,7 @@ def test_a_new_header_changes_the_library_name(tmp_path, monkeypatch):
 @pytest.mark.parametrize("name,header", [
     ("dense_fwd", "gemm_f32.cuh"), ("dense_bwd", "gemm_f32.cuh"),
     ("dense_fwd", "cp_async.cuh"), ("flash_attention", "cp_async.cuh"),
-    ("conv2d", "cp_async.cuh")])
+    ("conv2d", "cp_async.cuh"), ("dense_bwd", "wgmma_bf16.cuh")])
 def test_sources_include_the_shared_header(name, header):
     text = (build._HERE / build.SOURCES[name]).read_text()
     assert f'#include "{header}"' in text
