@@ -20,7 +20,9 @@ from the root of a checkout.  Phases, each of which raises on failure
    ``torch.profiler``), beside the least time the card could take; the
    sums of a Yi-6B (224 launches) and a Gemma-2 8-layer (56 launches)
    decode step at M = 4 and prefill forward (Yi-6B at M = 24, Gemma-2 at
-   M = 5000);
+   M = 5000); the same at Qwen3-MoE's attention projections (M = 1, 4,
+   16 and 2048; its 8-layer decode step and 2048-token prefill, 32
+   launches each);
 2b. K2-K8 (and K1 in f32) against their plain versions at every shape of
    a Table-2 case7 training step at B = 64, plus ragged and tied cases,
    for the split-K f32 product of K1 and K2 shapes whose reduction
@@ -36,7 +38,9 @@ from the root of a checkout.  Phases, each of which raises on failure
    read the small layers' rows against;
 2c. K9 (RMSNorm) at decode and prefill rows of d = 4608, 4096, 3072 in
    bf16 and f32 plus ragged rows (each rerun bit for bit; the launch
-   geometry printed), and K10 (flash attention) at Gemma-2's
+   geometry printed; Qwen3-MoE's rows: d = 2048 and its q/k norms at
+   head_dim 128, decode and a 2048-token prefill), and K10 (flash
+   attention) at Gemma-2's
    (bf16 and f32, q x 8 so the soft-cap of 50 acts), Yi-6B's and Phi-3's
    attention shapes (S up to 8192, windows) plus a small case with fully
    masked rows, each against its plain version (K10 in bf16 within one
@@ -50,10 +54,13 @@ from the root of a checkout.  Phases, each of which raises on failure
 2d. the LM's training kernels: K1, K2 and K3 in bf16 at every Phi-3-mini
    and Yi-6B projection shape at M = 1024 (B 8 x S 128; K1 without bias,
    as the LM calls it, at K1 bf16's gate; K2 and K3 each on the TMA +
-   wgmma route), K2 and K3 also at ragged M, with the relu mask, off 8
+   wgmma route), and at Granite-MoE's (1536 -> 1536 and -> 512; summed
+   over a phase-4h step too), K2 and K3 also at ragged M, with the relu
+   mask, off 8
    and at widths off every tile width the route plan can choose (each
    printing its route), and K9's backward at d = 3072, 4096, 4608 (1024
-   rows, and ragged rows) in bf16 and f32, against their plain versions:
+   rows, and ragged rows) in bf16 and f32, and at Granite-MoE's d = 1536
+   and Qwen3-MoE's q/k norms (d = 128), against their plain versions:
    dx within one bf16 rounding (bf16) or at the f32 gradient gate, f32
    dw, db and dscale at the gradient gate (1e-4 x max(max|ref|, 1)), K3's
    bf16 dw equal bit for bit to its f32 dw cast to bf16; every case
@@ -72,6 +79,13 @@ from the root of a checkout.  Phases, each of which raises on failure
    same numpy params and batch (CE chunks that pad, labels of -1), remat
    off and on (f32 within atol 2e-5 / rtol 1e-4, bf16 loss within 5e-3
    and gradients within atol / rtol 3e-2);
+3d. reduced Qwen3-MoE (``qk_norm``) and Granite-MoE in f32 on the card
+   against the port's CPU path from the same numpy params: phase 3's
+   token streams, prefill logits (1e-4) and cache (1e-4) and 4 decode
+   steps with per-row lengths, ``loss_fn``'s value and aux and every
+   gradient leaf (phase 3c's f32 gates; remat off and on), and every
+   router decision (``top_e``, ``keep``, slot) of all these calls equal;
+   then each config's bf16 forward on the card reruns bit for bit;
 4. full-width Yi-6B from a seed, 8 Poisson requests through the
    continuous-batching engine with measured timing; every request
    completes, logits are finite, K1 ran 224 and K9 65 times per forward
@@ -132,6 +146,22 @@ from the root of a checkout.  Phases, each of which raises on failure
    share (traced after a warm-up one); (c) the CLI once at its defaults
    with ``--ckpt-dir``, its checkpoint restored with the port's
    ``restore``;
+4g. (run after 4f) Qwen3-30B-A3B at full width and 8 of 48 layers from
+   a seed (5.61 B params, f32 + bf16 compute copy): 8 Poisson requests
+   through the continuous engine (every request completes, logits
+   finite, exactly 32 K1 and 33 K9 launches per forward call: ln1, ln2,
+   the q and k norms a layer, the final norm; TTFT, latency p50/p99,
+   tok/s, peak memory), a decode step of 4 full slots timed and traced
+   by kernel (K1, K9, cuBLAS, other, and the moe layers' spans: router,
+   dispatch, experts, combine) against its byte floor (the layers' and
+   the head's bf16 weights, every expert's included), and a 2048-token
+   prompt's prefill timed (exact launches per call) and traced;
+4h. Granite-3.0-MoE-3B at full width and 8 of 32 layers, phase 4e's
+   loop (B 8 x S 128 from ``lm_corpus``, AdamW, 10 steps; exactly 32
+   K1, K2 and K3 and 17 K9 forward and backward launches a step, every
+   K2/K3 on the wgmma route, the held-out loss falls), plus the moe
+   spans forward and backward in the traced step and the step's flop
+   floor counted from the code;
 5. the serving CLI once on the reduced config;
 6. a JSON line with every ported kernel (device-clock times as the extra
    fields ``device_ms`` and ``library_device_ms``, "not measured" being
@@ -142,7 +172,12 @@ from the root of a checkout.  Phases, each of which raises on failure
    as ``outer_launches``; K1 its bf16 training instance as
    ``train_bf16_*``, K2 and K3 their bf16 instances as ``bf16_*`` and K9
    its backward as ``bwd_*``, launches from phase 4e, their
-   ``*_outer_launches`` from 4f(b)), then the card
+   ``*_outer_launches`` from 4f(b); K1 Qwen3-MoE's decode and prefill
+   sums as ``qwen_*`` and ``qwen_prefill_*`` (launches from 4g), K1, K2
+   and K3 Granite-MoE's step as ``granite_train_bf16_*`` and
+   ``granite_bf16_*``, K9 Qwen3-MoE's forwards as ``qwen_*`` and
+   ``qwen_prefill_*`` and its backward in Granite-MoE's step as
+   ``granite_bwd_*``), then the card
    again, then the result line ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports no JAX and nothing of the JAX package ``repro``.
@@ -170,7 +205,11 @@ for phase 4d, and
 
     python3 chip_smoke.py --lm
 
-for phases 2d, 3c, 4e and 4f.
+for phases 2d, 3c, 4e and 4f, and
+
+    python3 chip_smoke.py --moe
+
+for phases 3d, 4g and 4h.
 """
 from __future__ import annotations
 
@@ -204,12 +243,21 @@ DECODE_SHAPES = {                  # one layer's projections: (name, K, N)
                    ("wv", 4608, 2048), ("wo", 4096, 4608),
                    ("wg", 4608, 36864), ("wi", 4608, 36864),
                    ("mlp_wo", 36864, 4608)),
+    # the experts' products are library einsums, not K1 (moe.py)
+    "qwen3-moe-30b-a3b": (("wq", 2048, 4096), ("wk", 2048, 512),
+                          ("wv", 2048, 512), ("wo", 4096, 2048)),
 }
-DECODE_LAYERS = {"yi-6b": 32, "gemma2-27b": 8}   # phases 4 and 4c
+DECODE_LAYERS = {"yi-6b": 32, "gemma2-27b": 8,      # phases 4, 4c and 4g
+                 "qwen3-moe-30b-a3b": 8}
 K1_ROWS = (1, 4, 16,               # decode rows (the split-K stream)
            17, 24, 64)             # prefill rows (the tile GEMM, 64-row)
-K1_GEMMA_ROWS = (512, 5000)        # long prompts (128-row tiles), Gemma-2
-PREFILL_ROWS = {"yi-6b": 24, "gemma2-27b": 5000}   # the prefill sums
+K1_MODEL_ROWS = {"yi-6b": K1_ROWS,
+                 # long prompts (128-row tiles)
+                 "gemma2-27b": K1_ROWS + (512, 5000),
+                 # decode, and phase 4g's 2048-token prompt
+                 "qwen3-moe-30b-a3b": (1, 4, 16, 2048)}
+PREFILL_ROWS = {"yi-6b": 24, "gemma2-27b": 5000,   # the prefill sums
+                "qwen3-moe-30b-a3b": 2048}
 K1_RAGGED = (                      # (dtype, M, K, N), bias + relu
     ("float32", 37, 100, 77), ("bfloat16", 5, 72, 70),
     ("bfloat16", 33, 100, 130),
@@ -283,7 +331,7 @@ def device_ms(torch, fn, arg_sets, iters=50, warmup=5, tries=3):
     makes, and a loop that records no device time is traced again, up to
     ``tries`` times.  Returns (ms, or None where the profiler recorded no
     device time; {kernel name: its ms per ``fn`` call})."""
-    from repro_torch.launch.profile_decode import device_us
+    from repro_torch.launch.profile_decode import annotation, device_us
     for i in range(warmup):
         fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
@@ -301,7 +349,7 @@ def device_ms(torch, fn, arg_sets, iters=50, warmup=5, tries=3):
         for evt in prof.key_averages():
             t = device_us(evt)
             if t > 0 and evt.device_type == torch.autograd.DeviceType.CUDA \
-                    and not evt.key.startswith("ProfilerStep"):  # the span
+                    and not annotation(evt):   # a span, not a kernel
                 per = t / evt.count * max(1, round(evt.count / iters))
                 us += per
                 names[evt.key] = per / 1e3
@@ -341,10 +389,12 @@ def phase_kernel(torch, dense_mod, ref, only=None):
     """K1 against dense_ref at every Yi-6B and Gemma-2 projection shape at
     M = 1, 4, 16 (split-K decode stream), 17, 24 and 64 (prefill tile
     GEMM, 64-row tiles) and, at Gemma-2's shapes, 512 and 5000 (128-row
-    tiles), plus ragged cases; every shape reruns bit for bit.  Returns the
-    per-model sums of a decode step (M = 4) and of a prefill forward (Yi-6B
-    at M = 24, Gemma-2 at M = 5000), and the worst error.  ``only``, a set
-    of rows, keeps just those rows and leaves out the sums."""
+    tiles), at Qwen3-MoE's at M = 1, 4, 16 and 2048, plus ragged cases;
+    every shape reruns bit for bit.  Returns the per-model sums of a
+    decode step (M = 4) and of a prefill forward (Yi-6B at M = 24,
+    Gemma-2 at M = 5000, Qwen3-MoE at 2048), and the worst error.
+    ``only``, a set of rows, keeps just those rows and leaves out the
+    sums."""
     gen = torch.Generator("cuda").manual_seed(1)
     dense_cuda = dense_mod.dense_cuda
     sums = {(arch, kind): _k1_sum() for arch in DECODE_SHAPES
@@ -359,7 +409,7 @@ def phase_kernel(torch, dense_mod, ref, only=None):
         unique = {}
         for name, K, N in shapes:
             unique.setdefault((K, N), []).append(name)
-        rows = K1_ROWS + (K1_GEMMA_ROWS if arch == "gemma2-27b" else ())
+        rows = K1_MODEL_ROWS[arch]
         for M in (M for M in rows if only is None or M in only):
             for (K, N), which in unique.items():
                 wbytes = K * N * 2
@@ -391,7 +441,8 @@ def phase_kernel(torch, dense_mod, ref, only=None):
                     f"{k_ms:<9.5f} {fmt_ms(k_dev):<9} {p_ms:<9.5f} "
                     f"{l_ms:<10.5f} {fmt_ms(l_dev):<10} {b_ms:<9.5f} "
                     + ("-" if k_dev is None else f"{b_ms / k_dev:.3f}"))
-                for kind, at in (("decode", 4), ("prefill", PREFILL_ROWS[arch])):
+                for kind, at in (("decode", 4),
+                                 ("prefill", PREFILL_ROWS[arch])):
                     if M != at:
                         continue
                     n = DECODE_LAYERS[arch] * len(which)
@@ -1135,7 +1186,7 @@ def _outer_profile(torch, port, tr, per_step):
     for evt in prof.key_averages():
         us = port.profile.device_us(evt)
         if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA \
-                or evt.key.startswith("ProfilerStep"):
+                or port.profile.annotation(evt):   # a span, not a kernel
             continue
         key = next((k for pat, k in KERNEL_NAMES if pat in evt.key), "other")
         dev_ms[key] += us / 1e3
@@ -1280,6 +1331,13 @@ RMS_CASES += [(5000, 4608, "bfloat16"),                   # the long prompt
               (5, 4095, "bfloat16"), (37, 1000, "float32"),
               (3, 13, "bfloat16"),                        # ragged rows
               (3001, 4095, "bfloat16")]   # many unaligned rows: chunked
+# Qwen3-MoE (phase 4g): ln1/ln2/final at d = 2048 and the q/k norms at
+# head_dim 128, a decode step's rows (4 slots; 32 q and 4 k heads) and the
+# 2048-token prompt's
+QWEN_RMS = {"decode": ((4, 2048), (128, 128), (16, 128)),
+            "prefill": ((2048, 2048), (65536, 128), (8192, 128))}
+RMS_CASES += [(rows, d, "bfloat16") for kind in ("decode", "prefill")
+              for rows, d in QWEN_RMS[kind]]
 # (name, B, H, KH, Sq, Sk, D, dtype, window, softcap)
 FLASH_CASES = [
     ("gemma2 global", 1, 32, 16, 8192, 8192, 128, "bfloat16", 0, 50.0),
@@ -1882,6 +1940,9 @@ LM_BWD_SHAPES = {                  # one layer's projections: (name, Din, Dout)
                        ("wg", 3072, 8192), ("wi", 3072, 8192),
                        ("mlp_wo", 8192, 3072)),
     "yi-6b": DECODE_SHAPES["yi-6b"],
+    # phase 4h's attention projections (the experts are library einsums)
+    "granite-moe-3b-a800m": (("wq", 1536, 1536), ("wk", 1536, 512),
+                             ("wv", 1536, 512), ("wo", 1536, 1536)),
 }
 LM_ROWS = 1024                     # B 8 x S 128, a training step's rows
 LM_BATCH, LM_SEQ = 8, 128
@@ -1895,6 +1956,9 @@ LM_BWD_EDGES = (                   # (M, Din, Dout), no mask, widths off 8's
 #                                   last tile (tests/test_torch_dense_plan.py)
 RMS_BWD_CASES = [(LM_ROWS, d, dt) for d in (3072, 4096, 4608)
                  for dt in ("bfloat16", "float32")]
+RMS_BWD_CASES += [(LM_ROWS, 1536, "bfloat16"),      # Granite-MoE's norms
+                  (32768, 128, "bfloat16"),          # Qwen3's q/k norms at
+                  (4096, 128, "bfloat16")]           # B 8 x S 128
 RMS_BWD_CASES += [(1000, 4608, "bfloat16"), (133, 3072, "bfloat16"),
                   (37, 1000, "float32"), (3, 13, "bfloat16")]   # ragged
 LM_ARCH = "phi3-mini-3.8b"         # phases 4e and 4f(b), at full width
@@ -1914,11 +1978,19 @@ LM_KERNEL_NAMES = (   # device kernel name -> the port's kernel (bf16 path)
 CUBLAS_NAMES = ("gemm", "nvjet", "cutlass", "xmma")   # the head's matmul
 
 
-def lm_step_launches(L: int) -> dict:
+def dense_per_layer(cfg) -> int:
+    """K1 launches a layer's forward makes: q, k, v, o, and the gated
+    MLP's three where the block has one (the moe block's experts are
+    library einsums)."""
+    return 4 + (3 if cfg.arch_type == "dense" and cfg.d_ff > 0 else 0)
+
+
+def lm_step_launches(L: int, per_layer: int = 7) -> dict:
     """K1-K3 and K9 launches of one LM training step at depth L (remat
-    off): 7 projections a layer forward (K1) and backward (K2, K3), and
-    2 L + 1 norms forward (K9) and backward."""
-    return {"K1": 7 * L, "K2": 7 * L, "K3": 7 * L, "K9": 2 * L + 1,
+    off): ``per_layer`` projections a layer forward (K1) and backward (K2,
+    K3), and 2 L + 1 norms forward (K9) and backward."""
+    n = per_layer * L
+    return {"K1": n, "K2": n, "K3": n, "K9": 2 * L + 1,
             "K9 bwd": 2 * L + 1}
 
 
@@ -1971,6 +2043,15 @@ def _time_case(torch, row, n, kern, plain, lib, sets, lib_sets, nbytes,
     l_ms = time_ms(torch, lib, lib_sets)
     l_dev, _ = device_ms(torch, lib, lib_sets)
     b_ms, by = roof_ms(nbytes, flops, dtype)
+    t = k_ms, k_dev, p_ms, l_ms, l_dev, b_ms, by
+    _add_case(row, n, t)
+    return t
+
+
+def _add_case(row, n, t):
+    """Add n launches of a case timed as ``_time_case`` returns it to
+    ``row``'s sums."""
+    k_ms, k_dev, p_ms, l_ms, l_dev, b_ms, by = t
     row["ms"] += n * k_ms
     row["device_ms"] = add_ms(row["device_ms"], n, k_dev)
     row["plain_ms"] += n * p_ms
@@ -1978,7 +2059,6 @@ def _time_case(torch, row, n, kern, plain, lib, sets, lib_sets, nbytes,
     row["library_device_ms"] = add_ms(row["library_device_ms"], n, l_dev)
     row["bound_ms"] += n * b_ms
     row["bound_by"][by] = row["bound_by"].get(by, 0.0) + n * b_ms
-    return k_ms, k_dev, p_ms, l_ms, l_dev, b_ms, by
 
 
 def _dense_bwd_case(torch, gen, key, M, Din, Dout, relu):
@@ -2042,7 +2122,8 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
     in bf16, no db, where the checkout's K3 takes ``dw_dtype``).
     ``only``: the kernels to run (K1, K2, K3, K9), all if None.  Returns
     per kernel its row, summed over one phase-4e step (Phi-3-mini,
-    LM_LAYERS layers)."""
+    LM_LAYERS layers), and under ("moe", kernel) over one phase-4h step
+    (Granite-MoE, MOE_TRAIN_LAYERS layers)."""
     gen = torch.Generator("cuda").manual_seed(4)
     new = hasattr(dn, "bwd_bf16_plan")   # K3 writes bf16 dw, db if asked
     lm_k3 = (lambda x, g, out: dn.dense_dwdb_cuda(
@@ -2065,7 +2146,7 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
     for key in ("K1", "K2", "K3"):
         if only is not None and key not in only:
             continue
-        row = _new_row()
+        row, moe_row = _new_row(), _new_row()
         for arch, shapes in LM_BWD_SHAPES.items():
             unique = {}
             for name, Din, Dout in shapes:
@@ -2093,6 +2174,8 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
                                              "projection off the wgmma "
                                              "route")
                 _note_err(row, err, tol)
+                if arch == MOE_TRAIN_ARCH:
+                    _note_err(moe_row, err, tol)
                 wbytes = 2 * Din * Dout
                 copies = max(2, min(16, math.ceil(256e6 / wbytes)))
                 sets = [args] + [_dense_bwd_case(torch, gen, key, M, Din,
@@ -2108,6 +2191,8 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
                 t = _time_case(torch, row, n, kern[key], plain[key],
                                lib[key], sets, sets, nbytes, flops,
                                "bfloat16")
+                if arch == MOE_TRAIN_ARCH:
+                    _add_case(moe_row, MOE_TRAIN_LAYERS * len(which), t)
                 log(f"[lm-k] {key:<6} {arch:<15} "
                     f"{f'{M}x{Din}x{Dout}':<18} {err:<11.4g} {tol:<10.4g} "
                     f"{t[0]:<10.5f} {fmt_ms(t[1]):<12} {t[2]:<10.5f} "
@@ -2139,13 +2224,22 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
                 f" {row['bound_ms'] / row['device_ms']:.1%} of the bound, "
                 f"{row['device_ms'] / row['library_device_ms']:.3f}x "
                 "torch.matmul's device time")
+        if moe_row["bound_ms"]:
+            log(f"[lm-k] {key} bf16, one {MOE_TRAIN_ARCH} step at "
+                f"{MOE_TRAIN_LAYERS} layers ({4 * MOE_TRAIN_LAYERS} "
+                f"launches): kernel {moe_row['ms']:.5f} ms (device "
+                f"{fmt_ms(moe_row['device_ms'])}), torch.matmul "
+                f"{moe_row['library_ms']:.5f} (device "
+                f"{fmt_ms(moe_row['library_device_ms'])}), bound "
+                f"{moe_row['bound_ms']:.5f}")
         rows[key] = row
+        rows[("moe", key)] = moe_row
     if only is not None and "K9" not in only:
         torch.cuda.empty_cache()
         return rows
 
     F = torch.nn.functional
-    row = _new_row()
+    row, moe_row = _new_row(), _new_row()
     for rows_n, d, dt in RMS_BWD_CASES:
         tdt = getattr(torch, dt)
         itemsize = 2 if dt == "bfloat16" else 4
@@ -2191,6 +2285,10 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
         t = _time_case(torch, row, n, rms.rmsnorm_bwd_cuda,
                        ref.rmsnorm_bwd_ref, lib, sets, lib_sets, nbytes,
                        12.0 * rows_n * d, "float32")
+        if (d, dt) == (1536, "bfloat16"):       # Granite-MoE's norms
+            _note_err(moe_row, e1, t1)
+            _note_err(moe_row, e2, t2)
+            _add_case(moe_row, 2 * MOE_TRAIN_LAYERS + 1, t)
         log(f"[lm-k] K9 bwd {f'{rows_n}x{d}':<12} {dt:<9} dx {e1:<10.4g} "
             f"(tol {t1:<9.4g}) dscale {e2:<10.4g} (tol {t2:<9.4g}) "
             f"{t[0]:<10.5f} {fmt_ms(t[1]):<12} {t[2]:<10.5f} {t[3]:<10.5f} "
@@ -2205,6 +2303,7 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
         f" ({dominant(row['bound_by'])}); worst max_abs_err "
         f"{row['err']:.4g} at tol {row['tol']:.4g}")
     rows["K9 bwd"] = row
+    rows[("moe", "K9 bwd")] = moe_row
     torch.cuda.empty_cache()
     return rows
 
@@ -2274,7 +2373,7 @@ def _lm_profile(torch, port, prof):
     for evt in prof.key_averages():
         us = port.profile.device_us(evt)
         if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA \
-                or evt.key.startswith("ProfilerStep"):
+                or port.profile.annotation(evt):   # a span, not a kernel
             continue
         key = _lm_kernel(evt.key)
         dev_ms[key] = dev_ms.get(key, 0.0) + us / 1e3
@@ -2289,21 +2388,25 @@ def _lm_kernel(name):
     return key
 
 
-def phase_lm_step(torch, port, mods, card):
-    """Phase 4e: Phi-3-mini at full width and LM_LAYERS layers, B 8 x S
+def phase_lm_step(torch, port, mods, card, arch=LM_ARCH, layers=LM_LAYERS,
+                  tag="lm-step"):
+    """Phase 4e (4h: ``arch`` Granite-MoE, ``tag`` "moe-train"):
+    Phi-3-mini at full width and LM_LAYERS layers, B 8 x S
     128 from ``lm_corpus``, AdamW, LM_STEPS steps through
     ``make_node_round`` with ``lm.loss_fn``: finite losses that fall,
     every grad leaf nonzero, exact launches a step, step wall, device time
     by kernel, busy share, tokens/s, peak memory, and the optimizer's time
     against AdamW's byte floor.  The loss that must fall is a held-out
     batch's, before and after the steps (each step's own loss is on a new
-    batch).  Returns (launches, step device ms by kernel)."""
+    batch).  A moe config also prints its layers' spans in the traced
+    step (``moe.SPANS``, forward and backward) and the step's flop
+    floor.  Returns (launches, step device ms by kernel)."""
     import numpy as np
     lm, pipeline = port.lm, port.pipeline
-    cfg = dataclasses.replace(port.configs.get_config(LM_ARCH),
-                              num_layers=LM_LAYERS)
-    L, B, S = LM_LAYERS, LM_BATCH, LM_SEQ
-    expect = lm_step_launches(L)
+    cfg = dataclasses.replace(port.configs.get_config(arch),
+                              num_layers=layers)
+    L, B, S = layers, LM_BATCH, LM_SEQ
+    expect = lm_step_launches(L, dense_per_layer(cfg))
     params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                             device="cuda")
     leaves = port.tree.tree_leaves(params)
@@ -2321,9 +2424,11 @@ def phase_lm_step(torch, port, mods, card):
         return lm.loss_fn(p, pipeline.host_batch(b["rows"]), cfg)
 
     def held_out(p):
+        """(loss, its ce, its aux) on the held-out batch."""
         with torch.no_grad():
-            return float(loss_fn(p, {"rows": batches[-1]["rows"][0]})[0])
-    before_loss = held_out(params)
+            loss, parts = loss_fn(p, {"rows": batches[-1]["rows"][0]})
+        return float(loss), float(parts["ce"]), float(parts["aux"])
+    held0 = held_out(params)
 
     tc = port.types.TrainConfig(optimizer="adamw", learning_rate=LM_LR,
                                 warmup_steps=2, total_steps=LM_STEPS,
@@ -2336,7 +2441,7 @@ def phase_lm_step(torch, port, mods, card):
     zero = [i for i, g in enumerate(port.tree.tree_leaves(grads))
             if not bool(g.abs().sum() > 0)]
     if zero:
-        raise AssertionError(f"[lm-step] grad leaves {zero} are all zero")
+        raise AssertionError(f"[{tag}] grad leaves {zero} are all zero")
     # the optimizer alone (AdamW's update and its apply) on these grads,
     # against its byte floor: read params, grads and both moments, write
     # params and both moments, 7 c_w
@@ -2360,16 +2465,20 @@ def phase_lm_step(torch, port, mods, card):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         per = {k: v - before[k] for k, v in _lm_counts(mods).items()}
         if per != expect:
-            raise AssertionError(f"[lm-step] step {i}: launches {per} != "
+            raise AssertionError(f"[{tag}] step {i}: launches {per} != "
                                  f"{expect}")
         losses.append(float(loss))
     launches = _lm_counts(mods)
     peak = torch.cuda.max_memory_allocated()
-    after_loss = held_out(params)
-    log(f"[lm-step] losses {losses}; held-out batch {before_loss:.6f} -> "
-        f"{after_loss:.6f}")
+    held1 = held_out(params)
+    log(f"[{tag}] losses {losses}; held-out batch {held0[0]:.6f} -> "
+        f"{held1[0]:.6f} (ce {held0[1]:.6f} -> {held1[1]:.6f}, aux "
+        f"{held0[2]:.6f} -> {held1[2]:.6f})")
+    # the language-model loss must fall; a moe config's load-balance aux
+    # (weighted 0.01 in the objective) may rise as the routers specialise
+    before_loss, after_loss = held0[1], held1[1]
     if not (np.isfinite(losses).all() and after_loss < before_loss):
-        raise AssertionError(f"[lm-step] losses not finite, or the "
+        raise AssertionError(f"[{tag}] losses not finite, or the "
                              f"held-out loss did not fall: {losses}, "
                              f"{before_loss} -> {after_loss}")
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -2386,38 +2495,51 @@ def phase_lm_step(torch, port, mods, card):
     dev_ms, counts, busy_ms = _lm_profile(torch, port, prof)
     f32 = {k: counts.get(k, 0) for k in ("K1 f32", "K2 f32", "K3 f32")}
     if any(f32.values()):
-        raise AssertionError(f"[lm-step] f32 dense kernels ran: {f32}")
+        raise AssertionError(f"[{tag}] f32 dense kernels ran: {f32}")
     # the counters above hold the launches; the trace holds their kernels
     # (its tracer can miss a step's first launches: K1's, K9's)
     bwd = {k: counts.get(k, 0) for k in ("K2", "K3", "K2 tile", "K3 tile")}
     if bwd["K2 tile"] or bwd["K3 tile"] or not (
             0 < bwd["K2"] <= expect["K2"] and 0 < bwd["K3"] <= expect["K3"]):
-        raise AssertionError(f"[lm-step] the traced step's K2/K3 kernels "
+        raise AssertionError(f"[{tag}] the traced step's K2/K3 kernels "
                              f"{bwd}: want up to {expect['K2']} each, all "
                              "on the TMA + wgmma route")
     mean = float(np.mean(step_ms[1:]))
-    log(f"[lm-step] {LM_ARCH} full width, {L} layers ({n_params} params "
+    log(f"[{tag}] {arch} full width, {L} layers ({n_params} params "
         f"f32, c_w {c_w} B), B={B} x S={S} from lm_corpus, AdamW lr {LM_LR:g} "
         f"(warmup 2 of {LM_STEPS}), grad_clip 1.0; card: {card}")
-    log(f"[lm-step] launches {launches} = {LM_STEPS} x {expect} (bf16 K1-K3:"
+    log(f"[{tag}] launches {launches} = {LM_STEPS} x {expect} (bf16 K1-K3:"
         " no f32 dense kernel in the trace; the traced step's K2 and K3 "
         f"dense_bwd_wgmma, {bwd['K2']} and {bwd['K3']} of {expect['K2']} "
         "traced, no dense_bwd_bf16_tile); every grad leaf nonzero at the "
         "initial params")
-    log(f"[lm-step] step mean {mean:.3f} ms over steps 2-{LM_STEPS} (first "
+    log(f"[{tag}] step mean {mean:.3f} ms over steps 2-{LM_STEPS} (first "
         f"{step_ms[0]:.3f} ms), p50 {np.percentile(step_ms[1:], 50):.3f} ms"
         f", {B * S / mean * 1e3:.1f} tokens/s | max_memory_allocated "
         f"{peak / 1e9:.3f} GB ({card})")
     total = sum(dev_ms.values())
-    log(f"[lm-step] profiled step (after a warm-up one): wall {wall_ms:.3f}"
+    log(f"[{tag}] profiled step (after a warm-up one): wall {wall_ms:.3f}"
         f" ms, device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}"
         f"%), kernel time {total:.3f} ms: " + ", ".join(
             f"{k} {v:.4f} ({counts[k]})" for k, v in sorted(
                 dev_ms.items(), key=lambda kv: -kv[1])))
-    log(f"[lm-step] AdamW update + apply alone: event {o_ms:.3f} ms, device "
+    log(f"[{tag}] AdamW update + apply alone: event {o_ms:.3f} ms, device "
         f"{fmt_ms(o_dev)} ms against its byte floor {o_floor:.3f} ms (7 c_w"
         f" = {7 * c_w / 1e9:.2f} GB at 3.35 TB/s)"
         + (f", {o_floor / o_dev:.0%} of it" if o_dev else ""))
+    if cfg.arch_type == "moe":
+        fwd, bwd = moe_spans(torch, prof)
+        log(f"[{tag}] the moe layers in the traced step, device ms forward"
+            " / backward: " + ", ".join(
+                f"{k} {fmt_ms(fwd[k])} / {fmt_ms(bwd[k])}" for k in fwd))
+        flops = train_flops(cfg, B, S)
+        f_ms = sum(flops.values()) / PEAK_FLOPS["bfloat16"] * 1e3
+        log(f"[{tag}] the step's flop floor, from the code: "
+            f"{sum(flops.values()) / 1e12:.4f} TFLOP (" + ", ".join(
+                f"{k} {v / 1e12:.4f}" for k, v in flops.items())
+            + f"), {f_ms:.3f} ms at 989 TFLOP/s bf16, "
+            f"{f_ms / busy_ms:.1%} of the traced step's device busy "
+            f"{busy_ms:.3f} ms")
     del params, state, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -2662,6 +2784,372 @@ def phase_lm_train(torch, port, mods, card):
     return total
 
 
+# ----------------------------------------------------------------------
+# The MoE family: Qwen3-30B-A3B served, Granite-3.0-MoE trained
+# ----------------------------------------------------------------------
+MOE_ARCHS = ("qwen3-moe-30b-a3b", "granite-moe-3b-a800m")
+MOE_SERVE_ARCH = "qwen3-moe-30b-a3b"   # phase 4g, at full width
+MOE_SERVE_LAYERS = 8                   # of 48
+MOE_TRAIN_ARCH = "granite-moe-3b-a800m"   # phase 4h, at full width
+MOE_TRAIN_LAYERS = 8                   # of 32
+MOE_PROMPT = PREFILL_ROWS[MOE_SERVE_ARCH]   # 4g's traced prefill
+MOE_CACHE_TOL = 1e-4                   # card vs CPU f32 caches (post-rope k)
+ROUTING = ("top_e", "keep", "slot")
+
+
+def moe_spans(torch, prof):
+    """Device ms of the kernels launched under each moe span
+    (``moe.SPANS``) in ``prof``'s trace: forward, and backward (the
+    autograd nodes of the ops recorded under the span, linked by their
+    sequence numbers); None where the trace holds no device time."""
+    from repro_torch.models.moe import SPANS
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    fwd, bwd = dict.fromkeys(SPANS, 0.0), dict.fromkeys(SPANS, 0.0)
+    seqs = {k: set() for k in SPANS}
+
+    def walk(evt, key):
+        for ch in evt.cpu_children:
+            if getattr(ch, "sequence_nr", -1) >= 0:
+                seqs[key].add(ch.sequence_nr)
+            walk(ch, key)
+    for e in cpu:
+        if e.name in fwd:
+            fwd[e.name] += e.device_time_total / 1e3
+            walk(e, e.name)
+    for e in cpu:
+        if e.name.startswith("autograd::engine::evaluate_function"):
+            for k in SPANS:
+                if e.sequence_nr in seqs[k]:
+                    bwd[k] += e.device_time_total / 1e3
+    return ({k: v or None for k, v in fwd.items()},
+            {k: v or None for k, v in bwd.items()})
+
+
+def train_flops(cfg, B, S) -> dict:
+    """A training step's flops as the code runs them, 2 per multiply-add:
+    forward, dx and dw of each product (3x), the chunked CE's head
+    product 4x (its forward recomputed in the backward), attention over
+    every key of its one key chunk (masked, not skipped), and the experts
+    on every capacity row."""
+    from repro_torch.models.moe import capacity
+    M, d, L, V = B * S, cfg.d_model, cfg.num_layers, cfg.vocab_size
+    H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    out = {"projections": 3 * L * 2 * M * (2 * d * H * D + 2 * d * KH * D),
+           "attention": 3 * L * 2 * 2 * B * H * S * S * D,
+           "head": 4 * 2 * M * d * V}
+    if cfg.arch_type == "moe":
+        E, k, f = cfg.num_experts, cfg.top_k, cfg.expert_d_ff
+        C = capacity(S, k, cfg.moe_capacity_factor, E)
+        out["experts"] = 3 * L * 2 * B * E * C * 3 * d * f
+        out["router"] = 3 * L * 2 * M * d * E
+    elif cfg.d_ff:
+        out["mlp"] = 3 * L * 2 * M * 3 * d * cfg.d_ff
+    return out
+
+
+def phase_moe_parity(torch, port, serving):
+    """Phase 3d: reduced Qwen3-MoE (``qk_norm``) and Granite-MoE in f32
+    (TF32 off), the card against the port's CPU path from the same numpy
+    params: the serving engine's token streams (``phase_reduced``),
+    prefill logits and cache and 4 decode steps with per-row lengths
+    (slots 0 and 2, slot 1 free), ``loss_fn``'s value, aux and every
+    gradient leaf (remat off and on), and every router decision
+    (``top_e``, ``keep``, slot) of all these calls equal.  Then the bf16
+    forward on the card reruns bit for bit."""
+    import numpy as np
+    from repro_torch.models import moe
+    lm, weights, configs = port.lm, port.weights, port.configs
+    for arch in MOE_ARCHS:
+        phase_reduced(torch, configs, lm, serving, weights, arch)
+    seen = {"cuda": [], "cpu": []}
+    route = moe.route
+
+    def recording(params, x, cfg, capacity_factor=0.0):
+        r = route(params, x, cfg, capacity_factor)
+        seen[x.device.type].append({k: r[k].cpu() for k in ROUTING})
+        return r
+    moe.route = recording
+    try:
+        for arch in MOE_ARCHS:
+            cfg = dataclasses.replace(configs.get_reduced(arch),
+                                      dtype="float32", ce_chunk=5)
+            tree = weights.params_to_numpy(lm.init_params(
+                cfg, torch.Generator("cpu").manual_seed(0), device="cpu"))
+            rng = np.random.default_rng(2)
+            prompts = {0: rng.integers(0, cfg.vocab_size, (1, 5)),
+                       2: rng.integers(0, cfg.vocab_size, (1, 19))}
+            steps = rng.integers(0, cfg.vocab_size, (4, 3, 1))
+            toks, labels = _lm_batch(np, cfg.vocab_size)
+            out = {}
+            for dev in ("cuda", "cpu"):
+                params = weights.params_from_numpy(tree, cfg, dev)
+                cache = lm.init_cache(3, 32, cfg, dtype=torch.float32,
+                                      device=dev)
+                seq = []
+                with torch.inference_mode():
+                    for slot, p in prompts.items():
+                        logits, sl = lm.prefill(
+                            params, torch.as_tensor(p, device=dev), cfg,
+                            cache_dtype=torch.float32)
+                        seq.append(logits)
+                        lm.cache_insert(cache, sl, slot)
+                    for t in steps:
+                        logits, cache = lm.decode_step(
+                            params, cache, None,
+                            torch.as_tensor(t, device=dev), cfg)
+                        seq.append(logits[[0, 2]])
+                kv = [cache.layers["kv"][n][:, [0, 2]].cpu()
+                      for n in ("k", "v")]
+                lens = cache.lengths.tolist()
+                batch = {"tokens": torch.as_tensor(toks, device=dev),
+                         "labels": torch.as_tensor(labels, device=dev)}
+                grads = {}
+                for remat in (False, True):
+                    (loss, parts), g = port.trainer.value_and_grad(
+                        lambda p, b: lm.loss_fn(p, b, cfg, remat=remat),
+                        params, batch)
+                    grads[remat] = (float(loss),
+                                    float(parts["aux"].detach()),
+                                    [x.float().cpu()
+                                     for x in port.tree.tree_leaves(g)])
+                out[dev] = ([x.cpu() for x in seq], kv, lens, grads)
+            (cs, ckv, clen, cg), (hs, hkv, hlen, hg) = out["cuda"], out["cpu"]
+            diff = max(_logit_diff(torch, a, b) for a, b in zip(cs, hs))
+            cdiff = max(float((a - b).abs().max()) for a, b in zip(ckv, hkv))
+            if clen != hlen or clen != [9, 0, 23]:
+                raise AssertionError(f"[moe-parity] {arch}: lengths {clen} "
+                                     f"vs cpu {hlen}")
+            if not (diff <= SERVE_TOL and cdiff <= MOE_CACHE_TOL):
+                raise AssertionError(f"[moe-parity] {arch}: logits differ by"
+                                     f" {diff}, caches by {cdiff}")
+            tl, atol, rtol = LM_TOL["float32"]
+            worst = 0.0
+            for remat in (False, True):
+                (cl, ca, cgr), (hl, ha, hgr) = cg[remat], hg[remat]
+                if not (abs(cl - hl) <= tl * max(1.0, abs(hl))
+                        and abs(ca - ha) <= tl * max(1.0, abs(ha))):
+                    raise AssertionError(
+                        f"[moe-parity] {arch} remat={remat}: loss {cl} aux "
+                        f"{ca} vs cpu {hl} {ha}")
+                for a, b in zip(cgr, hgr, strict=True):
+                    close = (a - b).abs() <= atol + rtol * b.abs()
+                    if not bool(close.all()):
+                        raise AssertionError(
+                            f"[moe-parity] {arch} remat={remat}: a grad leaf"
+                            f" differs by {(a - b).abs().max()}")
+                    worst = max(worst, float((a - b).abs().max()))
+            calls = len(seen["cuda"])
+            if calls != len(seen["cpu"]) or calls == 0:
+                raise AssertionError(f"[moe-parity] {arch}: {calls} routed "
+                                     f"calls on the card, "
+                                     f"{len(seen['cpu'])} on the cpu")
+            for i, (a, b) in enumerate(zip(seen["cuda"], seen["cpu"])):
+                for k in ROUTING:
+                    if not torch.equal(a[k], b[k]):
+                        raise AssertionError(
+                            f"[moe-parity] {arch}: routed call {i} differs "
+                            f"in {k}")
+            n_tok = sum(int(r["keep"].numel()) for r in seen["cuda"])
+            seen["cuda"].clear()
+            seen["cpu"].clear()
+            log(f"[moe-parity] {arch} f32 card vs cpu: prefill + 4 decode "
+                f"steps logits max_abs_diff {diff:.3g} (tol {SERVE_TOL}), "
+                f"caches {cdiff:.3g} (tol {MOE_CACHE_TOL}), lengths {clen}; "
+                f"loss {cg[False][0]:.7f} (cpu {hg[False][0]:.7f}), aux "
+                f"{cg[False][1]:.7f} (cpu {hg[False][1]:.7f}), every grad "
+                f"leaf within atol {atol:g} / rtol {rtol:g} (max_abs_diff "
+                f"{worst:.3g}), remat on and off; routing equal in all "
+                f"{calls} routed calls ({n_tok} token copies: top_e, keep, "
+                "slot)")
+    finally:
+        moe.route = route
+
+    for arch in MOE_ARCHS:
+        cfg = configs.get_reduced(arch)            # bf16 activations
+        params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(1),
+                                device="cuda")
+        toks = torch.as_tensor(_lm_batch(np, cfg.vocab_size, S=40)[0],
+                               device="cuda")
+        with torch.inference_mode():
+            runs = [lm.forward(params, toks, cfg, collect_cache=True)
+                    for _ in range(2)]
+        (h1, c1, a1), (h2, c2, a2) = runs
+        same = torch.equal(h1, h2) and torch.equal(a1, a2) and all(
+            torch.equal(c1["kv"][n], c2["kv"][n]) for n in ("k", "v"))
+        if not same or h1.dtype != torch.bfloat16:
+            raise AssertionError(f"[moe-parity] {arch} bf16 forward on the "
+                                 "card gave different bits on a rerun")
+        log(f"[moe-parity] {arch} bf16 forward (2 x 40 tokens, cache "
+            "collected) reruns bit for bit on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _moe_breakdown(torch, port, prof, steps=1):
+    """A traced moe forward's device time per call: {K1, K9, cuBLAS,
+    other: ms}, the kernels' counts per call, the moe spans' ms (forward;
+    their kernels are also in cuBLAS and other) and the busy ms."""
+    dev, counts = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or port.profile.annotation(e):
+            continue
+        key = _lm_kernel(e.name)
+        dev[key] = dev.get(key, 0.0) + e.device_time_total / 1e3 / steps
+        counts[key] = counts.get(key, 0) + 1
+    fwd, _ = moe_spans(torch, prof)
+    spans = {k: None if v is None else v / steps for k, v in fwd.items()}
+    return dev, {k: v / steps for k, v in counts.items()}, spans, \
+        port.profile.busy_us(prof) / 1e3 / steps
+
+
+def _log_breakdown(tag, what, wall_ms, dev, counts, spans, busy):
+    total = sum(dev.values())
+    log(f"[{tag}] {what}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.1f}%), kernel time {total:.3f} ms: "
+        + ", ".join(f"{k} {v:.4f} ({counts[k]:g})" for k, v in sorted(
+            dev.items(), key=lambda kv: -kv[1])))
+    log(f"[{tag}] {what}, the moe layers' spans (device ms; their kernels "
+        "are in cuBLAS and other above): " + ", ".join(
+            f"{k} {fmt_ms(v)}" for k, v in spans.items()))
+
+
+def phase_moe_serve(torch, port, serving, counters, card):
+    """Phase 4g: Qwen3-30B-A3B at full width, MOE_SERVE_LAYERS of 48
+    layers, from a seed: 8 Poisson requests through the continuous
+    engine (every request completes, logits finite, K1 4 L and K9 4 L + 1
+    launches per forward call: ln1, ln2 and the q and k norms a layer,
+    and the final norm); a decode step of 4 full slots timed and traced
+    by kernel against its byte floor (every expert's weights are read:
+    the reference runs every expert on its capacity rows); one
+    MOE_PROMPT-token prompt's prefill timed and traced.  Returns (serving
+    launches, {kernel: {prompt rows: K1/K9 launches a prefill call}}, the
+    traced decode step's and prefill's {kernel: device ms})."""
+    import numpy as np
+    lm = port.lm
+    cfg = dataclasses.replace(port.configs.get_config(MOE_SERVE_ARCH),
+                              num_layers=MOE_SERVE_LAYERS)
+    L = MOE_SERVE_LAYERS
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            device="cuda")
+    n_params = sum(t.numel() for t in port.tree.tree_leaves(params))
+    eng = serving.make_serve_engine(params, cfg, serving.ServeConfig(
+        slots=4, max_seq=MOE_PROMPT + 64), device="cuda")
+    torch.cuda.synchronize()
+    log(f"[moe-serve] {MOE_SERVE_ARCH} full width, {L} of "
+        f"{port.configs.get_config(MOE_SERVE_ARCH).num_layers} layers "
+        f"({n_params} params f32 + bf16 compute copy, "
+        f"{cfg.num_experts} experts top-{cfg.top_k}, qk_norm), ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    eng.generate(np.zeros((1, 8), np.int32), 2)   # warm-up
+    reqs = serving.poisson_requests(8, rate_rps=50, seed=0,
+                                    vocab_size=cfg.vocab_size)
+    events, launches, calls, decode_ms, peak, pre = _serve(
+        torch, eng, reqs, counters)
+    per_call = {"K1": 4 * L, "K9": 4 * L + 1}
+    _report(events, 8, eng, calls, launches, per_call, decode_ms, peak,
+            card, "moe-serve")
+
+    # a decode step of 4 full slots: unprofiled wall, then traced
+    rng = np.random.default_rng(1)
+    _, sl, _ = eng.prefill(rng.integers(0, cfg.vocab_size, (4, 16)))
+    for slot in range(4):
+        eng.insert(sl, slot, row=slot)
+    toks = rng.integers(0, cfg.vocab_size, (4,))
+    for _ in range(2):
+        eng.decode(toks)
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        eng.decode(toks)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    n_dec = 5
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        for _ in range(2):        # the warm-up step, then the traced one
+            t0 = time.perf_counter()
+            for _ in range(n_dec):
+                eng.decode(toks)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3 / n_dec
+            prof.step()
+    dec, dec_n, dec_spans, dec_busy = _moe_breakdown(torch, port, prof,
+                                                     n_dec)
+    cp = eng.params
+    layer_bytes = sum(t.numel() * t.element_size()
+                      for t in port.tree.tree_leaves(cp["layers"])
+                      if t.dtype == torch.bfloat16)
+    head = cp.get("lm_head", cp["embed"])["table"]
+    floor_bytes = layer_bytes + head.numel() * head.element_size()
+    floor_ms = floor_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[moe-serve] decode step, 4 slots: unprofiled median "
+        f"{np.median(walls):.3f} ms, fastest {min(walls):.3f} ms; byte "
+        f"floor {floor_bytes / 1e9:.3f} GB of bf16 weights (every expert's, "
+        f"the attention's, the head's) = {floor_ms:.3f} ms at 3.35 TB/s; "
+        f"device busy {dec_busy:.3f} ms"
+        + (f" (the floor is {floor_ms / dec_busy:.1%} of it)"
+           if dec_busy else ""))
+    # (the counters hold the launches; a K1 decode launch is two kernels,
+    # the split-K slices and their sum)
+    _log_breakdown("moe-serve", f"traced decode step (mean of {n_dec})",
+                   traced_ms, dec, dec_n, dec_spans, dec_busy)
+
+    # the long prompt's prefill: timed, then traced
+    prompt = rng.integers(0, cfg.vocab_size, (1, MOE_PROMPT))
+    pre_ms = []
+    for _ in range(3):
+        for fn in counters.values():
+            fn.launches = 0
+        pre_ms.append(eng.prefill(prompt)[2])
+        for k, n in per_call.items():
+            if counters[k].launches != n:
+                raise AssertionError(
+                    f"[moe-serve] a prefill of {MOE_PROMPT} tokens launched "
+                    f"{k} {counters[k].launches} times, not {n}")
+            pre[k].setdefault(MOE_PROMPT, []).append(counters[k].launches)
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            logits, _, _ = eng.prefill(prompt)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("[moe-serve] non-finite prefill logits")
+    pf, pf_n, pf_spans, pf_busy = _moe_breakdown(torch, port, prof)
+    log(f"[moe-serve] the {MOE_PROMPT}-token prompt: prefill "
+        f"{', '.join(f'{m:.3f}' for m in pre_ms)} ms (K1 {per_call['K1']}, "
+        f"K9 {per_call['K9']} launches each); peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({card})")
+    _log_breakdown("moe-serve", f"traced {MOE_PROMPT}-token prefill",
+                   traced_ms, pf, pf_n, pf_spans, pf_busy)
+    del params, eng, cp, head
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, pre, dec, pf
+
+
+def qwen_k9_row(k9_cases, kind):
+    """K9's phase-2c cases summed over one Qwen3-MoE forward
+    (MOE_SERVE_LAYERS layers) of ``kind`` "decode" (4 slots) or "prefill"
+    (MOE_PROMPT tokens): 2 L + 1 norms at d_model, L q norms and L k
+    norms at head_dim."""
+    L = MOE_SERVE_LAYERS
+    row = _new_row()
+    for (rows, d), n in zip(QWEN_RMS[kind], (2 * L + 1, L, L)):
+        c = k9_cases[(rows, d, "bfloat16")]
+        _note_err(row, c["err"], c["tol"])
+        _add_case(row, n, (c["ms"], c["device_ms"], c["plain_ms"],
+                           c["library_ms"], c["library_device_ms"],
+                           c["bound_ms"], c["bound_by"]))
+    return row
+
+
 def instance_fields(prefix, row, launches, step_device_ms,
                     outer_launches, work):
     """A kernels-line row's fields for another instance of its kernel,
@@ -2712,6 +3200,9 @@ def main() -> int:
     ap.add_argument("--lm", action="store_true", help="run phases 2d, 3c, 4e "
                     "and 4f (the LM's training path) alone and print no "
                     "result line")
+    ap.add_argument("--moe", action="store_true", help="run phases 3d, 4g "
+                    "and 4h (the MoE family) alone and print no result "
+                    "line")
     args = ap.parse_args()
     # torch.compile (the flex_attention yardstick) caches inside the checkout
     cache = SRC / "repro_torch" / "kernels" / "_build" / "compile_cache"
@@ -2797,6 +3288,13 @@ def main() -> int:
         phase_lm_train(torch, port, mods, card)
         log(card_line())
         return 0
+    if args.moe:
+        phase_moe_parity(torch, port, serving)
+        phase_moe_serve(torch, port, serving, counters, card)
+        phase_lm_step(torch, port, mods, card, MOE_TRAIN_ARCH,
+                      MOE_TRAIN_LAYERS, "moe-train")
+        log(card_line())
+        return 0
     k1_sums, worst = phase_kernel(torch, dense_mod, ref)
     train_rows = phase_train_kernels(torch, ref, mods, cnn)
     attn_rows = {"K9": phase_k9(torch, ref, rms_mod),
@@ -2806,6 +3304,7 @@ def main() -> int:
     phase_reduced(torch, configs, lm, serving, weights, "gemma2-27b")
     phase_train_reduced(torch, port)
     phase_lm_parity(torch, port)
+    phase_moe_parity(torch, port, serving)
     launches, yi_pre_k1 = phase_slice(torch, configs, lm, serving, counters,
                                       card)
     train_launches, train = phase_train_slice(torch, port, mods, card)
@@ -2817,6 +3316,13 @@ def main() -> int:
     lm_outer_launches = phase_lm_train(torch, port, mods, card)
     gc.collect()
     torch.cuda.empty_cache()
+    qwen_launches, qwen_pre_k, qwen_dec, qwen_pf = phase_moe_serve(
+        torch, port, serving, counters, card)
+    moe_launches, moe_step_ms = phase_lm_step(
+        torch, port, mods, card, MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS,
+        "moe-train")
+    gc.collect()
+    torch.cuda.empty_cache()
     gemma_launches, gem_pre, k10_launches, k10_diff = phase_gemma(
         torch, configs, serving, counters, card)
     phase_cli()
@@ -2824,6 +3330,8 @@ def main() -> int:
     k1 = train_rows["K1"]
     yi, gem = k1_sums[("yi-6b", "decode")], k1_sums[("gemma2-27b", "decode")]
     yi_pre = prefill_launches(k1_sums, "yi-6b", yi_pre_k1)
+    qwen = k1_sums[(MOE_SERVE_ARCH, "decode")]
+    qwen_pre = prefill_launches(k1_sums, MOE_SERVE_ARCH, qwen_pre_k["K1"])
     gem_pre_k9 = gem_pre["K9"]
     gem_pre = prefill_launches(k1_sums, "gemma2-27b", gem_pre["K1"])
     rows = [{
@@ -2879,6 +3387,31 @@ def main() -> int:
             f"layers, B=8 x S=128 (phase 4e): {7 * LM_LAYERS} bf16 "
             f"launches at M={LM_ROWS} without bias (tile GEMM, 128-row "
             "tiles, not split)"),
+        **{f"qwen_{k}": v for k, v in qwen.items() if k != "bound_by"},
+        "qwen_bound_by": dominant(qwen["bound_by"]),
+        "qwen_launches": qwen_launches["K1"],
+        "qwen_step_device_ms": qwen_dec.get("K1"),
+        "qwen_work": f"one {MOE_SERVE_ARCH} decode step at full width, "
+                     f"{MOE_SERVE_LAYERS} layers (phase 4g): "
+                     f"{4 * MOE_SERVE_LAYERS} bf16 launches at M=4 (split-K "
+                     "weight stream); launches: the serving run's",
+        **{f"qwen_prefill_{k}": v for k, v in qwen_pre.items()
+           if k != "bound_by"},
+        "qwen_prefill_bound_by": dominant(qwen_pre["bound_by"]),
+        "qwen_prefill_step_device_ms": qwen_pf.get("K1"),
+        "qwen_prefill_work": f"one {MOE_SERVE_ARCH} prefill forward of "
+                             f"{MOE_PROMPT} tokens, {MOE_SERVE_LAYERS} "
+                             f"layers: {qwen_pre['launches']} bf16 "
+                             "launches, counted in phase 4g (tile GEMM, "
+                             "128-row tiles)",
+        **instance_fields(
+            "granite_train_bf16", lm_rows[("moe", "K1")], moe_launches["K1"],
+            moe_step_ms.get("K1"), None,
+            f"one {MOE_TRAIN_ARCH} training step at full width, "
+            f"{MOE_TRAIN_LAYERS} layers, B=8 x S=128 (phase 4h): "
+            f"{4 * MOE_TRAIN_LAYERS} bf16 launches at M={LM_ROWS} without "
+            "bias (the attention's projections; the experts are library "
+            "einsums)"),
     }]
     for key, name, src, replaces in TRAIN_KERNELS[1:]:
         r = train_rows[key]
@@ -2909,6 +3442,12 @@ def main() -> int:
                 f"launches at M={LM_ROWS} (TMA + wgmma GEMM, persistent, "
                 "not split" + (", dw written in bf16, no db)" if key == "K3"
                                else ")")))
+            rows[-1].update(instance_fields(
+                "granite_bf16", lm_rows[("moe", key)], moe_launches[key],
+                moe_step_ms.get(key), None,
+                f"one {MOE_TRAIN_ARCH} training step at full width, "
+                f"{MOE_TRAIN_LAYERS} layers, B=8 x S=128 (phase 4h): "
+                f"{4 * MOE_TRAIN_LAYERS} bf16 launches at M={LM_ROWS}"))
     rows += attn_json_rows(attn_rows, gemma_launches["K9"],
                            launches["K9"], gem_pre_k9, k10_launches,
                            k10_diff)
@@ -2919,6 +3458,29 @@ def main() -> int:
         f"{LM_LAYERS} layers (phase 4e): {2 * LM_LAYERS + 1} bf16 launches "
         f"at {LM_ROWS} x 3072; library: autograd of F.rms_norm (its "
         "backward alone)"))
+    rows[-2].update(instance_fields(
+        "granite_bwd", lm_rows[("moe", "K9 bwd")], moe_launches["K9 bwd"],
+        moe_step_ms.get("K9 bwd"), None,
+        f"K9's backward in one {MOE_TRAIN_ARCH} training step at full "
+        f"width, {MOE_TRAIN_LAYERS} layers (phase 4h): "
+        f"{2 * MOE_TRAIN_LAYERS + 1} bf16 launches at {LM_ROWS} x 1536"))
+    L = MOE_SERVE_LAYERS
+    k9_pre = qwen_pre_k["K9"].get(MOE_PROMPT, [])
+    if not k9_pre or set(k9_pre) != {4 * L + 1}:
+        raise AssertionError(f"prefill calls of {MOE_PROMPT} rows launched "
+                             f"K9 {k9_pre} times, not {4 * L + 1}")
+    for prefix, kind, n, steps, what in (
+            ("qwen", "decode", qwen_launches["K9"], qwen_dec,
+             "decode step (4 slots)"),
+            ("qwen_prefill", "prefill", k9_pre[0], qwen_pf,
+             f"prefill forward of {MOE_PROMPT} tokens")):
+        rows[-2].update(instance_fields(
+            prefix, qwen_k9_row(attn_rows["K9"], kind), n, steps.get("K9"),
+            None, f"one {MOE_SERVE_ARCH} {what}, {L} layers (phase 4g): "
+            f"{4 * L + 1} bf16 launches, {2 * L + 1} at d=2048 (ln1, ln2, "
+            f"final), {L} q norms and {L} k norms at head_dim 128; "
+            "launches: " + ("the serving run's" if kind == "decode" else
+                            "one such call")))
     log(json.dumps({"kernels": rows}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

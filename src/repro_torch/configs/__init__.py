@@ -13,6 +13,8 @@ _MODULES = {
     "yi-6b": "yi_6b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "gemma2-27b": "gemma2_27b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -47,14 +47,23 @@ def device_us(evt) -> float:
     return 0.0
 
 
+def annotation(evt) -> bool:
+    """A span (a schedule's ``ProfilerStep``, a ``record_function``), not
+    a kernel: an event of ``prof.events()`` or of ``key_averages()``."""
+    return evt.key.startswith("ProfilerStep") or bool(
+        getattr(evt, "is_user_annotation", False))
+
+
 def busy_us(prof) -> float:
     """Union of the device kernel intervals, in microseconds.  A
-    profiler schedule's ``ProfilerStep`` span also lands on the device's
-    timeline, from the step's first kernel to its last; it is no work."""
+    profiler schedule's ``ProfilerStep`` span, and each
+    ``record_function`` span (the moe layer's), also lands on the
+    device's timeline, from its first kernel to its last; it is no
+    work."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.name.startswith("ProfilerStep"))
+                   and not annotation(e))
     busy, end = 0.0, -1.0
     for s, e in spans:
         if s >= end:
@@ -114,7 +123,7 @@ def main(argv=None):
     rows = [(evt.key, device_us(evt) / 1e3 / args.steps, evt.count
              // args.steps) for evt in prof.key_averages()
             if device_us(evt) > 0 and evt.device_type
-            == torch.autograd.DeviceType.CUDA]
+            == torch.autograd.DeviceType.CUDA and not annotation(evt)]
     rows.sort(key=lambda r: -r[1])
     step_ms = wall_ms / args.steps
     busy_ms = busy_us(prof) / 1e3 / args.steps

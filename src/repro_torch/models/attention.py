@@ -7,14 +7,16 @@ rounding of p, which follows the running max of each key chunk, is the
 reference's.  Its sharding constraints and ``block_skip`` are left out:
 they change where the work runs, not its values.  Both paths take the
 sliding window (as data, one int per layer) and Gemma-2's attention
-soft-cap.
+soft-cap, and Qwen3's per-head q/k RMSNorm (``qk_norm``) after the
+projections and before the rotary embedding.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .layers import apply_rope, dense, init_dense, softcap
+from .layers import (apply_rope, dense, init_dense, init_rms_norm, rms_norm,
+                     softcap)
 
 __all__ = ["init_attention", "project_qkv", "chunked_attention",
            "attention_block", "init_kv_cache", "decode_attention_block",
@@ -25,14 +27,31 @@ NEG_INF = -1e30
 
 def init_attention(gen, d_model: int, num_heads: int, num_kv_heads: int,
                    head_dim: int, *, stack=(), dtype=torch.float32,
-                   device="cpu"):
+                   device="cpu", qk_norm: bool = False):
     kw = dict(stack=stack, dtype=dtype, device=device)
-    return {
+    p = {
         "wq": init_dense(gen, d_model, num_heads * head_dim, **kw),
         "wk": init_dense(gen, d_model, num_kv_heads * head_dim, **kw),
         "wv": init_dense(gen, d_model, num_kv_heads * head_dim, **kw),
         "wo": init_dense(gen, num_heads * head_dim, d_model, **kw),
     }
+    if qk_norm:
+        p["q_norm"] = init_rms_norm(head_dim, **kw)
+        p["k_norm"] = init_rms_norm(head_dim, **kw)
+    return p
+
+
+QK_NORM_EPS = 1e-6     # the reference's ``_headwise_rms``: not cfg.norm_eps
+
+
+def _qk_norm(params, q, k):
+    """Qwen3's per-head RMSNorm of q and k over ``head_dim`` (identity
+    without ``q_norm``): K9's function, so ``ops.rmsnorm`` on rows of
+    head_dim."""
+    if "q_norm" not in params:
+        return q, k
+    return (rms_norm(params["q_norm"], q, QK_NORM_EPS),
+            rms_norm(params["k_norm"], k, QK_NORM_EPS))
 
 
 def _scale(D: int) -> float:
@@ -109,6 +128,7 @@ def project_qkv(params, x, positions, cfg):
     q = dense(params["wq"], x).reshape(B, S, H, D)
     k = dense(params["wk"], x).reshape(B, S, KH, D)
     v = dense(params["wv"], x).reshape(B, S, KH, D)
+    q, k = _qk_norm(params, q, k)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -156,6 +176,7 @@ def decode_attention_block(params, x, cache, cache_len, cfg, *, window=None):
     q = dense(params["wq"], x).reshape(B, 1, H, D)
     k = dense(params["wk"], x).reshape(B, 1, KH, D)
     v = dense(params["wv"], x).reshape(B, 1, KH, D)
+    q, k = _qk_norm(params, q, k)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
 

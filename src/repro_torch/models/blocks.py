@@ -1,10 +1,12 @@
-"""Decoder block for ``arch_type="dense"``: prefill and decode paths, from
-``repro/models/blocks.py``, with Gemma-2's branches: per-layer sliding
-windows (``window_pattern`` / ``global_layers``), the attention soft-cap
-and the post-norms ``pn1`` / ``pn2``.
+"""Decoder blocks for ``arch_type="dense"`` and ``"moe"``: prefill and
+decode paths, from ``repro/models/blocks.py``, with Gemma-2's branches
+(per-layer sliding windows from ``window_pattern`` / ``global_layers``,
+the attention soft-cap, the post-norms ``pn1`` / ``pn2``), Qwen3's
+``qk_norm`` and the moe branch (``ln2`` and ``moe`` in place of ``mlp``;
+the block returns the layer's load-balance aux, which decode drops).
 
-The moe, ssm and hybrid branches, and the config branches none of Yi-6B,
-Phi-3 and Gemma-2 uses, are not ported yet: ``check_supported`` raises
+The ssm, hybrid, encdec, vlm and audio blocks, and the config branches
+no ported config uses, are not ported yet: ``check_supported`` raises
 ``NotImplementedError`` naming the branch.  ``mlp_megatron``,
 ``attn_block_skip`` and ``bf16_params_compute`` only change sharding,
 skipping or the place of a cast in the reference, not its values, and
@@ -17,6 +19,7 @@ import torch
 from .attention import (attention_block, decode_attention_block,
                         init_attention, init_kv_cache)
 from .layers import init_mlp, init_rms_norm, mlp, rms_norm
+from .moe import init_moe, moe_layer
 
 __all__ = ["init_block", "block_forward", "block_decode", "init_block_cache",
            "layer_windows", "check_supported", "GLOBAL_WINDOW"]
@@ -24,16 +27,18 @@ __all__ = ["init_block", "block_forward", "block_decode", "init_block_cache",
 GLOBAL_WINDOW = (2**31 - 1) // 2   # "no window", as the reference's int32
 
 # config fields whose reference branch the port does not have yet
-_UNPORTED_FLAGS = ("qk_norm", "frontend", "embed_onehot", "embed_reshard",
+_UNPORTED_FLAGS = ("frontend", "embed_onehot", "embed_reshard",
                    "attn_kv_gather")
+_PORTED_ARCHS = ("dense", "moe")
 
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a config this slice cannot run."""
-    if cfg.arch_type != "dense":
+    if cfg.arch_type not in _PORTED_ARCHS:
         raise NotImplementedError(
-            f"arch_type={cfg.arch_type!r}: only the 'dense' block is ported "
-            "(moe, ssm, hybrid, encdec, vlm and audio are not yet)")
+            f"arch_type={cfg.arch_type!r}: only the 'dense' and 'moe' "
+            "blocks are ported (ssm, hybrid, encdec, vlm and audio are not "
+            "yet)")
     for flag in _UNPORTED_FLAGS:
         if getattr(cfg, flag):
             raise NotImplementedError(
@@ -65,14 +70,17 @@ def layer_windows(cfg, num_layers=None):
 
 
 def init_block(gen, cfg, *, stack=(), dtype=torch.float32, device="cpu"):
-    """One dense layer's params, every leaf with ``stack`` prepended."""
+    """One layer's params, every leaf with ``stack`` prepended."""
     check_supported(cfg)
     d = cfg.d_model
     kw = dict(stack=stack, dtype=dtype, device=device)
     p = {"ln1": init_rms_norm(d, **kw),
          "attn": init_attention(gen, d, cfg.num_heads, cfg.num_kv_heads,
-                                cfg.head_dim, **kw)}
-    if cfg.d_ff > 0:
+                                cfg.head_dim, qk_norm=cfg.qk_norm, **kw)}
+    if cfg.arch_type == "moe":
+        p["ln2"] = init_rms_norm(d, **kw)
+        p["moe"] = init_moe(gen, d, cfg.num_experts, cfg.expert_d_ff, **kw)
+    elif cfg.d_ff > 0:
         p["ln2"] = init_rms_norm(d, **kw)
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, **kw)
     if cfg.post_norm:
@@ -95,8 +103,8 @@ def block_forward(params, x, positions, cfg, window=None,
     if collect_cache:
         k, v = kv
         kv = {"kv": {"k": k.to(cache_dtype), "v": v.to(cache_dtype)}}
-    return _mlp_residual(params, x, cfg), kv, torch.zeros(
-        (), dtype=torch.float32, device=x.device)
+    x, aux = _ffn_residual(params, x, cfg)
+    return x, kv, aux
 
 
 def _post_norm(params, name, out, cfg):
@@ -105,12 +113,19 @@ def _post_norm(params, name, out, cfg):
         else out
 
 
-def _mlp_residual(params, x, cfg):
+def _ffn_residual(params, x, cfg):
+    """x plus the moe or mlp sublayer of ``ln2(x)``, and the moe's aux
+    (0 otherwise)."""
+    if "moe" in params:
+        h2 = rms_norm(params["ln2"], x, cfg.norm_eps)
+        out, aux = moe_layer(params["moe"], h2, cfg)
+        return x + out, aux
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "mlp" not in params:
-        return x
+        return x, aux
     h2 = rms_norm(params["ln2"], x, cfg.norm_eps)
     return x + _post_norm(params, "pn2", mlp(params["mlp"], h2,
-                                             cfg.activation), cfg)
+                                             cfg.activation), cfg), aux
 
 
 def init_block_cache(batch, seq_len, cfg, *, stack=(), dtype=torch.bfloat16,
@@ -128,4 +143,4 @@ def block_decode(params, x, cache, cache_len, cfg, window=None):
     attn_out, _ = decode_attention_block(params["attn"], h, cache["kv"],
                                          cache_len, cfg, window=window)
     x = x + _post_norm(params, "pn1", attn_out, cfg)
-    return _mlp_residual(params, x, cfg), cache
+    return _ffn_residual(params, x, cfg)[0], cache

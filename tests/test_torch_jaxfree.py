@@ -38,6 +38,8 @@ SLICE_MODULES = (
     "repro_torch.core.engine", "repro_torch.data.pipeline",
     "repro_torch.configs.bpt_cnn", "repro_torch.checkpointing",
     "repro_torch.checkpointing.checkpoint", "repro_torch.launch.train",
+    "repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
+    "repro_torch.configs.granite_moe_3b_a800m",
 )
 BANNED = ("jax", "jaxlib", "repro")
 

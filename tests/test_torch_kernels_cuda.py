@@ -515,7 +515,11 @@ def test_strided_conv_on_card_raises():
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("rows,d", [(4, 4608), (300, 4096), (7, 3072),
                                     (5, 4095), (3, 13), (1, 1),
-                                    (3001, 4095), (5000, 4608)])
+                                    (3001, 4095), (5000, 4608),
+                                    # Qwen3's q/k norms, d = head_dim:
+                                    # decode (4 slots x 32 q heads) and a
+                                    # 2048-token prefill's 4 k heads
+                                    (128, 128), (8192, 128)])
 def test_rmsnorm_kernel_matches_plain(rows, d, dtype):
     """Decode and prefill rows at the LM widths (the row kernel: a block a
     row up to 132 rows, several rows a block beyond), and ragged rows
@@ -826,7 +830,7 @@ def test_ops_dense_bf16_gradient_on_card_launches_k2_and_k3():
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("rows,d", [(1024, 3072), (1024, 4608), (7, 4096),
                                     (133, 1000), (3, 13), (1, 64),
-                                    (5, 12032), (9, 6150)])
+                                    (5, 12032), (9, 6150), (4096, 128)])
 def test_rmsnorm_backward_kernel_matches_plain_and_reruns(rows, d, dtype):
     """K9's backward: dx within one bf16 rounding (bf16) or at the f32
     gradient gate, dscale at the gradient gate, one launch a call (its
@@ -890,3 +894,56 @@ def test_rmsnorm_backward_takes_unaligned_rows(dtype):
     _bf16_grad_gates(ds, want_ds, False)
     again = rms.rmsnorm_bwd_cuda(x, scale, g)
     assert torch.equal(dx, again[0]) and torch.equal(ds, again[1])
+
+
+# ----------------------------------------------------------------------
+# The MoE layer: library products and index ops around K1/K9 models
+# ----------------------------------------------------------------------
+def _moe_case(dtype, E=16, k=4, d=256, f=128, B=3, S=40):
+    from repro_torch.core.types import ModelConfig
+    cfg = ModelConfig(name="moe-card", arch_type="moe", num_layers=1,
+                      d_model=d, num_heads=4, num_kv_heads=2, head_dim=64,
+                      d_ff=0, num_experts=E, top_k=k, expert_d_ff=f)
+    gen = torch.Generator("cpu").manual_seed(31)
+    params = {"router": {"w": torch.randn((d, E), generator=gen) * 0.2},
+              "wi": torch.randn((E, d, f), generator=gen) / d ** 0.5,
+              "wg": torch.randn((E, d, f), generator=gen) / d ** 0.5,
+              "wo": torch.randn((E, f, d), generator=gen) / f ** 0.5}
+    x = torch.randn((B, S, d), generator=gen).to(getattr(torch, dtype))
+    return cfg, params, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf", [8.0, 1.25, 0.5])
+def test_moe_layer_on_card_matches_the_cpu_path(cf):
+    """f32 with TF32 off: the routing (top_e, keep, slot) equal to the CPU
+    path's exactly, the output and aux within f32 sums in another order;
+    the bf16 forward reruns bit for bit and stays on the card."""
+    _card()
+    from repro_torch.models import moe
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg, params, x = _moe_case("float32")
+        card = {k: v.cuda() for k, v in params.items() if k != "router"}
+        card["router"] = {"w": params["router"]["w"].cuda()}
+        with torch.no_grad():
+            r_cpu = moe.route(params, x, cfg, cf)
+            r_card = moe.route(card, x.cuda(), cfg, cf)
+            out_cpu, aux_cpu = moe.moe_layer(params, x, cfg, cf)
+            out, aux = moe.moe_layer(card, x.cuda(), cfg, cf)
+        for key in ("top_e", "keep", "slot"):
+            assert torch.equal(r_card[key].cpu(), r_cpu[key]), key
+        assert out.device.type == "cuda"
+        torch.testing.assert_close(out.cpu(), out_cpu, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(aux.cpu(), aux_cpu, atol=0, rtol=1e-6)
+        cfg, params, x = _moe_case("bfloat16")
+        card = {"router": {"w": params["router"]["w"].cuda().bfloat16()},
+                **{k: params[k].cuda().bfloat16()
+                   for k in ("wi", "wg", "wo")}}
+        with torch.no_grad():
+            a, _ = moe.moe_layer(card, x.cuda(), cfg, cf)
+            b, _ = moe.moe_layer(card, x.cuda(), cfg, cf)
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -1,6 +1,7 @@
 """The port's LM (``repro_torch.models.lm``) against ``repro.models.lm``
 on reduced Yi-6B, Phi-3, Gemma-2 (local/global windows, soft-caps,
-post-norms) and Yi-6B with sliding windows on every layer: the same numpy
+post-norms), Yi-6B with sliding windows on every layer, and the MoE family
+(Qwen3-MoE with ``qk_norm``, Granite-MoE): the same numpy
 params through both, then ``prefill`` logits and cache and several
 ``decode_step``s with per-row lengths, and one prefill long enough for two
 key chunks of the blockwise attention.
@@ -30,7 +31,8 @@ from repro_torch.weights import params_from_numpy, params_to_numpy  # noqa: E402
 
 # "yi-6b:swa": reduced Yi-6B under get_config(..., "swa")-style windows
 # (every layer local), the window cut to 8 as the reduced configs cut it
-ARCHS = ("yi-6b", "phi3-mini-3.8b", "gemma2-27b", "yi-6b:swa")
+ARCHS = ("yi-6b", "phi3-mini-3.8b", "gemma2-27b", "yi-6b:swa",
+         "qwen3-moe-30b-a3b", "granite-moe-3b-a800m")
 SWA = dict(sliding_window=8, window_pattern=0, global_layers=())
 TOL = {"float32": {"logits": 1e-4, "cache": 1e-5},
        "bfloat16": {"logits": 0.05, "cache": 0.08}}
@@ -129,9 +131,15 @@ def test_forward_hidden_matches_jax(arch):
     jcfg, tcfg, jp, tp = _pair(arch, "float32")
     toks = np.random.default_rng(3).integers(
         0, jcfg.vocab_size, (2, 21)).astype(np.int32)
-    jh, jcache, _ = jlm.forward(jp, jnp.asarray(toks), jcfg)
+    jh, jcache, jaux = jlm.forward(jp, jnp.asarray(toks), jcfg)
     th, tcache, aux = lm.forward(tp, torch.from_numpy(toks), tcfg)
-    assert jcache is None and tcache is None and float(aux) == 0.0
+    assert jcache is None and tcache is None
+    assert aux.dtype == torch.float32
+    if tcfg.arch_type == "moe":      # the layers' load-balance losses
+        assert float(aux) > 0
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+    else:
+        assert float(aux) == float(jaux) == 0.0
     np.testing.assert_allclose(_f32(th), _f32(jh), atol=1e-5)
 
 
@@ -278,9 +286,9 @@ def _tiny(**kw):
 
 
 @pytest.mark.parametrize("kw,branch", [
-    (dict(qk_norm=True), "qk_norm"),
+    (dict(frontend="vision"), "frontend"),
     (dict(embed_onehot=True), "embed_onehot"),
-    (dict(arch_type="moe", num_experts=4, top_k=2, expert_d_ff=64), "moe"),
+    (dict(arch_type="hybrid"), "hybrid"),
     (dict(arch_type="ssm"), "ssm"),
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_unported_branches_raise(kw, branch):
@@ -289,3 +297,25 @@ def test_unported_branches_raise(kw, branch):
         blocks.check_supported(cfg)
     with pytest.raises(NotImplementedError, match=branch):
         lm.init_params(cfg, torch.Generator("cpu").manual_seed(0), "cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "granite-moe-3b-a800m"])
+def test_compute_params_casts_experts_keeps_qk_norm(arch):
+    """The moe block's router (L, d, E) and experts (L, E, ., .) are cast
+    to the activation dtype; the (L, head_dim) q/k norm scales stay f32,
+    as the reference reads them at the point of use."""
+    cfg = configs.get_reduced(arch)
+    params = lm.init_params(cfg, torch.Generator("cpu").manual_seed(0), "cpu")
+    cp = lm.compute_params(params, cfg)
+    layer = cp["layers"]
+    assert layer["moe"]["router"]["w"].dtype == torch.bfloat16
+    for name in ("wi", "wg", "wo"):
+        assert layer["moe"][name].dtype == torch.bfloat16, name
+    assert ("q_norm" in layer["attn"]) == cfg.qk_norm
+    for name in ("q_norm", "k_norm"):
+        if cfg.qk_norm:
+            scale = layer["attn"][name]["scale"]
+            assert scale.dtype == torch.float32
+            assert tuple(scale.shape) == (cfg.num_layers, cfg.head_dim)
+    assert "mlp" not in layer and layer["ln2"]["scale"].dtype == \
+        torch.float32

@@ -1,7 +1,8 @@
 """The LM's training path in the port against the JAX package, on the
 CPU: ``lm.loss_fn`` and every gradient leaf against
-``jax.value_and_grad(repro.models.lm.loss_fn)`` on reduced Yi-6B, Phi-3
-and Gemma-2 (soft-caps, post-norms, windows), f32 and bf16, with a CE
+``jax.value_and_grad(repro.models.lm.loss_fn)`` on reduced Yi-6B, Phi-3,
+Gemma-2 (soft-caps, post-norms, windows), Qwen3-MoE (``qk_norm``, the
+moe block and its load-balance aux) and Granite-MoE, f32 and bf16, with a CE
 chunk that pads and labels of -1; ``remat`` on and off.  Then the two
 kernels' Functions this path adds a bf16 or backward instance to:
 ``DenseFunction`` in bf16 against ``jax.vjp`` of the reference's Pallas
@@ -34,9 +35,11 @@ from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.weights import params_from_numpy  # noqa: E402
 
-ARCHS = ("yi-6b", "phi3-mini-3.8b", "gemma2-27b")
+ARCHS = ("yi-6b", "phi3-mini-3.8b", "gemma2-27b", "qwen3-moe-30b-a3b",
+         "granite-moe-3b-a800m")
 TOL = {"float32": dict(loss=2e-5, atol=2e-5, rtol=1e-4),
        "bfloat16": dict(loss=5e-3, atol=3e-2, rtol=3e-2)}
+MOE = ("qwen3-moe-30b-a3b", "granite-moe-3b-a800m")
 B, S, CHUNK = 2, 12, 5             # 3 CE chunks, the last padded by 3
 
 
@@ -51,7 +54,8 @@ def _batch(vocab):
 
 @pytest.fixture(scope="module")
 def jax_runs():
-    """arch, dtype -> (numpy params, tokens, labels, JAX loss, grads)."""
+    """arch, dtype -> (numpy params, tokens, labels, JAX loss, grads,
+    JAX aux)."""
     cache = {}
 
     def get(arch, dtype):
@@ -61,13 +65,14 @@ def jax_runs():
             jp = jlm.init_params(jax.random.PRNGKey(0), jcfg)
             toks, labels = _batch(jcfg.vocab_size)
             fn = jax.jit(jax.value_and_grad(
-                lambda p, b: jlm.loss_fn(p, b, jcfg)[0]))
-            loss, grads = fn(jp, {"tokens": jnp.asarray(toks),
-                                  "labels": jnp.asarray(labels)})
+                lambda p, b: jlm.loss_fn(p, b, jcfg), has_aux=True))
+            (loss, parts), grads = fn(jp, {"tokens": jnp.asarray(toks),
+                                           "labels": jnp.asarray(labels)})
             cache[(arch, dtype)] = (
                 jax.tree_util.tree_map(np.asarray, jp), toks, labels,
                 float(loss), [np.asarray(g, np.float32)
-                              for g in jax.tree_util.tree_leaves(grads)])
+                              for g in jax.tree_util.tree_leaves(grads)],
+                float(parts["aux"]))
         return cache[(arch, dtype)]
     return get
 
@@ -89,12 +94,18 @@ def _port_loss_and_grads(tree, toks, labels, arch, dtype, remat):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_every_grad_leaf_match_jax(jax_runs, arch, dtype, remat):
-    tree, toks, labels, jloss, jgrads = jax_runs(arch, dtype)
+    tree, toks, labels, jloss, jgrads, jaux = jax_runs(arch, dtype)
     loss, aux, grads = _port_loss_and_grads(tree, toks, labels, arch, dtype,
                                             remat)
     tol = TOL[dtype]
     assert abs(float(loss) - jloss) <= tol["loss"] * max(1.0, abs(jloss))
-    assert float(aux["aux"]) == 0.0 and bool(aux["ce"] == loss)
+    if arch in MOE:      # the moe layers' load-balance aux, the reference's
+        assert jaux > 0
+        assert abs(float(aux["aux"].detach()) - jaux) <= tol["loss"] * jaux
+        assert torch.allclose(loss, aux["ce"] + 0.01 * aux["aux"],
+                              rtol=1e-6, atol=0)
+    else:
+        assert float(aux["aux"]) == jaux == 0.0 and bool(aux["ce"] == loss)
     assert len(grads) == len(jgrads)
     for got, want in zip(grads, jgrads):
         assert got.dtype == torch.float32           # the f32 masters'

@@ -1,7 +1,8 @@
 """The port's serving path against the JAX engines: the same params and
 request stream through ``repro.serving`` and ``repro_torch.serving``
 under the deterministic cost clock give the same event streams, on reduced
-Yi-6B and on reduced Gemma-2 with prompts longer than its window; plus
+Yi-6B, on reduced Gemma-2 with prompts longer than its window, and on the
+reduced MoE family (Qwen3-MoE with ``qk_norm``, Granite-MoE); plus
 the slot invariants, the explicit device contract and a CLI smoke."""
 import dataclasses
 
@@ -78,6 +79,33 @@ def test_gemma2_event_streams_match_jax(gemma_pair, batching):
     jcfg, jp, tcfg, tp = gemma_pair
     reqs = serving.poisson_requests(6, rate_rps=400.0, seed=4,
                                     prompt_lens=(20, 28, 36),
+                                    gen_lens=(2, 4, 9, 12),
+                                    vocab_size=tcfg.vocab_size)
+    jeng = jserving.make_serve_engine(jp, jcfg, jserving.ServeConfig(
+        batching=batching, **SERVE))
+    teng = serving.make_serve_engine(tp, tcfg, serving.ServeConfig(
+        batching=batching, **SERVE), device="cpu")
+    want = _events(jeng.run(reqs))
+    got = _events(teng.run(reqs))
+    assert sum(k == "complete" for k, *_ in got) == 6
+    assert got == want
+
+
+ARCHS = ("qwen3-moe-30b-a3b", "granite-moe-3b-a800m")
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def moe_pair(request):
+    """A reduced MoE config in f32."""
+    return _f32_pair(request.param)
+
+
+@pytest.mark.parametrize("batching", ["continuous", "static"])
+def test_moe_event_streams_match_jax(moe_pair, batching):
+    """Each decode step routes every slot's token, free slots included;
+    the per-row dispatch keeps a slot's routing its own."""
+    jcfg, jp, tcfg, tp = moe_pair
+    reqs = serving.poisson_requests(6, rate_rps=400.0, seed=5,
                                     gen_lens=(2, 4, 9, 12),
                                     vocab_size=tcfg.vocab_size)
     jeng = jserving.make_serve_engine(jp, jcfg, jserving.ServeConfig(
@@ -184,10 +212,9 @@ def test_encdec_rejected():
 
 def test_unported_arch_rejected(f32_pair):
     _, _, cfg, params = f32_pair
-    moe = dataclasses.replace(cfg, arch_type="moe", num_experts=4, top_k=2,
-                              expert_d_ff=64)
-    with pytest.raises(NotImplementedError, match="moe"):
-        serving.make_serve_engine(params, moe, device="cpu")
+    hybrid = dataclasses.replace(cfg, arch_type="hybrid")
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        serving.make_serve_engine(params, hybrid, device="cpu")
 
 
 def test_make_serve_engine_without_device_needs_a_card(monkeypatch, f32_pair):
@@ -219,6 +246,15 @@ def test_cli_smoke_cpu_gemma2(capsys):
     out = capsys.readouterr().out
     assert len(lat) == 3
     assert "gemma2-27b continuous: 3 requests" in out
+
+
+def test_cli_smoke_cpu_qwen3_moe(capsys):
+    lat = serve_cli.main(["--arch", "qwen3-moe-30b-a3b", "--device", "cpu",
+                          "--requests", "3", "--gen", "4", "--rate", "300",
+                          "--timing", "model"])
+    out = capsys.readouterr().out
+    assert len(lat) == 3
+    assert "qwen3-moe-30b-a3b continuous: 3 requests" in out
 
 
 def test_cli_without_card_raises(monkeypatch):

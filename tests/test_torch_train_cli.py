@@ -1,7 +1,8 @@
 """The port's training CLI (``repro_torch.launch.train``) against the
 reference's (``repro.launch.train.main``) on the CPU, as
 ``tests/test_system.py``'s ``TestLMEndToEnd`` trains it: reduced Phi-3 on
-2 nodes, here in f32 (both packages' ``get_reduced`` patched to f32
+2 nodes, and the reduced MoE family (Qwen3-MoE, Granite-MoE) the same
+way, here in f32 (both packages' ``get_reduced`` patched to f32
 activations) from the same numpy params, under AGWU (``heap``) and SGWU
 (``vmap``).
 
@@ -50,10 +51,12 @@ from repro_torch.weights import (params_from_numpy,  # noqa: E402
                                  params_to_numpy)
 
 ARCH = "phi3-mini-3.8b"
+# the MoE family, one outer strategy each (the CPU suite's time)
+MOE_RUNS = (("qwen3-moe-30b-a3b", "agwu"), ("granite-moe-3b-a800m", "sgwu"))
 LR = 3e-3
 TABLES = ("['embed']['table']", "['lm_head']['table']")
-ARGV = ["--arch", ARCH, "--nodes", "2", "--rounds", "4", "--rows", "64",
-        "--seq-len", "32", "--batch-size", "8", "--lr", str(LR)]
+ARGS = ["--nodes", "2", "--rounds", "4", "--rows", "64", "--seq-len", "32",
+        "--batch-size", "8", "--lr", str(LR)]
 TICK = 0.05
 
 
@@ -106,10 +109,22 @@ def _recording(monkeypatch):
 
 @pytest.mark.parametrize("outer", ["agwu", "sgwu"])
 def test_train_cli_matches_the_reference(pinned, monkeypatch, outer):
-    argv = ARGV + ["--outer", outer]
+    _matches_the_reference(monkeypatch, ARCH, outer)
+
+
+@pytest.mark.parametrize("arch,outer", MOE_RUNS)
+def test_moe_train_cli_matches_the_reference(pinned, monkeypatch, arch,
+                                             outer):
+    """Qwen3-MoE (``qk_norm``) and Granite-MoE: the moe block's routing,
+    aux and expert gradients through the outer layer."""
+    _matches_the_reference(monkeypatch, arch, outer)
+
+
+def _matches_the_reference(monkeypatch, arch, outer):
+    argv = ["--arch", arch] + ARGS + ["--outer", outer]
     jrep = jtrain.main(argv)
-    cfg = _f32(configs.get_reduced)(ARCH)
-    jcfg = jconfigs.get_reduced(ARCH)            # f32, patched by `pinned`
+    cfg = _f32(configs.get_reduced)(arch)
+    jcfg = jconfigs.get_reduced(arch)            # f32, patched by `pinned`
     jparams = jlm.init_params(jax.random.PRNGKey(0), jcfg)
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
                                cfg, device="cpu")
