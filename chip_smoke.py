@@ -254,8 +254,8 @@ K1_ROWS = (1, 4, 16,               # decode rows (the split-K stream)
 K1_MODEL_ROWS = {"yi-6b": K1_ROWS,
                  # long prompts (128-row tiles)
                  "gemma2-27b": K1_ROWS + (512, 5000),
-                 # decode, and phase 4g's 2048-token prompt
-                 "qwen3-moe-30b-a3b": (1, 4, 16, 2048)}
+                 # and phase 4g's 2048-token prompt
+                 "qwen3-moe-30b-a3b": K1_ROWS + (2048,)}
 PREFILL_ROWS = {"yi-6b": 24, "gemma2-27b": 5000,   # the prefill sums
                 "qwen3-moe-30b-a3b": 2048}
 K1_RAGGED = (                      # (dtype, M, K, N), bias + relu
@@ -1912,11 +1912,24 @@ def phase_gemma(torch, configs, serving, counters, card, layers=8):
     return launches, pre, k10_launches, worst
 
 
-def prefill_launches(k1_sums, arch, pre_k1):
+def prefill_launches(dense_mod, k1_sums, arch, pre_k1):
     """Phase 2's prefill sum for ``arch`` with ``launches`` the K1 launches
-    that phase 4 or 4c counted in its prefill calls of PREFILL_ROWS[arch]
-    rows; raises unless every such call launched K1 as often as the sum
-    adds shapes."""
+    that phase 4, 4c or 4g counted in its prefill calls of
+    PREFILL_ROWS[arch] rows; raises unless every such call launched K1 as
+    often as the sum adds shapes, and unless every row count that the
+    serving run's prefill calls sent K1 takes, at each of the arch's
+    widths, the block rows, splits and depth of a row count that phase 2
+    held against the plain version (K1_MODEL_ROWS)."""
+    def plan(M, K, N):
+        return (dense_mod.bf16_rows(M),) + dense_mod.bf16_splits(M, N, K)
+    widths = {(K, N) for _, K, N in DECODE_SHAPES[arch]}
+    unchecked = sorted((M, K, N) for M in pre_k1 for K, N in widths
+                       if plan(M, K, N) not in {
+                           plan(m, K, N) for m in K1_MODEL_ROWS[arch]})
+    if unchecked:
+        raise AssertionError(f"{arch}: the serving run sent K1 (M, K, N) "
+                             f"{unchecked}, whose plans phase 2 did not "
+                             "hold against the plain version")
     st = dict(k1_sums[(arch, "prefill")])
     M = PREFILL_ROWS[arch]
     seen = pre_k1.get(M, [])
@@ -1925,7 +1938,9 @@ def prefill_launches(k1_sums, arch, pre_k1):
                              f"{seen} times; phase 2's sum adds "
                              f"{st['launches']} launches")
     log(f"[k1] {arch}: {len(seen)} prefill call(s) of {M} rows in the "
-        f"serving run, each {seen[0]} K1 launches (counted)")
+        f"serving run, each {seen[0]} K1 launches (counted); every prefill"
+        f" row count it sent, {sorted(pre_k1)}, runs the plan of one that "
+        "phase 2 checked")
     st["launches"] = seen[0]
     return st
 
@@ -1958,13 +1973,14 @@ RMS_BWD_CASES = [(LM_ROWS, d, dt) for d in (3072, 4096, 4608)
                  for dt in ("bfloat16", "float32")]
 RMS_BWD_CASES += [(LM_ROWS, 1536, "bfloat16"),      # Granite-MoE's norms
                   (32768, 128, "bfloat16"),          # Qwen3's q/k norms at
-                  (4096, 128, "bfloat16")]           # B 8 x S 128
+                  (4096, 128, "bfloat16")]           # B 8 x S 128 (gated)
 RMS_BWD_CASES += [(1000, 4608, "bfloat16"), (133, 3072, "bfloat16"),
                   (37, 1000, "float32"), (3, 13, "bfloat16")]   # ragged
 LM_ARCH = "phi3-mini-3.8b"         # phases 4e and 4f(b), at full width
 LM_LAYERS = 8                      # phase 4e's depth
 LM_OUTER_LAYERS = 2                # phase 4f(b)'s depth, 4 nodes
 LM_STEPS = 10
+HELD_EVERY = 10                    # 4e/4h: the held-out batch's readings
 LM_LR = 1e-3                       # the training CLI's default
 LM_TOL = {"float32": (2e-5, 2e-5, 1e-4),      # loss, grads atol, rtol
           "bfloat16": (5e-3, 3e-2, 3e-2)}
@@ -2266,8 +2282,10 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
             raise AssertionError(f"K9 bwd ({rows_n}, {d}) {dt} gave "
                                  "different bits on a rerun")
         geo = tuple(rms.bwd_plan(rows_n, d, itemsize))
-        if rows_n < LM_ROWS:   # ragged: the gates and the rerun only
-            log(f"[lm-k] K9 bwd ragged {rows_n}x{d} {dt}: dx {e1:.4g} (tol "
+        # the ragged cases, and Qwen3's q/k norms (no path on the card
+        # trains Qwen3 at full width): the gates and the rerun only
+        if rows_n < LM_ROWS or d == 128:
+            log(f"[lm-k] K9 bwd gated {rows_n}x{d} {dt}: dx {e1:.4g} (tol "
                 f"{t1:.4g}), dscale {e2:.4g} (tol {t2:.4g}) {geo}")
             continue
         nbytes = 3 * rows_n * d * itemsize + 8 * d
@@ -2366,9 +2384,9 @@ def phase_lm_parity(torch, port):
                 f" on and off; card remat vs no remat max_abs_diff {rd:.3g}")
 
 
-def _lm_profile(torch, port, prof):
-    """The traced step of ``prof``: ({kernel: device ms}, {kernel: its
-    launches}, busy ms)."""
+def _lm_profile(torch, port, prof, steps=1):
+    """``prof``'s trace of ``steps`` steps (or forward calls), per step:
+    ({kernel: device ms}, {kernel: its launches}, busy ms)."""
     dev_ms, counts = {}, {}
     for evt in prof.key_averages():
         us = port.profile.device_us(evt)
@@ -2376,9 +2394,29 @@ def _lm_profile(torch, port, prof):
                 or port.profile.annotation(evt):   # a span, not a kernel
             continue
         key = _lm_kernel(evt.key)
-        dev_ms[key] = dev_ms.get(key, 0.0) + us / 1e3
-        counts[key] = counts.get(key, 0) + evt.count
-    return dev_ms, counts, port.profile.busy_us(prof) / 1e3
+        dev_ms[key] = dev_ms.get(key, 0.0) + us / 1e3 / steps
+        counts[key] = counts.get(key, 0) + evt.count / steps
+    return dev_ms, counts, port.profile.busy_us(prof) / 1e3 / steps
+
+
+def _log_profile(tag, what, wall_ms, dev_ms, counts, busy_ms):
+    """One line: a traced step's wall, busy share and device ms by kernel
+    (its launches in brackets), as ``_lm_profile`` reads them."""
+    log(f"[{tag}] {what}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f}"
+        f" ms ({100 * busy_ms / wall_ms:.1f}%), kernel time "
+        f"{sum(dev_ms.values()):.3f} ms: " + ", ".join(
+            f"{k} {v:.4f} ({counts[k]:g})" for k, v in sorted(
+                dev_ms.items(), key=lambda kv: -kv[1])))
+
+
+def _log_spans(tag, what, fwd, bwd=None):
+    """One line: the moe layers' spans (``moe_spans``) in a traced step,
+    forward, and backward where given."""
+    log(f"[{tag}] {what}, the moe layers' spans, device ms forward"
+        + (" / backward" if bwd else "") + " (their kernels are in cuBLAS"
+        " and other above): " + ", ".join(
+            f"{k} {fmt_ms(v)}" + (f" / {fmt_ms(bwd[k])}" if bwd else "")
+            for k, v in fwd.items()))
 
 
 def _lm_kernel(name):
@@ -2389,18 +2427,20 @@ def _lm_kernel(name):
 
 
 def phase_lm_step(torch, port, mods, card, arch=LM_ARCH, layers=LM_LAYERS,
-                  tag="lm-step"):
-    """Phase 4e (4h: ``arch`` Granite-MoE, ``tag`` "moe-train"):
-    Phi-3-mini at full width and LM_LAYERS layers, B 8 x S
-    128 from ``lm_corpus``, AdamW, LM_STEPS steps through
-    ``make_node_round`` with ``lm.loss_fn``: finite losses that fall,
-    every grad leaf nonzero, exact launches a step, step wall, device time
-    by kernel, busy share, tokens/s, peak memory, and the optimizer's time
-    against AdamW's byte floor.  The loss that must fall is a held-out
-    batch's, before and after the steps (each step's own loss is on a new
-    batch).  A moe config also prints its layers' spans in the traced
-    step (``moe.SPANS``, forward and backward) and the step's flop
-    floor.  Returns (launches, step device ms by kernel)."""
+                  tag="lm-step", steps=LM_STEPS, min_fall=0.0):
+    """Phase 4e (4h: ``arch`` Granite-MoE, ``tag`` "moe-train", MOE_STEPS
+    steps, MOE_MIN_FALL): Phi-3-mini at full width and LM_LAYERS layers,
+    B 8 x S 128 from ``lm_corpus``, AdamW, ``steps`` steps through
+    ``make_node_round`` with ``lm.loss_fn``: finite losses, every grad
+    leaf nonzero, exact launches a step, step wall, device time by kernel,
+    busy share, tokens/s, peak memory, and the optimizer's time against
+    AdamW's byte floor.  A held-out batch's objective (CE plus 0.01 x the
+    moe layers' aux) must fall over the steps, and its CE by more than
+    ``min_fall`` nats (each step's own loss is on a new batch); its
+    objective, CE and aux are printed every HELD_EVERY steps.  A moe
+    config also prints its layers' spans in the traced step
+    (``moe.SPANS``, forward and backward) and the step's flop floor.
+    Returns (launches, step device ms by kernel)."""
     import numpy as np
     lm, pipeline = port.lm, port.pipeline
     cfg = dataclasses.replace(port.configs.get_config(arch),
@@ -2412,13 +2452,13 @@ def phase_lm_step(torch, port, mods, card, arch=LM_ARCH, layers=LM_LAYERS,
     leaves = port.tree.tree_leaves(params)
     n_params = sum(p.numel() for p in leaves)
     c_w = sum(p.numel() * p.element_size() for p in leaves)
-    # LM_STEPS training batches, 2 for the profile, 1 held out
-    corpus = port.synthetic.lm_corpus((LM_STEPS + 3) * B * S + 1,
+    # ``steps`` training batches, 2 for the profile, 1 held out
+    corpus = port.synthetic.lm_corpus((steps + 3) * B * S + 1,
                                       cfg.vocab_size, seed=0)
     rows = pipeline.pack_sequences(corpus, S)
     batches = [{"rows": torch.as_tensor(rows[None, i * B:(i + 1) * B],
                                         device="cuda")}
-               for i in range(LM_STEPS + 3)]
+               for i in range(steps + 3)]
 
     def loss_fn(p, b):
         return lm.loss_fn(p, pipeline.host_batch(b["rows"]), cfg)
@@ -2428,10 +2468,10 @@ def phase_lm_step(torch, port, mods, card, arch=LM_ARCH, layers=LM_LAYERS,
         with torch.no_grad():
             loss, parts = loss_fn(p, {"rows": batches[-1]["rows"][0]})
         return float(loss), float(parts["ce"]), float(parts["aux"])
-    held0 = held_out(params)
+    held = [(0, held_out(params))]
 
     tc = port.types.TrainConfig(optimizer="adamw", learning_rate=LM_LR,
-                                warmup_steps=2, total_steps=LM_STEPS,
+                                warmup_steps=2, total_steps=steps,
                                 grad_clip=1.0, local_steps=1)
     opt = port.optim.make_optimizer(tc.optimizer)
     state = opt.init(params)
@@ -2457,7 +2497,8 @@ def phase_lm_step(torch, port, mods, card, arch=LM_ARCH, layers=LM_LAYERS,
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
     _zero_lm_counts(mods)
-    for i in range(LM_STEPS):
+    launches = dict.fromkeys(expect, 0)
+    for i in range(steps):
         before = _lm_counts(mods)
         t0 = time.perf_counter()
         params, state, loss = node_round(params, state, batches[i], i)
@@ -2467,20 +2508,21 @@ def phase_lm_step(torch, port, mods, card, arch=LM_ARCH, layers=LM_LAYERS,
         if per != expect:
             raise AssertionError(f"[{tag}] step {i}: launches {per} != "
                                  f"{expect}")
+        launches = {k: launches[k] + per[k] for k in expect}
         losses.append(float(loss))
-    launches = _lm_counts(mods)
+        if (i + 1) % HELD_EVERY == 0 or i + 1 == steps:
+            held.append((i + 1, held_out(params)))   # outside the counts
     peak = torch.cuda.max_memory_allocated()
-    held1 = held_out(params)
-    log(f"[{tag}] losses {losses}; held-out batch {held0[0]:.6f} -> "
-        f"{held1[0]:.6f} (ce {held0[1]:.6f} -> {held1[1]:.6f}, aux "
-        f"{held0[2]:.6f} -> {held1[2]:.6f})")
-    # the language-model loss must fall; a moe config's load-balance aux
-    # (weighted 0.01 in the objective) may rise as the routers specialise
-    before_loss, after_loss = held0[1], held1[1]
-    if not (np.isfinite(losses).all() and after_loss < before_loss):
-        raise AssertionError(f"[{tag}] losses not finite, or the "
-                             f"held-out loss did not fall: {losses}, "
-                             f"{before_loss} -> {after_loss}")
+    (_, h0), (_, h1) = held[0], held[-1]
+    log(f"[{tag}] losses {losses}; held-out batch objective / ce / aux "
+        "after step " + ", ".join(
+            f"{i}: {o:.6f} / {c:.6f} / {a:.6f}" for i, (o, c, a) in held))
+    if not (np.isfinite(losses).all() and h1[0] < h0[0]
+            and h0[1] - h1[1] > min_fall):
+        raise AssertionError(f"[{tag}] losses not finite, or the held-out "
+                             f"objective did not fall ({h0[0]} -> {h1[0]}),"
+                             f" or its CE not by more than {min_fall} "
+                             f"({h0[1]} -> {h1[1]}): {losses}")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
@@ -2488,7 +2530,7 @@ def phase_lm_step(torch, port, mods, card, arch=LM_ARCH, layers=LM_LAYERS,
         for i in range(2):     # the warm-up step, then the traced one
             t0 = time.perf_counter()
             params, state, _ = node_round(params, state,
-                                          batches[LM_STEPS + i], LM_STEPS)
+                                          batches[steps + i], steps)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             prof.step()
@@ -2507,31 +2549,25 @@ def phase_lm_step(torch, port, mods, card, arch=LM_ARCH, layers=LM_LAYERS,
     mean = float(np.mean(step_ms[1:]))
     log(f"[{tag}] {arch} full width, {L} layers ({n_params} params "
         f"f32, c_w {c_w} B), B={B} x S={S} from lm_corpus, AdamW lr {LM_LR:g} "
-        f"(warmup 2 of {LM_STEPS}), grad_clip 1.0; card: {card}")
-    log(f"[{tag}] launches {launches} = {LM_STEPS} x {expect} (bf16 K1-K3:"
+        f"(warmup 2 of {steps}), grad_clip 1.0; card: {card}")
+    log(f"[{tag}] launches {launches} = {steps} x {expect} (bf16 K1-K3:"
         " no f32 dense kernel in the trace; the traced step's K2 and K3 "
-        f"dense_bwd_wgmma, {bwd['K2']} and {bwd['K3']} of {expect['K2']} "
+        f"dense_bwd_wgmma, {bwd['K2']:g} and {bwd['K3']:g} of "
+        f"{expect['K2']} "
         "traced, no dense_bwd_bf16_tile); every grad leaf nonzero at the "
         "initial params")
-    log(f"[{tag}] step mean {mean:.3f} ms over steps 2-{LM_STEPS} (first "
+    log(f"[{tag}] step mean {mean:.3f} ms over steps 2-{steps} (first "
         f"{step_ms[0]:.3f} ms), p50 {np.percentile(step_ms[1:], 50):.3f} ms"
         f", {B * S / mean * 1e3:.1f} tokens/s | max_memory_allocated "
         f"{peak / 1e9:.3f} GB ({card})")
-    total = sum(dev_ms.values())
-    log(f"[{tag}] profiled step (after a warm-up one): wall {wall_ms:.3f}"
-        f" ms, device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}"
-        f"%), kernel time {total:.3f} ms: " + ", ".join(
-            f"{k} {v:.4f} ({counts[k]})" for k, v in sorted(
-                dev_ms.items(), key=lambda kv: -kv[1])))
+    _log_profile(tag, "profiled step (after a warm-up one)", wall_ms,
+                 dev_ms, counts, busy_ms)
     log(f"[{tag}] AdamW update + apply alone: event {o_ms:.3f} ms, device "
         f"{fmt_ms(o_dev)} ms against its byte floor {o_floor:.3f} ms (7 c_w"
         f" = {7 * c_w / 1e9:.2f} GB at 3.35 TB/s)"
         + (f", {o_floor / o_dev:.0%} of it" if o_dev else ""))
     if cfg.arch_type == "moe":
-        fwd, bwd = moe_spans(torch, prof)
-        log(f"[{tag}] the moe layers in the traced step, device ms forward"
-            " / backward: " + ", ".join(
-                f"{k} {fmt_ms(fwd[k])} / {fmt_ms(bwd[k])}" for k in fwd))
+        _log_spans(tag, "the traced step", *moe_spans(torch, prof))
         flops = train_flops(cfg, B, S)
         f_ms = sum(flops.values()) / PEAK_FLOPS["bfloat16"] * 1e3
         log(f"[{tag}] the step's flop floor, from the code: "
@@ -2792,16 +2828,21 @@ MOE_SERVE_ARCH = "qwen3-moe-30b-a3b"   # phase 4g, at full width
 MOE_SERVE_LAYERS = 8                   # of 48
 MOE_TRAIN_ARCH = "granite-moe-3b-a800m"   # phase 4h, at full width
 MOE_TRAIN_LAYERS = 8                   # of 32
+# 4h's steps, and the fall of the held-out CE they must bring (nats):
+# over 200 steps it swung up to 0.09 above its start and ended 0.20
+# below; 10 steps of this schedule do not show training (PERF.md, PR 25)
+MOE_STEPS, MOE_MIN_FALL = 200, 0.1
 MOE_PROMPT = PREFILL_ROWS[MOE_SERVE_ARCH]   # 4g's traced prefill
 MOE_CACHE_TOL = 1e-4                   # card vs CPU f32 caches (post-rope k)
 ROUTING = ("top_e", "keep", "slot")
 
 
-def moe_spans(torch, prof):
+def moe_spans(torch, prof, steps=1):
     """Device ms of the kernels launched under each moe span
-    (``moe.SPANS``) in ``prof``'s trace: forward, and backward (the
-    autograd nodes of the ops recorded under the span, linked by their
-    sequence numbers); None where the trace holds no device time."""
+    (``moe.SPANS``) in ``prof``'s trace of ``steps`` steps, per step:
+    forward, and backward (the autograd nodes of the ops recorded under
+    the span, linked by their sequence numbers); None where the trace
+    holds no device time."""
     from repro_torch.models.moe import SPANS
     cpu = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CPU]
@@ -2822,8 +2863,8 @@ def moe_spans(torch, prof):
             for k in SPANS:
                 if e.sequence_nr in seqs[k]:
                     bwd[k] += e.device_time_total / 1e3
-    return ({k: v or None for k, v in fwd.items()},
-            {k: v or None for k, v in bwd.items()})
+    return ({k: v / steps or None for k, v in fwd.items()},
+            {k: v / steps or None for k, v in bwd.items()})
 
 
 def train_flops(cfg, B, S) -> dict:
@@ -2986,35 +3027,6 @@ def phase_moe_parity(torch, port, serving):
     torch.cuda.empty_cache()
 
 
-def _moe_breakdown(torch, port, prof, steps=1):
-    """A traced moe forward's device time per call: {K1, K9, cuBLAS,
-    other: ms}, the kernels' counts per call, the moe spans' ms (forward;
-    their kernels are also in cuBLAS and other) and the busy ms."""
-    dev, counts = {}, {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA \
-                or port.profile.annotation(e):
-            continue
-        key = _lm_kernel(e.name)
-        dev[key] = dev.get(key, 0.0) + e.device_time_total / 1e3 / steps
-        counts[key] = counts.get(key, 0) + 1
-    fwd, _ = moe_spans(torch, prof)
-    spans = {k: None if v is None else v / steps for k, v in fwd.items()}
-    return dev, {k: v / steps for k, v in counts.items()}, spans, \
-        port.profile.busy_us(prof) / 1e3 / steps
-
-
-def _log_breakdown(tag, what, wall_ms, dev, counts, spans, busy):
-    total = sum(dev.values())
-    log(f"[{tag}] {what}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
-        f"({100 * busy / wall_ms:.1f}%), kernel time {total:.3f} ms: "
-        + ", ".join(f"{k} {v:.4f} ({counts[k]:g})" for k, v in sorted(
-            dev.items(), key=lambda kv: -kv[1])))
-    log(f"[{tag}] {what}, the moe layers' spans (device ms; their kernels "
-        "are in cuBLAS and other above): " + ", ".join(
-            f"{k} {fmt_ms(v)}" for k, v in spans.items()))
-
-
 def phase_moe_serve(torch, port, serving, counters, card):
     """Phase 4g: Qwen3-30B-A3B at full width, MOE_SERVE_LAYERS of 48
     layers, from a seed: 8 Poisson requests through the continuous
@@ -3078,8 +3090,7 @@ def phase_moe_serve(torch, port, serving, counters, card):
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) * 1e3 / n_dec
             prof.step()
-    dec, dec_n, dec_spans, dec_busy = _moe_breakdown(torch, port, prof,
-                                                     n_dec)
+    dec, dec_n, dec_busy = _lm_profile(torch, port, prof, n_dec)
     cp = eng.params
     layer_bytes = sum(t.numel() * t.element_size()
                       for t in port.tree.tree_leaves(cp["layers"])
@@ -3096,8 +3107,9 @@ def phase_moe_serve(torch, port, serving, counters, card):
            if dec_busy else ""))
     # (the counters hold the launches; a K1 decode launch is two kernels,
     # the split-K slices and their sum)
-    _log_breakdown("moe-serve", f"traced decode step (mean of {n_dec})",
-                   traced_ms, dec, dec_n, dec_spans, dec_busy)
+    what = f"traced decode step (mean of {n_dec})"
+    _log_profile("moe-serve", what, traced_ms, dec, dec_n, dec_busy)
+    _log_spans("moe-serve", what, moe_spans(torch, prof, n_dec)[0])
 
     # the long prompt's prefill: timed, then traced
     prompt = rng.integers(0, cfg.vocab_size, (1, MOE_PROMPT))
@@ -3121,13 +3133,14 @@ def phase_moe_serve(torch, port, serving, counters, card):
             prof.step()
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("[moe-serve] non-finite prefill logits")
-    pf, pf_n, pf_spans, pf_busy = _moe_breakdown(torch, port, prof)
+    pf, pf_n, pf_busy = _lm_profile(torch, port, prof)
     log(f"[moe-serve] the {MOE_PROMPT}-token prompt: prefill "
         f"{', '.join(f'{m:.3f}' for m in pre_ms)} ms (K1 {per_call['K1']}, "
         f"K9 {per_call['K9']} launches each); peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({card})")
-    _log_breakdown("moe-serve", f"traced {MOE_PROMPT}-token prefill",
-                   traced_ms, pf, pf_n, pf_spans, pf_busy)
+    what = f"traced {MOE_PROMPT}-token prefill"
+    _log_profile("moe-serve", what, traced_ms, pf, pf_n, pf_busy)
+    _log_spans("moe-serve", what, moe_spans(torch, prof)[0])
     del params, eng, cp, head
     gc.collect()
     torch.cuda.empty_cache()
@@ -3203,6 +3216,8 @@ def main() -> int:
     ap.add_argument("--moe", action="store_true", help="run phases 3d, 4g "
                     "and 4h (the MoE family) alone and print no result "
                     "line")
+    ap.add_argument("--moe-steps", type=int, default=MOE_STEPS,
+                    help=f"phase 4h's training steps (default {MOE_STEPS})")
     args = ap.parse_args()
     # torch.compile (the flex_attention yardstick) caches inside the checkout
     cache = SRC / "repro_torch" / "kernels" / "_build" / "compile_cache"
@@ -3292,7 +3307,8 @@ def main() -> int:
         phase_moe_parity(torch, port, serving)
         phase_moe_serve(torch, port, serving, counters, card)
         phase_lm_step(torch, port, mods, card, MOE_TRAIN_ARCH,
-                      MOE_TRAIN_LAYERS, "moe-train")
+                      MOE_TRAIN_LAYERS, "moe-train", args.moe_steps,
+                      MOE_MIN_FALL)
         log(card_line())
         return 0
     k1_sums, worst = phase_kernel(torch, dense_mod, ref)
@@ -3320,7 +3336,7 @@ def main() -> int:
         torch, port, serving, counters, card)
     moe_launches, moe_step_ms = phase_lm_step(
         torch, port, mods, card, MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS,
-        "moe-train")
+        "moe-train", args.moe_steps, MOE_MIN_FALL)
     gc.collect()
     torch.cuda.empty_cache()
     gemma_launches, gem_pre, k10_launches, k10_diff = phase_gemma(
@@ -3329,11 +3345,13 @@ def main() -> int:
 
     k1 = train_rows["K1"]
     yi, gem = k1_sums[("yi-6b", "decode")], k1_sums[("gemma2-27b", "decode")]
-    yi_pre = prefill_launches(k1_sums, "yi-6b", yi_pre_k1)
+    yi_pre = prefill_launches(dense_mod, k1_sums, "yi-6b", yi_pre_k1)
     qwen = k1_sums[(MOE_SERVE_ARCH, "decode")]
-    qwen_pre = prefill_launches(k1_sums, MOE_SERVE_ARCH, qwen_pre_k["K1"])
+    qwen_pre = prefill_launches(dense_mod, k1_sums, MOE_SERVE_ARCH,
+                                qwen_pre_k["K1"])
     gem_pre_k9 = gem_pre["K9"]
-    gem_pre = prefill_launches(k1_sums, "gemma2-27b", gem_pre["K1"])
+    gem_pre = prefill_launches(dense_mod, k1_sums, "gemma2-27b",
+                               gem_pre["K1"])
     rows = [{
         "name": "dense_fwd (K1)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dense_fwd.cu",

@@ -96,6 +96,14 @@ def dwdb_splits(M: int, Din: int, Dout: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)   # every projection asks each call
+def bf16_rows(M: int) -> int:
+    """Rows one block of K1's bf16 instance owns at M rows: 0 on the
+    split-K stream (M <= 16), else the tile GEMM's 64 (M <= 64) or 128."""
+    if M <= _BF16_ROWS:
+        return 0
+    return _TILE_ROWS_STREAM if M <= _TILE_ROWS_STREAM else _TILE_ROWS
+
+
 def bf16_splits(M: int, N: int, K: int) -> tuple[int, int]:
     """(splits, depth) of K1's bf16 instance for x (M, K) @ w (K, N).
 
@@ -115,8 +123,8 @@ def bf16_splits(M: int, N: int, K: int) -> tuple[int, int]:
 
     Every slice is non-empty.  Depends on the shapes only, so every run
     adds the same partials in the same order."""
-    if M > _BF16_ROWS:
-        rows = _TILE_ROWS_STREAM if M <= _TILE_ROWS_STREAM else _TILE_ROWS
+    rows = bf16_rows(M)
+    if rows:
         tiles = math.ceil(M / rows) * math.ceil(N / _TILE_N)
         steps = math.ceil(K / _TILE_STEP)
         low = min(steps, _TILE_MIN_STEPS)

@@ -150,6 +150,29 @@ def test_phase_2d_hits_every_width_with_a_ragged_last_tile(kernel):
     assert ragged == {128, 192, 256}
 
 
+# the prompt rows each serving phase of chip_smoke.py sends K1: the
+# Poisson requests' prompt lengths, 4g's four 16-token prompts at once,
+# and the long prompts
+SERVED_ROWS = {"yi-6b": (8, 12, 16, 24),
+               "gemma2-27b": (16, 32, 64, 5000),
+               "qwen3-moe-30b-a3b": (8, 12, 16, 24, 64, 2048)}
+
+
+@pytest.mark.parametrize("arch", sorted(SERVED_ROWS))
+def test_phase_2_checks_the_plan_of_every_served_prefill(arch):
+    """``chip_smoke.py``'s ``prefill_launches`` passes the row counts its
+    serving phases send K1, each run at the block rows, splits and depth
+    of a row count phase 2 holds against the plain version, and refuses a
+    row count whose plan phase 2 does not check."""
+    cs = _chip_smoke()
+    assert cs.PREFILL_ROWS[arch] in SERVED_ROWS[arch]
+    sums = {(arch, "prefill"): {"launches": 7}}
+    served = {M: [7] for M in SERVED_ROWS[arch]}
+    assert cs.prefill_launches(dense, sums, arch, served)["launches"] == 7
+    with pytest.raises(AssertionError, match="did not hold"):
+        cs.prefill_launches(dense, sums, arch, {**served, 300: [7]})
+
+
 @pytest.mark.parametrize("M,din,dout", [(24, 64, 40), (5, 7, 9),
                                         (33, 48, 20)])
 def test_dwdb_ref_writes_dw_in_the_callers_dtype(M, din, dout):

@@ -133,6 +133,14 @@ def test_bf16_splits_depend_on_shapes_only(M, K, N, want):
     assert dense.bf16_splits(M, N, K) == want
 
 
+@pytest.mark.parametrize("M,rows", [(1, 0), (16, 0), (17, 64), (64, 64),
+                                    (65, 128), (2048, 128)])
+def test_bf16_rows_picks_the_route_by_m(M, rows):
+    """The split-K stream up to M = 16, then the tile GEMM's 64-row tiles
+    up to M = 64 and 128-row tiles above."""
+    assert dense.bf16_rows(M) == rows
+
+
 def test_bf16_slice_partials_in_order_give_the_product():
     """What the bf16 instance's two passes compute, in plain f32: each
     slice's product of bf16 operands, then their sum in slice order."""
