@@ -22,7 +22,11 @@ from the root of a checkout.  Phases, each of which raises on failure
    decode step at M = 4 and prefill forward (Yi-6B at M = 24, Gemma-2 at
    M = 5000); the same at Qwen3-MoE's attention projections (M = 1, 4,
    16 and 2048; its 8-layer decode step and 2048-token prefill, 32
-   launches each);
+   launches each), at Mamba2's in- and out-projections (M up to 64 and
+   2000; its 48-layer decode step and 2000-token prefill, 96 launches
+   each) and at Hymba's nine (in_proj 1600 -> 6457; M up to 64 and 2048;
+   its 32-layer decode step and 2048-token prefill, 288 launches each),
+   those two timed at the summed rows only;
 2b. K2-K8 (and K1 in f32) against their plain versions at every shape of
    a Table-2 case7 training step at B = 64, plus ragged and tied cases,
    for the split-K f32 product of K1 and K2 shapes whose reduction
@@ -39,7 +43,8 @@ from the root of a checkout.  Phases, each of which raises on failure
 2c. K9 (RMSNorm) at decode and prefill rows of d = 4608, 4096, 3072 in
    bf16 and f32 plus ragged rows (each rerun bit for bit; the launch
    geometry printed; Qwen3-MoE's rows: d = 2048 and its q/k norms at
-   head_dim 128, decode and a 2048-token prefill), and K10 (flash
+   head_dim 128, decode and a 2048-token prefill; Mamba2's d = 1024 and
+   Hymba's 1600, decode and their long prefills), and K10 (flash
    attention) at Gemma-2's
    (bf16 and f32, q x 8 so the soft-cap of 50 acts), Yi-6B's and Phi-3's
    attention shapes (S up to 8192, windows) plus a small case with fully
@@ -55,12 +60,16 @@ from the root of a checkout.  Phases, each of which raises on failure
    and Yi-6B projection shape at M = 1024 (B 8 x S 128; K1 without bias,
    as the LM calls it, at K1 bf16's gate; K2 and K3 each on the TMA +
    wgmma route), and at Granite-MoE's (1536 -> 1536 and -> 512; summed
-   over a phase-4h step too), K2 and K3 also at ragged M, with the relu
+   over a phase-4h step too) and Hymba's (its nine projections, summed
+   over a phase-4k step; K2 and K3 of in_proj on the mma.sync tile
+   route, since 6457 is no multiple of 8, each shape asserted on the
+   route its widths call for), K2 and K3 also at ragged M, with the relu
    mask, off 8
    and at widths off every tile width the route plan can choose (each
    printing its route), and K9's backward at d = 3072, 4096, 4608 (1024
-   rows, and ragged rows) in bf16 and f32, and at Granite-MoE's d = 1536
-   and Qwen3-MoE's q/k norms (d = 128), against their plain versions:
+   rows, and ragged rows) in bf16 and f32, and at Granite-MoE's d = 1536,
+   Hymba's 1600 and Qwen3-MoE's q/k norms (d = 128), against their plain
+   versions:
    dx within one bf16 rounding (bf16) or at the f32 gradient gate, f32
    dw, db and dscale at the gradient gate (1e-4 x max(max|ref|, 1)), K3's
    bf16 dw equal bit for bit to its f32 dw cast to bf16; every case
@@ -157,11 +166,40 @@ from the root of a checkout.  Phases, each of which raises on failure
    the head's bf16 weights, every expert's included), and a 2048-token
    prompt's prefill timed (exact launches per call) and traced;
 4h. Granite-3.0-MoE-3B at full width and 8 of 32 layers, phase 4e's
-   loop (B 8 x S 128 from ``lm_corpus``, AdamW, 10 steps; exactly 32
+   loop (B 8 x S 128 from ``lm_corpus``, AdamW, 200 steps; exactly 32
    K1, K2 and K3 and 17 K9 forward and backward launches a step, every
    K2/K3 on the wgmma route, the held-out loss falls), plus the moe
    spans forward and backward in the traced step and the step's flop
    floor counted from the code;
+3e. reduced Mamba2 (SSD chunk 8, so its 19-token prompt chains three
+   chunks, the last padded) and reduced Hymba (window 16 on layer 1) in
+   f32 on the card against the port's CPU path, as 3d without routing:
+   token streams, prefill logits (1e-4), 4 decode steps with per-row
+   lengths, every cache leaf (kv, conv, ssm; 1e-4), ``loss_fn`` and every
+   gradient leaf (remat off and on); then each bf16 forward reruns bit
+   for bit;
+4i. (run after 4h) Mamba2-370M at full width and all 48 layers: 8
+   Poisson requests through the continuous engine (every request
+   completes, logits finite, exactly 96 K1 and 49 K9 launches per forward
+   call; TTFT, latency p50/p99, tok/s, peak memory), a decode step of 4
+   full slots timed and traced by kernel and by the mixer's spans
+   (in_proj, conv, ssd, gate_norm, out_proj) against its byte floor (the
+   weights, the head, each slot's f32 state read and written), and a
+   2000-token prompt (eight 256-token SSD chunks, the last padded)
+   prefilled, timed and traced;
+4j. Hymba-1.5B at full width and all 32 layers (global layers 0, 15, 31,
+   window 1024 elsewhere), as 4i: 288 K1 (in_proj 1600 -> 6457 on K1's
+   element-by-element loads) and 129 K9 launches per forward call, a
+   2048-token prompt past the window;
+4k. Hymba-1.5B at full width and 8 of 32 layers through phase 4e's loop
+   (B 8 x S 128 from ``lm_corpus`` over the reduced config's 512 token
+   ids, the model's 32001 kept; AdamW, 100 steps): exactly 72 K1, K2
+   and K3 and 33 K9 forward and backward launches a step, the traced
+   step's K2/K3 on the routes their shapes' plans give (in_proj's on the
+   mma.sync tile GEMM, the rest on the TMA + wgmma GEMM), the mixer's
+   spans forward and backward, tokens/s, peak memory; the held-out
+   objective must fall, and its CE by more than SSM_MIN_FALL nats (both
+   read every 10 steps);
 5. the serving CLI once on the reduced config;
 6. a JSON line with every ported kernel (device-clock times as the extra
    fields ``device_ms`` and ``library_device_ms``, "not measured" being
@@ -177,7 +215,11 @@ from the root of a checkout.  Phases, each of which raises on failure
    and K3 Granite-MoE's step as ``granite_train_bf16_*`` and
    ``granite_bf16_*``, K9 Qwen3-MoE's forwards as ``qwen_*`` and
    ``qwen_prefill_*`` and its backward in Granite-MoE's step as
-   ``granite_bwd_*``), then the card
+   ``granite_bwd_*``; K1 and K9 Mamba2's and Hymba's decode steps and
+   long prefills as ``mamba_*``, ``mamba_prefill_*``, ``hymba_*`` and
+   ``hymba_prefill_*`` (launches from 4i, 4j), K1, K2 and K3 Hymba's
+   training step as ``hymba_train_bf16_*`` and ``hymba_bf16_*``, K9's
+   backward there as ``hymba_bwd_*``), then the card
    again, then the result line ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports no JAX and nothing of the JAX package ``repro``.
@@ -209,7 +251,11 @@ for phases 2d, 3c, 4e and 4f, and
 
     python3 chip_smoke.py --moe
 
-for phases 3d, 4g and 4h.
+for phases 3d, 4g and 4h, and
+
+    python3 chip_smoke.py --ssm
+
+for phases 3e, 4i, 4j and 4k.
 """
 from __future__ import annotations
 
@@ -246,18 +292,36 @@ DECODE_SHAPES = {                  # one layer's projections: (name, K, N)
     # the experts' products are library einsums, not K1 (moe.py)
     "qwen3-moe-30b-a3b": (("wq", 2048, 4096), ("wk", 2048, 512),
                           ("wv", 2048, 512), ("wo", 4096, 2048)),
+    # the mixer's in- and out-projections (the scan, conv and gated norm
+    # are library ops, as in the reference)
+    "mamba2-370m": (("in_proj", 1024, 4384), ("out_proj", 2048, 1024)),
+    # in_proj's 6457 columns are no multiple of 8: element-by-element loads
+    "hymba-1.5b": (("wq", 1600, 1600), ("wk", 1600, 320), ("wv", 1600, 320),
+                   ("wo", 1600, 1600), ("in_proj", 1600, 6457),
+                   ("out_proj", 3200, 1600), ("wg", 1600, 5504),
+                   ("wi", 1600, 5504), ("mlp_wo", 5504, 1600)),
 }
-DECODE_LAYERS = {"yi-6b": 32, "gemma2-27b": 8,      # phases 4, 4c and 4g
-                 "qwen3-moe-30b-a3b": 8}
+DECODE_LAYERS = {"yi-6b": 32, "gemma2-27b": 8,      # phases 4, 4c, 4g, 4i
+                 "qwen3-moe-30b-a3b": 8,            # and 4j: full depth
+                 "mamba2-370m": 48, "hymba-1.5b": 32}
 K1_ROWS = (1, 4, 16,               # decode rows (the split-K stream)
            17, 24, 64)             # prefill rows (the tile GEMM, 64-row)
 K1_MODEL_ROWS = {"yi-6b": K1_ROWS,
                  # long prompts (128-row tiles)
                  "gemma2-27b": K1_ROWS + (512, 5000),
                  # and phase 4g's 2048-token prompt
-                 "qwen3-moe-30b-a3b": K1_ROWS + (2048,)}
+                 "qwen3-moe-30b-a3b": K1_ROWS + (2048,),
+                 # 4i's 2000-token prompt (8 SSD chunks, the last padded)
+                 "mamba2-370m": K1_ROWS + (2000,),
+                 # 4j's 2048-token prompt, past the 1024 window
+                 "hymba-1.5b": K1_ROWS + (2048,)}
 PREFILL_ROWS = {"yi-6b": 24, "gemma2-27b": 5000,   # the prefill sums
-                "qwen3-moe-30b-a3b": 2048}
+                "qwen3-moe-30b-a3b": 2048, "mamba2-370m": 2000,
+                "hymba-1.5b": 2048}
+# archs whose phase-2 rows are timed at the summed rows only (decode M = 4
+# and the prefill): the other rows are held against the plain version
+# and rerun, which is what the served plans need
+SUM_ROWS_TIMED = ("mamba2-370m", "hymba-1.5b")
 K1_RAGGED = (                      # (dtype, M, K, N), bias + relu
     ("float32", 37, 100, 77), ("bfloat16", 5, 72, 70),
     ("bfloat16", 33, 100, 130),
@@ -411,9 +475,12 @@ def phase_kernel(torch, dense_mod, ref, only=None):
             unique.setdefault((K, N), []).append(name)
         rows = K1_MODEL_ROWS[arch]
         for M in (M for M in rows if only is None or M in only):
+            timed = arch not in SUM_ROWS_TIMED or M in (
+                4, PREFILL_ROWS[arch])
             for (K, N), which in unique.items():
                 wbytes = K * N * 2
-                copies = max(2, min(64, math.ceil(256e6 / wbytes)))
+                copies = max(2, min(64, math.ceil(256e6 / wbytes))) \
+                    if timed else 1
                 x = torch.randn((M, K), generator=gen, device="cuda"
                                 ).to(torch.bfloat16)
                 ws = [(torch.randn((K, N), generator=gen, device="cuda")
@@ -427,6 +494,14 @@ def phase_kernel(torch, dense_mod, ref, only=None):
                 if not torch.equal(got, dense_cuda(x, ws[0])):
                     raise AssertionError(f"K1 {arch} {K}x{N} M={M} gave "
                                          "different bits on a rerun")
+                if err / tol > worst["ratio"]:
+                    worst = {"err": err, "ratio": err / tol, "tol": tol}
+                if not timed:
+                    log(f"[k1] {arch:<10} {K:>5}x{N:<6} {len(which)} {M:>4} "
+                        f"{S:>3}  {err:<11.4g} {tol:<9.4g} (held and rerun; "
+                        "timed at the summed rows only)")
+                    del x, ws, got
+                    continue
                 sets = [(x, w) for w in ws]
                 iters = 20 if M >= 512 else 50
                 k_ms = time_ms(torch, dense_cuda, sets, iters=iters)
@@ -457,8 +532,6 @@ def phase_kernel(torch, dense_mod, ref, only=None):
                     st["bound_by"][by] = st["bound_by"].get(by, 0.0) + \
                         n * b_ms
                     st["launches"] += n
-                if err / tol > worst["ratio"]:
-                    worst = {"err": err, "ratio": err / tol, "tol": tol}
                 del x, ws, sets, got
                 torch.cuda.empty_cache()
     log("[k1] bf16 device kernels: " + ", ".join(sorted(names)))
@@ -1338,6 +1411,12 @@ QWEN_RMS = {"decode": ((4, 2048), (128, 128), (16, 128)),
             "prefill": ((2048, 2048), (65536, 128), (8192, 128))}
 RMS_CASES += [(rows, d, "bfloat16") for kind in ("decode", "prefill")
               for rows, d in QWEN_RMS[kind]]
+# Mamba2 (phase 4i, d = 1024) and Hymba (4j, d = 1600): every norm of a
+# forward at d_model, a decode step's 4 rows and the long prompt's
+SSM_RMS = {arch: {"decode": (4, d), "prefill": (PREFILL_ROWS[arch], d)}
+           for arch, d in (("mamba2-370m", 1024), ("hymba-1.5b", 1600))}
+RMS_CASES += [(rows, d, "bfloat16") for kinds in SSM_RMS.values()
+              for rows, d in kinds.values()]
 # (name, B, H, KH, Sq, Sk, D, dtype, window, softcap)
 FLASH_CASES = [
     ("gemma2 global", 1, 32, 16, 8192, 8192, 128, "bfloat16", 0, 50.0),
@@ -1669,11 +1748,13 @@ def _logit_diff(torch, a, b):
     return (a.float().cpu() - b.float().cpu()).abs().max().item()
 
 
-def phase_reduced(torch, configs, lm, serving, weights, arch="yi-6b"):
-    """Reduced ``arch`` in f32, served on the card and on the CPU.  For
-    Gemma-2 the prompts (20-36 tokens) pass its window of 16, so the local
-    layer masks in prefill and decode."""
-    cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32")
+def phase_reduced(torch, configs, lm, serving, weights, arch="yi-6b",
+                  **cfg_kw):
+    """Reduced ``arch`` in f32 (``cfg_kw`` replaced), served on the card
+    and on the CPU.  For Gemma-2 and Hymba the prompts (20-36 tokens) pass
+    their window of 16, so the local layer masks in prefill and decode."""
+    cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32",
+                              **cfg_kw)
     host = lm.init_params(cfg, torch.Generator("cpu").manual_seed(0),
                           device="cpu")
     tree = weights.params_to_numpy(host)
@@ -1812,8 +1893,9 @@ def phase_slice(torch, configs, lm, serving, counters, card):
     events, launches, calls, decode_ms, peak, pre = _serve(
         torch, eng, reqs, counters)
     L = cfg.num_layers             # 32: 224 K1 and 65 K9 a forward
-    _report(events, 8, eng, calls, launches, {"K1": 7 * L, "K9": 2 * L + 1},
-            decode_ms, peak, card, "slice")
+    _report(events, 8, eng, calls, launches,
+            {"K1": dense_per_layer(cfg) * L, "K9": norms_per_layer(cfg) * L
+             + 1}, decode_ms, peak, card, "slice")
     return launches, pre["K1"]
 
 
@@ -1852,7 +1934,8 @@ def phase_gemma(torch, configs, serving, counters, card, layers=8):
     events, launches, calls, decode_ms, peak, pre = _serve(
         torch, eng, reqs, counters)
     _report(events, 4, eng, calls, launches,
-            {"K1": 7 * layers, "K9": 4 * layers + 1}, decode_ms, peak, card,
+            {"K1": dense_per_layer(cfg) * layers,
+             "K9": norms_per_layer(cfg) * layers + 1}, decode_ms, peak, card,
             "gemma")
     long_pre = next(ev.prefill_ms for ev in events
                     if ev.kind == "prefill" and ev.request == 0)
@@ -1958,6 +2041,9 @@ LM_BWD_SHAPES = {                  # one layer's projections: (name, Din, Dout)
     # phase 4h's attention projections (the experts are library einsums)
     "granite-moe-3b-a800m": (("wq", 1536, 1536), ("wk", 1536, 512),
                              ("wv", 1536, 512), ("wo", 1536, 1536)),
+    # phase 4k: K2 and K3 of in_proj (6457 columns) take the mma.sync tile
+    # route, the others the TMA + wgmma GEMM (dense.bwd_bf16_plan)
+    "hymba-1.5b": DECODE_SHAPES["hymba-1.5b"],
 }
 LM_ROWS = 1024                     # B 8 x S 128, a training step's rows
 LM_BATCH, LM_SEQ = 8, 128
@@ -1972,6 +2058,7 @@ LM_BWD_EDGES = (                   # (M, Din, Dout), no mask, widths off 8's
 RMS_BWD_CASES = [(LM_ROWS, d, dt) for d in (3072, 4096, 4608)
                  for dt in ("bfloat16", "float32")]
 RMS_BWD_CASES += [(LM_ROWS, 1536, "bfloat16"),      # Granite-MoE's norms
+                  (LM_ROWS, 1600, "bfloat16"),      # Hymba's (phase 4k)
                   (32768, 128, "bfloat16"),          # Qwen3's q/k norms at
                   (4096, 128, "bfloat16")]           # B 8 x S 128 (gated)
 RMS_BWD_CASES += [(1000, 4608, "bfloat16"), (133, 3072, "bfloat16"),
@@ -1994,20 +2081,59 @@ LM_KERNEL_NAMES = (   # device kernel name -> the port's kernel (bf16 path)
 CUBLAS_NAMES = ("gemm", "nvjet", "cutlass", "xmma")   # the head's matmul
 
 
+def layer_projections(cfg) -> list:
+    """(name, Din, Dout) of every ``layers.dense`` a layer's forward
+    calls, from the block's layout (``models/blocks.py``): the attention's
+    q, k, v, o (every block but ssm), the mixer's in- and out-projections
+    (ssm, hybrid) and the gated MLP's three (dense and hybrid with d_ff;
+    the moe block's experts are library einsums)."""
+    d, t = cfg.d_model, cfg.arch_type
+    out = []
+    if t != "ssm":
+        q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        out += [("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d)]
+    if t in ("ssm", "hybrid"):
+        di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        out += [("in_proj", d, 2 * di + 2 * N + H), ("out_proj", di, d)]
+    if t in ("dense", "hybrid") and cfg.d_ff > 0:
+        out += [("wg", d, cfg.d_ff), ("wi", d, cfg.d_ff),
+                ("mlp_wo", cfg.d_ff, d)]
+    return out
+
+
 def dense_per_layer(cfg) -> int:
-    """K1 launches a layer's forward makes: q, k, v, o, and the gated
-    MLP's three where the block has one (the moe block's experts are
-    library einsums)."""
-    return 4 + (3 if cfg.arch_type == "dense" and cfg.d_ff > 0 else 0)
+    """K1 launches a layer's forward makes."""
+    return len(layer_projections(cfg))
 
 
-def lm_step_launches(L: int, per_layer: int = 7) -> dict:
+def norms_per_layer(cfg) -> int:
+    """K9 launches a layer's forward makes: ln1; ln2 where the block has
+    an MLP or moe; the hybrid's bn_attn and bn_ssm; Qwen3's q and k norms;
+    Gemma-2's post-norms."""
+    t = cfg.arch_type
+    ln2 = t == "moe" or (t != "ssm" and cfg.d_ff > 0)
+    return (1 + ln2 + 2 * (t == "hybrid") + 2 * bool(cfg.qk_norm)
+            + bool(cfg.post_norm) * (1 + ln2))
+
+
+def lm_step_launches(L: int, per_layer: int = 7, norms: int = 2) -> dict:
     """K1-K3 and K9 launches of one LM training step at depth L (remat
     off): ``per_layer`` projections a layer forward (K1) and backward (K2,
-    K3), and 2 L + 1 norms forward (K9) and backward."""
+    K3), and ``norms`` L + 1 norms forward (K9) and backward."""
     n = per_layer * L
-    return {"K1": n, "K2": n, "K3": n, "K9": 2 * L + 1,
-            "K9 bwd": 2 * L + 1}
+    return {"K1": n, "K2": n, "K3": n, "K9": norms * L + 1,
+            "K9 bwd": norms * L + 1}
+
+
+def bwd_routes(dn, cfg, M=LM_ROWS) -> dict:
+    """{(kernel, route): launches a layer} of K2 and K3 in bf16 over the
+    layer's projections, as ``dense.bwd_bf16_plan`` routes them."""
+    out = {}
+    for key in ("K2", "K3"):
+        for _, Din, Dout in layer_projections(cfg):
+            route = dn.bwd_bf16_plan(key, M, Din, Dout).route
+            out[(key, route)] = out.get((key, route), 0) + 1
+    return out
 
 
 def _lm_counts(mods):
@@ -2138,8 +2264,8 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
     in bf16, no db, where the checkout's K3 takes ``dw_dtype``).
     ``only``: the kernels to run (K1, K2, K3, K9), all if None.  Returns
     per kernel its row, summed over one phase-4e step (Phi-3-mini,
-    LM_LAYERS layers), and under ("moe", kernel) over one phase-4h step
-    (Granite-MoE, MOE_TRAIN_LAYERS layers)."""
+    LM_LAYERS layers), and under (family, kernel) over one step of each
+    of TRAIN_FAMILIES (Granite-MoE's phase 4h, Hymba's phase 4k)."""
     gen = torch.Generator("cuda").manual_seed(4)
     new = hasattr(dn, "bwd_bf16_plan")   # K3 writes bf16 dw, db if asked
     lm_k3 = (lambda x, g, out: dn.dense_dwdb_cuda(
@@ -2162,7 +2288,8 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
     for key in ("K1", "K2", "K3"):
         if only is not None and key not in only:
             continue
-        row, moe_row = _new_row(), _new_row()
+        row = _new_row()
+        fam = {f: _new_row() for f in TRAIN_FAMILIES}
         for arch, shapes in LM_BWD_SHAPES.items():
             unique = {}
             for name, Din, Dout in shapes:
@@ -2184,14 +2311,16 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
                 else:
                     err, tol = _check_dense_bwd(torch, dn, ref, key, args,
                                                 where)
+                    # TMA's row stride wants widths of 8's multiples; the
+                    # others take the mma.sync tile GEMM
+                    want = "wgmma" if Din % 8 == 0 and Dout % 8 == 0 \
+                        else "tile"
                     if new and dn.bwd_bf16_plan(key, M, Din,
-                                                Dout).route != "wgmma":
+                                                Dout).route != want:
                         raise AssertionError(f"{key} bf16 {where}: an LM "
-                                             "projection off the wgmma "
+                                             f"projection off the {want} "
                                              "route")
                 _note_err(row, err, tol)
-                if arch == MOE_TRAIN_ARCH:
-                    _note_err(moe_row, err, tol)
                 wbytes = 2 * Din * Dout
                 copies = max(2, min(16, math.ceil(256e6 / wbytes)))
                 sets = [args] + [_dense_bwd_case(torch, gen, key, M, Din,
@@ -2207,8 +2336,10 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
                 t = _time_case(torch, row, n, kern[key], plain[key],
                                lib[key], sets, sets, nbytes, flops,
                                "bfloat16")
-                if arch == MOE_TRAIN_ARCH:
-                    _add_case(moe_row, MOE_TRAIN_LAYERS * len(which), t)
+                for f, (farch, fL, *_) in TRAIN_FAMILIES.items():
+                    if arch == farch:
+                        _note_err(fam[f], err, tol)
+                        _add_case(fam[f], fL * len(which), t)
                 log(f"[lm-k] {key:<6} {arch:<15} "
                     f"{f'{M}x{Din}x{Dout}':<18} {err:<11.4g} {tol:<10.4g} "
                     f"{t[0]:<10.5f} {fmt_ms(t[1]):<12} {t[2]:<10.5f} "
@@ -2240,22 +2371,24 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
                 f" {row['bound_ms'] / row['device_ms']:.1%} of the bound, "
                 f"{row['device_ms'] / row['library_device_ms']:.3f}x "
                 "torch.matmul's device time")
-        if moe_row["bound_ms"]:
-            log(f"[lm-k] {key} bf16, one {MOE_TRAIN_ARCH} step at "
-                f"{MOE_TRAIN_LAYERS} layers ({4 * MOE_TRAIN_LAYERS} "
-                f"launches): kernel {moe_row['ms']:.5f} ms (device "
-                f"{fmt_ms(moe_row['device_ms'])}), torch.matmul "
-                f"{moe_row['library_ms']:.5f} (device "
-                f"{fmt_ms(moe_row['library_device_ms'])}), bound "
-                f"{moe_row['bound_ms']:.5f}")
+        for f, (farch, fL, *_) in TRAIN_FAMILIES.items():
+            r = fam[f]
+            if r["bound_ms"]:
+                log(f"[lm-k] {key} bf16, one {farch} step at {fL} layers "
+                    f"({fL * len(LM_BWD_SHAPES[farch])} launches): kernel "
+                    f"{r['ms']:.5f} ms (device {fmt_ms(r['device_ms'])}), "
+                    f"torch.matmul {r['library_ms']:.5f} (device "
+                    f"{fmt_ms(r['library_device_ms'])}), bound "
+                    f"{r['bound_ms']:.5f}")
+            rows[(f, key)] = r
         rows[key] = row
-        rows[("moe", key)] = moe_row
     if only is not None and "K9" not in only:
         torch.cuda.empty_cache()
         return rows
 
     F = torch.nn.functional
-    row, moe_row = _new_row(), _new_row()
+    row = _new_row()
+    fam = {f: _new_row() for f in TRAIN_FAMILIES}
     for rows_n, d, dt in RMS_BWD_CASES:
         tdt = getattr(torch, dt)
         itemsize = 2 if dt == "bfloat16" else 4
@@ -2303,10 +2436,11 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
         t = _time_case(torch, row, n, rms.rmsnorm_bwd_cuda,
                        ref.rmsnorm_bwd_ref, lib, sets, lib_sets, nbytes,
                        12.0 * rows_n * d, "float32")
-        if (d, dt) == (1536, "bfloat16"):       # Granite-MoE's norms
-            _note_err(moe_row, e1, t1)
-            _note_err(moe_row, e2, t2)
-            _add_case(moe_row, 2 * MOE_TRAIN_LAYERS + 1, t)
+        for f, (_, fL, norms, fd) in TRAIN_FAMILIES.items():
+            if (d, dt) == (fd, "bfloat16"):     # the family's norms
+                _note_err(fam[f], e1, t1)
+                _note_err(fam[f], e2, t2)
+                _add_case(fam[f], norms * fL + 1, t)
         log(f"[lm-k] K9 bwd {f'{rows_n}x{d}':<12} {dt:<9} dx {e1:<10.4g} "
             f"(tol {t1:<9.4g}) dscale {e2:<10.4g} (tol {t2:<9.4g}) "
             f"{t[0]:<10.5f} {fmt_ms(t[1]):<12} {t[2]:<10.5f} {t[3]:<10.5f} "
@@ -2321,7 +2455,7 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
         f" ({dominant(row['bound_by'])}); worst max_abs_err "
         f"{row['err']:.4g} at tol {row['tol']:.4g}")
     rows["K9 bwd"] = row
-    rows[("moe", "K9 bwd")] = moe_row
+    rows.update({(f, "K9 bwd"): r for f, r in fam.items()})
     torch.cuda.empty_cache()
     return rows
 
@@ -2384,9 +2518,9 @@ def phase_lm_parity(torch, port):
                 f" on and off; card remat vs no remat max_abs_diff {rd:.3g}")
 
 
-def _lm_profile(torch, port, prof, steps=1):
-    """``prof``'s trace of ``steps`` steps (or forward calls), per step:
-    ({kernel: device ms}, {kernel: its launches}, busy ms)."""
+def _lm_profile(torch, port, prof):
+    """``prof``'s trace of one step (or forward call): ({kernel: device
+    ms}, {kernel: its launches}, busy ms)."""
     dev_ms, counts = {}, {}
     for evt in prof.key_averages():
         us = port.profile.device_us(evt)
@@ -2394,9 +2528,9 @@ def _lm_profile(torch, port, prof, steps=1):
                 or port.profile.annotation(evt):   # a span, not a kernel
             continue
         key = _lm_kernel(evt.key)
-        dev_ms[key] = dev_ms.get(key, 0.0) + us / 1e3 / steps
-        counts[key] = counts.get(key, 0) + evt.count / steps
-    return dev_ms, counts, port.profile.busy_us(prof) / 1e3 / steps
+        dev_ms[key] = dev_ms.get(key, 0.0) + us / 1e3
+        counts[key] = counts.get(key, 0) + evt.count
+    return dev_ms, counts, port.profile.busy_us(prof) / 1e3
 
 
 def _log_profile(tag, what, wall_ms, dev_ms, counts, busy_ms):
@@ -2409,12 +2543,12 @@ def _log_profile(tag, what, wall_ms, dev_ms, counts, busy_ms):
                 dev_ms.items(), key=lambda kv: -kv[1])))
 
 
-def _log_spans(tag, what, fwd, bwd=None):
-    """One line: the moe layers' spans (``moe_spans``) in a traced step,
-    forward, and backward where given."""
-    log(f"[{tag}] {what}, the moe layers' spans, device ms forward"
-        + (" / backward" if bwd else "") + " (their kernels are in cuBLAS"
-        " and other above): " + ", ".join(
+def _log_spans(tag, what, fwd, bwd=None, family="moe layers'"):
+    """One line: a family's spans (``spans``) in a traced step, forward,
+    and backward where given."""
+    log(f"[{tag}] {what}, the {family} spans, device ms forward"
+        + (" / backward" if bwd else "") + " (the kernels launched under "
+        "each span, booked by kernel above): " + ", ".join(
             f"{k} {fmt_ms(v)}" + (f" / {fmt_ms(bwd[k])}" if bwd else "")
             for k, v in fwd.items()))
 
@@ -2427,10 +2561,12 @@ def _lm_kernel(name):
 
 
 def phase_lm_step(torch, port, mods, card, arch=LM_ARCH, layers=LM_LAYERS,
-                  tag="lm-step", steps=LM_STEPS, min_fall=0.0):
+                  tag="lm-step", steps=LM_STEPS, min_fall=0.0,
+                  corpus_vocab=0):
     """Phase 4e (4h: ``arch`` Granite-MoE, ``tag`` "moe-train", MOE_STEPS
     steps, MOE_MIN_FALL): Phi-3-mini at full width and LM_LAYERS layers,
-    B 8 x S 128 from ``lm_corpus``, AdamW, ``steps`` steps through
+    B 8 x S 128 from ``lm_corpus`` (over the first ``corpus_vocab`` token
+    ids, else the whole vocabulary), AdamW, ``steps`` steps through
     ``make_node_round`` with ``lm.loss_fn``: finite losses, every grad
     leaf nonzero, exact launches a step, step wall, device time by kernel,
     busy share, tokens/s, peak memory, and the optimizer's time against
@@ -2446,15 +2582,17 @@ def phase_lm_step(torch, port, mods, card, arch=LM_ARCH, layers=LM_LAYERS,
     cfg = dataclasses.replace(port.configs.get_config(arch),
                               num_layers=layers)
     L, B, S = layers, LM_BATCH, LM_SEQ
-    expect = lm_step_launches(L, dense_per_layer(cfg))
+    expect = lm_step_launches(L, dense_per_layer(cfg), norms_per_layer(cfg))
+    routes = {k: n * L for k, n in bwd_routes(mods["dense"], cfg).items()}
     params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                             device="cuda")
     leaves = port.tree.tree_leaves(params)
     n_params = sum(p.numel() for p in leaves)
     c_w = sum(p.numel() * p.element_size() for p in leaves)
     # ``steps`` training batches, 2 for the profile, 1 held out
+    corpus_vocab = corpus_vocab or cfg.vocab_size
     corpus = port.synthetic.lm_corpus((steps + 3) * B * S + 1,
-                                      cfg.vocab_size, seed=0)
+                                      corpus_vocab, seed=0)
     rows = pipeline.pack_sequences(corpus, S)
     batches = [{"rows": torch.as_tensor(rows[None, i * B:(i + 1) * B],
                                         device="cuda")}
@@ -2539,23 +2677,27 @@ def phase_lm_step(torch, port, mods, card, arch=LM_ARCH, layers=LM_LAYERS,
     if any(f32.values()):
         raise AssertionError(f"[{tag}] f32 dense kernels ran: {f32}")
     # the counters above hold the launches; the trace holds their kernels
-    # (its tracer can miss a step's first launches: K1's, K9's)
-    bwd = {k: counts.get(k, 0) for k in ("K2", "K3", "K2 tile", "K3 tile")}
-    if bwd["K2 tile"] or bwd["K3 tile"] or not (
-            0 < bwd["K2"] <= expect["K2"] and 0 < bwd["K3"] <= expect["K3"]):
-        raise AssertionError(f"[{tag}] the traced step's K2/K3 kernels "
-                             f"{bwd}: want up to {expect['K2']} each, all "
-                             "on the TMA + wgmma route")
+    # (its tracer can miss a step's first launches: K1's, K9's), each on
+    # the route its shape's plan gives: up to as many as the plan routes
+    # there a step, and some where it routes any
+    bwd = {(k, r): counts.get(k if r == "wgmma" else f"{k} tile", 0)
+           for k in ("K2", "K3") for r in ("wgmma", "tile")}
+    if any(not (0 < n <= routes[k]) if routes.get(k) else n
+           for k, n in bwd.items()):
+        raise AssertionError(f"[{tag}] the traced step's K2/K3 kernels by "
+                             f"route {bwd}: want up to {routes} a step")
     mean = float(np.mean(step_ms[1:]))
     log(f"[{tag}] {arch} full width, {L} layers ({n_params} params "
-        f"f32, c_w {c_w} B), B={B} x S={S} from lm_corpus, AdamW lr {LM_LR:g} "
+        f"f32, c_w {c_w} B), B={B} x S={S} from lm_corpus over "
+        f"{corpus_vocab} of {cfg.vocab_size} token ids, AdamW lr {LM_LR:g} "
         f"(warmup 2 of {steps}), grad_clip 1.0; card: {card}")
     log(f"[{tag}] launches {launches} = {steps} x {expect} (bf16 K1-K3:"
-        " no f32 dense kernel in the trace; the traced step's K2 and K3 "
-        f"dense_bwd_wgmma, {bwd['K2']:g} and {bwd['K3']:g} of "
-        f"{expect['K2']} "
-        "traced, no dense_bwd_bf16_tile); every grad leaf nonzero at the "
-        "initial params")
+        " no f32 dense kernel in the trace; the traced step's K2 and K3 by "
+        "route (wgmma: dense_bwd_wgmma, tile: dense_bwd_bf16_tile), traced"
+        " of planned: " + ", ".join(
+            f"{k} {r} {n:g} of {routes.get((k, r), 0)}"
+            for (k, r), n in bwd.items())
+        + "); every grad leaf nonzero at the initial params")
     log(f"[{tag}] step mean {mean:.3f} ms over steps 2-{steps} (first "
         f"{step_ms[0]:.3f} ms), p50 {np.percentile(step_ms[1:], 50):.3f} ms"
         f", {B * S / mean * 1e3:.1f} tokens/s | max_memory_allocated "
@@ -2566,6 +2708,9 @@ def phase_lm_step(torch, port, mods, card, arch=LM_ARCH, layers=LM_LAYERS,
         f"{fmt_ms(o_dev)} ms against its byte floor {o_floor:.3f} ms (7 c_w"
         f" = {7 * c_w / 1e9:.2f} GB at 3.35 TB/s)"
         + (f", {o_floor / o_dev:.0%} of it" if o_dev else ""))
+    if cfg.arch_type in ("ssm", "hybrid"):
+        _log_spans(tag, "the traced step", *mamba_spans(torch, prof),
+                   family="mamba mixers'")
     if cfg.arch_type == "moe":
         _log_spans(tag, "the traced step", *moe_spans(torch, prof))
         flops = train_flops(cfg, B, S)
@@ -2837,13 +2982,24 @@ MOE_CACHE_TOL = 1e-4                   # card vs CPU f32 caches (post-rope k)
 ROUTING = ("top_e", "keep", "slot")
 
 
-def moe_spans(torch, prof, steps=1):
-    """Device ms of the kernels launched under each moe span
-    (``moe.SPANS``) in ``prof``'s trace of ``steps`` steps, per step:
-    forward, and backward (the autograd nodes of the ops recorded under
-    the span, linked by their sequence numbers); None where the trace
-    holds no device time."""
+def moe_spans(torch, prof):
+    """``spans`` of the moe layer's ``moe.SPANS``."""
     from repro_torch.models.moe import SPANS
+    return spans(torch, prof, SPANS)
+
+
+def mamba_spans(torch, prof):
+    """``spans`` of the mamba mixer's ``mamba.SPANS``."""
+    from repro_torch.models.mamba import SPANS
+    return spans(torch, prof, SPANS)
+
+
+def spans(torch, prof, SPANS):
+    """Device ms of the kernels launched under each span of ``SPANS``
+    (``record_function`` names) in ``prof``'s trace of one step: forward,
+    and backward (the autograd nodes of the ops
+    recorded under the span, linked by their sequence numbers); None
+    where the trace holds no device time."""
     cpu = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CPU]
     fwd, bwd = dict.fromkeys(SPANS, 0.0), dict.fromkeys(SPANS, 0.0)
@@ -2863,8 +3019,8 @@ def moe_spans(torch, prof, steps=1):
             for k in SPANS:
                 if e.sequence_nr in seqs[k]:
                     bwd[k] += e.device_time_total / 1e3
-    return ({k: v / steps or None for k, v in fwd.items()},
-            {k: v / steps or None for k, v in bwd.items()})
+    return ({k: v or None for k, v in fwd.items()},
+            {k: v or None for k, v in bwd.items()})
 
 
 def train_flops(cfg, B, S) -> dict:
@@ -2889,16 +3045,118 @@ def train_flops(cfg, B, S) -> dict:
     return out
 
 
+def _card_vs_cpu(torch, port, cfg, tag):
+    """Reduced ``cfg`` (f32) on the card against the port's CPU path from
+    one numpy tree: prefill logits of two prompts (5 and 19 tokens, in
+    slots 0 and 2, slot 1 free) and 4 decode steps with per-row lengths,
+    then every cache leaf of the occupied slots (kv, the mixer's conv and
+    ssm) and the lengths; ``loss_fn``'s value and aux and every gradient
+    leaf, remat off and on (phase 3c's f32 gates).  Returns (logits
+    max_abs_diff, caches', lengths, {remat: (loss, aux)} on the card and
+    on the cpu, the worst gradient difference)."""
+    import numpy as np
+    lm, weights = port.lm, port.weights
+    tree = weights.params_to_numpy(lm.init_params(
+        cfg, torch.Generator("cpu").manual_seed(0), device="cpu"))
+    rng = np.random.default_rng(2)
+    prompts = {0: rng.integers(0, cfg.vocab_size, (1, 5)),
+               2: rng.integers(0, cfg.vocab_size, (1, 19))}
+    steps = rng.integers(0, cfg.vocab_size, (4, 3, 1))
+    toks, labels = _lm_batch(np, cfg.vocab_size)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = weights.params_from_numpy(tree, cfg, dev)
+        cache = lm.init_cache(3, 32, cfg, dtype=torch.float32, device=dev)
+        seq = []
+        with torch.inference_mode():
+            for slot, p in prompts.items():
+                logits, sl = lm.prefill(params, torch.as_tensor(p, device=dev),
+                                        cfg, cache_dtype=torch.float32)
+                seq.append(logits)
+                lm.cache_insert(cache, sl, slot)
+            for t in steps:
+                logits, cache = lm.decode_step(
+                    params, cache, None, torch.as_tensor(t, device=dev), cfg)
+                seq.append(logits[[0, 2]])
+        leaves = [x[:, [0, 2]].cpu()
+                  for x in port.tree.tree_leaves(cache.layers)]
+        lens = cache.lengths.tolist()
+        batch = {"tokens": torch.as_tensor(toks, device=dev),
+                 "labels": torch.as_tensor(labels, device=dev)}
+        grads = {}
+        for remat in (False, True):
+            (loss, parts), g = port.trainer.value_and_grad(
+                lambda p, b: lm.loss_fn(p, b, cfg, remat=remat), params,
+                batch)
+            grads[remat] = (float(loss), float(parts["aux"].detach()),
+                            [x.float().cpu()
+                             for x in port.tree.tree_leaves(g)])
+        out[dev] = ([x.cpu() for x in seq], leaves, lens, grads)
+    (cs, ckv, clen, cg), (hs, hkv, hlen, hg) = out["cuda"], out["cpu"]
+    diff = max(_logit_diff(torch, a, b) for a, b in zip(cs, hs))
+    cdiff = max(float((a - b).abs().max()) for a, b in zip(ckv, hkv,
+                                                          strict=True))
+    if clen != hlen or clen != [9, 0, 23]:
+        raise AssertionError(f"[{tag}] {cfg.name}: lengths {clen} vs cpu "
+                             f"{hlen}")
+    if not (diff <= SERVE_TOL and cdiff <= MOE_CACHE_TOL):
+        raise AssertionError(f"[{tag}] {cfg.name}: logits differ by {diff},"
+                             f" caches by {cdiff}")
+    tl, atol, rtol = LM_TOL["float32"]
+    worst = 0.0
+    for remat in (False, True):
+        (cl, ca, cgr), (hl, ha, hgr) = cg[remat], hg[remat]
+        if not (abs(cl - hl) <= tl * max(1.0, abs(hl))
+                and abs(ca - ha) <= tl * max(1.0, abs(ha))):
+            raise AssertionError(f"[{tag}] {cfg.name} remat={remat}: loss "
+                                 f"{cl} aux {ca} vs cpu {hl} {ha}")
+        for a, b in zip(cgr, hgr, strict=True):
+            close = (a - b).abs() <= atol + rtol * b.abs()
+            if not bool(close.all()):
+                raise AssertionError(f"[{tag}] {cfg.name} remat={remat}: a "
+                                     "grad leaf differs by "
+                                     f"{(a - b).abs().max()}")
+            worst = max(worst, float((a - b).abs().max()))
+    return diff, cdiff, clen, {r: (cg[r][:2], hg[r][:2]) for r in cg}, worst
+
+
+def _bf16_reruns(torch, port, cfg, tag):
+    """``cfg``'s bf16 forward on the card (2 x 40 tokens, cache collected)
+    twice: the hidden state, aux and every cache leaf bit for bit."""
+    import numpy as np
+    lm = port.lm
+    params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(1),
+                            device="cuda")
+    toks = torch.as_tensor(_lm_batch(np, cfg.vocab_size, S=40)[0],
+                           device="cuda")
+    with torch.inference_mode():
+        runs = [lm.forward(params, toks, cfg, collect_cache=True)
+                for _ in range(2)]
+    (h1, c1, a1), (h2, c2, a2) = runs
+    same = torch.equal(h1, h2) and torch.equal(a1, a2) and all(
+        torch.equal(x, y) for x, y in zip(port.tree.tree_leaves(c1),
+                                          port.tree.tree_leaves(c2),
+                                          strict=True))
+    if not same or h1.dtype != torch.bfloat16:
+        raise AssertionError(f"[{tag}] {cfg.name} bf16 forward on the card "
+                             "gave different bits on a rerun")
+    log(f"[{tag}] {cfg.name} bf16 forward (2 x 40 tokens, cache collected: "
+        f"{', '.join(_leaf_names(c1))}) reruns bit for bit on the card")
+
+
+def _leaf_names(tree, prefix=""):
+    return [n for k in sorted(tree) for n in (
+        _leaf_names(tree[k], f"{prefix}{k}/") if isinstance(tree[k], dict)
+        else [prefix + k])]
+
+
 def phase_moe_parity(torch, port, serving):
     """Phase 3d: reduced Qwen3-MoE (``qk_norm``) and Granite-MoE in f32
     (TF32 off), the card against the port's CPU path from the same numpy
     params: the serving engine's token streams (``phase_reduced``),
-    prefill logits and cache and 4 decode steps with per-row lengths
-    (slots 0 and 2, slot 1 free), ``loss_fn``'s value, aux and every
-    gradient leaf (remat off and on), and every router decision
-    (``top_e``, ``keep``, slot) of all these calls equal.  Then the bf16
-    forward on the card reruns bit for bit."""
-    import numpy as np
+    ``_card_vs_cpu``'s prefill, decode, cache, loss and gradient checks,
+    and every router decision (``top_e``, ``keep``, slot) of all these
+    calls equal.  Then the bf16 forward on the card reruns bit for bit."""
     from repro_torch.models import moe
     lm, weights, configs = port.lm, port.weights, port.configs
     for arch in MOE_ARCHS:
@@ -2915,71 +3173,8 @@ def phase_moe_parity(torch, port, serving):
         for arch in MOE_ARCHS:
             cfg = dataclasses.replace(configs.get_reduced(arch),
                                       dtype="float32", ce_chunk=5)
-            tree = weights.params_to_numpy(lm.init_params(
-                cfg, torch.Generator("cpu").manual_seed(0), device="cpu"))
-            rng = np.random.default_rng(2)
-            prompts = {0: rng.integers(0, cfg.vocab_size, (1, 5)),
-                       2: rng.integers(0, cfg.vocab_size, (1, 19))}
-            steps = rng.integers(0, cfg.vocab_size, (4, 3, 1))
-            toks, labels = _lm_batch(np, cfg.vocab_size)
-            out = {}
-            for dev in ("cuda", "cpu"):
-                params = weights.params_from_numpy(tree, cfg, dev)
-                cache = lm.init_cache(3, 32, cfg, dtype=torch.float32,
-                                      device=dev)
-                seq = []
-                with torch.inference_mode():
-                    for slot, p in prompts.items():
-                        logits, sl = lm.prefill(
-                            params, torch.as_tensor(p, device=dev), cfg,
-                            cache_dtype=torch.float32)
-                        seq.append(logits)
-                        lm.cache_insert(cache, sl, slot)
-                    for t in steps:
-                        logits, cache = lm.decode_step(
-                            params, cache, None,
-                            torch.as_tensor(t, device=dev), cfg)
-                        seq.append(logits[[0, 2]])
-                kv = [cache.layers["kv"][n][:, [0, 2]].cpu()
-                      for n in ("k", "v")]
-                lens = cache.lengths.tolist()
-                batch = {"tokens": torch.as_tensor(toks, device=dev),
-                         "labels": torch.as_tensor(labels, device=dev)}
-                grads = {}
-                for remat in (False, True):
-                    (loss, parts), g = port.trainer.value_and_grad(
-                        lambda p, b: lm.loss_fn(p, b, cfg, remat=remat),
-                        params, batch)
-                    grads[remat] = (float(loss),
-                                    float(parts["aux"].detach()),
-                                    [x.float().cpu()
-                                     for x in port.tree.tree_leaves(g)])
-                out[dev] = ([x.cpu() for x in seq], kv, lens, grads)
-            (cs, ckv, clen, cg), (hs, hkv, hlen, hg) = out["cuda"], out["cpu"]
-            diff = max(_logit_diff(torch, a, b) for a, b in zip(cs, hs))
-            cdiff = max(float((a - b).abs().max()) for a, b in zip(ckv, hkv))
-            if clen != hlen or clen != [9, 0, 23]:
-                raise AssertionError(f"[moe-parity] {arch}: lengths {clen} "
-                                     f"vs cpu {hlen}")
-            if not (diff <= SERVE_TOL and cdiff <= MOE_CACHE_TOL):
-                raise AssertionError(f"[moe-parity] {arch}: logits differ by"
-                                     f" {diff}, caches by {cdiff}")
-            tl, atol, rtol = LM_TOL["float32"]
-            worst = 0.0
-            for remat in (False, True):
-                (cl, ca, cgr), (hl, ha, hgr) = cg[remat], hg[remat]
-                if not (abs(cl - hl) <= tl * max(1.0, abs(hl))
-                        and abs(ca - ha) <= tl * max(1.0, abs(ha))):
-                    raise AssertionError(
-                        f"[moe-parity] {arch} remat={remat}: loss {cl} aux "
-                        f"{ca} vs cpu {hl} {ha}")
-                for a, b in zip(cgr, hgr, strict=True):
-                    close = (a - b).abs() <= atol + rtol * b.abs()
-                    if not bool(close.all()):
-                        raise AssertionError(
-                            f"[moe-parity] {arch} remat={remat}: a grad leaf"
-                            f" differs by {(a - b).abs().max()}")
-                    worst = max(worst, float((a - b).abs().max()))
+            diff, cdiff, clen, losses, worst = _card_vs_cpu(
+                torch, port, cfg, "moe-parity")
             calls = len(seen["cuda"])
             if calls != len(seen["cpu"]) or calls == 0:
                 raise AssertionError(f"[moe-parity] {arch}: {calls} routed "
@@ -2994,75 +3189,78 @@ def phase_moe_parity(torch, port, serving):
             n_tok = sum(int(r["keep"].numel()) for r in seen["cuda"])
             seen["cuda"].clear()
             seen["cpu"].clear()
+            (cl, ca), (hl, ha) = losses[False]
+            tl, atol, rtol = LM_TOL["float32"]
             log(f"[moe-parity] {arch} f32 card vs cpu: prefill + 4 decode "
                 f"steps logits max_abs_diff {diff:.3g} (tol {SERVE_TOL}), "
                 f"caches {cdiff:.3g} (tol {MOE_CACHE_TOL}), lengths {clen}; "
-                f"loss {cg[False][0]:.7f} (cpu {hg[False][0]:.7f}), aux "
-                f"{cg[False][1]:.7f} (cpu {hg[False][1]:.7f}), every grad "
-                f"leaf within atol {atol:g} / rtol {rtol:g} (max_abs_diff "
-                f"{worst:.3g}), remat on and off; routing equal in all "
-                f"{calls} routed calls ({n_tok} token copies: top_e, keep, "
-                "slot)")
+                f"loss {cl:.7f} (cpu {hl:.7f}), aux {ca:.7f} (cpu {ha:.7f}),"
+                f" every grad leaf within atol {atol:g} / rtol {rtol:g} "
+                f"(max_abs_diff {worst:.3g}), remat on and off; routing "
+                f"equal in all {calls} routed calls ({n_tok} token copies: "
+                "top_e, keep, slot)")
     finally:
         moe.route = route
 
     for arch in MOE_ARCHS:
-        cfg = configs.get_reduced(arch)            # bf16 activations
-        params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(1),
-                                device="cuda")
-        toks = torch.as_tensor(_lm_batch(np, cfg.vocab_size, S=40)[0],
-                               device="cuda")
-        with torch.inference_mode():
-            runs = [lm.forward(params, toks, cfg, collect_cache=True)
-                    for _ in range(2)]
-        (h1, c1, a1), (h2, c2, a2) = runs
-        same = torch.equal(h1, h2) and torch.equal(a1, a2) and all(
-            torch.equal(c1["kv"][n], c2["kv"][n]) for n in ("k", "v"))
-        if not same or h1.dtype != torch.bfloat16:
-            raise AssertionError(f"[moe-parity] {arch} bf16 forward on the "
-                                 "card gave different bits on a rerun")
-        log(f"[moe-parity] {arch} bf16 forward (2 x 40 tokens, cache "
-            "collected) reruns bit for bit on the card")
+        _bf16_reruns(torch, port, configs.get_reduced(arch), "moe-parity")
     gc.collect()
     torch.cuda.empty_cache()
 
 
 def phase_moe_serve(torch, port, serving, counters, card):
     """Phase 4g: Qwen3-30B-A3B at full width, MOE_SERVE_LAYERS of 48
-    layers, from a seed: 8 Poisson requests through the continuous
-    engine (every request completes, logits finite, K1 4 L and K9 4 L + 1
-    launches per forward call: ln1, ln2 and the q and k norms a layer,
-    and the final norm); a decode step of 4 full slots timed and traced
-    by kernel against its byte floor (every expert's weights are read:
-    the reference runs every expert on its capacity rows); one
-    MOE_PROMPT-token prompt's prefill timed and traced.  Returns (serving
-    launches, {kernel: {prompt rows: K1/K9 launches a prefill call}}, the
-    traced decode step's and prefill's {kernel: device ms})."""
-    import numpy as np
-    lm = port.lm
+    layers, through ``serve_family``: K1 4 L and K9 4 L + 1 launches per
+    forward call (ln1, ln2 and the q and k norms a layer, and the final
+    norm); the decode step's byte floor holds every expert's weights (the
+    reference runs every expert on its capacity rows); the moe layers'
+    spans.  Returns what ``serve_family`` returns."""
     cfg = dataclasses.replace(port.configs.get_config(MOE_SERVE_ARCH),
                               num_layers=MOE_SERVE_LAYERS)
-    L = MOE_SERVE_LAYERS
-    t0 = time.perf_counter()
-    params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
-                            device="cuda")
+    return serve_family(torch, port, serving, counters, card, cfg,
+                        MOE_PROMPT, "moe-serve", moe_spans,
+                        f"{cfg.num_experts} experts top-{cfg.top_k}, "
+                        "qk_norm")
+
+
+def serve_family(torch, port, serving, counters, card, cfg, prompt_len,
+                 tag, span_fn, about):
+    """A served model at full width from a seed: 8 Poisson requests
+    through the continuous engine (every request completes, logits
+    finite, exactly ``dense_per_layer`` L K1 and ``norms_per_layer`` L +
+    1 K9 launches per forward call; TTFT, latency p50/p99, tok/s, peak
+    memory), a decode step of 4 full slots timed and traced by kernel
+    (K1, K9, cuBLAS, other, and ``span_fn``'s spans) against its byte
+    floor (every layer leaf and the head read once as the engine holds
+    them, and each slot's mixer state read and written), and one
+    ``prompt_len``-token prompt's prefill timed (exact launches per call;
+    its logits and every cache leaf finite) and traced.  Returns (serving launches, {kernel: {prompt rows: K1/K9
+    launches a prefill call}}, the traced decode step's and prefill's
+    {kernel: device ms})."""
+    import numpy as np
+    L = cfg.num_layers
+    full = port.configs.get_config(cfg.name).num_layers
+    t0 = start = time.perf_counter()
+    params = port.lm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                 device="cuda")
     n_params = sum(t.numel() for t in port.tree.tree_leaves(params))
     eng = serving.make_serve_engine(params, cfg, serving.ServeConfig(
-        slots=4, max_seq=MOE_PROMPT + 64), device="cuda")
+        slots=4, max_seq=prompt_len + 64), device="cuda")
     torch.cuda.synchronize()
-    log(f"[moe-serve] {MOE_SERVE_ARCH} full width, {L} of "
-        f"{port.configs.get_config(MOE_SERVE_ARCH).num_layers} layers "
-        f"({n_params} params f32 + bf16 compute copy, "
-        f"{cfg.num_experts} experts top-{cfg.top_k}, qk_norm), ready in "
+    log(f"[{tag}] {cfg.name} full width, {L} of {full} layers ({n_params} "
+        f"params f32 + bf16 compute copy, {about}), ready in "
         f"{time.perf_counter() - t0:.1f} s")
     eng.generate(np.zeros((1, 8), np.int32), 2)   # warm-up
+    laps = [time.perf_counter()]     # the host's seconds a part, logged
     reqs = serving.poisson_requests(8, rate_rps=50, seed=0,
                                     vocab_size=cfg.vocab_size)
     events, launches, calls, decode_ms, peak, pre = _serve(
         torch, eng, reqs, counters)
-    per_call = {"K1": 4 * L, "K9": 4 * L + 1}
+    laps.append(time.perf_counter())
+    per_call = {"K1": dense_per_layer(cfg) * L,
+                "K9": norms_per_layer(cfg) * L + 1}
     _report(events, 8, eng, calls, launches, per_call, decode_ms, peak,
-            card, "moe-serve")
+            card, tag)
 
     # a decode step of 4 full slots: unprofiled wall, then traced
     rng = np.random.default_rng(1)
@@ -3078,41 +3276,47 @@ def phase_moe_serve(torch, port, serving, counters, card):
         eng.decode(toks)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    n_dec = 5
+    # one traced step: the trace of a host-paced step takes the host
+    # seconds to read, more than the step itself
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
     with torch.profiler.profile(activities=acts, schedule=sched) as prof:
         for _ in range(2):        # the warm-up step, then the traced one
             t0 = time.perf_counter()
-            for _ in range(n_dec):
-                eng.decode(toks)
+            eng.decode(toks)
             torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3 / n_dec
+            traced_ms = (time.perf_counter() - t0) * 1e3
             prof.step()
-    dec, dec_n, dec_busy = _lm_profile(torch, port, prof, n_dec)
+    dec, dec_n, dec_busy = _lm_profile(torch, port, prof)
     cp = eng.params
     layer_bytes = sum(t.numel() * t.element_size()
-                      for t in port.tree.tree_leaves(cp["layers"])
-                      if t.dtype == torch.bfloat16)
+                      for t in port.tree.tree_leaves(cp["layers"]))
     head = cp.get("lm_head", cp["embed"])["table"]
-    floor_bytes = layer_bytes + head.numel() * head.element_size()
+    state = eng.cache.layers.get("mamba", {})
+    state_bytes = 2 * sum(t.numel() * t.element_size()
+                          for t in port.tree.tree_leaves(state))
+    floor_bytes = layer_bytes + head.numel() * head.element_size() \
+        + state_bytes
     floor_ms = floor_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"[moe-serve] decode step, 4 slots: unprofiled median "
+    log(f"[{tag}] decode step, 4 slots: unprofiled median "
         f"{np.median(walls):.3f} ms, fastest {min(walls):.3f} ms; byte "
-        f"floor {floor_bytes / 1e9:.3f} GB of bf16 weights (every expert's, "
-        f"the attention's, the head's) = {floor_ms:.3f} ms at 3.35 TB/s; "
+        f"floor {floor_bytes / 1e9:.3f} GB (every layer leaf as held, the "
+        f"head's bf16 table, and {state_bytes / 1e9:.3f} GB of the slots' "
+        f"mixer state read and written) = {floor_ms:.3f} ms at 3.35 TB/s; "
         f"device busy {dec_busy:.3f} ms"
         + (f" (the floor is {floor_ms / dec_busy:.1%} of it)"
            if dec_busy else ""))
     # (the counters hold the launches; a K1 decode launch is two kernels,
     # the split-K slices and their sum)
-    what = f"traced decode step (mean of {n_dec})"
-    _log_profile("moe-serve", what, traced_ms, dec, dec_n, dec_busy)
-    _log_spans("moe-serve", what, moe_spans(torch, prof, n_dec)[0])
+    what = "traced decode step"
+    _log_profile(tag, what, traced_ms, dec, dec_n, dec_busy)
+    family = "moe layers'" if span_fn is moe_spans else "mamba mixers'"
+    _log_spans(tag, what, span_fn(torch, prof)[0], family=family)
+    laps.append(time.perf_counter())
 
     # the long prompt's prefill: timed, then traced
-    prompt = rng.integers(0, cfg.vocab_size, (1, MOE_PROMPT))
+    prompt = rng.integers(0, cfg.vocab_size, (1, prompt_len))
     pre_ms = []
     for _ in range(3):
         for fn in counters.values():
@@ -3121,30 +3325,150 @@ def phase_moe_serve(torch, port, serving, counters, card):
         for k, n in per_call.items():
             if counters[k].launches != n:
                 raise AssertionError(
-                    f"[moe-serve] a prefill of {MOE_PROMPT} tokens launched "
+                    f"[{tag}] a prefill of {prompt_len} tokens launched "
                     f"{k} {counters[k].launches} times, not {n}")
-            pre[k].setdefault(MOE_PROMPT, []).append(counters[k].launches)
+            pre[k].setdefault(prompt_len, []).append(counters[k].launches)
     with torch.profiler.profile(activities=acts, schedule=sched) as prof:
         for _ in range(2):
             t0 = time.perf_counter()
-            logits, _, _ = eng.prefill(prompt)
+            logits, sl, _ = eng.prefill(prompt)
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) * 1e3
             prof.step()
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("[moe-serve] non-finite prefill logits")
+    if not bool(torch.isfinite(logits).all()) or not all(
+            bool(torch.isfinite(t).all())
+            for t in port.tree.tree_leaves(sl.layers)):
+        raise AssertionError(f"[{tag}] non-finite prefill logits or cache")
     pf, pf_n, pf_busy = _lm_profile(torch, port, prof)
-    log(f"[moe-serve] the {MOE_PROMPT}-token prompt: prefill "
+    log(f"[{tag}] the {prompt_len}-token prompt: prefill "
         f"{', '.join(f'{m:.3f}' for m in pre_ms)} ms (K1 {per_call['K1']}, "
         f"K9 {per_call['K9']} launches each); peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({card})")
-    what = f"traced {MOE_PROMPT}-token prefill"
-    _log_profile("moe-serve", what, traced_ms, pf, pf_n, pf_busy)
-    _log_spans("moe-serve", what, moe_spans(torch, prof)[0])
-    del params, eng, cp, head
+    what = f"traced {prompt_len}-token prefill"
+    _log_profile(tag, what, traced_ms, pf, pf_n, pf_busy)
+    _log_spans(tag, what, span_fn(torch, prof)[0], family=family)
+    laps.append(time.perf_counter())
+    log(f"[{tag}] host seconds: set-up and warm-up {laps[0] - start:.1f}, "
+        + ", ".join(f"{what} {b - a:.1f}" for what, a, b in zip(
+            ("serving", "the decode step timed and traced",
+             "the prefill timed and traced"), laps, laps[1:])))
+    del params, eng, cp, head, state, sl
     gc.collect()
     torch.cuda.empty_cache()
     return launches, pre, dec, pf
+
+
+# ----------------------------------------------------------------------
+# The SSM and hybrid families: Mamba2-370M and Hymba-1.5B served at full
+# depth, Hymba-1.5B trained
+# ----------------------------------------------------------------------
+SSM_ARCHS = ("mamba2-370m", "hymba-1.5b")
+# the served archs' kernels-line prefix (and log tag, "<prefix>-serve")
+# and phase
+SSM_SERVE = {"mamba2-370m": ("mamba", "4i"), "hymba-1.5b": ("hymba", "4j")}
+SSM_TRAIN_ARCH = "hymba-1.5b"          # phase 4k, at full width
+SSM_TRAIN_LAYERS = 8                   # of 32
+# the families trained at full width beside phase 4e, keyed as phase 2d's
+# rows: (arch, layers, norms a layer, d_model)
+TRAIN_FAMILIES = {"moe": (MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, 2, 1536),
+                  "ssm": (SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS, 4, 1600)}
+# 4k's data, steps and the fall of the held-out CE they must bring
+# (nats).  Reduced Hymba trained on the CPU beside the reference
+# (tests/test_torch_lm_train.py's _held_out_trajectory("hymba-1.5b", 100,
+# ssd_chunk=4): lm_corpus over its 512 token ids) lowers the held-out
+# objective at every tenth step, the port within 1e-6 of the reference.
+# Over all 32001 ids no 100 steps of this recipe lower it: the logits'
+# spread grows near the peak lr and the CE with it, in the reference (on
+# the CPU at d_model 1600), in the port with plain dispatch or the
+# sequential SSD, with either branch alone, and in Phi-3
+# (tools/train_probe.py).  So 4k draws lm_corpus over the reduced
+# config's 512 ids; the model keeps its 32001.  The CE must fall by more
+# than learning the ids' near-uniform frequencies alone brings (10.69 -
+# ln 512 = 4.46 nats; it rests near 6.3 over steps 10-40), so the model
+# must use the context: it fell 6.90 to 3.79 (PERF.md, the SSM and
+# hybrid families)
+SSM_CORPUS_VOCAB, SSM_STEPS, SSM_MIN_FALL = 512, 100, 4.5
+# 3e runs reduced Mamba2's SSD in chunks of 8 (its config leaves 256, so a
+# short prompt would be one chunk): its 19-token prompt chains 3 chunks,
+# the last padded
+SSM_CHUNK = {"mamba2-370m": dict(ssd_chunk=8), "hymba-1.5b": {}}
+
+
+def phase_ssm_parity(torch, port, serving):
+    """Phase 3e: reduced Mamba2 (SSD chunk 8) and reduced Hymba (window 16
+    on layer 1) in f32 (TF32 off), the card against the port's CPU path
+    from the same numpy params: the serving engine's token streams
+    (``phase_reduced``; Hymba's prompts pass its window), and
+    ``_card_vs_cpu``'s prefill logits, 4 decode steps with per-row
+    lengths, every cache leaf (kv, conv, ssm), ``loss_fn`` and every
+    gradient leaf, remat off and on.  Then each config's bf16 forward on
+    the card reruns bit for bit."""
+    lm, weights, configs = port.lm, port.weights, port.configs
+    tl, atol, rtol = LM_TOL["float32"]
+    for arch in SSM_ARCHS:
+        phase_reduced(torch, configs, lm, serving, weights, arch,
+                      **SSM_CHUNK[arch])
+        cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32",
+                                  ce_chunk=5, **SSM_CHUNK[arch])
+        diff, cdiff, clen, losses, worst = _card_vs_cpu(torch, port, cfg,
+                                                        "ssm-parity")
+        (cl, _), (hl, _) = losses[False]
+        log(f"[ssm-parity] {arch} f32 card vs cpu (SSD chunk "
+            f"{cfg.ssd_chunk or 256}, window {cfg.sliding_window}): prefill "
+            f"+ 4 decode steps logits max_abs_diff {diff:.3g} (tol "
+            f"{SERVE_TOL}), every cache leaf {cdiff:.3g} (tol "
+            f"{MOE_CACHE_TOL}), lengths {clen}; loss {cl:.7f} (cpu "
+            f"{hl:.7f}), every grad leaf within atol {atol:g} / rtol "
+            f"{rtol:g} (max_abs_diff {worst:.3g}), remat on and off")
+    for arch in SSM_ARCHS:
+        _bf16_reruns(torch, port, dataclasses.replace(
+            configs.get_reduced(arch), **SSM_CHUNK[arch]), "ssm-parity")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_ssm_serve(torch, port, serving, counters, card):
+    """Phases 4i and 4j: Mamba2-370M (48 layers) and Hymba-1.5B (32
+    layers; global layers 0, 15, 31, window 1024 elsewhere) at full width
+    and depth through ``serve_family``, each with one long prompt
+    (PREFILL_ROWS: 2000 tokens, eight 256-token SSD chunks, the last
+    padded; 2048, past Hymba's window).  Returns per arch what
+    ``serve_family`` returns."""
+    out = {}
+    for arch in SSM_ARCHS:
+        cfg = port.configs.get_config(arch)
+        about = (f"SSD H {cfg.ssm_heads} x P {cfg.ssm_head_dim} x N "
+                 f"{cfg.ssm_state}, conv {cfg.conv_kernel}"
+                 + (f", window {cfg.sliding_window} but layers "
+                    f"{cfg.global_layers}" if cfg.sliding_window else ""))
+        out[arch] = serve_family(torch, port, serving, counters, card, cfg,
+                                 PREFILL_ROWS[arch],
+                                 f"{SSM_SERVE[arch][0]}-serve",
+                                 mamba_spans, about)
+    return out
+
+
+def ssm_k9_row(k9_cases, arch, kind, n):
+    """K9's phase-2c case of ``arch``'s d_model at ``kind``'s rows
+    (SSM_RMS), n launches of it."""
+    rows, d = SSM_RMS[arch][kind]
+    c = k9_cases[(rows, d, "bfloat16")]
+    row = _new_row()
+    _note_err(row, c["err"], c["tol"])
+    _add_case(row, n, (c["ms"], c["device_ms"], c["plain_ms"],
+                       c["library_ms"], c["library_device_ms"],
+                       c["bound_ms"], c["bound_by"]))
+    return row
+
+
+def sum_fields(prefix, st, launches, step_device_ms, work):
+    """A kernels-line row's fields for a phase-2 sum ``st`` (``_k1_sum``)
+    under ``prefix``, ``launches`` from the serving run."""
+    return {**{f"{prefix}_{k}": v for k, v in st.items() if k != "bound_by"},
+            f"{prefix}_bound_by": dominant(st["bound_by"]),
+            f"{prefix}_launches": launches,
+            f"{prefix}_step_device_ms": step_device_ms,
+            f"{prefix}_work": work}
 
 
 def qwen_k9_row(k9_cases, kind):
@@ -3218,6 +3542,9 @@ def main() -> int:
                     "line")
     ap.add_argument("--moe-steps", type=int, default=MOE_STEPS,
                     help=f"phase 4h's training steps (default {MOE_STEPS})")
+    ap.add_argument("--ssm", action="store_true", help="run phases 3e, 4i, "
+                    "4j and 4k (the SSM and hybrid families) alone and print"
+                    " no result line")
     args = ap.parse_args()
     # torch.compile (the flex_attention yardstick) caches inside the checkout
     cache = SRC / "repro_torch" / "kernels" / "_build" / "compile_cache"
@@ -3311,16 +3638,36 @@ def main() -> int:
                       MOE_MIN_FALL)
         log(card_line())
         return 0
+    if args.ssm:
+        phase_ssm_parity(torch, port, serving)
+        phase_ssm_serve(torch, port, serving, counters, card)
+        phase_lm_step(torch, port, mods, card, SSM_TRAIN_ARCH,
+                      SSM_TRAIN_LAYERS, "ssm-train", SSM_STEPS, SSM_MIN_FALL,
+                      SSM_CORPUS_VOCAB)
+        log(card_line())
+        return 0
+    t_run = time.perf_counter()
+
+    def lap(what):
+        log(f"[time] {what} done {time.perf_counter() - t_run:.1f} s after "
+            "the build")
     k1_sums, worst = phase_kernel(torch, dense_mod, ref)
+    lap("phase 2")
     train_rows = phase_train_kernels(torch, ref, mods, cnn)
+    lap("phase 2b")
     attn_rows = {"K9": phase_k9(torch, ref, rms_mod),
                  "K10": phase_k10(torch, ref, flash_mod)}
+    lap("phase 2c")
     lm_rows = phase_lm_kernels(torch, ref, dense_mod, rms_mod)
+    lap("phase 2d")
     phase_reduced(torch, configs, lm, serving, weights, "yi-6b")
     phase_reduced(torch, configs, lm, serving, weights, "gemma2-27b")
     phase_train_reduced(torch, port)
     phase_lm_parity(torch, port)
     phase_moe_parity(torch, port, serving)
+    lap("phases 3-3d")
+    phase_ssm_parity(torch, port, serving)
+    lap("phase 3e")
     launches, yi_pre_k1 = phase_slice(torch, configs, lm, serving, counters,
                                       card)
     train_launches, train = phase_train_slice(torch, port, mods, card)
@@ -3328,10 +3675,12 @@ def main() -> int:
     outer_launches = phase_outer_slice(torch, port, mods, card)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phases 4, 4b, 4d")
     lm_launches, lm_step_ms = phase_lm_step(torch, port, mods, card)
     lm_outer_launches = phase_lm_train(torch, port, mods, card)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phases 4e, 4f")
     qwen_launches, qwen_pre_k, qwen_dec, qwen_pf = phase_moe_serve(
         torch, port, serving, counters, card)
     moe_launches, moe_step_ms = phase_lm_step(
@@ -3339,9 +3688,19 @@ def main() -> int:
         "moe-train", args.moe_steps, MOE_MIN_FALL)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("phases 4g, 4h")
+    ssm_serve = phase_ssm_serve(torch, port, serving, counters, card)
+    lap("phases 4i, 4j")
+    ssm_launches, ssm_step_ms = phase_lm_step(
+        torch, port, mods, card, SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS,
+        "ssm-train", SSM_STEPS, SSM_MIN_FALL, SSM_CORPUS_VOCAB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 4k")
     gemma_launches, gem_pre, k10_launches, k10_diff = phase_gemma(
         torch, configs, serving, counters, card)
     phase_cli()
+    lap("phases 4c, 5")
 
     k1 = train_rows["K1"]
     yi, gem = k1_sums[("yi-6b", "decode")], k1_sums[("gemma2-27b", "decode")]
@@ -3430,7 +3789,34 @@ def main() -> int:
             f"{4 * MOE_TRAIN_LAYERS} bf16 launches at M={LM_ROWS} without "
             "bias (the attention's projections; the experts are library "
             "einsums)"),
+        **instance_fields(
+            "hymba_train_bf16", lm_rows[("ssm", "K1")], ssm_launches["K1"],
+            ssm_step_ms.get("K1"), None,
+            f"one {SSM_TRAIN_ARCH} training step at full width, "
+            f"{SSM_TRAIN_LAYERS} layers, B=8 x S=128 (phase 4k): "
+            f"{9 * SSM_TRAIN_LAYERS} bf16 launches at M={LM_ROWS} without "
+            "bias (q, k, v, o, the mixer's in_proj 1600 -> 6457 and "
+            "out_proj, the MLP's three)"),
     }]
+    for arch, (prefix, phase) in SSM_SERVE.items():
+        s_launches, s_pre, s_dec, s_pf = ssm_serve[arch]
+        cfg = configs.get_config(arch)
+        n = dense_per_layer(cfg)
+        L = DECODE_LAYERS[arch]
+        st_pre = prefill_launches(dense_mod, k1_sums, arch, s_pre["K1"])
+        rows[0].update(sum_fields(
+            prefix, k1_sums[(arch, "decode")], s_launches["K1"],
+            s_dec.get("K1"),
+            f"one {arch} decode step at full width and depth, {L} layers "
+            f"(phase {phase}): {n * L} bf16 "
+            "launches at M=4 (split-K weight stream); launches: the "
+            "serving run's"))
+        rows[0].update(sum_fields(
+            f"{prefix}_prefill", st_pre, st_pre["launches"], s_pf.get("K1"),
+            f"one {arch} prefill forward of {PREFILL_ROWS[arch]} tokens, "
+            f"{L} layers: {st_pre['launches']} bf16 launches, counted in "
+            f"phase {phase} (tile GEMM, "
+            "128-row tiles)"))
     for key, name, src, replaces in TRAIN_KERNELS[1:]:
         r = train_rows[key]
         rows.append({
@@ -3466,6 +3852,17 @@ def main() -> int:
                 f"one {MOE_TRAIN_ARCH} training step at full width, "
                 f"{MOE_TRAIN_LAYERS} layers, B=8 x S=128 (phase 4h): "
                 f"{4 * MOE_TRAIN_LAYERS} bf16 launches at M={LM_ROWS}"))
+            rows[-1].update(instance_fields(
+                "hymba_bf16", lm_rows[("ssm", key)], ssm_launches[key],
+                # both routes' kernels: in_proj's K2/K3 run the tile GEMM
+                add_ms(ssm_step_ms.get(key), 1,
+                       ssm_step_ms.get(f"{key} tile")), None,
+                f"one {SSM_TRAIN_ARCH} training step at full width, "
+                f"{SSM_TRAIN_LAYERS} layers, B=8 x S=128 (phase 4k): "
+                f"{9 * SSM_TRAIN_LAYERS} bf16 launches at M={LM_ROWS}, "
+                f"{SSM_TRAIN_LAYERS} of them (in_proj, 6457 columns) on the "
+                f"mma.sync tile route, {8 * SSM_TRAIN_LAYERS} on the TMA + "
+                "wgmma GEMM"))
     rows += attn_json_rows(attn_rows, gemma_launches["K9"],
                            launches["K9"], gem_pre_k9, k10_launches,
                            k10_diff)
@@ -3499,6 +3896,33 @@ def main() -> int:
             f"final), {L} q norms and {L} k norms at head_dim 128; "
             "launches: " + ("the serving run's" if kind == "decode" else
                             "one such call")))
+    rows[-2].update(instance_fields(
+        "hymba_bwd", lm_rows[("ssm", "K9 bwd")], ssm_launches["K9 bwd"],
+        ssm_step_ms.get("K9 bwd"), None,
+        f"K9's backward in one {SSM_TRAIN_ARCH} training step at full "
+        f"width, {SSM_TRAIN_LAYERS} layers (phase 4k): "
+        f"{4 * SSM_TRAIN_LAYERS + 1} bf16 launches at {LM_ROWS} x 1600"))
+    for arch, (prefix, phase) in SSM_SERVE.items():
+        s_launches, s_pre, s_dec, s_pf = ssm_serve[arch]
+        cfg = configs.get_config(arch)
+        n9 = norms_per_layer(cfg) * cfg.num_layers + 1
+        P = PREFILL_ROWS[arch]
+        k9_pre = s_pre["K9"].get(P, [])
+        if not k9_pre or set(k9_pre) != {n9}:
+            raise AssertionError(f"prefill calls of {P} rows launched K9 "
+                                 f"{k9_pre} times, not {n9}")
+        for pfx, kind, n, steps, what in (
+                (prefix, "decode", s_launches["K9"], s_dec,
+                 "decode step (4 slots)"),
+                (f"{prefix}_prefill", "prefill", k9_pre[0], s_pf,
+                 f"prefill forward of {P} tokens")):
+            rows[-2].update(instance_fields(
+                pfx, ssm_k9_row(attn_rows["K9"], arch, kind, n9), n,
+                steps.get("K9"), None,
+                f"one {arch} {what}, {cfg.num_layers} layers (phase "
+                f"{phase}): {n9} bf16 launches at d={cfg.d_model}; "
+                "launches: " + ("the serving run's" if kind == "decode"
+                                else "one such call")))
     log(json.dumps({"kernels": rows}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,8 @@ _MODULES = {
     "gemma2-27b": "gemma2_27b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "mamba2-370m": "mamba2_370m",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -1,12 +1,15 @@
-"""Decoder blocks for ``arch_type="dense"`` and ``"moe"``: prefill and
-decode paths, from ``repro/models/blocks.py``, with Gemma-2's branches
-(per-layer sliding windows from ``window_pattern`` / ``global_layers``,
-the attention soft-cap, the post-norms ``pn1`` / ``pn2``), Qwen3's
-``qk_norm`` and the moe branch (``ln2`` and ``moe`` in place of ``mlp``;
-the block returns the layer's load-balance aux, which decode drops).
+"""Decoder blocks for ``arch_type`` "dense", "moe", "ssm" and "hybrid":
+prefill and decode paths, from ``repro/models/blocks.py``, with Gemma-2's
+branches (per-layer sliding windows from ``window_pattern`` /
+``global_layers``, the attention soft-cap, the post-norms ``pn1`` /
+``pn2``), Qwen3's ``qk_norm``, the moe branch (``ln2`` and ``moe`` in
+place of ``mlp``; the block returns the layer's load-balance aux, which
+decode drops), the ssm block (the Mamba-2 mixer alone, no ``ln2``) and
+Hymba's hybrid block (attention and the mixer side by side on ``ln1(x)``,
+each normed by ``bn_*`` and scaled by ``beta_*``, then averaged).
 
-The ssm, hybrid, encdec, vlm and audio blocks, and the config branches
-no ported config uses, are not ported yet: ``check_supported`` raises
+The encdec, vlm and audio blocks, and the config branches no ported
+config uses, are not ported yet: ``check_supported`` raises
 ``NotImplementedError`` naming the branch.  ``mlp_megatron``,
 ``attn_block_skip`` and ``bf16_params_compute`` only change sharding,
 skipping or the place of a cast in the reference, not its values, and
@@ -19,6 +22,8 @@ import torch
 from .attention import (attention_block, decode_attention_block,
                         init_attention, init_kv_cache)
 from .layers import init_mlp, init_rms_norm, mlp, rms_norm
+from .mamba import (init_mamba, init_mamba_cache, mamba_decode_step,
+                    mamba_mixer)
 from .moe import init_moe, moe_layer
 
 __all__ = ["init_block", "block_forward", "block_decode", "init_block_cache",
@@ -29,16 +34,16 @@ GLOBAL_WINDOW = (2**31 - 1) // 2   # "no window", as the reference's int32
 # config fields whose reference branch the port does not have yet
 _UNPORTED_FLAGS = ("frontend", "embed_onehot", "embed_reshard",
                    "attn_kv_gather")
-_PORTED_ARCHS = ("dense", "moe")
+_PORTED_ARCHS = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a config this slice cannot run."""
     if cfg.arch_type not in _PORTED_ARCHS:
         raise NotImplementedError(
-            f"arch_type={cfg.arch_type!r}: only the 'dense' and 'moe' "
-            "blocks are ported (ssm, hybrid, encdec, vlm and audio are not "
-            "yet)")
+            f"arch_type={cfg.arch_type!r}: only the 'dense', 'moe', 'ssm' "
+            "and 'hybrid' blocks are ported (encdec, vlm and audio are "
+            "not yet: ROADMAP.md §1 items 3.2-3.3)")
     for flag in _UNPORTED_FLAGS:
         if getattr(cfg, flag):
             raise NotImplementedError(
@@ -72,15 +77,24 @@ def layer_windows(cfg, num_layers=None):
 def init_block(gen, cfg, *, stack=(), dtype=torch.float32, device="cpu"):
     """One layer's params, every leaf with ``stack`` prepended."""
     check_supported(cfg)
-    d = cfg.d_model
+    d, t = cfg.d_model, cfg.arch_type
     kw = dict(stack=stack, dtype=dtype, device=device)
-    p = {"ln1": init_rms_norm(d, **kw),
-         "attn": init_attention(gen, d, cfg.num_heads, cfg.num_kv_heads,
-                                cfg.head_dim, qk_norm=cfg.qk_norm, **kw)}
-    if cfg.arch_type == "moe":
+    p = {"ln1": init_rms_norm(d, **kw)}
+    if t != "ssm":
+        p["attn"] = init_attention(gen, d, cfg.num_heads, cfg.num_kv_heads,
+                                   cfg.head_dim, qk_norm=cfg.qk_norm, **kw)
+    if t in ("ssm", "hybrid"):
+        p["mamba"] = init_mamba(gen, d, cfg.ssm_heads, cfg.ssm_head_dim,
+                                cfg.ssm_state, cfg.conv_kernel, **kw)
+    if t == "hybrid":
+        p["beta_attn"] = torch.ones((*stack, d), dtype=dtype, device=device)
+        p["beta_ssm"] = torch.ones((*stack, d), dtype=dtype, device=device)
+        p["bn_attn"] = init_rms_norm(d, **kw)
+        p["bn_ssm"] = init_rms_norm(d, **kw)
+    if t == "moe":
         p["ln2"] = init_rms_norm(d, **kw)
         p["moe"] = init_moe(gen, d, cfg.num_experts, cfg.expert_d_ff, **kw)
-    elif cfg.d_ff > 0:
+    elif t != "ssm" and cfg.d_ff > 0:
         p["ln2"] = init_rms_norm(d, **kw)
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, **kw)
     if cfg.post_norm:
@@ -93,18 +107,45 @@ def init_block(gen, cfg, *, stack=(), dtype=torch.float32, device="cpu"):
 def block_forward(params, x, positions, cfg, window=None,
                   collect_cache: bool = False, cache_dtype=torch.bfloat16):
     """Prefill path.  Returns (x, cache_or_kv, aux): with
-    ``collect_cache`` the middle value is this layer's decode cache
-    ``{"kv": {"k", "v"}}`` (post-rope k/v cast to ``cache_dtype``),
-    otherwise the raw (k, v)."""
+    ``collect_cache`` the middle value is this layer's decode cache in
+    ``init_block_cache``'s layout (``"kv"``: post-rope k/v cast to
+    ``cache_dtype``; ``"mamba"``: the mixer's state and conv tail),
+    otherwise the raw (k, v), or None for the ssm block."""
     h = rms_norm(params["ln1"], x, cfg.norm_eps)
-    attn_out, kv = attention_block(params["attn"], h, positions, cfg,
-                                   window=window)
-    x = x + _post_norm(params, "pn1", attn_out, cfg)
+    kv, blk_cache, t = None, {}, cfg.arch_type
+    if t in ("ssm", "hybrid"):
+        ssm_out = mamba_mixer(params["mamba"], h, cfg,
+                              return_cache=collect_cache,
+                              cache_dtype=cache_dtype)
+        if collect_cache:
+            ssm_out, blk_cache["mamba"] = ssm_out
+    if t == "hybrid":
+        attn_out, kv = attention_block(params["attn"], h, positions, cfg,
+                                       window=window)
+        x = x + _hybrid_mix(params, attn_out, ssm_out, cfg, x.dtype)
+    elif t == "ssm":
+        x = x + ssm_out
+    else:
+        attn_out, kv = attention_block(params["attn"], h, positions, cfg,
+                                       window=window)
+        x = x + _post_norm(params, "pn1", attn_out, cfg)
     if collect_cache:
-        k, v = kv
-        kv = {"kv": {"k": k.to(cache_dtype), "v": v.to(cache_dtype)}}
+        if kv is not None:
+            k, v = kv
+            blk_cache["kv"] = {"k": k.to(cache_dtype), "v": v.to(cache_dtype)}
+        kv = blk_cache
     x, aux = _ffn_residual(params, x, cfg)
     return x, kv, aux
+
+
+def _hybrid_mix(params, attn_out, ssm_out, cfg, dt):
+    """Hymba's residual update: each branch normed by ``bn_*`` and scaled
+    by ``beta_*`` (cast to the residual's dtype ``dt``), then averaged."""
+    attn_out = rms_norm(params["bn_attn"], attn_out, cfg.norm_eps) \
+        * params["beta_attn"].to(dt)
+    ssm_out = rms_norm(params["bn_ssm"], ssm_out, cfg.norm_eps) \
+        * params["beta_ssm"].to(dt)
+    return 0.5 * (attn_out + ssm_out)
 
 
 def _post_norm(params, name, out, cfg):
@@ -130,17 +171,36 @@ def _ffn_residual(params, x, cfg):
 
 def init_block_cache(batch, seq_len, cfg, *, stack=(), dtype=torch.bfloat16,
                      device="cpu"):
-    """Per-layer decode cache, ``stack`` prepended (the layer axis)."""
-    return {"kv": init_kv_cache(batch, seq_len, cfg.num_kv_heads,
+    """Per-layer decode cache, ``stack`` prepended (the layer axis):
+    ``"kv"`` for every block with attention, ``"mamba"`` for the ssm and
+    hybrid blocks."""
+    c, t = {}, cfg.arch_type
+    if t != "ssm":
+        c["kv"] = init_kv_cache(batch, seq_len, cfg.num_kv_heads,
                                 cfg.head_dim, stack=stack, dtype=dtype,
-                                device=device)}
+                                device=device)
+    if t in ("ssm", "hybrid"):
+        c["mamba"] = init_mamba_cache(batch, cfg, stack=stack, dtype=dtype,
+                                      device=device)
+    return c
 
 
 def block_decode(params, x, cache, cache_len, cfg, window=None):
     """Single-token decode; updates ``cache`` in place.
     Returns (x, cache)."""
     h = rms_norm(params["ln1"], x, cfg.norm_eps)
-    attn_out, _ = decode_attention_block(params["attn"], h, cache["kv"],
-                                         cache_len, cfg, window=window)
-    x = x + _post_norm(params, "pn1", attn_out, cfg)
+    t = cfg.arch_type
+    if t in ("ssm", "hybrid"):
+        ssm_out, _ = mamba_decode_step(params["mamba"], h, cache["mamba"],
+                                       cfg)
+    if t == "hybrid":
+        attn_out, _ = decode_attention_block(params["attn"], h, cache["kv"],
+                                             cache_len, cfg, window=window)
+        x = x + _hybrid_mix(params, attn_out, ssm_out, cfg, x.dtype)
+    elif t == "ssm":
+        x = x + ssm_out
+    else:
+        attn_out, _ = decode_attention_block(params["attn"], h, cache["kv"],
+                                             cache_len, cfg, window=window)
+        x = x + _post_norm(params, "pn1", attn_out, cfg)
     return _ffn_residual(params, x, cfg)[0], cache

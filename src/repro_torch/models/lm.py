@@ -29,7 +29,7 @@ __all__ = ["init_params", "forward", "loss_fn", "chunked_cross_entropy",
            "cache_evict", "decode_step", "compute_params", "layer_params"]
 
 _FRONTEND = ("frontend_embeds (the vlm/audio front ends) is not ported "
-             "yet: ROADMAP.md §1 item 3 (the other LM families)")
+             "yet: ROADMAP.md §1 item 3.2 (frontends.py and the vlm path)")
 
 
 def _dtype(cfg):
@@ -69,9 +69,20 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _tree_stack(trees):
+    """Stack a list of same-structured trees leaf by leaf on a new
+    leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
 def layer_params(layers, i: int):
     """Layer ``i`` of a stacked layer tree (views, no copies)."""
     return _tree_map(lambda t: t[i], layers)
+
+
+_KEEP_DTYPE = ("conv_w",)       # compute_params' exception, by leaf name
 
 
 def compute_params(params, cfg):
@@ -81,16 +92,22 @@ def compute_params(params, cfg):
     embedding and head tables.  ``ops.dense``, the embedding and the
     lm-head cast to that dtype at every call, so the values are the same;
     holding the copy saves re-reading the f32 weights each step.  Norm
-    scales, 1-D per layer, stay as they are: the norm reads them in f32."""
+    scales and the mixer's per-head and per-channel vectors (``A_log``,
+    ``D``, ``dt_bias``, ``conv_b``, ``norm_scale``), 1-D per layer, stay
+    as they are: they are read in f32 or cast at the point of use.  So
+    does the mixer's conv filter ``conv_w`` (k, Cd): its decode step casts
+    it to the cache's dtype, which may be f32 in a bf16 model, and a bf16
+    copy would round it first."""
     dt = _dtype(cfg)
 
-    def caster(min_ndim):
-        def cast(t):
-            return t.to(dt) if t.is_floating_point() and \
-                t.ndim >= min_ndim else t
-        return cast
-    return {k: _tree_map(caster(3 if k == "layers" else 2), v)
-            for k, v in params.items()}
+    def cast(tree, min_ndim):
+        if isinstance(tree, dict):
+            return {k: tree[k] if k in _KEEP_DTYPE else cast(tree[k],
+                                                             min_ndim)
+                    for k in tree}
+        return tree.to(dt) if tree.is_floating_point() and \
+            tree.ndim >= min_ndim else tree
+    return {k: cast(v, 3 if k == "layers" else 2) for k, v in params.items()}
 
 
 def _head_table(params):
@@ -124,7 +141,7 @@ def forward(params, tokens, cfg, frontend_embeds=None, collect_cache=False,
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    ks, vs = [], []
+    caches = []
     for i, win in enumerate(layer_windows(cfg)):
         lp = layer_params(params["layers"], i)
 
@@ -136,12 +153,9 @@ def forward(params, tokens, cfg, frontend_embeds=None, collect_cache=False,
                     else block(x))
         aux = aux + a
         if collect_cache:
-            ks.append(kv["kv"]["k"])
-            vs.append(kv["kv"]["v"])
+            caches.append(kv)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    caches = ({"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
-              if collect_cache else None)
-    return x, caches, aux
+    return x, _tree_stack(caches) if collect_cache else None, aux
 
 
 def _ce_chunk(h, lbl, table, cap):
@@ -201,7 +215,10 @@ def loss_fn(params, batch, cfg, aux_weight: float = 0.01,
 class DecodeCache:
     """Slot-major decode cache.
 
-    ``layers``: ``{"kv": {"k", "v"}}`` with leaves (L, slots, S, KH, D).
+    ``layers``: ``init_block_cache``'s tree stacked on a leading L axis:
+    ``{"kv": {"k", "v"}}`` with leaves (L, slots, S, KH, D) for a block
+    with attention, ``{"mamba": {"ssm", "conv"}}`` with leaves (L, slots,
+    H, P, N) f32 and (L, slots, k - 1, Cd) for the ssm and hybrid blocks.
     ``lengths``: (slots,) int32 valid-token counts; 0 marks a free slot.
     """
     layers: Any
@@ -226,7 +243,8 @@ def prefill(params, tokens, cfg, cache_dtype=torch.bfloat16):
     """Whole-prompt prefill as one forward pass.
 
     tokens: (B, P) int.  Returns (last-position logits (B, 1, V) f32,
-    DecodeCache whose kv seq dim is P and whose lengths are all P).
+    DecodeCache whose kv seq dim is P and whose lengths are all P): the
+    state P ``decode_step`` calls would build.
     """
     hidden, layers, _ = forward(params, tokens, cfg, collect_cache=True,
                                 cache_dtype=cache_dtype)
@@ -240,13 +258,17 @@ def prefill(params, tokens, cfg, cache_dtype=torch.bfloat16):
 def cache_insert(cache, slice_, slot, row=0):
     """Copy row ``row`` of a prefill ``slice_`` into ``slot`` of a serving
     cache, in place.  Kv leaves land at positions [0, P); past them the
-    stale payload is masked out by ``lengths``."""
+    stale payload is masked out by ``lengths``.  The mamba leaves have no
+    sequence axis and are copied whole, as the reference's
+    ``dynamic_update_slice`` copies them."""
     def upd(big, small):
-        big[:, slot, :small.shape[2]] = small[:, row].to(big.dtype)
-        return big
+        if isinstance(big, dict):
+            for name, leaf in big.items():
+                upd(leaf, small[name])
+        else:
+            big[:, slot, :small.shape[2]] = small[:, row].to(big.dtype)
 
-    for name, leaf in cache.layers["kv"].items():
-        upd(leaf, slice_.layers["kv"][name])
+    upd(cache.layers, slice_.layers)
     cache.lengths[slot] = slice_.lengths[row]
     return cache
 

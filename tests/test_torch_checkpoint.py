@@ -96,6 +96,33 @@ def test_reference_save_restores_in_the_port(tmp_path, kind):
         assert a.dtype == b.dtype and _bits(a) == _bits(b)
 
 
+def test_hybrid_params_round_trip_both_ways(tmp_path):
+    """The hybrid block's params (the mixer's tree, as the ssm block holds
+    it, beside the attention, the betas and the branch norms): reduced
+    Hymba's reference init saved by the
+    reference restores into the port's ``init_params`` template bit for
+    bit, and the port's save of it restores in the reference."""
+    from repro import configs as jconfigs
+    from repro.models import lm as jlm
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.weights import params_from_numpy
+    jp = jlm.init_params(jax.random.PRNGKey(0),
+                         jconfigs.get_reduced("hymba-1.5b"))
+    cfg = configs.get_reduced("hymba-1.5b")
+    template = lm.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    jckpt.save(str(tmp_path / "ref"), jp, step=2)
+    got, _ = ckpt.restore(str(tmp_path / "ref"), template)
+    want = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), cfg,
+                             "cpu")
+    assert [_bits(a) for a in _leaves(got)] == \
+        [_bits(b) for b in _leaves(want)]
+    ckpt.save(str(tmp_path / "port"), got, step=3)
+    back, step = jckpt.restore(str(tmp_path / "port"), jp)
+    assert step == 3 and [_bits(a) for a in jax.tree_util.tree_leaves(
+        back)] == [_bits(b) for b in jax.tree_util.tree_leaves(jp)]
+
+
 def test_manifests_are_equal(tmp_path):
     tree = _port_tree(2)
     ckpt.save(str(tmp_path / "port"), tree, step=4, metadata={"m": 1})

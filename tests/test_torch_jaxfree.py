@@ -15,7 +15,8 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 SCANNED = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                         REPO / "examples" /
-                                        "quickstart_torch.py"]
+                                        "quickstart_torch.py",
+                                        REPO / "tools" / "train_probe.py"]
 SLICE_MODULES = (
     "repro_torch", "repro_torch.core.types", "repro_torch.core.device",
     "repro_torch.configs", "repro_torch.configs.yi_6b",
@@ -40,6 +41,8 @@ SLICE_MODULES = (
     "repro_torch.checkpointing.checkpoint", "repro_torch.launch.train",
     "repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
     "repro_torch.configs.granite_moe_3b_a800m",
+    "repro_torch.models.mamba", "repro_torch.configs.mamba2_370m",
+    "repro_torch.configs.hymba_1_5b",
 )
 BANNED = ("jax", "jaxlib", "repro")
 

@@ -1,10 +1,11 @@
 """The port's LM (``repro_torch.models.lm``) against ``repro.models.lm``
 on reduced Yi-6B, Phi-3, Gemma-2 (local/global windows, soft-caps,
-post-norms), Yi-6B with sliding windows on every layer, and the MoE family
-(Qwen3-MoE with ``qk_norm``, Granite-MoE): the same numpy
-params through both, then ``prefill`` logits and cache and several
-``decode_step``s with per-row lengths, and one prefill long enough for two
-key chunks of the blockwise attention.
+post-norms), Yi-6B with sliding windows on every layer, the MoE family
+(Qwen3-MoE with ``qk_norm``, Granite-MoE), Mamba2 (the ssm block) and
+Hymba (the hybrid block, window 16 on layer 1): the same numpy params
+through both, then ``prefill`` logits and every cache leaf and several
+``decode_step``s with per-row lengths, and one prefill long enough for
+two key chunks of the blockwise attention.
 
 Tolerances: the f32 config runs an f32 cache and must agree to 1e-4 in
 the logits and 1e-5 in the cache (sums in another order); the default
@@ -32,7 +33,8 @@ from repro_torch.weights import params_from_numpy, params_to_numpy  # noqa: E402
 # "yi-6b:swa": reduced Yi-6B under get_config(..., "swa")-style windows
 # (every layer local), the window cut to 8 as the reduced configs cut it
 ARCHS = ("yi-6b", "phi3-mini-3.8b", "gemma2-27b", "yi-6b:swa",
-         "qwen3-moe-30b-a3b", "granite-moe-3b-a800m")
+         "qwen3-moe-30b-a3b", "granite-moe-3b-a800m", "mamba2-370m",
+         "hymba-1.5b")
 SWA = dict(sliding_window=8, window_pattern=0, global_layers=())
 TOL = {"float32": {"logits": 1e-4, "cache": 1e-5},
        "bfloat16": {"logits": 0.05, "cache": 0.08}}
@@ -69,6 +71,17 @@ def _f32(a):
     return np.asarray(jnp.asarray(a, jnp.float32))
 
 
+def _cache_leaves(got, want, path=()):
+    """(name, port leaf, reference leaf) for every leaf of two cache
+    trees of one structure: kv's k and v, the mixer's ssm and conv."""
+    assert set(got) == set(want), path
+    for k in sorted(got):
+        if isinstance(got[k], dict):
+            yield from _cache_leaves(got[k], want[k], path + (k,))
+        else:
+            yield "/".join(path + (k,)), got[k], want[k]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_matches_jax(arch, dtype):
@@ -83,9 +96,10 @@ def test_prefill_matches_jax(arch, dtype):
     assert tl.dtype == torch.float32 and tl.shape == (2, 1, jcfg.vocab_size)
     np.testing.assert_allclose(_f32(tl), _f32(jl), atol=TOL[dtype]["logits"])
     assert tsl.lengths.tolist() == [11, 11]
-    for leaf in ("k", "v"):
-        got, want = tsl.layers["kv"][leaf], jsl.layers["kv"][leaf]
-        assert got.dtype == tdt and tuple(got.shape) == want.shape
+    for leaf, got, want in _cache_leaves(tsl.layers, jsl.layers):
+        # the mixer's state is f32 whatever the cache's dtype
+        assert got.dtype == (torch.float32 if leaf.endswith("ssm") else tdt)
+        assert tuple(got.shape) == want.shape
         np.testing.assert_allclose(_f32(got), _f32(want),
                                    atol=TOL[dtype]["cache"], err_msg=leaf)
 
@@ -119,11 +133,10 @@ def test_decode_steps_match_jax(arch, dtype):
                                        atol=TOL[dtype]["logits"])
             assert tc.lengths.tolist() == np.asarray(jc.lengths).tolist()
     assert tc.lengths.tolist() == [9, 0, 23]
-    for leaf in ("k", "v"):
-        np.testing.assert_allclose(
-            _f32(tc.layers["kv"][leaf])[:, [0, 2]],
-            _f32(jc.layers["kv"][leaf])[:, [0, 2]],
-            atol=TOL[dtype]["cache"], err_msg=leaf)
+    for leaf, got, want in _cache_leaves(tc.layers, jc.layers):
+        np.testing.assert_allclose(_f32(got)[:, [0, 2]],
+                                   _f32(want)[:, [0, 2]],
+                                   atol=TOL[dtype]["cache"], err_msg=leaf)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -285,11 +298,13 @@ def _tiny(**kw):
     return ModelConfig(**base)
 
 
+# the ssm and hybrid cases became vlm and audio once those blocks were
+# ported: the count of cases stays, each on a branch still refused
 @pytest.mark.parametrize("kw,branch", [
     (dict(frontend="vision"), "frontend"),
     (dict(embed_onehot=True), "embed_onehot"),
-    (dict(arch_type="hybrid"), "hybrid"),
-    (dict(arch_type="ssm"), "ssm"),
+    (dict(arch_type="vlm"), "vlm"),
+    (dict(arch_type="audio"), "audio"),
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_unported_branches_raise(kw, branch):
     cfg = _tiny(**kw)

@@ -2,8 +2,9 @@
 CPU: ``lm.loss_fn`` and every gradient leaf against
 ``jax.value_and_grad(repro.models.lm.loss_fn)`` on reduced Yi-6B, Phi-3,
 Gemma-2 (soft-caps, post-norms, windows), Qwen3-MoE (``qk_norm``, the
-moe block and its load-balance aux) and Granite-MoE, f32 and bf16, with a CE
-chunk that pads and labels of -1; ``remat`` on and off.  Then the two
+moe block and its load-balance aux), Granite-MoE, Mamba2 (the ssm block)
+and Hymba (the hybrid block), f32 and bf16, with a CE chunk that pads and
+labels of -1; ``remat`` on and off.  Then the two
 kernels' Functions this path adds a bf16 or backward instance to:
 ``DenseFunction`` in bf16 against ``jax.vjp`` of the reference's Pallas
 ``dense_pallas`` (interpret mode), and ``rmsnorm_bwd_ref`` (the CPU path
@@ -42,7 +43,7 @@ from repro_torch.optim.optimizers import make_optimizer  # noqa: E402
 from repro_torch.weights import params_from_numpy  # noqa: E402
 
 ARCHS = ("yi-6b", "phi3-mini-3.8b", "gemma2-27b", "qwen3-moe-30b-a3b",
-         "granite-moe-3b-a800m")
+         "granite-moe-3b-a800m", "mamba2-370m", "hymba-1.5b")
 TOL = {"float32": dict(loss=2e-5, atol=2e-5, rtol=1e-4),
        "bfloat16": dict(loss=5e-3, atol=3e-2, rtol=3e-2)}
 MOE = ("qwen3-moe-30b-a3b", "granite-moe-3b-a800m")
@@ -133,19 +134,19 @@ def test_remat_gives_the_same_loss_and_grads(jax_runs, arch):
 HELD_B, HELD_S = 8, 32
 
 
-@pytest.mark.parametrize("steps", [10, 40])
-def test_moe_held_out_trajectory_matches_the_reference(steps):
-    """Reduced Granite-MoE in f32, trained as ``chip_smoke.py``'s phase 4h
-    trains it at full width (AdamW, lr 1e-3, warmup 2 then cosine over
-    ``steps``, grad_clip 1.0, a new ``lm_corpus`` batch a step; here B 8
-    x S 32) by the reference trainer's own jitted step and by the port's
-    ``make_node_round``, from the same numpy params.  A held-out batch's
-    objective, CE and aux after every step agree within rtol 1e-4 / atol
-    1e-6 (the training CLI test's loss tolerance).  ``pytest -s`` prints
-    the trajectory: how the load-balance aux moves while the CE falls."""
-    arch = "granite-moe-3b-a800m"
-    jcfg = dataclasses.replace(jconfigs.get_reduced(arch), dtype="float32")
-    cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32")
+def _held_out_trajectory(arch, steps, **cfg_kw):
+    """Reduced ``arch`` in f32 (``cfg_kw`` replaced in both packages'
+    configs), trained as ``chip_smoke.py``'s phases 4h and 4k train it at
+    full width (AdamW, lr 1e-3, warmup 2 then cosine over ``steps``,
+    grad_clip 1.0, a new ``lm_corpus`` batch a step; here B 8 x S 32) by
+    the reference trainer's own jitted step and by the port's
+    ``make_node_round``, from the same numpy params.  Returns, after
+    every step, (reference, port) readings of a held-out batch's
+    objective, CE and aux, and prints them (``pytest -s``)."""
+    jcfg = dataclasses.replace(jconfigs.get_reduced(arch), dtype="float32",
+                               **cfg_kw)
+    cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32",
+                              **cfg_kw)
     corpus = synthetic.lm_corpus((steps + 1) * HELD_B * HELD_S + 1,
                                  jcfg.vocab_size, seed=0)
     n = (len(corpus) - 1) // HELD_S
@@ -189,9 +190,20 @@ def test_moe_held_out_trajectory_matches_the_reference(steps):
                                       {"rows": torch.from_numpy(r[None])}, i)
         trace.append((ref_held(jp), port_held(params)))
     for i, (want, got) in enumerate(trace):
-        print(f"step {i:>2} held-out objective / ce / aux: reference "
+        print(f"{arch} step {i:>2} held-out objective / ce / aux: reference "
               + " / ".join(f"{v:.6f}" for v in want) + "; port "
               + " / ".join(f"{v:.6f}" for v in got))
+    return trace
+
+
+@pytest.mark.parametrize("steps", [10, 40])
+def test_moe_held_out_trajectory_matches_the_reference(steps):
+    """Reduced Granite-MoE (``_held_out_trajectory``): the held-out
+    objective, CE and aux after every step agree within rtol 1e-4 / atol
+    1e-6 (the training CLI test's loss tolerance); the print shows how
+    the load-balance aux moves while the CE falls."""
+    trace = _held_out_trajectory("granite-moe-3b-a800m", steps)
+    for i, (want, got) in enumerate(trace):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6,
                                    err_msg=f"after step {i}")
 

@@ -2,8 +2,9 @@
 request stream through ``repro.serving`` and ``repro_torch.serving``
 under the deterministic cost clock give the same event streams, on reduced
 Yi-6B, on reduced Gemma-2 with prompts longer than its window, and on the
-reduced MoE family (Qwen3-MoE with ``qk_norm``, Granite-MoE); plus
-the slot invariants, the explicit device contract and a CLI smoke."""
+reduced MoE family (Qwen3-MoE with ``qk_norm``, Granite-MoE), on
+reduced Mamba2 and on reduced Hymba with prompts longer than its window;
+plus the slot invariants, the explicit device contract and a CLI smoke."""
 import dataclasses
 
 import pytest
@@ -118,6 +119,35 @@ def test_moe_event_streams_match_jax(moe_pair, batching):
     assert got == want
 
 
+SSM_ARCHS = ("mamba2-370m", "hymba-1.5b")
+
+
+@pytest.fixture(scope="module", params=SSM_ARCHS)
+def ssm_pair(request):
+    """A reduced ssm or hybrid config in f32."""
+    return _f32_pair(request.param)
+
+
+@pytest.mark.parametrize("batching", ["continuous", "static"])
+def test_ssm_event_streams_match_jax(ssm_pair, batching):
+    """Each decode step advances every slot's state, free slots included,
+    and an insert overwrites a slot's state whole; prompts of 20-36
+    tokens pass Hymba's window of 16."""
+    jcfg, jp, tcfg, tp = ssm_pair
+    reqs = serving.poisson_requests(6, rate_rps=400.0, seed=7,
+                                    prompt_lens=(20, 28, 36),
+                                    gen_lens=(2, 4, 9, 12),
+                                    vocab_size=tcfg.vocab_size)
+    jeng = jserving.make_serve_engine(jp, jcfg, jserving.ServeConfig(
+        batching=batching, **SERVE))
+    teng = serving.make_serve_engine(tp, tcfg, serving.ServeConfig(
+        batching=batching, **SERVE), device="cpu")
+    want = _events(jeng.run(reqs))
+    got = _events(teng.run(reqs))
+    assert sum(k == "complete" for k, *_ in got) == 6
+    assert got == want
+
+
 def test_gemma2_generate_matches_jax(gemma_pair):
     jcfg, jp, tcfg, tp = gemma_pair
     prompts = np.random.default_rng(6).integers(
@@ -211,10 +241,11 @@ def test_encdec_rejected():
 
 
 def test_unported_arch_rejected(f32_pair):
+    """vlm, not hybrid, since the hybrid block is ported."""
     _, _, cfg, params = f32_pair
-    hybrid = dataclasses.replace(cfg, arch_type="hybrid")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        serving.make_serve_engine(params, hybrid, device="cpu")
+    vlm = dataclasses.replace(cfg, arch_type="vlm")
+    with pytest.raises(NotImplementedError, match="vlm"):
+        serving.make_serve_engine(params, vlm, device="cpu")
 
 
 def test_make_serve_engine_without_device_needs_a_card(monkeypatch, f32_pair):
@@ -255,6 +286,15 @@ def test_cli_smoke_cpu_qwen3_moe(capsys):
     out = capsys.readouterr().out
     assert len(lat) == 3
     assert "qwen3-moe-30b-a3b continuous: 3 requests" in out
+
+
+def test_cli_smoke_cpu_mamba2(capsys):
+    lat = serve_cli.main(["--arch", "mamba2-370m", "--device", "cpu",
+                          "--requests", "3", "--gen", "4", "--rate", "300",
+                          "--timing", "model"])
+    out = capsys.readouterr().out
+    assert len(lat) == 3
+    assert "mamba2-370m continuous: 3 requests" in out
 
 
 def test_cli_without_card_raises(monkeypatch):
