@@ -24,9 +24,15 @@ from the root of a checkout.  Phases, each of which raises on failure
    16 and 2048; its 8-layer decode step and 2048-token prefill, 32
    launches each), at Mamba2's in- and out-projections (M up to 64 and
    2000; its 48-layer decode step and 2000-token prefill, 96 launches
-   each) and at Hymba's nine (in_proj 1600 -> 6457; M up to 64 and 2048;
+   each), at Hymba's nine (in_proj 1600 -> 6457; M up to 64 and 2048;
    its 32-layer decode step and 2048-token prefill, 288 launches each),
-   those two timed at the summed rows only;
+   at InternVL2's seven (6144 -> 6144 / 1024 / 16384, 16384 -> 6144; M
+   up to 64 and 3072, the 4 image prompts; 8 layers, 56 launches), at
+   StableLM's (5120 -> 5120 / 1280 / 13824, 13824 -> 5120; up to 64 and
+   2048) and at Seamless's three widths (1024 -> 1024 / 8192, 8192 ->
+   1024; up to 64, 256 and 16384: the decoder prefix and the encoder's 4
+   x 4096 frames), those five timed at the summed rows only
+   (TIMED_ROWS);
 2b. K2-K8 (and K1 in f32) against their plain versions at every shape of
    a Table-2 case7 training step at B = 64, plus ragged and tied cases,
    for the split-K f32 product of K1 and K2 shapes whose reduction
@@ -43,8 +49,10 @@ from the root of a checkout.  Phases, each of which raises on failure
 2c. K9 (RMSNorm) at decode and prefill rows of d = 4608, 4096, 3072 in
    bf16 and f32 plus ragged rows (each rerun bit for bit; the launch
    geometry printed; Qwen3-MoE's rows: d = 2048 and its q/k norms at
-   head_dim 128, decode and a 2048-token prefill; Mamba2's d = 1024 and
-   Hymba's 1600, decode and their long prefills), and K10 (flash
+   head_dim 128, decode and a 2048-token prefill; Mamba2's d = 1024,
+   Hymba's 1600, InternVL2's 6144 and StableLM's 5120, decode and their
+   long prefills; Seamless's 1024 at its encoder's 16384 rows and its
+   prefix's 256), and K10 (flash
    attention) at Gemma-2's
    (bf16 and f32, q x 8 so the soft-cap of 50 acts), Yi-6B's and Phi-3's
    attention shapes (S up to 8192, windows) plus a small case with fully
@@ -63,12 +71,16 @@ from the root of a checkout.  Phases, each of which raises on failure
    over a phase-4h step too) and Hymba's (its nine projections, summed
    over a phase-4k step; K2 and K3 of in_proj on the mma.sync tile
    route, since 6457 is no multiple of 8, each shape asserted on the
-   route its widths call for), K2 and K3 also at ragged M, with the relu
+   route its widths call for), InternVL2's at M = 3072 (phase 4m's B 8 x
+   (256 + 128)) and Seamless's at 4096 and 1024 (4n's encoder and
+   decoder rows; each summed over its step, ``mm_train_launches``), K2
+   and K3 also at ragged M, with the relu
    mask, off 8
    and at widths off every tile width the route plan can choose (each
    printing its route), and K9's backward at d = 3072, 4096, 4608 (1024
    rows, and ragged rows) in bf16 and f32, and at Granite-MoE's d = 1536,
-   Hymba's 1600 and Qwen3-MoE's q/k norms (d = 128), against their plain
+   Hymba's 1600, Qwen3-MoE's q/k norms (d = 128), InternVL2's 6144 (3072
+   rows) and Seamless's 1024 (4096 and 1024 rows), against their plain
    versions:
    dx within one bf16 rounding (bf16) or at the f32 gradient gate, f32
    dw, db and dscale at the gradient gate (1e-4 x max(max|ref|, 1)), K3's
@@ -200,6 +212,45 @@ from the root of a checkout.  Phases, each of which raises on failure
    spans forward and backward, tokens/s, peak memory; the held-out
    objective must fall, and its CE by more than SSM_MIN_FALL nats (both
    read every 10 steps);
+3f. reduced InternVL2 (8 patch tokens), reduced SeamlessM4T-v2 and a
+   narrow dense config at StableLM's head_dim 160 (d 320, 2 q heads, 1 kv
+   head, 2 layers) in f32 on the card against the port's CPU path from
+   one numpy tree: InternVL2's image prompt through ``lm.forward`` (and
+   ``steps.make_prefill_step``), its caches in 2 of 3 slots and 4 decode
+   steps; Seamless's ``encode``, ``_decode_stack``, the cross cache
+   filled from the memory, the 7-token prefix decoded a token at a time
+   (each position within 1e-4 of the stack's logits) and 4 more steps;
+   the narrow config as 3d; logits and caches within 1e-4, ``loss_fn`` /
+   ``encdec_loss_fn`` and every gradient leaf at phase 3c's f32 gates;
+   then each bf16 forward reruns bit for bit;
+4l. (run after 4k) InternVL2-26B at full width and 8 of 48 layers (4.30 B
+   params, f32 + bf16 compute copy): 8 Poisson text requests through the
+   continuous engine (exactly 56 K1 and 17 K9 launches per forward call),
+   4 image prompts (256 patch embeddings + 512 tokens) through
+   ``steps.make_prefill_step`` timed (the same exact launches) and
+   traced, inserted into the engine's 4 slots, 32 greedy decode steps,
+   and a 4-slot decode step traced against its byte floor (the 8 layers'
+   and the head's bf16 weights);
+4m. InternVL2 at full width and 2 of 48 layers through phase 4e's loop
+   (B 8 x (256 patches, one seeded draw, + 128 tokens from ``lm_corpus``
+   over 512 ids), AdamW, 50 steps): exactly 14 K1, K2 and K3 and 5 K9
+   forward and backward launches a step, the held-out objective falls and
+   its CE by more than 2 nats, read every 10 steps;
+4n. SeamlessM4T-large-v2 at full width and all 24 + 24 layers (1.78 B
+   params from ``init_encdec_params``): ``encode`` of 4 x 4096 frames
+   (169 K1, 49 K9 launches) and ``_decode_stack`` of a 64-token prefix
+   (264 K1, 73 K9), each timed and traced; the cross cache filled from the
+   memory, the prefix decoded a token at a time and 32 greedy steps (216
+   K1, 73 K9 each), one traced against its byte floor (the decoder's bf16
+   leaves the step reads, the head, the cross K/V); then 50 steps of
+   ``steps.make_train_step`` at B 8 x (512 frames + 128 tokens), exactly
+   433 K1, 432 K2 (``frontend_proj``'s input takes no gradient), 433 K3
+   and 122 K9 forward and backward a step, the held-out CE falling by
+   more than 2 nats;
+4o. StableLM-2-12B at full width and 8 of 40 layers (head_dim 160) as 4i:
+   8 Poisson requests (56 K1, 17 K9 launches per forward call), a 4-slot
+   decode step traced against its byte floor, a 2048-token prompt's
+   prefill traced;
 5. the serving CLI once on the reduced config;
 6. a JSON line with every ported kernel (device-clock times as the extra
    fields ``device_ms`` and ``library_device_ms``, "not measured" being
@@ -219,7 +270,15 @@ from the root of a checkout.  Phases, each of which raises on failure
    long prefills as ``mamba_*``, ``mamba_prefill_*``, ``hymba_*`` and
    ``hymba_prefill_*`` (launches from 4i, 4j), K1, K2 and K3 Hymba's
    training step as ``hymba_train_bf16_*`` and ``hymba_bf16_*``, K9's
-   backward there as ``hymba_bwd_*``), then the card
+   backward there as ``hymba_bwd_*``; K1 and K9 InternVL2's and
+   StableLM's decode steps and prefills as ``internvl_*``,
+   ``internvl_prefill_*`` (the 4 image prompts), ``stablelm_*`` and
+   ``stablelm_prefill_*`` (launches from 4l, 4o), Seamless's decode step,
+   encode and decoder prefix as ``seamless_*``, ``seamless_encode_*`` and
+   ``seamless_prefill_*`` (4n); K1, K2 and K3 InternVL2's and Seamless's
+   training steps as ``internvl_train_bf16_*`` / ``internvl_bf16_*`` and
+   ``seamless_train_bf16_*`` / ``seamless_bf16_*``, K9's backward there
+   as ``internvl_bwd_*`` and ``seamless_bwd_*``), then the card
    again, then the result line ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports no JAX and nothing of the JAX package ``repro``.
@@ -255,7 +314,11 @@ for phases 3d, 4g and 4h, and
 
     python3 chip_smoke.py --ssm
 
-for phases 3e, 4i, 4j and 4k.
+for phases 3e, 4i, 4j and 4k, and
+
+    python3 chip_smoke.py --mm
+
+for phases 3f, 4l, 4m, 4n and 4o.
 """
 from __future__ import annotations
 
@@ -300,10 +363,28 @@ DECODE_SHAPES = {                  # one layer's projections: (name, K, N)
                    ("wo", 1600, 1600), ("in_proj", 1600, 6457),
                    ("out_proj", 3200, 1600), ("wg", 1600, 5504),
                    ("wi", 1600, 5504), ("mlp_wo", 5504, 1600)),
+    "internvl2-26b": (("wq", 6144, 6144), ("wk", 6144, 1024),
+                      ("wv", 6144, 1024), ("wo", 6144, 6144),
+                      ("wg", 6144, 16384), ("wi", 6144, 16384),
+                      ("mlp_wo", 16384, 6144)),
+    "stablelm-12b": (("wq", 5120, 5120), ("wk", 5120, 1280),
+                     ("wv", 5120, 1280), ("wo", 5120, 5120),
+                     ("wg", 5120, 13824), ("wi", 5120, 13824),
+                     ("mlp_wo", 13824, 5120)),
+    # a decoder layer's decode step: self-attention's four, the cross
+    # attention's q and o (its k and v are the filled cache), the MLP's
+    # three; the encoder's and the cross k/v projections share the widths
+    "seamless-m4t-large-v2": (("wq", 1024, 1024), ("wk", 1024, 1024),
+                              ("wv", 1024, 1024), ("wo", 1024, 1024),
+                              ("xq", 1024, 1024), ("xo", 1024, 1024),
+                              ("wg", 1024, 8192), ("wi", 1024, 8192),
+                              ("mlp_wo", 8192, 1024)),
 }
 DECODE_LAYERS = {"yi-6b": 32, "gemma2-27b": 8,      # phases 4, 4c, 4g, 4i
                  "qwen3-moe-30b-a3b": 8,            # and 4j: full depth
-                 "mamba2-370m": 48, "hymba-1.5b": 32}
+                 "mamba2-370m": 48, "hymba-1.5b": 32,
+                 "internvl2-26b": 8, "stablelm-12b": 8,   # 4l, 4o
+                 "seamless-m4t-large-v2": 24}             # 4n: full depth
 K1_ROWS = (1, 4, 16,               # decode rows (the split-K stream)
            17, 24, 64)             # prefill rows (the tile GEMM, 64-row)
 K1_MODEL_ROWS = {"yi-6b": K1_ROWS,
@@ -314,14 +395,24 @@ K1_MODEL_ROWS = {"yi-6b": K1_ROWS,
                  # 4i's 2000-token prompt (8 SSD chunks, the last padded)
                  "mamba2-370m": K1_ROWS + (2000,),
                  # 4j's 2048-token prompt, past the 1024 window
-                 "hymba-1.5b": K1_ROWS + (2048,)}
+                 "hymba-1.5b": K1_ROWS + (2048,),
+                 # 4l's image prompts: 4 x (256 patches + 512 tokens)
+                 "internvl2-26b": K1_ROWS + (3072,),
+                 # 4o's 2048-token prompt
+                 "stablelm-12b": K1_ROWS + (2048,),
+                 # 4n: the decoder's 4 x 64-token prefix, the encoder's
+                 # 4 x 4096 frames (and the cross k/v of that memory)
+                 "seamless-m4t-large-v2": K1_ROWS + (256, 16384)}
 PREFILL_ROWS = {"yi-6b": 24, "gemma2-27b": 5000,   # the prefill sums
                 "qwen3-moe-30b-a3b": 2048, "mamba2-370m": 2000,
-                "hymba-1.5b": 2048}
-# archs whose phase-2 rows are timed at the summed rows only (decode M = 4
-# and the prefill): the other rows are held against the plain version
-# and rerun, which is what the served plans need
-SUM_ROWS_TIMED = ("mamba2-370m", "hymba-1.5b")
+                "hymba-1.5b": 2048, "internvl2-26b": 3072,
+                "stablelm-12b": 2048, "seamless-m4t-large-v2": 16384}
+# archs whose phase-2 rows are timed at the summed rows only (these): the
+# other rows are held against the plain version and rerun, which is what
+# the served plans need
+TIMED_ROWS = {arch: (4, PREFILL_ROWS[arch]) for arch in (
+    "mamba2-370m", "hymba-1.5b", "internvl2-26b", "stablelm-12b")}
+TIMED_ROWS["seamless-m4t-large-v2"] = (4, 256, 16384)
 K1_RAGGED = (                      # (dtype, M, K, N), bias + relu
     ("float32", 37, 100, 77), ("bfloat16", 5, 72, 70),
     ("bfloat16", 33, 100, 130),
@@ -456,13 +547,18 @@ def phase_kernel(torch, dense_mod, ref, only=None):
     tiles), at Qwen3-MoE's at M = 1, 4, 16 and 2048, plus ragged cases;
     every shape reruns bit for bit.  Returns the per-model sums of a
     decode step (M = 4) and of a prefill forward (Yi-6B at M = 24,
-    Gemma-2 at M = 5000, Qwen3-MoE at 2048), and the worst error.
+    Gemma-2 at M = 5000, Qwen3-MoE at 2048, ...; PREFILL_ROWS), the worst
+    error, and per timed case (arch, M, K, N) its error, tolerance and
+    ``_time_case``-style times (``k1_sum_of`` adds them up where a
+    forward's launches are no multiple of DECODE_SHAPES: Seamless's).
     ``only``, a set of rows, keeps just those rows and leaves out the
     sums."""
     gen = torch.Generator("cuda").manual_seed(1)
     dense_cuda = dense_mod.dense_cuda
     sums = {(arch, kind): _k1_sum() for arch in DECODE_SHAPES
-            for kind in ("decode", "prefill")}
+            for kind in ("decode", "prefill")
+            if (arch, kind) != (ENC_ARCH, "prefill")}
+    cases = {}
     worst = {"err": 0.0, "ratio": 0.0, "tol": 0.0}
     names = set()
     log(f"[k1] {'model':<10} {'shape':<12} {'x':>1} {'M':>4} {'S':>3}  "
@@ -475,8 +571,7 @@ def phase_kernel(torch, dense_mod, ref, only=None):
             unique.setdefault((K, N), []).append(name)
         rows = K1_MODEL_ROWS[arch]
         for M in (M for M in rows if only is None or M in only):
-            timed = arch not in SUM_ROWS_TIMED or M in (
-                4, PREFILL_ROWS[arch])
+            timed = arch not in TIMED_ROWS or M in TIMED_ROWS[arch]
             for (K, N), which in unique.items():
                 wbytes = K * N * 2
                 copies = max(2, min(64, math.ceil(256e6 / wbytes))) \
@@ -511,6 +606,9 @@ def phase_kernel(torch, dense_mod, ref, only=None):
                 l_ms = time_ms(torch, torch.matmul, sets, iters=iters)
                 l_dev, _ = device_ms(torch, torch.matmul, sets, iters=iters)
                 b_ms, by = bound_ms(M, N, K, "bfloat16")
+                cases[(arch, M, K, N)] = dict(
+                    err=err, tol=tol,
+                    t=(k_ms, k_dev, p_ms, l_ms, l_dev, b_ms, by))
                 log(f"[k1] {arch:<10} {K:>5}x{N:<6} {len(which)} {M:>4} "
                     f"{S:>3}  {err:<11.4g} {tol:<9.4g} "
                     f"{k_ms:<9.5f} {fmt_ms(k_dev):<9} {p_ms:<9.5f} "
@@ -518,7 +616,7 @@ def phase_kernel(torch, dense_mod, ref, only=None):
                     + ("-" if k_dev is None else f"{b_ms / k_dev:.3f}"))
                 for kind, at in (("decode", 4),
                                  ("prefill", PREFILL_ROWS[arch])):
-                    if M != at:
+                    if M != at or (arch, kind) not in sums:
                         continue
                     n = DECODE_LAYERS[arch] * len(which)
                     st = sums[(arch, kind)]
@@ -566,7 +664,7 @@ def phase_kernel(torch, dense_mod, ref, only=None):
             f"torch.matmul {st['library_ms']:.4f} ms (device "
             f"{fmt_ms(st['library_device_ms'])}), bound "
             f"{st['bound_ms']:.4f} ms ({dominant(st['bound_by'])})")
-    return sums, worst
+    return sums, worst, cases
 
 
 # ----------------------------------------------------------------------
@@ -1411,12 +1509,21 @@ QWEN_RMS = {"decode": ((4, 2048), (128, 128), (16, 128)),
             "prefill": ((2048, 2048), (65536, 128), (8192, 128))}
 RMS_CASES += [(rows, d, "bfloat16") for kind in ("decode", "prefill")
               for rows, d in QWEN_RMS[kind]]
-# Mamba2 (phase 4i, d = 1024) and Hymba (4j, d = 1600): every norm of a
-# forward at d_model, a decode step's 4 rows and the long prompt's
-SSM_RMS = {arch: {"decode": (4, d), "prefill": (PREFILL_ROWS[arch], d)}
-           for arch, d in (("mamba2-370m", 1024), ("hymba-1.5b", 1600))}
-RMS_CASES += [(rows, d, "bfloat16") for kinds in SSM_RMS.values()
-              for rows, d in kinds.values()]
+# Mamba2 (phase 4i, d = 1024), Hymba (4j, d = 1600), InternVL2 (4l, d =
+# 6144; its prefill the 4 image prompts' 3072 rows) and StableLM (4o, d =
+# 5120): every norm of a forward at d_model, a decode step's 4 rows and
+# the long prompt's
+SERVE_RMS = {arch: {"decode": (4, d), "prefill": (PREFILL_ROWS[arch], d)}
+             for arch, d in (("mamba2-370m", 1024), ("hymba-1.5b", 1600),
+                             ("internvl2-26b", 6144),
+                             ("stablelm-12b", 5120))}
+# Seamless (4n, d = 1024): a decode step's 4 rows, the encoder's 4 x 4096
+# frames and the decoder's 4 x 64-token prefix
+ENC_RMS = {"decode": (4, 1024), "encode": (16384, 1024),
+           "prefill": (256, 1024)}
+RMS_CASES = list(dict.fromkeys(RMS_CASES + [
+    (rows, d, "bfloat16") for kinds in (*SERVE_RMS.values(), ENC_RMS)
+    for rows, d in kinds.values()]))
 # (name, B, H, KH, Sq, Sk, D, dtype, window, softcap)
 FLASH_CASES = [
     ("gemma2 global", 1, 32, 16, 8192, 8192, 128, "bfloat16", 0, 50.0),
@@ -1995,24 +2102,29 @@ def phase_gemma(torch, configs, serving, counters, card, layers=8):
     return launches, pre, k10_launches, worst
 
 
-def prefill_launches(dense_mod, k1_sums, arch, pre_k1):
-    """Phase 2's prefill sum for ``arch`` with ``launches`` the K1 launches
-    that phase 4, 4c or 4g counted in its prefill calls of
-    PREFILL_ROWS[arch] rows; raises unless every such call launched K1 as
-    often as the sum adds shapes, and unless every row count that the
-    serving run's prefill calls sent K1 takes, at each of the arch's
-    widths, the block rows, splits and depth of a row count that phase 2
-    held against the plain version (K1_MODEL_ROWS)."""
+def check_plans(dense_mod, arch, rows):
+    """Raise unless every row count in ``rows`` takes, at each of the
+    arch's widths, the block rows, splits and depth of a row count that
+    phase 2 held against the plain version (K1_MODEL_ROWS)."""
     def plan(M, K, N):
         return (dense_mod.bf16_rows(M),) + dense_mod.bf16_splits(M, N, K)
     widths = {(K, N) for _, K, N in DECODE_SHAPES[arch]}
-    unchecked = sorted((M, K, N) for M in pre_k1 for K, N in widths
+    unchecked = sorted((M, K, N) for M in rows for K, N in widths
                        if plan(M, K, N) not in {
                            plan(m, K, N) for m in K1_MODEL_ROWS[arch]})
     if unchecked:
         raise AssertionError(f"{arch}: the serving run sent K1 (M, K, N) "
                              f"{unchecked}, whose plans phase 2 did not "
                              "hold against the plain version")
+
+
+def prefill_launches(dense_mod, k1_sums, arch, pre_k1):
+    """Phase 2's prefill sum for ``arch`` with ``launches`` the K1 launches
+    that phase 4, 4c or 4g counted in its prefill calls of
+    PREFILL_ROWS[arch] rows; raises unless every such call launched K1 as
+    often as the sum adds shapes, and unless every row count that the
+    serving run's prefill calls sent K1 passes ``check_plans``."""
+    check_plans(dense_mod, arch, pre_k1)
     st = dict(k1_sums[(arch, "prefill")])
     M = PREFILL_ROWS[arch]
     seen = pre_k1.get(M, [])
@@ -2085,8 +2197,8 @@ def layer_projections(cfg) -> list:
     """(name, Din, Dout) of every ``layers.dense`` a layer's forward
     calls, from the block's layout (``models/blocks.py``): the attention's
     q, k, v, o (every block but ssm), the mixer's in- and out-projections
-    (ssm, hybrid) and the gated MLP's three (dense and hybrid with d_ff;
-    the moe block's experts are library einsums)."""
+    (ssm, hybrid) and the gated MLP's three (every block with d_ff but
+    ssm and moe, whose experts are library einsums)."""
     d, t = cfg.d_model, cfg.arch_type
     out = []
     if t != "ssm":
@@ -2095,7 +2207,7 @@ def layer_projections(cfg) -> list:
     if t in ("ssm", "hybrid"):
         di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
         out += [("in_proj", d, 2 * di + 2 * N + H), ("out_proj", di, d)]
-    if t in ("dense", "hybrid") and cfg.d_ff > 0:
+    if t not in ("ssm", "moe") and cfg.d_ff > 0:
         out += [("wg", d, cfg.d_ff), ("wi", d, cfg.d_ff),
                 ("mlp_wo", cfg.d_ff, d)]
     return out
@@ -2175,15 +2287,15 @@ def _note_err(row, err, tol):
 
 
 def _time_case(torch, row, n, kern, plain, lib, sets, lib_sets, nbytes,
-               flops, dtype):
+               flops, dtype, iters=50):
     """Time one case (kernel, plain, library; CUDA events and the
-    device's clock) and add n launches of it to ``row``'s sums; returns
-    the per-launch numbers."""
-    k_ms = time_ms(torch, kern, sets)
-    k_dev, _ = device_ms(torch, kern, sets)
-    p_ms = time_ms(torch, plain, sets, iters=20)
-    l_ms = time_ms(torch, lib, lib_sets)
-    l_dev, _ = device_ms(torch, lib, lib_sets)
+    device's clock, ``iters`` calls each) and add n launches of it to
+    ``row``'s sums; returns the per-launch numbers."""
+    k_ms = time_ms(torch, kern, sets, iters=iters)
+    k_dev, _ = device_ms(torch, kern, sets, iters=iters)
+    p_ms = time_ms(torch, plain, sets, iters=min(20, iters))
+    l_ms = time_ms(torch, lib, lib_sets, iters=iters)
+    l_dev, _ = device_ms(torch, lib, lib_sets, iters=iters)
     b_ms, by = roof_ms(nbytes, flops, dtype)
     t = k_ms, k_dev, p_ms, l_ms, l_dev, b_ms, by
     _add_case(row, n, t)
@@ -2265,7 +2377,9 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
     ``only``: the kernels to run (K1, K2, K3, K9), all if None.  Returns
     per kernel its row, summed over one phase-4e step (Phi-3-mini,
     LM_LAYERS layers), and under (family, kernel) over one step of each
-    of TRAIN_FAMILIES (Granite-MoE's phase 4h, Hymba's phase 4k)."""
+    of TRAIN_FAMILIES (Granite-MoE's phase 4h, Hymba's phase 4k) and of
+    ``mm_train_launches``' (InternVL2's 4m and Seamless's 4n, whose
+    shapes run at their own rows, LM_BWD_ROWS)."""
     gen = torch.Generator("cuda").manual_seed(4)
     new = hasattr(dn, "bwd_bf16_plan")   # K3 writes bf16 dw, db if asked
     lm_k3 = (lambda x, g, out: dn.dense_dwdb_cuda(
@@ -2280,7 +2394,7 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
            "K2": lambda g, w, out: torch.matmul(g, w.t()),
            "K3": (lambda x, g, out: torch.matmul(x.t(), g)) if new else
            (lambda x, g, out: (torch.matmul(x.t(), g), g.sum(0)))}
-    rows = {}
+    rows, cases = {}, {}
     log(f"[lm-k] {'kernel':<6} {'model':<15} {'M x Din x Dout':<18} "
         f"{'max_abs_err':<11} {'tol':<10} {'kernel_ms':<10} "
         f"{'device_ms':<12} {'plain_ms':<10} {'library_ms':<10} "
@@ -2294,8 +2408,10 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
             unique = {}
             for name, Din, Dout in shapes:
                 unique.setdefault((Din, Dout), []).append(name)
-            for (Din, Dout), which in unique.items():
-                M = LM_ROWS
+            todo = [(M, Din, Dout, which)
+                    for (Din, Dout), which in unique.items()
+                    for M in LM_BWD_ROWS.get(arch, (LM_ROWS,))]
+            for M, Din, Dout, which in todo:
                 args = _dense_bwd_case(torch, gen, key, M, Din, Dout, False)
                 where = f"({M}, {Din}, {Dout})"
                 if key == "K1":
@@ -2333,9 +2449,13 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
                     nbytes = 2 * (M * Din + M * Dout) + 4 * (Din + 1) * Dout
                     flops = 2.0 * M * (Din + 1) * Dout
                 n = LM_LAYERS * len(which) if arch == LM_ARCH else 0
+                # the large rows of 4m and 4n: 10 calls, within the
+                # script's time
                 t = _time_case(torch, row, n, kern[key], plain[key],
                                lib[key], sets, sets, nbytes, flops,
-                               "bfloat16")
+                               "bfloat16",
+                               10 if arch in LM_BWD_ROWS else 50)
+                cases[(key, M, Din, Dout)] = dict(err=err, tol=tol, t=t)
                 for f, (farch, fL, *_) in TRAIN_FAMILIES.items():
                     if arch == farch:
                         _note_err(fam[f], err, tol)
@@ -2381,6 +2501,15 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
                     f"{fmt_ms(r['library_device_ms'])}), bound "
                     f"{r['bound_ms']:.5f}")
             rows[(f, key)] = r
+        for f, launches in mm_train_launches().items():
+            r = rows[(f, key)] = case_sum(cases, key, launches[key])
+            log(f"[lm-k] {key} bf16, one {f} step of phase "
+                f"{MM_TRAIN_PHASE[f]} ({sum(launches[key].values())} "
+                f"launches): kernel {r['ms']:.5f} ms (device "
+                f"{fmt_ms(r['device_ms'])}), torch.matmul "
+                f"{r['library_ms']:.5f} (device "
+                f"{fmt_ms(r['library_device_ms'])}), bound "
+                f"{r['bound_ms']:.5f}")
         rows[key] = row
     if only is not None and "K9" not in only:
         torch.cuda.empty_cache()
@@ -2410,6 +2539,7 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
                                  f"(tol {t1}), dscale {e2} (tol {t2})")
         _note_err(row, e1, t1)
         _note_err(row, e2, t2)
+        worse = (e1, t1) if e1 * t2 >= e2 * t1 else (e2, t2)
         again = rms.rmsnorm_bwd_cuda(*args)
         if not (torch.equal(dx, again[0]) and torch.equal(ds, again[1])):
             raise AssertionError(f"K9 bwd ({rows_n}, {d}) {dt} gave "
@@ -2436,6 +2566,9 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
         t = _time_case(torch, row, n, rms.rmsnorm_bwd_cuda,
                        ref.rmsnorm_bwd_ref, lib, sets, lib_sets, nbytes,
                        12.0 * rows_n * d, "float32")
+        if dt == "bfloat16":
+            cases[("K9 bwd", rows_n, d)] = dict(err=worse[0], tol=worse[1],
+                                                t=t)
         for f, (_, fL, norms, fd) in TRAIN_FAMILIES.items():
             if (d, dt) == (fd, "bfloat16"):     # the family's norms
                 _note_err(fam[f], e1, t1)
@@ -2456,6 +2589,8 @@ def phase_lm_kernels(torch, ref, dn, rms, only=None):
         f"{row['err']:.4g} at tol {row['tol']:.4g}")
     rows["K9 bwd"] = row
     rows.update({(f, "K9 bwd"): r for f, r in fam.items()})
+    for f, launches in mm_train_launches().items():
+        rows[(f, "K9 bwd")] = case_sum(cases, "K9 bwd", launches["K9 bwd"])
     torch.cuda.empty_cache()
     return rows
 
@@ -2575,8 +2710,11 @@ def phase_lm_step(torch, port, mods, card, arch=LM_ARCH, layers=LM_LAYERS,
     ``min_fall`` nats (each step's own loss is on a new batch); its
     objective, CE and aux are printed every HELD_EVERY steps.  A moe
     config also prints its layers' spans in the traced step
-    (``moe.SPANS``, forward and backward) and the step's flop floor.
-    Returns (launches, step device ms by kernel)."""
+    (``moe.SPANS``, forward and backward) and the step's flop floor.  A
+    config with a front end (4m: InternVL2) puts B rows of patch
+    embeddings, one seeded ``random_frontend_embeds`` draw, before every
+    batch's text, as ``launch/train.py`` does.  Returns (launches, step
+    device ms by kernel)."""
     import numpy as np
     lm, pipeline = port.lm, port.pipeline
     cfg = dataclasses.replace(port.configs.get_config(arch),
@@ -2589,6 +2727,7 @@ def phase_lm_step(torch, port, mods, card, arch=LM_ARCH, layers=LM_LAYERS,
     leaves = port.tree.tree_leaves(params)
     n_params = sum(p.numel() for p in leaves)
     c_w = sum(p.numel() * p.element_size() for p in leaves)
+    del leaves      # else the first params outlive the first step
     # ``steps`` training batches, 2 for the profile, 1 held out
     corpus_vocab = corpus_vocab or cfg.vocab_size
     corpus = port.synthetic.lm_corpus((steps + 3) * B * S + 1,
@@ -2597,9 +2736,14 @@ def phase_lm_step(torch, port, mods, card, arch=LM_ARCH, layers=LM_LAYERS,
     batches = [{"rows": torch.as_tensor(rows[None, i * B:(i + 1) * B],
                                         device="cuda")}
                for i in range(steps + 3)]
+    patches = port.frontends.random_frontend_embeds(
+        torch.Generator("cuda").manual_seed(1), cfg, B, device="cuda")
 
     def loss_fn(p, b):
-        return lm.loss_fn(p, pipeline.host_batch(b["rows"]), cfg)
+        hb = pipeline.host_batch(b["rows"])
+        if patches is not None:
+            hb["frontend_embeds"] = patches[:hb["tokens"].shape[0]]
+        return lm.loss_fn(p, hb, cfg)
 
     def held_out(p):
         """(loss, its ce, its aux) on the held-out batch."""
@@ -3092,28 +3236,38 @@ def _card_vs_cpu(torch, port, cfg, tag):
                             [x.float().cpu()
                              for x in port.tree.tree_leaves(g)])
         out[dev] = ([x.cpu() for x in seq], leaves, lens, grads)
+    return _held_card_vs_cpu(torch, out, tag, cfg.name, [9, 0, 23])
+
+
+def _held_card_vs_cpu(torch, out, tag, name, lengths):
+    """The gates of ``_card_vs_cpu`` (and 3f's) on ``out[dev]`` = (logits
+    and outputs, cache leaves, lengths, {remat: (loss, aux, gradient
+    leaves)}) of the card and the cpu: outputs within SERVE_TOL, cache
+    leaves within MOE_CACHE_TOL, the lengths equal and ``lengths``, loss
+    and aux and every gradient leaf at phase 3c's f32 gates.  Returns
+    what ``_card_vs_cpu`` returns."""
     (cs, ckv, clen, cg), (hs, hkv, hlen, hg) = out["cuda"], out["cpu"]
-    diff = max(_logit_diff(torch, a, b) for a, b in zip(cs, hs))
+    diff = max(_logit_diff(torch, a, b) for a, b in zip(cs, hs, strict=True))
     cdiff = max(float((a - b).abs().max()) for a, b in zip(ckv, hkv,
                                                           strict=True))
-    if clen != hlen or clen != [9, 0, 23]:
-        raise AssertionError(f"[{tag}] {cfg.name}: lengths {clen} vs cpu "
+    if clen != hlen or clen != lengths:
+        raise AssertionError(f"[{tag}] {name}: lengths {clen} vs cpu "
                              f"{hlen}")
     if not (diff <= SERVE_TOL and cdiff <= MOE_CACHE_TOL):
-        raise AssertionError(f"[{tag}] {cfg.name}: logits differ by {diff},"
+        raise AssertionError(f"[{tag}] {name}: logits differ by {diff},"
                              f" caches by {cdiff}")
     tl, atol, rtol = LM_TOL["float32"]
     worst = 0.0
-    for remat in (False, True):
+    for remat in cg:
         (cl, ca, cgr), (hl, ha, hgr) = cg[remat], hg[remat]
         if not (abs(cl - hl) <= tl * max(1.0, abs(hl))
                 and abs(ca - ha) <= tl * max(1.0, abs(ha))):
-            raise AssertionError(f"[{tag}] {cfg.name} remat={remat}: loss "
+            raise AssertionError(f"[{tag}] {name} remat={remat}: loss "
                                  f"{cl} aux {ca} vs cpu {hl} {ha}")
         for a, b in zip(cgr, hgr, strict=True):
             close = (a - b).abs() <= atol + rtol * b.abs()
             if not bool(close.all()):
-                raise AssertionError(f"[{tag}] {cfg.name} remat={remat}: a "
+                raise AssertionError(f"[{tag}] {name} remat={remat}: a "
                                      "grad leaf differs by "
                                      f"{(a - b).abs().max()}")
             worst = max(worst, float((a - b).abs().max()))
@@ -3230,13 +3384,12 @@ def serve_family(torch, port, serving, counters, card, cfg, prompt_len,
     finite, exactly ``dense_per_layer`` L K1 and ``norms_per_layer`` L +
     1 K9 launches per forward call; TTFT, latency p50/p99, tok/s, peak
     memory), a decode step of 4 full slots timed and traced by kernel
-    (K1, K9, cuBLAS, other, and ``span_fn``'s spans) against its byte
-    floor (every layer leaf and the head read once as the engine holds
-    them, and each slot's mixer state read and written), and one
-    ``prompt_len``-token prompt's prefill timed (exact launches per call;
-    its logits and every cache leaf finite) and traced.  Returns (serving launches, {kernel: {prompt rows: K1/K9
-    launches a prefill call}}, the traced decode step's and prefill's
-    {kernel: device ms})."""
+    (``_decode_trace``: K1, K9, cuBLAS, other, and ``span_fn``'s spans,
+    if any) against its byte floor, and one ``prompt_len``-token prompt's
+    prefill timed (exact launches per call; its logits and every cache
+    leaf finite) and traced.  Returns (serving launches, {kernel: {prompt
+    rows: K1/K9 launches a prefill call}}, the traced decode step's and
+    prefill's {kernel: device ms})."""
     import numpy as np
     L = cfg.num_layers
     full = port.configs.get_config(cfg.name).num_layers
@@ -3267,7 +3420,79 @@ def serve_family(torch, port, serving, counters, card, cfg, prompt_len,
     _, sl, _ = eng.prefill(rng.integers(0, cfg.vocab_size, (4, 16)))
     for slot in range(4):
         eng.insert(sl, slot, row=slot)
-    toks = rng.integers(0, cfg.vocab_size, (4,))
+    family = "moe layers'" if span_fn is moe_spans else "mamba mixers'"
+    dec = _decode_trace(torch, port, eng, rng.integers(0, cfg.vocab_size,
+                                                       (4,)),
+                        tag, span_fn, family)
+    laps.append(time.perf_counter())
+
+    # the long prompt's prefill: timed, then traced
+    prompt = rng.integers(0, cfg.vocab_size, (1, prompt_len))
+    pre_ms = []
+    for _ in range(3):
+        for fn in counters.values():
+            fn.launches = 0
+        pre_ms.append(eng.prefill(prompt)[2])
+        for k, n in per_call.items():
+            if counters[k].launches != n:
+                raise AssertionError(
+                    f"[{tag}] a prefill of {prompt_len} tokens launched "
+                    f"{k} {counters[k].launches} times, not {n}")
+            pre[k].setdefault(prompt_len, []).append(counters[k].launches)
+    (logits, sl, _), traced_ms, prof = _traced(
+        torch, lambda: eng.prefill(prompt), cpu=span_fn is not None)
+    if not bool(torch.isfinite(logits).all()) or not all(
+            bool(torch.isfinite(t).all())
+            for t in port.tree.tree_leaves(sl.layers)):
+        raise AssertionError(f"[{tag}] non-finite prefill logits or cache")
+    pf, pf_n, pf_busy = _lm_profile(torch, port, prof)
+    log(f"[{tag}] the {prompt_len}-token prompt: prefill "
+        f"{', '.join(f'{m:.3f}' for m in pre_ms)} ms (K1 {per_call['K1']}, "
+        f"K9 {per_call['K9']} launches each); peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({card})")
+    what = f"traced {prompt_len}-token prefill"
+    _log_profile(tag, what, traced_ms, pf, pf_n, pf_busy)
+    if span_fn:
+        _log_spans(tag, what, span_fn(torch, prof)[0], family=family)
+    laps.append(time.perf_counter())
+    log(f"[{tag}] host seconds: set-up and warm-up {laps[0] - start:.1f}, "
+        + ", ".join(f"{what} {b - a:.1f}" for what, a, b in zip(
+            ("serving", "the decode step timed and traced",
+             "the prefill timed and traced"), laps, laps[1:])))
+    del params, eng, sl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, pre, dec, pf
+
+
+def _traced(torch, fn, cpu=True):
+    """``fn()`` twice under ``torch.profiler``, the warm-up step and then
+    the traced one: (the traced call's result, its wall ms, the
+    profiler).  The trace of a host-paced call takes the host seconds to
+    read, more than the call itself, so one call is traced; without
+    ``cpu`` it records the device's kernels alone (all that
+    ``_lm_profile`` reads; ``spans`` needs the host's ops), which reads in
+    a fraction of the time where a call launches thousands of kernels."""
+    acts = [torch.profiler.ProfilerActivity.CUDA] + (
+        [torch.profiler.ProfilerActivity.CPU] if cpu else [])
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    return out, wall, prof
+
+
+def _decode_trace(torch, port, eng, toks, tag, span_fn=None, family=""):
+    """A decode step of ``eng``'s 4 full slots: 2 warm-up steps, 10
+    unprofiled (median, fastest), one traced after a warm-up one, against
+    its byte floor (every layer leaf as the engine holds it, the head's
+    table, each slot's mixer state read and written); ``span_fn``'s spans
+    logged where given.  Returns the traced step's {kernel: device ms}."""
+    import numpy as np
     for _ in range(2):
         eng.decode(toks)
     walls = []
@@ -3276,18 +3501,8 @@ def serve_family(torch, port, serving, counters, card, cfg, prompt_len,
         eng.decode(toks)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    # one traced step: the trace of a host-paced step takes the host
-    # seconds to read, more than the step itself
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
-        for _ in range(2):        # the warm-up step, then the traced one
-            t0 = time.perf_counter()
-            eng.decode(toks)
-            torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3
-            prof.step()
+    _, traced_ms, prof = _traced(torch, lambda: eng.decode(toks),
+                                 cpu=span_fn is not None)
     dec, dec_n, dec_busy = _lm_profile(torch, port, prof)
     cp = eng.params
     layer_bytes = sum(t.numel() * t.element_size()
@@ -3311,51 +3526,9 @@ def serve_family(torch, port, serving, counters, card, cfg, prompt_len,
     # the split-K slices and their sum)
     what = "traced decode step"
     _log_profile(tag, what, traced_ms, dec, dec_n, dec_busy)
-    family = "moe layers'" if span_fn is moe_spans else "mamba mixers'"
-    _log_spans(tag, what, span_fn(torch, prof)[0], family=family)
-    laps.append(time.perf_counter())
-
-    # the long prompt's prefill: timed, then traced
-    prompt = rng.integers(0, cfg.vocab_size, (1, prompt_len))
-    pre_ms = []
-    for _ in range(3):
-        for fn in counters.values():
-            fn.launches = 0
-        pre_ms.append(eng.prefill(prompt)[2])
-        for k, n in per_call.items():
-            if counters[k].launches != n:
-                raise AssertionError(
-                    f"[{tag}] a prefill of {prompt_len} tokens launched "
-                    f"{k} {counters[k].launches} times, not {n}")
-            pre[k].setdefault(prompt_len, []).append(counters[k].launches)
-    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
-        for _ in range(2):
-            t0 = time.perf_counter()
-            logits, sl, _ = eng.prefill(prompt)
-            torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3
-            prof.step()
-    if not bool(torch.isfinite(logits).all()) or not all(
-            bool(torch.isfinite(t).all())
-            for t in port.tree.tree_leaves(sl.layers)):
-        raise AssertionError(f"[{tag}] non-finite prefill logits or cache")
-    pf, pf_n, pf_busy = _lm_profile(torch, port, prof)
-    log(f"[{tag}] the {prompt_len}-token prompt: prefill "
-        f"{', '.join(f'{m:.3f}' for m in pre_ms)} ms (K1 {per_call['K1']}, "
-        f"K9 {per_call['K9']} launches each); peak "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({card})")
-    what = f"traced {prompt_len}-token prefill"
-    _log_profile(tag, what, traced_ms, pf, pf_n, pf_busy)
-    _log_spans(tag, what, span_fn(torch, prof)[0], family=family)
-    laps.append(time.perf_counter())
-    log(f"[{tag}] host seconds: set-up and warm-up {laps[0] - start:.1f}, "
-        + ", ".join(f"{what} {b - a:.1f}" for what, a, b in zip(
-            ("serving", "the decode step timed and traced",
-             "the prefill timed and traced"), laps, laps[1:])))
-    del params, eng, cp, head, state, sl
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches, pre, dec, pf
+    if span_fn:
+        _log_spans(tag, what, span_fn(torch, prof)[0], family=family)
+    return dec
 
 
 # ----------------------------------------------------------------------
@@ -3448,10 +3621,10 @@ def phase_ssm_serve(torch, port, serving, counters, card):
     return out
 
 
-def ssm_k9_row(k9_cases, arch, kind, n):
+def serve_k9_row(k9_cases, arch, kind, n):
     """K9's phase-2c case of ``arch``'s d_model at ``kind``'s rows
-    (SSM_RMS), n launches of it."""
-    rows, d = SSM_RMS[arch][kind]
+    (SERVE_RMS; Seamless's: ENC_RMS), n launches of it."""
+    rows, d = (ENC_RMS if arch == ENC_ARCH else SERVE_RMS[arch])[kind]
     c = k9_cases[(rows, d, "bfloat16")]
     row = _new_row()
     _note_err(row, c["err"], c["tol"])
@@ -3503,6 +3676,710 @@ def instance_fields(prefix, row, launches, step_device_ms,
     return {f"{prefix}_{k}": v for k, v in fields.items()}
 
 
+# ----------------------------------------------------------------------
+# The remaining LM families: InternVL2-26B (vlm: patch embeddings before
+# the text), SeamlessM4T-large-v2 (encoder-decoder) and StableLM-2-12B
+# (dense at head_dim 160)
+# ----------------------------------------------------------------------
+VLM_ARCH = "internvl2-26b"
+VLM_SERVE_LAYERS = 8                   # of 48 (phase 4l)
+VLM_TRAIN_LAYERS = 2                   # of 48 (phase 4m)
+VLM_PATCHES = 256                      # the config's patch tokens an image
+VLM_D = 6144                           # its d_model
+VLM_TEXT = 512                         # 4l's image prompts: 256 + 512 tokens
+VLM_ROWS = 4                           # ... 4 of them, into 4 slots
+VLM_TRAIN_ROWS = LM_BATCH * (VLM_PATCHES + LM_SEQ)     # 4m: 8 x (256 + 128)
+ENC_ARCH = "seamless-m4t-large-v2"     # phase 4n: full width and depth
+ENC_LAYERS, ENC_D, ENC_FF = 24, 1024, 8192   # a stack's layers, d, d_ff
+ENC_FRAMES = 4096                      # the config's frames a row
+ENC_ROWS = 4                           # 4n's rows: 4 x 4096 frames encoded,
+ENC_PREFIX = 64                        # a 64-token text prefix decoded
+ENC_TRAIN_FRAMES = 512                 # 4n's training: B 8 x (512 + 128)
+ENC_TRAIN_ROWS = (LM_BATCH * ENC_TRAIN_FRAMES, LM_BATCH * LM_SEQ)
+STABLE_ARCH = "stablelm-12b"           # phase 4o
+STABLE_LAYERS = 8                      # of 40
+MM_DECODE_STEPS = 32                   # 4l's and 4n's decode steps
+# 4m's and 4n's steps, the fall of the held-out CE they must bring (nats)
+# and the corpus's token ids, as phase 4k draws them (lm_corpus over the
+# reduced configs' 512 ids; the models keep their vocabularies)
+MM_STEPS, MM_MIN_FALL, MM_CORPUS_VOCAB = 50, 2.0, 512
+MM_TRAIN_PHASE = {"vlm": "4m", "encdec": "4n"}
+# 3f's narrow dense config at StableLM's head_dim
+NARROW_160 = dict(d_model=320, num_heads=2, num_kv_heads=1, head_dim=160,
+                  d_ff=640)
+# phase 2d at the new training shapes, at their own rows
+LM_BWD_SHAPES[VLM_ARCH] = DECODE_SHAPES[VLM_ARCH]
+LM_BWD_SHAPES[ENC_ARCH] = DECODE_SHAPES[ENC_ARCH]
+LM_BWD_ROWS = {VLM_ARCH: (VLM_TRAIN_ROWS,), ENC_ARCH: ENC_TRAIN_ROWS}
+RMS_BWD_CASES += [(VLM_TRAIN_ROWS, VLM_D, "bfloat16")] + [
+    (M, ENC_D, "bfloat16") for M in ENC_TRAIN_ROWS]
+
+
+def mm_train_launches() -> dict:
+    """{family: {kernel: {shape: launches a step}}} of phases 4m
+    (InternVL2, VLM_TRAIN_LAYERS layers) and 4n (Seamless, 24 + 24
+    layers), counted from the models' code: K1, K2 and K3 at (M, Din,
+    Dout), K9's backward at (M, d).  InternVL2's patch projection is a
+    plain product, not K1.  Seamless's encoder rows run the
+    ``frontend_proj`` (whose input takes no gradient: no K2), each
+    layer's q, k, v, o and MLP, and each decoder layer's cross k and v of
+    the memory; its decoder rows run the self-attention's four, the
+    cross q and o and the MLP's three."""
+    from collections import Counter
+    vlm = Counter()
+    for _, Din, Dout in DECODE_SHAPES[VLM_ARCH]:
+        vlm[(VLM_TRAIN_ROWS, Din, Dout)] += VLM_TRAIN_LAYERS
+    L, (Me, Md), d, f = ENC_LAYERS, ENC_TRAIN_ROWS, ENC_D, ENC_FF
+    enc = Counter({(Me, d, d): 1 + 4 * L + 2 * L, (Me, d, f): 2 * L,
+                   (Me, f, d): L})
+    enc += Counter({(Md, d, d): 6 * L, (Md, d, f): 2 * L, (Md, f, d): L})
+    enc_dx = enc.copy()
+    enc_dx[(Me, d, d)] -= 1
+    return {"vlm": {"K1": vlm, "K2": vlm, "K3": vlm,
+                    "K9 bwd": {(VLM_TRAIN_ROWS, VLM_D):
+                               2 * VLM_TRAIN_LAYERS + 1}},
+            "encdec": {"K1": enc, "K2": enc_dx, "K3": enc,
+                       "K9 bwd": Counter({(Me, d): 2 * L + 1})
+                       + Counter({(Md, d): 3 * L + 1})}}
+
+
+def enc_serve_launches() -> dict:
+    """{part: ({(M, Din, Dout): K1 launches}, K9 launches)} of phase 4n's
+    ``encode`` (ENC_ROWS x ENC_FRAMES), ``_decode_stack`` (ENC_ROWS x
+    ENC_PREFIX tokens; each layer's cross k and v project the memory) and
+    decode step (ENC_ROWS rows), counted from ``models/encdec.py``."""
+    from collections import Counter
+    L, d, f = ENC_LAYERS, ENC_D, ENC_FF
+    Me, Mp, Md = ENC_ROWS * ENC_FRAMES, ENC_ROWS * ENC_PREFIX, ENC_ROWS
+    return {"encode": ({(Me, d, d): 1 + 4 * L, (Me, d, f): 2 * L,
+                        (Me, f, d): L}, 2 * L + 1),
+            "prefill": (Counter({(Mp, d, d): 6 * L, (Mp, d, f): 2 * L,
+                                 (Mp, f, d): L})
+                        + Counter({(Me, d, d): 2 * L}), 3 * L + 1),
+            "decode": ({(Md, d, d): 6 * L, (Md, d, f): 2 * L,
+                        (Md, f, d): L}, 3 * L + 1)}
+
+
+def case_sum(cases, key, launches) -> dict:
+    """A ``_new_row`` adding up timed ``cases`` (phase 2's, keyed (arch,
+    M, K, N); phase 2d's, keyed (kernel, M, Din, Dout) or ("K9 bwd", M,
+    d)) of ``key``, each shape as many times as ``launches`` says."""
+    row = _new_row()
+    for shape, n in launches.items():
+        c = cases[(key, *shape)]
+        _note_err(row, c["err"], c["tol"])
+        _add_case(row, n, c["t"])
+    return row
+
+
+def fill_cross(port, params, cfg, cache, memory):
+    """Every decoder layer's ``cross_k`` / ``cross_v``: the memory
+    projected by its cross-attention ``wk`` / ``wv`` (``layers.dense``:
+    K1 on the card).  Nothing in the port fills them, as nothing in the
+    reference does."""
+    B, S, _ = memory.shape
+    xa = params["decoder"]["cross_attn"]
+    for i in range(cfg.num_layers):
+        for n in ("k", "v"):
+            leaf = cache[f"cross_{n}"]
+            leaf[i] = port.layers.dense({"w": xa[f"w{n}"]["w"][i]}, memory) \
+                .reshape(B, S, cfg.num_kv_heads, cfg.head_dim).to(leaf.dtype)
+
+
+def _grads(torch, port, loss_fn, params, batch, remats=(False, True)):
+    """{remat: (loss, aux, every gradient leaf on the cpu)}."""
+    out = {}
+    for remat in remats:
+        (loss, parts), g = port.trainer.value_and_grad(
+            lambda p, b: loss_fn(p, b, remat), params, batch)
+        out[remat] = (float(loss), float(parts["aux"].detach()),
+                      [x.float().cpu() for x in port.tree.tree_leaves(g)])
+    return out
+
+
+def _vlm_card_vs_cpu(torch, port, cfg, tag):
+    """Reduced InternVL2 (f32) on the card against the port's CPU path
+    from one numpy tree: an image prompt (the config's patches + 11
+    tokens, 2 rows) through ``lm.forward`` with f32 caches (and
+    ``steps.make_prefill_step``'s last hidden state equal to it), the
+    caches into slots 0 and 2 of 3, 4 decode steps; ``loss_fn`` with the
+    patches and every gradient leaf, remat off and on."""
+    import numpy as np
+    lm, weights = port.lm, port.weights
+    tree = weights.params_to_numpy(lm.init_params(
+        cfg, torch.Generator("cpu").manual_seed(0), device="cpu"))
+    rng = np.random.default_rng(2)
+    P = cfg.num_frontend_tokens
+    fe = (rng.standard_normal((2, P, cfg.d_model)) * 0.02).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (2, 11))
+    steps = rng.integers(0, cfg.vocab_size, (4, 3, 1))
+    btoks, blabels = _lm_batch(np, cfg.vocab_size)
+    n = P + 11
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = weights.params_from_numpy(tree, cfg, dev)
+        f = torch.as_tensor(fe, device=dev).bfloat16()
+        t = torch.as_tensor(toks, device=dev)
+        with torch.inference_mode():
+            hidden, layers, _ = lm.forward(params, t, cfg, frontend_embeds=f,
+                                           collect_cache=True,
+                                           cache_dtype=torch.float32)
+            last, _ = port.steps.make_prefill_step(cfg)(
+                params, {"tokens": t, "frontend_embeds": f})
+            if not torch.equal(last, hidden[:, -1]):
+                raise AssertionError(f"[{tag}] {cfg.name}: make_prefill_step"
+                                     " is not the forward's last state")
+            cache = lm.init_cache(3, n + 8, cfg, dtype=torch.float32,
+                                  device=dev)
+            sl = lm.DecodeCache(layers=layers, lengths=torch.full(
+                (2,), n, dtype=torch.int32, device=dev))
+            lm.cache_insert(cache, sl, 0, 0)
+            lm.cache_insert(cache, sl, 2, 1)
+            seq = [hidden]
+            for s in steps:
+                logits, cache = lm.decode_step(
+                    params, cache, None, torch.as_tensor(s, device=dev), cfg)
+                seq.append(logits[[0, 2]])
+        batch = {"tokens": torch.as_tensor(btoks, device=dev),
+                 "labels": torch.as_tensor(blabels, device=dev),
+                 "frontend_embeds": f}
+        out[dev] = ([x.cpu() for x in seq],
+                    [x[:, [0, 2]].cpu()
+                     for x in port.tree.tree_leaves(cache.layers)],
+                    cache.lengths.tolist(),
+                    _grads(torch, port, lambda p, b, r: lm.loss_fn(
+                        p, b, cfg, remat=r), params, batch))
+    return _held_card_vs_cpu(torch, out, tag, cfg.name, [n + 4, 0, n + 4])
+
+
+def _encdec_card_vs_cpu(torch, port, cfg, tag):
+    """Reduced Seamless (f32) on the card against the port's CPU path from
+    one numpy tree: ``encode`` of 2 x 16 frames, ``_decode_stack`` of a
+    7-token prefix, the cross cache filled from the memory, the prefix
+    decoded one token at a time (each position's logits within SERVE_TOL
+    of the stack's, on each device) and 4 more decode steps;
+    ``encdec_loss_fn`` and every gradient leaf.  Returns
+    ``_held_card_vs_cpu``'s and the worst prefix difference."""
+    import numpy as np
+    encdec, weights = port.encdec, port.weights
+    tree = weights.params_to_numpy(encdec.init_encdec_params(
+        cfg, torch.Generator("cpu").manual_seed(0), device="cpu"))
+    rng = np.random.default_rng(2)
+    F = cfg.num_frontend_tokens
+    fe = (rng.standard_normal((2, F, cfg.d_model)) * 0.02).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (2, 7))
+    more = rng.integers(0, cfg.vocab_size, (4, 2, 1))
+    btoks, blabels = _lm_batch(np, cfg.vocab_size)
+    out, prefix = {}, 0.0
+    for dev in ("cuda", "cpu"):
+        p = weights.params_from_numpy(tree, cfg, dev)
+        f = torch.as_tensor(fe, device=dev).bfloat16()
+        t = torch.as_tensor(toks, device=dev)
+        with torch.inference_mode():
+            mem = encdec.encode(p, f, cfg)
+            hid = encdec._decode_stack(p, encdec.embed_tokens(p, t, cfg), mem,
+                                       cfg)
+            want = (hid @ p["embed"]["table"].T).float()
+            cache = encdec.init_encdec_cache(cfg, 2, 11, F,
+                                             dtype=torch.float32, device=dev)
+            fill_cross(port, p, cfg, cache, mem)
+            seq = [mem, hid]
+            for i in range(7):
+                lo, _ = encdec.encdec_decode_step(p, cache, i, t[:, i:i + 1],
+                                                  cfg)
+                prefix = max(prefix, _logit_diff(torch, lo[:, 0],
+                                                 want[:, i]))
+                seq.append(lo)
+            for i, s in enumerate(more):
+                lo, _ = encdec.encdec_decode_step(
+                    p, cache, 7 + i, torch.as_tensor(s, device=dev), cfg)
+                seq.append(lo)
+        batch = {"tokens": torch.as_tensor(btoks, device=dev),
+                 "labels": torch.as_tensor(blabels, device=dev),
+                 "frontend_embeds": f}
+        out[dev] = ([x.cpu() for x in seq],
+                    [x.cpu() for x in port.tree.tree_leaves(cache)], [11],
+                    _grads(torch, port, lambda q, b, r: encdec.encdec_loss_fn(
+                        q, b, cfg), p, batch, (False,)))
+    if not prefix <= SERVE_TOL:
+        raise AssertionError(f"[{tag}] {cfg.name}: the prefix decoded a "
+                             f"token at a time differs from _decode_stack "
+                             f"by {prefix}")
+    return _held_card_vs_cpu(torch, out, tag, cfg.name, [11]) + (prefix,)
+
+
+def phase_mm_parity(torch, port):
+    """Phase 3f: reduced InternVL2 (``_vlm_card_vs_cpu``), reduced
+    Seamless (``_encdec_card_vs_cpu``) and a narrow dense config at head_dim
+    160 (NARROW_160, ``_card_vs_cpu``), each in f32 (TF32 off) on the card
+    against the port's CPU path from one numpy tree; then each bf16
+    forward on the card reruns bit for bit (InternVL2's with its patches,
+    Seamless's ``encdec_forward``)."""
+    configs, tl = port.configs, LM_TOL["float32"]
+    f32 = dict(dtype="float32", ce_chunk=5)
+    narrow = dataclasses.replace(configs.get_reduced(STABLE_ARCH), **f32,
+                                 **NARROW_160)
+    for name, run in (
+            ("vlm", lambda: _vlm_card_vs_cpu(torch, port, dataclasses.replace(
+                configs.get_reduced(VLM_ARCH), **f32), "mm-parity")),
+            ("encdec", lambda: _encdec_card_vs_cpu(
+                torch, port, dataclasses.replace(
+                    configs.get_reduced(ENC_ARCH), **f32), "mm-parity")),
+            ("head_dim 160", lambda: _card_vs_cpu(torch, port, narrow,
+                                                  "mm-parity"))):
+        diff, cdiff, clen, losses, worst, *prefix = run()
+        (cl, _), (hl, _) = losses[False]
+        log(f"[mm-parity] {name} f32 card vs cpu: outputs and logits "
+            f"max_abs_diff {diff:.3g} (tol {SERVE_TOL}), every cache leaf "
+            f"{cdiff:.3g} (tol {MOE_CACHE_TOL}), lengths {clen}; loss "
+            f"{cl:.7f} (cpu {hl:.7f}), every grad leaf within atol {tl[1]:g}"
+            f" / rtol {tl[2]:g} (max_abs_diff {worst:.3g})"
+            + (f"; the prefix decoded a token at a time against "
+               f"_decode_stack's logits max_abs_diff {prefix[0]:.3g}"
+               if prefix else ""))
+    _bf16_reruns(torch, port, dataclasses.replace(
+        configs.get_reduced(STABLE_ARCH), **NARROW_160), "mm-parity")
+    for arch in (VLM_ARCH, ENC_ARCH):
+        cfg = configs.get_reduced(arch)
+        gen = torch.Generator("cuda").manual_seed(1)
+        fe = port.frontends.random_frontend_embeds(gen, cfg, 2, device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                             device="cuda")
+        if arch == ENC_ARCH:
+            params = port.encdec.init_encdec_params(cfg, gen, "cuda")
+            with torch.inference_mode():
+                runs = [[port.encdec.encdec_forward(params, fe, toks, cfg)]
+                        for _ in range(2)]
+        else:
+            params = port.lm.init_params(cfg, gen, "cuda")
+            with torch.inference_mode():
+                runs = [[x for x in port.lm.forward(
+                    params, toks, cfg, frontend_embeds=fe,
+                    collect_cache=True)[:2]] for _ in range(2)]
+        a, b = (port.tree.tree_leaves(r) for r in runs)
+        if not all(torch.equal(x, y) for x, y in zip(a, b, strict=True)) \
+                or a[0].dtype != torch.bfloat16:
+            raise AssertionError(f"[mm-parity] {arch} bf16 forward on the "
+                                 "card gave different bits on a rerun")
+        log(f"[mm-parity] {arch} bf16 forward ({'encdec_forward, 2 x 16 '
+            'frames + 40 tokens' if arch == ENC_ARCH else 'forward, 2 x '
+            '(8 patches + 40 tokens), cache collected'}) reruns bit for bit"
+            " on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _counted(torch, counters, fn, want, what):
+    """``fn()`` with every launch counter zeroed just before: its result
+    and wall ms; raises unless K1 and K9 launched ``want`` times."""
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = (counters["K1"].launches, counters["K9"].launches)
+    if got != tuple(want):
+        raise AssertionError(f"{what} launched (K1, K9) {got}, not {want}")
+    return out, ms
+
+
+def _finite(torch, *tensors):
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def phase_vlm_serve(torch, port, serving, counters, card):
+    """Phase 4l: InternVL2-26B at full width, VLM_SERVE_LAYERS of 48
+    layers: 8 Poisson text requests through the continuous engine (the
+    reference serves a vlm's text through ``lm.prefill``; exactly 7 L K1
+    and 2 L + 1 K9 launches per forward call), then VLM_ROWS image prompts
+    (256 patch embeddings from ``random_frontend_embeds`` + VLM_TEXT
+    tokens) through ``steps.make_prefill_step`` on the engine's bf16
+    params, timed (the same exact launches) and traced, their caches
+    inserted into the engine's 4 slots with ``lm.cache_insert``, and
+    MM_DECODE_STEPS greedy decode steps (finite logits, exact launches);
+    last a decode step of the 4 slots traced against its byte floor.
+    Returns (serving launches, {kernel: {prompt rows: launches a prefill
+    call}} with the image prefill's rows, the traced decode step's and
+    image prefill's {kernel: device ms})."""
+    import numpy as np
+    lm = port.lm
+    tag = "vlm-serve"
+    cfg = dataclasses.replace(port.configs.get_config(VLM_ARCH),
+                              num_layers=VLM_SERVE_LAYERS)
+    L, P, T, R = cfg.num_layers, cfg.num_frontend_tokens, VLM_TEXT, VLM_ROWS
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            device="cuda")
+    n_params = sum(t.numel() for t in port.tree.tree_leaves(params))
+    eng = serving.make_serve_engine(params, cfg, serving.ServeConfig(
+        slots=R, max_seq=P + T + MM_DECODE_STEPS + 16), device="cuda")
+    torch.cuda.synchronize()
+    log(f"[{tag}] {cfg.name} full width, {L} of 48 layers ({n_params} "
+        f"params f32 + bf16 compute copy; {P} patch tokens an image), ready"
+        f" in {time.perf_counter() - t0:.1f} s")
+    eng.generate(np.zeros((1, 8), np.int32), 2)   # warm-up
+    reqs = serving.poisson_requests(8, rate_rps=50, seed=0,
+                                    vocab_size=cfg.vocab_size)
+    events, launches, calls, decode_ms, peak, pre = _serve(
+        torch, eng, reqs, counters)
+    per_call = {"K1": dense_per_layer(cfg) * L,
+                "K9": norms_per_layer(cfg) * L + 1}
+    _report(events, 8, eng, calls, launches, per_call, decode_ms, peak,
+            card, tag)
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (R, T),
+                                     generator=gen, device="cuda"),
+             "frontend_embeds": port.frontends.random_frontend_embeds(
+                 gen, cfg, R, device="cuda")}
+    prefill = port.steps.make_prefill_step(cfg)
+
+    def image_prefill():
+        with torch.inference_mode():
+            return prefill(eng.params, batch)
+    rows = R * (P + T)
+    _, pre_ms = _counted(torch, counters, image_prefill, per_call.values(),
+                         f"[{tag}] the image prefill")
+    for k, n in per_call.items():
+        pre[k].setdefault(rows, []).append(n)
+    (last, caches), traced_ms, prof = _traced(torch, image_prefill,
+                                              cpu=False)
+    pf, pf_n, pf_busy = _lm_profile(torch, port, prof)
+    if not _finite(torch, last, *port.tree.tree_leaves(caches)):
+        raise AssertionError(f"[{tag}] non-finite image prefill")
+    log(f"[{tag}] {R} image prompts ({P} patches + {T} tokens each, "
+        f"{rows} rows) through steps.make_prefill_step: {pre_ms:.3f} ms, "
+        f"then {traced_ms:.3f} traced (K1 {per_call['K1']}, "
+        f"K9 {per_call['K9']} launches each; the patch projection a "
+        f"torch.matmul) ({card})")
+    what = "traced image prefill"
+    _log_profile(tag, what, traced_ms, pf, pf_n, pf_busy)
+
+    sl = lm.DecodeCache(layers=caches, lengths=torch.full(
+        (R,), P + T, dtype=torch.int32, device="cuda"))
+    for slot in range(R):
+        eng.insert(sl, slot, row=slot)
+    head = eng.params["lm_head"]["table"]
+    tok = (last @ head.T).argmax(-1).cpu().numpy()
+    walls = []
+    for i in range(MM_DECODE_STEPS):
+        (logits, _), ms = _counted(
+            torch, counters, lambda: eng.decode(tok), per_call.values(),
+            f"[{tag}] decode step {i}")
+        if not _finite(torch, logits):
+            raise AssertionError(f"[{tag}] non-finite decode logits")
+        walls.append(ms)
+        tok = logits[:, 0].argmax(-1).cpu().numpy()
+    lens = eng.cache.lengths.tolist()
+    if lens != [P + T + MM_DECODE_STEPS] * R:
+        raise AssertionError(f"[{tag}] slot lengths {lens}")
+    log(f"[{tag}] the image prompts' caches inserted into the engine's {R}"
+        f" slots, {MM_DECODE_STEPS} greedy decode steps (lengths {lens}): "
+        f"median {np.median(walls):.3f} ms, fastest {min(walls):.3f} ms a "
+        f"step, exact launches each ({card})")
+    dec = _decode_trace(torch, port, eng, tok, tag)
+    del params, eng, sl, caches, last, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, pre, dec, pf
+
+
+def phase_encdec_serve(torch, port, counters, card):
+    """Phase 4n's serving half: SeamlessM4T-large-v2 at full width and
+    all 24 + 24 layers from a seed (a bf16 compute copy, as the engine
+    holds): ``encode`` of ENC_ROWS x 4096 frames and ``_decode_stack`` of
+    an ENC_PREFIX-token prefix, each timed (exact launches,
+    ``enc_serve_launches``) and traced; the cross cache filled from the
+    memory (``fill_cross``), the prefix decoded a token at a time (each
+    position's logits beside the stack's, the difference printed) and
+    MM_DECODE_STEPS greedy steps (finite, exact launches), one of them
+    traced against its byte floor.  Returns ({part: (K1, K9) launches of
+    one call}, the decode steps' (K1, K9) launches in all, {part: traced
+    {kernel: device ms}})."""
+    import numpy as np
+    encdec = port.encdec
+    tag = "enc-serve"
+    cfg = port.configs.get_config(ENC_ARCH)
+    L, R, F, Tp = cfg.num_layers, ENC_ROWS, cfg.num_frontend_tokens, \
+        ENC_PREFIX
+    want = {k: (sum(m.values()), n9)
+            for k, (m, n9) in enc_serve_launches().items()}
+    t0 = time.perf_counter()
+    params = encdec.init_encdec_params(
+        cfg, torch.Generator("cuda").manual_seed(0), device="cuda")
+    n_params = sum(t.numel() for t in port.tree.tree_leaves(params))
+    cp = port.lm.compute_params(params, cfg)
+    del params
+    gc.collect()
+    gen = torch.Generator("cuda").manual_seed(1)
+    frames = port.frontends.random_frontend_embeds(gen, cfg, R,
+                                                   device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (R, Tp), generator=gen,
+                         device="cuda")
+    torch.cuda.synchronize()
+    log(f"[{tag}] {cfg.name} full width and depth ({cfg.num_encoder_layers}"
+        f" + {L} layers, {n_params} params from init_encdec_params; "
+        f"ModelConfig.param_count() {cfg.param_count()} leaves out the "
+        f"decoder's cross-attention), bf16 compute copy, ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dev, out, laps = {}, {}, [time.perf_counter()]
+    with torch.inference_mode():
+        encdec.encode(cp, frames[:1, :64], cfg)       # warm-up
+        for part, fn in (
+                ("encode", lambda: encdec.encode(cp, frames, cfg)),
+                ("prefill", lambda: encdec._decode_stack(
+                    cp, encdec.embed_tokens(cp, toks, cfg), out["encode"],
+                    cfg))):
+            out[part], ms = _counted(torch, counters, fn, want[part],
+                                     f"[{tag}] {part}")
+            _, traced_ms, prof = _traced(torch, fn, cpu=False)
+            dev[part], n, busy = _lm_profile(torch, port, prof)
+            if not _finite(torch, out[part]):
+                raise AssertionError(f"[{tag}] non-finite {part}")
+            what = f"{R} x {F} frames" if part == "encode" else \
+                f"{R} x {Tp} tokens against the memory"
+            log(f"[{tag}] {part} ({what}): {ms:.3f} ms, then {traced_ms:.3f}"
+                f" traced (K1 {want[part][0]}, K9 {want[part][1]} launches "
+                f"each) ({card})")
+            _log_profile(tag, f"traced {part}", traced_ms, dev[part], n,
+                         busy)
+            laps.append(time.perf_counter())
+        memory, hidden = out["encode"], out["prefill"]
+        table = cp["embed"]["table"]
+        cache = encdec.init_encdec_cache(cfg, R, Tp + MM_DECODE_STEPS + 8, F,
+                                         device="cuda")
+        fill_cross(port, cp, cfg, cache, memory)
+        prefix, walls = 0.0, []
+        for i in range(Tp + MM_DECODE_STEPS):
+            tok = toks[:, i:i + 1] if i < Tp else nxt
+            (lo, _), ms = _counted(
+                torch, counters,
+                lambda: encdec.encdec_decode_step(cp, cache, i, tok, cfg),
+                want["decode"], f"[{tag}] decode step {i}")
+            if i < Tp:
+                ref = (hidden[:, i] @ table.T).float()
+                prefix = max(prefix, float((lo[:, 0] - ref).abs().max()))
+            else:
+                walls.append(ms)
+            if not _finite(torch, lo):
+                raise AssertionError(f"[{tag}] non-finite decode logits")
+            nxt = lo[:, 0].argmax(-1, keepdim=True)
+        steps = Tp + MM_DECODE_STEPS
+        laps.append(time.perf_counter())
+        (lo, _), traced_ms, prof = _traced(
+            torch, lambda: encdec.encdec_decode_step(cp, cache, steps, nxt,
+                                                     cfg), cpu=False)
+    dev["decode"], n, busy = _lm_profile(torch, port, prof)
+    laps.append(time.perf_counter())
+    xa = cp["decoder"]["cross_attn"]
+    read = [t for k, sub in cp["decoder"].items() if k != "cross_attn"
+            for t in port.tree.tree_leaves(sub)] + [
+        xa["wq"]["w"], xa["wo"]["w"], cp["final_norm"]["scale"], table,
+        cache["cross_k"], cache["cross_v"]]
+    kv = cache["kv"]["k"]
+    kv_bytes = 2 * kv[:, :, :steps + 1].numel() * kv.element_size()
+    floor = sum(t.numel() * t.element_size() for t in read) + kv_bytes
+    floor_ms = floor / HBM_BYTES_PER_S * 1e3
+    log(f"[{tag}] the {Tp}-token prefix decoded a token at a time against "
+        f"the filled cross cache: logits max_abs_diff {prefix:.4g} from "
+        f"_decode_stack's at every position (bf16, the order of sums and "
+        f"the cross scores' division differ); then {MM_DECODE_STEPS} greedy"
+        f" steps: median {np.median(walls):.3f} ms, fastest "
+        f"{min(walls):.3f} ms ({card})")
+    log(f"[{tag}] decode step, {R} rows: byte floor {floor / 1e9:.3f} GB "
+        f"(the decoder's bf16 leaves it reads, the head's table, the cross "
+        f"K/V {2 * cache['cross_k'].numel() * 2 / 1e9:.3f} GB, the self "
+        f"cache's live positions) = {floor_ms:.3f} ms at 3.35 TB/s; device "
+        f"busy {busy:.3f} ms"
+        + (f" (the floor is {floor_ms / busy:.1%} of it)" if busy else ""))
+    _log_profile(tag, "traced decode step", traced_ms, dev["decode"], n,
+                 busy)
+    log(f"[{tag}] host seconds: " + ", ".join(
+        f"{what} {b - a:.1f}" for what, a, b in zip(
+            ("encode timed and traced", "prefill timed and traced",
+             f"{steps} decode steps", "one traced"), laps, laps[1:])))
+    launches = tuple(v * steps for v in want["decode"])
+    del cp, cache, memory, hidden, out, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want, launches, dev
+
+
+def phase_encdec_train(torch, port, mods, card, steps=MM_STEPS):
+    """Phase 4n's training half: Seamless at full width and depth,
+    ``steps`` steps of ``steps.make_train_step`` (AdamW at LM_LR, clip
+    1.0) at B 8 x (512 frames + 128 text tokens), the text from
+    ``lm_corpus`` over MM_CORPUS_VOCAB ids, the frames one seeded draw:
+    exactly ``mm_train_launches``' K1-K3 and K9 launches a step, every
+    grad leaf nonzero at the initial params, the held-out batch's CE read
+    every HELD_EVERY steps falling by more than MM_MIN_FALL; a step
+    traced after a warm-up one (no f32 dense kernel, K2/K3 on wgmma).
+    Returns (launches over the steps, the traced step's {kernel: device
+    ms})."""
+    import numpy as np
+    encdec, pipeline = port.encdec, port.pipeline
+    tag = "enc-train"
+    cfg = port.configs.get_config(ENC_ARCH)
+    B, T, F = LM_BATCH, LM_SEQ, ENC_TRAIN_FRAMES
+    lmap = mm_train_launches()["encdec"]
+    expect = {k: sum(lmap[k].values()) for k in ("K1", "K2", "K3")}
+    expect["K9"] = expect["K9 bwd"] = sum(lmap["K9 bwd"].values())
+    params = encdec.init_encdec_params(
+        cfg, torch.Generator("cuda").manual_seed(0), device="cuda")
+    n_params = sum(p.numel() for p in port.tree.tree_leaves(params))
+    frames = port.frontends.random_frontend_embeds(
+        torch.Generator("cuda").manual_seed(1),
+        dataclasses.replace(cfg, num_frontend_tokens=F), B, device="cuda")
+    corpus = port.synthetic.lm_corpus((steps + 3) * B * T + 1,
+                                      MM_CORPUS_VOCAB, seed=0)
+    rows = torch.as_tensor(pipeline.pack_sequences(corpus, T), device="cuda")
+    batches = [dict(pipeline.host_batch(rows[i * B:(i + 1) * B]),
+                    frontend_embeds=frames) for i in range(steps + 3)]
+
+    def held_out(p):
+        with torch.no_grad():
+            loss, _ = encdec.encdec_loss_fn(p, batches[-1], cfg)
+        return float(loss)
+    step = port.steps.make_train_step(cfg, learning_rate=LM_LR, grad_clip=1.0)
+    state = port.optim.make_optimizer("adamw").init(params)
+    _, grads = port.trainer.value_and_grad(
+        lambda p, b: encdec.encdec_loss_fn(p, b, cfg), params, batches[0])
+    zero = [i for i, g in enumerate(port.tree.tree_leaves(grads))
+            if not bool(g.abs().sum() > 0)]
+    if zero:
+        raise AssertionError(f"[{tag}] grad leaves {zero} are all zero")
+    del grads
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    laps = [time.perf_counter()]
+    held, losses, step_ms = [(0, held_out(params))], [], []
+    launches = dict.fromkeys(expect, 0)
+    _zero_lm_counts(mods)
+    for i in range(steps):
+        before = _lm_counts(mods)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per = {k: v - before[k] for k, v in _lm_counts(mods).items()}
+        if per != expect:
+            raise AssertionError(f"[{tag}] step {i}: launches {per} != "
+                                 f"{expect}")
+        launches = {k: launches[k] + per[k] for k in expect}
+        losses.append(float(m["loss"]))
+        if (i + 1) % HELD_EVERY == 0 or i + 1 == steps:
+            held.append((i + 1, held_out(params)))
+    peak = torch.cuda.max_memory_allocated()
+    (_, h0), (_, h1) = held[0], held[-1]
+    log(f"[{tag}] losses {[round(x, 4) for x in losses]}; held-out CE after"
+        " step " + ", ".join(f"{i}: {c:.6f}" for i, c in held))
+    if not (np.isfinite(losses).all() and h0 - h1 > MM_MIN_FALL):
+        raise AssertionError(f"[{tag}] losses not finite, or the held-out CE"
+                             f" did not fall by more than {MM_MIN_FALL} "
+                             f"({h0} -> {h1})")
+    laps.append(time.perf_counter())
+    (params, state, _), wall_ms, prof = _traced(
+        torch, lambda: step(params, state, batches[steps]), cpu=False)
+    dev_ms, counts, busy_ms = _lm_profile(torch, port, prof)
+    laps.append(time.perf_counter())
+    f32 = {k: counts.get(k, 0) for k in ("K1 f32", "K2 f32", "K3 f32")}
+    tile = {k: counts.get(f"{k} tile", 0) for k in ("K2", "K3")}
+    if any(f32.values()) or any(tile.values()):
+        raise AssertionError(f"[{tag}] f32 dense kernels {f32} or K2/K3 off"
+                             f" the wgmma route {tile} in the traced step")
+    mean = float(np.mean(step_ms[1:]))
+    log(f"[{tag}] {cfg.name} full width and depth ({n_params} params f32),"
+        f" B={B} x ({F} frames + {T} tokens from lm_corpus over "
+        f"{MM_CORPUS_VOCAB} of {cfg.vocab_size} ids), AdamW lr {LM_LR:g}, "
+        f"grad_clip 1.0, {steps} steps of steps.make_train_step; launches "
+        f"{launches} = {steps} x {expect}; card: {card}")
+    log(f"[{tag}] step mean {mean:.3f} ms over steps 2-{steps} (first "
+        f"{step_ms[0]:.3f} ms), {B * (F + T) / mean * 1e3:.1f} positions/s |"
+        f" max_memory_allocated {peak / 1e9:.3f} GB ({card})")
+    _log_profile(tag, "profiled step (after a warm-up one)", wall_ms,
+                 dev_ms, counts, busy_ms)
+    log(f"[{tag}] host seconds: {steps} steps and the held-out readings "
+        f"{laps[1] - laps[0]:.1f}, a step traced {laps[2] - laps[1]:.1f}")
+    del params, state, batches, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dev_ms
+
+
+# the served archs' kernels-line prefix and phase (4i, 4j, 4l, 4o)
+SERVED = {**SSM_SERVE, VLM_ARCH: ("internvl", "4l"),
+          STABLE_ARCH: ("stablelm", "4o")}
+# Seamless's parts on the kernels line (4n)
+ENC_PARTS = {"decode": "seamless", "encode": "seamless_encode",
+             "prefill": "seamless_prefill"}
+ENC_WHAT = {"decode": f"one decode step of {ENC_ROWS} rows",
+            "encode": f"one encode of {ENC_ROWS} x {ENC_FRAMES} frames",
+            "prefill": f"one _decode_stack of {ENC_ROWS} x {ENC_PREFIX} "
+                       "tokens (its cross k/v project the memory)"}
+
+
+def prefill_what(arch) -> str:
+    """The kernels line's name of ``arch``'s prefill instance."""
+    if arch == VLM_ARCH:
+        return (f"image prefill of {VLM_ROWS} x ({VLM_PATCHES} patches + "
+                f"{VLM_TEXT} tokens) through steps.make_prefill_step")
+    return f"prefill forward of {PREFILL_ROWS[arch]} tokens"
+
+
+def mm_train_work(fam, key) -> str:
+    """The kernels line's ``work`` of ``key``'s instance in 4m or 4n."""
+    n = sum(mm_train_launches()[fam][key].values())
+    what = "K9's backward in " if key == "K9 bwd" else ""
+    if fam == "vlm":
+        return (f"{what}one {VLM_ARCH} training step at full width, "
+                f"{VLM_TRAIN_LAYERS} layers, B=8 x ({VLM_PATCHES} patches "
+                f"+ {LM_SEQ} tokens) (phase 4m): {n} bf16 launches at "
+                + (f"{VLM_TRAIN_ROWS} x {VLM_D}" if key == "K9 bwd" else
+                   f"M={VLM_TRAIN_ROWS}"))
+    return (f"{what}one {ENC_ARCH} training step at full width and depth, "
+            f"B=8 x ({ENC_TRAIN_FRAMES} frames + {LM_SEQ} tokens) (phase "
+            f"4n, steps.make_train_step): {n} bf16 launches at M="
+            f"{ENC_TRAIN_ROWS[0]} (encoder, cross k/v) and "
+            f"{ENC_TRAIN_ROWS[1]} (decoder)")
+
+
+def phase_stablelm_serve(torch, port, serving, counters, card):
+    """Phase 4o: StableLM-2-12B at full width, STABLE_LAYERS of 40 layers,
+    through ``serve_family`` (8 Poisson requests, 7 L K1 and 2 L + 1 K9
+    launches per forward call, a 4-slot decode step traced against its
+    byte floor, a PREFILL_ROWS-token prompt's prefill traced)."""
+    cfg = dataclasses.replace(port.configs.get_config(STABLE_ARCH),
+                              num_layers=STABLE_LAYERS)
+    return serve_family(torch, port, serving, counters, card, cfg,
+                        PREFILL_ROWS[STABLE_ARCH], "stablelm-serve", None,
+                        f"head_dim {cfg.head_dim}, {cfg.num_heads} q and "
+                        f"{cfg.num_kv_heads} kv heads")
+
+
+def phases_mm(torch, port, serving, counters, mods, card):
+    """Phases 4l-4o in order, each one's host seconds logged; returns what
+    each returns."""
+    out, laps = [], [time.perf_counter()]
+    for run in (
+            lambda: phase_vlm_serve(torch, port, serving, counters, card),
+            lambda: phase_lm_step(torch, port, mods, card, VLM_ARCH,
+                                  VLM_TRAIN_LAYERS, "vlm-train", MM_STEPS,
+                                  MM_MIN_FALL, MM_CORPUS_VOCAB),
+            lambda: phase_encdec_serve(torch, port, counters, card),
+            lambda: phase_encdec_train(torch, port, mods, card),
+            lambda: phase_stablelm_serve(torch, port, serving, counters,
+                                         card)):
+        out.append(run())
+        laps.append(time.perf_counter())
+    log("[time] host seconds: " + ", ".join(
+        f"{p} {b - a:.1f}" for p, a, b in zip(
+            ("4l", "4m", "4n serving", "4n training", "4o"), laps,
+            laps[1:])))
+    return tuple(out)
+
+
 def phase_cli():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
@@ -3545,6 +4422,9 @@ def main() -> int:
     ap.add_argument("--ssm", action="store_true", help="run phases 3e, 4i, "
                     "4j and 4k (the SSM and hybrid families) alone and print"
                     " no result line")
+    ap.add_argument("--mm", action="store_true", help="run phases 3f, 4l, "
+                    "4m, 4n and 4o (InternVL2, Seamless, StableLM) alone and"
+                    " print no result line")
     args = ap.parse_args()
     # torch.compile (the flex_attention yardstick) caches inside the checkout
     cache = SRC / "repro_torch" / "kernels" / "_build" / "compile_cache"
@@ -3569,8 +4449,9 @@ def main() -> int:
     from repro_torch.kernels import pool2d as pool_mod
     from repro_torch.kernels import rmsnorm as rms_mod
     from repro_torch.launch import profile_decode
+    from repro_torch.launch import steps as steps_mod
     from repro_torch.launch import train as train_mod
-    from repro_torch.models import cnn, lm
+    from repro_torch.models import cnn, encdec, frontends, layers, lm
     from repro_torch.optim import optimizers
 
     port = SimpleNamespace(cnn=cnn, weights=weights, trainer=bpt_trainer,
@@ -3578,7 +4459,8 @@ def main() -> int:
                            tree=tree, profile=profile_decode, engine=engine,
                            gwu=gwu, pipeline=pipeline, lm=lm,
                            configs=configs, checkpoint=checkpoint,
-                           train=train_mod)
+                           train=train_mod, steps=steps_mod, encdec=encdec,
+                           frontends=frontends, layers=layers)
     mods = {"dense": dense_mod, "conv2d": conv_mod, "pool2d": pool_mod,
             "rmsnorm": rms_mod, "flash_attention": flash_mod}
     counters = {"K1": dense_mod.dense_cuda, "K9": rms_mod.rmsnorm_cuda,
@@ -3646,12 +4528,20 @@ def main() -> int:
                       SSM_CORPUS_VOCAB)
         log(card_line())
         return 0
+    if args.mm:
+        t0 = time.perf_counter()
+        phase_mm_parity(torch, port)
+        log(f"[time] phase 3f {time.perf_counter() - t0:.1f} s")
+        phases_mm(torch, port, serving, counters, mods, card)
+        log(f"[time] phases 3f-4o {time.perf_counter() - t0:.1f} s")
+        log(card_line())
+        return 0
     t_run = time.perf_counter()
 
     def lap(what):
         log(f"[time] {what} done {time.perf_counter() - t_run:.1f} s after "
             "the build")
-    k1_sums, worst = phase_kernel(torch, dense_mod, ref)
+    k1_sums, worst, k1_cases = phase_kernel(torch, dense_mod, ref)
     lap("phase 2")
     train_rows = phase_train_kernels(torch, ref, mods, cnn)
     lap("phase 2b")
@@ -3668,6 +4558,8 @@ def main() -> int:
     lap("phases 3-3d")
     phase_ssm_parity(torch, port, serving)
     lap("phase 3e")
+    phase_mm_parity(torch, port)
+    lap("phase 3f")
     launches, yi_pre_k1 = phase_slice(torch, configs, lm, serving, counters,
                                       card)
     train_launches, train = phase_train_slice(torch, port, mods, card)
@@ -3697,6 +4589,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 4k")
+    vlm, (vlm_launches, vlm_step_ms), enc, (enc_launches, enc_step_ms), \
+        stable = phases_mm(torch, port, serving, counters, mods, card)
+    lap("phases 4l-4o")
     gemma_launches, gem_pre, k10_launches, k10_diff = phase_gemma(
         torch, configs, serving, counters, card)
     phase_cli()
@@ -3798,25 +4693,45 @@ def main() -> int:
             "bias (q, k, v, o, the mixer's in_proj 1600 -> 6457 and "
             "out_proj, the MLP's three)"),
     }]
-    for arch, (prefix, phase) in SSM_SERVE.items():
-        s_launches, s_pre, s_dec, s_pf = ssm_serve[arch]
+    served = {**ssm_serve, VLM_ARCH: vlm, STABLE_ARCH: stable}
+    for arch, (prefix, phase) in SERVED.items():
+        s_launches, s_pre, s_dec, s_pf = served[arch]
         cfg = configs.get_config(arch)
         n = dense_per_layer(cfg)
         L = DECODE_LAYERS[arch]
+        depth = f"{L} layers" if L == cfg.num_layers else \
+            f"{L} of {cfg.num_layers} layers"
         st_pre = prefill_launches(dense_mod, k1_sums, arch, s_pre["K1"])
         rows[0].update(sum_fields(
             prefix, k1_sums[(arch, "decode")], s_launches["K1"],
             s_dec.get("K1"),
-            f"one {arch} decode step at full width and depth, {L} layers "
-            f"(phase {phase}): {n * L} bf16 "
-            "launches at M=4 (split-K weight stream); launches: the "
-            "serving run's"))
+            f"one {arch} decode step at full width, {depth} (phase "
+            f"{phase}): {n * L} bf16 launches at M=4 (split-K weight "
+            "stream); launches: the serving run's"))
         rows[0].update(sum_fields(
             f"{prefix}_prefill", st_pre, st_pre["launches"], s_pf.get("K1"),
-            f"one {arch} prefill forward of {PREFILL_ROWS[arch]} tokens, "
-            f"{L} layers: {st_pre['launches']} bf16 launches, counted in "
-            f"phase {phase} (tile GEMM, "
-            "128-row tiles)"))
+            f"one {arch} {prefill_what(arch)}, {depth}: "
+            f"{st_pre['launches']} bf16 launches, counted in phase {phase} "
+            "(tile GEMM, 128-row tiles)"))
+    enc_want, enc_dec_launches, enc_dev = enc
+    enc_parts = enc_serve_launches()
+    check_plans(dense_mod, ENC_ARCH, {M for k1, _ in enc_parts.values()
+                                      for M, _, _ in k1})
+    for part, prefix in ENC_PARTS.items():
+        rows[0].update(instance_fields(
+            prefix, case_sum(k1_cases, ENC_ARCH, enc_parts[part][0]),
+            enc_dec_launches[0] if part == "decode" else enc_want[part][0],
+            enc_dev[part].get("K1"), None,
+            f"{ENC_WHAT[part]} of {ENC_ARCH} at full width and depth "
+            f"(phase 4n): {enc_want[part][0]} bf16 launches; launches: "
+            + ("the run's decode steps'" if part == "decode" else
+               "one such call")))
+    for prefix, fam, (ln, step_ms) in (
+            ("internvl", "vlm", (vlm_launches, vlm_step_ms)),
+            ("seamless", "encdec", (enc_launches, enc_step_ms))):
+        rows[0].update(instance_fields(
+            f"{prefix}_train_bf16", lm_rows[(fam, "K1")], ln["K1"],
+            step_ms.get("K1"), None, mm_train_work(fam, "K1")))
     for key, name, src, replaces in TRAIN_KERNELS[1:]:
         r = train_rows[key]
         rows.append({
@@ -3852,6 +4767,12 @@ def main() -> int:
                 f"one {MOE_TRAIN_ARCH} training step at full width, "
                 f"{MOE_TRAIN_LAYERS} layers, B=8 x S=128 (phase 4h): "
                 f"{4 * MOE_TRAIN_LAYERS} bf16 launches at M={LM_ROWS}"))
+            for prefix, fam, (ln, step_ms) in (
+                    ("internvl", "vlm", (vlm_launches, vlm_step_ms)),
+                    ("seamless", "encdec", (enc_launches, enc_step_ms))):
+                rows[-1].update(instance_fields(
+                    f"{prefix}_bf16", lm_rows[(fam, key)], ln[key],
+                    step_ms.get(key), None, mm_train_work(fam, key)))
             rows[-1].update(instance_fields(
                 "hymba_bf16", lm_rows[("ssm", key)], ssm_launches[key],
                 # both routes' kernels: in_proj's K2/K3 run the tile GEMM
@@ -3902,10 +4823,10 @@ def main() -> int:
         f"K9's backward in one {SSM_TRAIN_ARCH} training step at full "
         f"width, {SSM_TRAIN_LAYERS} layers (phase 4k): "
         f"{4 * SSM_TRAIN_LAYERS + 1} bf16 launches at {LM_ROWS} x 1600"))
-    for arch, (prefix, phase) in SSM_SERVE.items():
-        s_launches, s_pre, s_dec, s_pf = ssm_serve[arch]
+    for arch, (prefix, phase) in SERVED.items():
+        s_launches, s_pre, s_dec, s_pf = served[arch]
         cfg = configs.get_config(arch)
-        n9 = norms_per_layer(cfg) * cfg.num_layers + 1
+        n9 = norms_per_layer(cfg) * DECODE_LAYERS[arch] + 1
         P = PREFILL_ROWS[arch]
         k9_pre = s_pre["K9"].get(P, [])
         if not k9_pre or set(k9_pre) != {n9}:
@@ -3915,14 +4836,30 @@ def main() -> int:
                 (prefix, "decode", s_launches["K9"], s_dec,
                  "decode step (4 slots)"),
                 (f"{prefix}_prefill", "prefill", k9_pre[0], s_pf,
-                 f"prefill forward of {P} tokens")):
+                 prefill_what(arch))):
             rows[-2].update(instance_fields(
-                pfx, ssm_k9_row(attn_rows["K9"], arch, kind, n9), n,
+                pfx, serve_k9_row(attn_rows["K9"], arch, kind, n9), n,
                 steps.get("K9"), None,
-                f"one {arch} {what}, {cfg.num_layers} layers (phase "
+                f"one {arch} {what}, {DECODE_LAYERS[arch]} layers (phase "
                 f"{phase}): {n9} bf16 launches at d={cfg.d_model}; "
                 "launches: " + ("the serving run's" if kind == "decode"
                                 else "one such call")))
+    for part, prefix in ENC_PARTS.items():
+        n9 = enc_want[part][1]
+        rows[-2].update(instance_fields(
+            prefix, serve_k9_row(attn_rows["K9"], ENC_ARCH, part, n9),
+            enc_dec_launches[1] if part == "decode" else n9,
+            enc_dev[part].get("K9"), None,
+            f"{ENC_WHAT[part]} of {ENC_ARCH} (phase 4n): {n9} bf16 launches"
+            f" at {ENC_RMS[part][0]} x {ENC_D}; launches: "
+            + ("the run's decode steps'" if part == "decode" else
+               "one such call")))
+    for prefix, fam, (ln, step_ms) in (
+            ("internvl", "vlm", (vlm_launches, vlm_step_ms)),
+            ("seamless", "encdec", (enc_launches, enc_step_ms))):
+        rows[-2].update(instance_fields(
+            f"{prefix}_bwd", lm_rows[(fam, "K9 bwd")], ln["K9 bwd"],
+            step_ms.get("K9 bwd"), None, mm_train_work(fam, "K9 bwd")))
     log(json.dumps({"kernels": rows}))
     log(card_line())
     print(json.dumps({"ok": True, "device": {

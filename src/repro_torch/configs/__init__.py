@@ -7,7 +7,9 @@ import importlib
 
 from repro_torch.core.types import ModelConfig
 
-__all__ = ["ARCH_NAMES", "get_config", "get_reduced"]
+from .shapes import SHAPES, get_shape  # noqa: F401  (re-exported)
+
+__all__ = ["ARCH_NAMES", "SHAPES", "get_config", "get_reduced", "get_shape"]
 
 _MODULES = {
     "yi-6b": "yi_6b",
@@ -17,6 +19,9 @@ _MODULES = {
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "mamba2-370m": "mamba2_370m",
     "hymba-1.5b": "hymba_1_5b",
+    "internvl2-26b": "internvl2_26b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "stablelm-12b": "stablelm_12b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

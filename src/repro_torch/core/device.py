@@ -6,10 +6,13 @@ import torch
 __all__ = ["resolve_device"]
 
 
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda", meta: bool = False) -> torch.device:
     """``device`` as a ``torch.device``; raises where ``cuda`` is asked for
-    and no card is visible.  Only ``cuda`` and ``cpu`` are served."""
+    and no card is visible.  Only ``cuda`` and ``cpu`` are served, and
+    ``meta`` (shapes and dtypes, no storage) where ``meta`` is set."""
     dev = torch.device(device)
+    if meta and dev.type == "meta":
+        return dev
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device={device!r}: 'cuda' or 'cpu'")
     if dev.type == "cuda":

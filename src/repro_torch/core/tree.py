@@ -32,13 +32,15 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(template, leaves):
     """A tree shaped like ``template`` holding ``leaves`` (in
     ``tree_leaves`` order)."""
-    it = iter(leaves)
+    return _fill(template, iter(leaves))
 
-    def take(node):
-        if isinstance(node, dict):
-            return {k: take(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(take(v) for v in node)
-        return next(it)
 
-    return take(template)
+def _fill(node, it):
+    # a module-level recursion: a nested recursive closure is a reference
+    # cycle, and its iterator kept ``leaves`` (a step's gradients) alive
+    # until the next garbage collection
+    if isinstance(node, dict):
+        return {k: _fill(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_fill(v, it) for v in node)
+    return next(it)

@@ -1,5 +1,5 @@
-"""Configuration: copies of ``ModelConfig`` and ``TrainConfig`` (with its
-choice sets) from ``repro/core/types.py``.
+"""Configuration: copies of ``ModelConfig``, ``ShapeConfig`` and
+``TrainConfig`` (with its choice sets) from ``repro/core/types.py``.
 
 The port keeps its own copies so that it never imports the JAX package.
 Field names, defaults, validation and the derived counts are the
@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["ModelConfig", "TrainConfig", "OUTER_STRATEGIES", "PARTITIONINGS",
-           "OPTIMIZERS"]
+__all__ = ["ModelConfig", "ShapeConfig", "TrainConfig", "OUTER_STRATEGIES",
+           "PARTITIONINGS", "OPTIMIZERS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +123,14 @@ class ModelConfig:
         dense = self.param_count() - L * self.num_experts * 3 * d * \
             self.expert_d_ff
         return int(dense + L * self.top_k * 3 * d * self.expert_d_ff)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                      # "train" | "prefill" | "decode"
 
 
 OUTER_STRATEGIES = ("sgwu", "agwu", "sync")

@@ -9,7 +9,11 @@ defaults, plus ``--device``:
 projection and norm) and raises where no card is visible; ``--device cpu``
 runs their plain PyTorch versions.  Params come from
 ``torch.Generator(device).manual_seed(seed)``, the corpus from numpy with
-seed 0, as in the reference.  ``--engine`` selects the outer-layer engine
+seed 0, as in the reference.  A config with a front end (InternVL2) draws
+``--batch-size`` rows of stub patch embeddings once, from a generator of
+the same seed, and every loss takes the first rows of them, as many as
+its batch has.  Encoder-decoder configs are refused, as in the
+reference.  ``--engine`` selects the outer-layer engine
 by name (``repro_torch.core.engine.ENGINES``); ``--device-outer`` and
 ``--mesh`` resolve as ``engine.resolve_engine`` says (one card: the
 fused node loop, with the fallback recorded).  ``--ckpt-dir`` saves the
@@ -40,6 +44,7 @@ from repro_torch.core.types import TrainConfig
 from repro_torch.data.pipeline import IDPADataset, host_batch, pack_sequences
 from repro_torch.data.synthetic import lm_corpus
 from repro_torch.models import lm
+from repro_torch.models.frontends import random_frontend_embeds
 
 __all__ = ["build_lm_dataset", "make_parser", "run", "main"]
 
@@ -120,14 +125,20 @@ def run(args, cfg, params=None, hooks=None):
             device=device)
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"[train] params: {n_params/1e6:.1f}M")
+    frontend = random_frontend_embeds(
+        torch.Generator(device).manual_seed(args.seed), cfg,
+        args.batch_size, device=device)
 
     def loss_fn(p, batch):
-        b = host_batch(batch["rows"])
+        rows = batch["rows"]
+        b = host_batch(rows)
         if "mask" in batch:
             # uneven stripes: padded rows (mask 0) carry no loss — label
             # them -1, which chunked_cross_entropy leaves out of the mean
             b["labels"] = b["labels"].masked_fill(
                 batch["mask"][:, None] <= 0, -1)
+        if frontend is not None:
+            b["frontend_embeds"] = frontend[:rows.shape[0]]
         return lm.loss_fn(p, b, cfg)
 
     speeds = 1.0 + 0.4 * np.arange(args.nodes) / max(args.nodes - 1, 1)

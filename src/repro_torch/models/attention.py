@@ -8,7 +8,11 @@ reference's.  Its sharding constraints and ``block_skip`` are left out:
 they change where the work runs, not its values.  Both paths take the
 sliding window (as data, one int per layer) and Gemma-2's attention
 soft-cap, and Qwen3's per-head q/k RMSNorm (``qk_norm``) after the
-projections and before the rotary embedding.
+projections and before the rotary embedding.  The prefill path also takes
+a cross-attention memory (``kv_source``, the encoder-decoder's): k and v
+are projected from it and neither q nor k is roped.  The reference's
+``attn_kv_gather`` only constrains the sharding of q, k and v, so it is
+accepted and changes nothing here.
 """
 from __future__ import annotations
 
@@ -120,25 +124,34 @@ def chunked_attention(q, k, v, *, causal: bool = True, window=None,
     return torch.cat(outs, dim=1) if nq > 1 else outs[0]
 
 
-def project_qkv(params, x, positions, cfg):
-    """The q, k, v projections of x (B, S, d_model) with rotary positions:
-    q (B, S, H, D), k and v (B, S, KH, D)."""
+def project_qkv(params, x, positions, cfg, kv_source=None):
+    """The q, k, v projections of x (B, S, d_model): q (B, S, H, D), k and
+    v (B, Sk, KH, D).  Self-attention (``kv_source`` None) projects k and
+    v from x (Sk = S) and ropes q and k at ``positions``; cross-attention
+    projects them from the memory ``kv_source`` (B, Sk, d_model) and ropes
+    neither, as the reference does."""
     B, S, _ = x.shape
     H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    src = x if kv_source is None else kv_source
+    Sk = src.shape[1]
     q = dense(params["wq"], x).reshape(B, S, H, D)
-    k = dense(params["wk"], x).reshape(B, S, KH, D)
-    v = dense(params["wv"], x).reshape(B, S, KH, D)
+    k = dense(params["wk"], src).reshape(B, Sk, KH, D)
+    v = dense(params["wv"], src).reshape(B, Sk, KH, D)
     q, k = _qk_norm(params, q, k)
+    if kv_source is not None:
+        return q, k, v
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
 def attention_block(params, x, positions, cfg, *, window=None,
-                    causal: bool = True):
-    """Self-attention over a whole prompt.  x: (B, S, d_model).
-    Returns (out (B, S, d_model), (k, v) post-rope (B, S, KH, D))."""
+                    causal: bool = True, kv_source=None):
+    """Attention over a whole prompt.  x: (B, S, d_model); ``kv_source``:
+    a cross-attention memory (B, Sk, d_model) or None (self-attention).
+    Returns (out (B, S, d_model), (k, v) (B, Sk, KH, D), post-rope in
+    self-attention)."""
     B, S, _ = x.shape
-    q, k, v = project_qkv(params, x, positions, cfg)
+    q, k, v = project_qkv(params, x, positions, cfg, kv_source)
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             attn_softcap=cfg.attn_softcap,
                             q_chunk=cfg.attn_q_chunk or 512,

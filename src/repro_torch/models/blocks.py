@@ -1,4 +1,5 @@
-"""Decoder blocks for ``arch_type`` "dense", "moe", "ssm" and "hybrid":
+"""Decoder blocks for every ``arch_type`` the reference's block dispatch
+takes ("dense", "vlm", "audio", "encdec", "moe", "ssm", "hybrid"):
 prefill and decode paths, from ``repro/models/blocks.py``, with Gemma-2's
 branches (per-layer sliding windows from ``window_pattern`` /
 ``global_layers``, the attention soft-cap, the post-norms ``pn1`` /
@@ -6,14 +7,16 @@ branches (per-layer sliding windows from ``window_pattern`` /
 place of ``mlp``; the block returns the layer's load-balance aux, which
 decode drops), the ssm block (the Mamba-2 mixer alone, no ``ln2``) and
 Hymba's hybrid block (attention and the mixer side by side on ``ln1(x)``,
-each normed by ``bn_*`` and scaled by ``beta_*``, then averaged).
+each normed by ``bn_*`` and scaled by ``beta_*``, then averaged).  The
+vlm, audio and encdec types run the dense block, as the reference's
+dispatch does (the encoder-decoder's own stacks are ``models/encdec.py``).
 
-The encdec, vlm and audio blocks, and the config branches no ported
-config uses, are not ported yet: ``check_supported`` raises
-``NotImplementedError`` naming the branch.  ``mlp_megatron``,
-``attn_block_skip`` and ``bf16_params_compute`` only change sharding,
-skipping or the place of a cast in the reference, not its values, and
-are accepted as they are.
+``check_supported`` raises ``NotImplementedError`` for any other
+``arch_type``.  ``mlp_megatron``, ``attn_block_skip``,
+``attn_kv_gather``, ``embed_reshard`` and ``bf16_params_compute`` only
+change sharding, skipping or the place of a cast in the reference, not
+its values, and are accepted as they are; so is ``embed_onehot``, whose
+one-hot product picks the embedding rows exactly.
 """
 from __future__ import annotations
 
@@ -27,27 +30,21 @@ from .mamba import (init_mamba, init_mamba_cache, mamba_decode_step,
 from .moe import init_moe, moe_layer
 
 __all__ = ["init_block", "block_forward", "block_decode", "init_block_cache",
-           "layer_windows", "check_supported", "GLOBAL_WINDOW"]
+           "layer_windows", "check_supported", "GLOBAL_WINDOW", "BLOCK_ARCHS"]
 
 GLOBAL_WINDOW = (2**31 - 1) // 2   # "no window", as the reference's int32
 
-# config fields whose reference branch the port does not have yet
-_UNPORTED_FLAGS = ("frontend", "embed_onehot", "embed_reshard",
-                   "attn_kv_gather")
-_PORTED_ARCHS = ("dense", "moe", "ssm", "hybrid")
+# the arch types of the reference's block dispatch
+BLOCK_ARCHS = ("dense", "vlm", "audio", "encdec", "moe", "ssm", "hybrid")
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a config this slice cannot run."""
-    if cfg.arch_type not in _PORTED_ARCHS:
+    """Raise ``NotImplementedError`` for an ``arch_type`` that has no
+    block (the CNN's, say), ``ValueError`` for heads that do not group."""
+    if cfg.arch_type not in BLOCK_ARCHS:
         raise NotImplementedError(
-            f"arch_type={cfg.arch_type!r}: only the 'dense', 'moe', 'ssm' "
-            "and 'hybrid' blocks are ported (encdec, vlm and audio are "
-            "not yet: ROADMAP.md §1 items 3.2-3.3)")
-    for flag in _UNPORTED_FLAGS:
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{cfg.name}: the {flag} branch is not ported yet")
+            f"arch_type={cfg.arch_type!r} has no LM block: the blocks are "
+            f"{', '.join(BLOCK_ARCHS)}")
     if cfg.num_heads % max(cfg.num_kv_heads, 1):
         raise ValueError("num_heads must be a multiple of num_kv_heads")
 

@@ -9,6 +9,15 @@ reference builds new arrays; the values are the same.  The loss is the
 reference's sequence-chunked cross-entropy: the (B, S, V) logits are
 never held at once, and each chunk's logits are recomputed for the
 backward.
+
+A config with a ``frontend`` (the vlm InternVL2) takes precomputed
+patch embeddings (B, P, d_model) in ``forward`` and ``loss_fn``: they are
+projected by ``frontend_proj`` (a plain product in the reference, outside
+any Pallas kernel, so ``torch.matmul`` here) and put before the text,
+whose P front-end positions carry no loss.  The reference's embedding
+flags ``embed_onehot`` (a one-hot product whose one nonzero term is the
+looked-up row) and ``embed_reshard`` (a sharding constraint) give the
+rows the plain lookup gives, so the lookup serves all three.
 """
 from __future__ import annotations
 
@@ -22,34 +31,38 @@ from repro_torch.core.device import resolve_device
 
 from .blocks import (block_decode, block_forward, check_supported,
                      init_block, init_block_cache, layer_windows)
-from .layers import embed, init_embedding, init_rms_norm, rms_norm, softcap
+from .layers import (embed, init_dense, init_embedding, init_rms_norm,
+                     rms_norm, softcap)
 
 __all__ = ["init_params", "forward", "loss_fn", "chunked_cross_entropy",
            "DecodeCache", "init_cache", "prefill", "cache_insert",
-           "cache_evict", "decode_step", "compute_params", "layer_params"]
-
-_FRONTEND = ("frontend_embeds (the vlm/audio front ends) is not ported "
-             "yet: ROADMAP.md §1 item 3.2 (frontends.py and the vlm path)")
+           "cache_evict", "decode_step", "compute_params", "layer_params",
+           "init_device"]
 
 
 def _dtype(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def init_params(cfg, generator, device="cuda"):
-    """Random params in the reference's tree layout, drawn from
-    ``generator`` on ``device`` (``"meta"`` builds shapes only and takes
-    ``generator=None``)."""
-    check_supported(cfg)
-    if torch.device(device).type == "meta":
-        dev = torch.device("meta")
-    else:
-        dev = resolve_device(device)
+def init_device(generator, device) -> torch.device:
+    """The device params are drawn on: ``"meta"`` builds shapes only and
+    takes ``generator=None``; ``"cuda"`` or ``"cpu"`` needs an explicit
+    ``torch.Generator`` of that device type."""
+    dev = resolve_device(device, meta=True)
+    if dev.type != "meta":
         if not isinstance(generator, torch.Generator):
             raise TypeError("init_params needs an explicit torch.Generator")
         if generator.device.type != dev.type:
             raise ValueError(f"generator on {generator.device} cannot draw "
                              f"params on {dev}")
+    return dev
+
+
+def init_params(cfg, generator, device="cuda"):
+    """Random params in the reference's tree layout, drawn from
+    ``generator`` on ``device`` (``init_device``)."""
+    check_supported(cfg)
+    dev = init_device(generator, device)
     pdt = torch.float32 if cfg.param_dtype == "float32" else torch.bfloat16
     kw = dict(dtype=pdt, device=dev)
     params = {
@@ -60,6 +73,12 @@ def init_params(cfg, generator, device="cuda"):
     if not cfg.tie_embeddings:
         params["lm_head"] = init_embedding(generator, cfg.vocab_size,
                                            cfg.d_model, **kw)
+    if cfg.frontend:
+        # the stub modality projector (ViT / audio-codec outputs ->
+        # d_model), w (d, d) x 1/sqrt(d); the reference draws it from
+        # lm_head's key, the port from the same generator as the rest
+        params["frontend_proj"] = init_dense(generator, cfg.d_model,
+                                             cfg.d_model, **kw)
     return params
 
 
@@ -83,14 +102,18 @@ def layer_params(layers, i: int):
 
 
 _KEEP_DTYPE = ("conv_w",)       # compute_params' exception, by leaf name
+# the trees whose leaves carry a leading layer axis (encdec.py's too)
+_STACKED = ("layers", "encoder", "decoder")
 
 
 def compute_params(params, cfg):
     """``params`` with every weight matrix cast once to the activation
     dtype: the floating leaves of >= 2 dims per layer (>= 3 in the stacked
-    ``layers`` tree, whose leaves carry the leading ``L`` axis) and the
-    embedding and head tables.  ``ops.dense``, the embedding and the
-    lm-head cast to that dtype at every call, so the values are the same;
+    ``layers`` tree, and in the encoder-decoder's ``encoder`` and
+    ``decoder``, whose leaves carry the leading ``L`` axis), the
+    embedding and head tables and the front end's ``frontend_proj``.
+    ``ops.dense``, the embedding, the lm-head and the front end cast to
+    that dtype at every call, so the values are the same;
     holding the copy saves re-reading the f32 weights each step.  Norm
     scales and the mixer's per-head and per-channel vectors (``A_log``,
     ``D``, ``dt_bias``, ``conv_b``, ``norm_scale``), 1-D per layer, stay
@@ -107,7 +130,7 @@ def compute_params(params, cfg):
                     for k in tree}
         return tree.to(dt) if tree.is_floating_point() and \
             tree.ndim >= min_ndim else tree
-    return {k: cast(v, 3 if k == "layers" else 2) for k, v in params.items()}
+    return {k: cast(v, 3 if k in _STACKED else 2) for k, v in params.items()}
 
 
 def _head_table(params):
@@ -126,18 +149,21 @@ def _logits(params, x, cfg):
 # ----------------------------------------------------------------------
 def forward(params, tokens, cfg, frontend_embeds=None, collect_cache=False,
             remat=False, cache_dtype=torch.bfloat16):
-    """tokens: (B, S) int.  Returns (hidden (B, S, d), per-layer decode
-    caches stacked on a leading L axis or None, aux_loss).
+    """tokens: (B, S_text) int; frontend_embeds: (B, P, d_model) or None.
+    Returns (hidden (B, P + S_text, d), per-layer decode caches stacked on
+    a leading L axis or None, aux_loss).
 
     ``remat`` recomputes each block's activations in the backward
     (``torch.utils.checkpoint``, non-reentrant): the counterpart of the
     reference's ``jax.checkpoint`` with ``nothing_saveable``, so only the
     blocks' inputs are kept."""
     check_supported(cfg)
-    if frontend_embeds is not None:
-        raise NotImplementedError(_FRONTEND)
     dt = _dtype(cfg)
     x = embed(params["embed"], tokens).to(dt)
+    if frontend_embeds is not None:
+        fe = torch.matmul(frontend_embeds.to(dt),
+                          params["frontend_proj"]["w"].to(dt))
+        x = torch.cat([fe, x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -198,13 +224,18 @@ def chunked_cross_entropy(hidden, head_table, labels, cfg, chunk: int = 0):
 
 def loss_fn(params, batch, cfg, aux_weight: float = 0.01,
             remat: bool = False):
-    """batch: {'tokens': (B, S), 'labels': (B, S)} int tensors.  Returns
-    (ce + aux_weight x aux, {'ce', 'aux'})."""
-    if batch.get("frontend_embeds") is not None:
-        raise NotImplementedError(_FRONTEND)
-    hidden, _, aux = forward(params, batch["tokens"], cfg, remat=remat)
-    ce = chunked_cross_entropy(hidden, _head_table(params), batch["labels"],
-                               cfg)
+    """batch: {'tokens': (B, S), 'labels': (B, S)} int tensors and,
+    for a config with a front end, 'frontend_embeds' (B, P, d_model), whose
+    positions carry label -1.  Returns (ce + aux_weight x aux, {'ce',
+    'aux'})."""
+    fe = batch.get("frontend_embeds")
+    hidden, _, aux = forward(params, batch["tokens"], cfg,
+                             frontend_embeds=fe, remat=remat)
+    labels = batch["labels"]
+    if fe is not None:
+        pad = labels.new_full((labels.shape[0], fe.shape[1]), -1)
+        labels = torch.cat([pad, labels], dim=1)
+    ce = chunked_cross_entropy(hidden, _head_table(params), labels, cfg)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
@@ -229,9 +260,9 @@ def init_cache(batch, max_seq, cfg, dtype=torch.bfloat16, device="cuda"):
     """Slot-major decode cache for ``batch`` slots of ``max_seq`` tokens
     (cfg last, as the reference's current signature), on ``device``:
     ``"cuda"`` by default, which raises without a card unless ``"cpu"``
-    is passed."""
+    (or ``"meta"``, shapes only) is passed."""
     check_supported(cfg)
-    device = resolve_device(device)
+    device = resolve_device(device, meta=True)
     layers = init_block_cache(batch, max_seq, cfg, stack=(cfg.num_layers,),
                               dtype=dtype, device=device)
     return DecodeCache(layers=layers,

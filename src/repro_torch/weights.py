@@ -2,8 +2,10 @@
 
 ``params_from_numpy`` takes a tree of numpy arrays (dicts and lists) in
 the reference's layout, e.g. ``jax.tree_util.tree_map(np.asarray,
-repro.models.lm.init_params(key, cfg))`` for an LM ``ModelConfig`` or
-``... repro.models.cnn.init_cnn(key, cfg)`` for a ``CNNConfig``, and
+repro.models.lm.init_params(key, cfg))`` for an LM ``ModelConfig``,
+``... repro.models.encdec.init_encdec_params(key, cfg)`` for an
+encoder-decoder one or ``... repro.models.cnn.init_cnn(key, cfg)`` for a
+``CNNConfig``, and
 returns the port's params with the same structure, shapes and dtypes, on
 ``device``.  No transposes: both packages keep dense weights (Din, Dout),
 HWIO filters, tables (V, d) and layer leaves stacked on a leading L axis.
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.models import cnn, lm
+from repro_torch.models import cnn, encdec, lm
 
 __all__ = ["params_from_numpy", "params_to_numpy"]
 
@@ -50,12 +52,15 @@ def _convert(tree, template, device, path):
 
 
 def params_from_numpy(tree, cfg, device="cuda"):
-    """The port's params for ``cfg`` (an LM ``ModelConfig`` or a
-    ``CNNConfig``) from a numpy tree in the reference's layout; raises on a
+    """The port's params for ``cfg`` (an LM or encoder-decoder
+    ``ModelConfig``, or a ``CNNConfig``) from a numpy tree in the
+    reference's layout; raises on a
     missing key, a wrong length, a wrong shape or a wrong dtype."""
     dev = resolve_device(device)
     if isinstance(cfg, cnn.CNNConfig):
         template = cnn.init_cnn(cfg, None, device="meta")
+    elif cfg.arch_type == "encdec":
+        template = encdec.init_encdec_params(cfg, None, device="meta")
     else:
         template = lm.init_params(cfg, None, device="meta")
     return _convert(tree, template, dev, "")

@@ -42,7 +42,11 @@ SLICE_MODULES = (
     "repro_torch.models.moe", "repro_torch.configs.qwen3_moe_30b_a3b",
     "repro_torch.configs.granite_moe_3b_a800m",
     "repro_torch.models.mamba", "repro_torch.configs.mamba2_370m",
-    "repro_torch.configs.hymba_1_5b",
+    "repro_torch.configs.hymba_1_5b", "repro_torch.configs.shapes",
+    "repro_torch.configs.internvl2_26b",
+    "repro_torch.configs.seamless_m4t_large_v2",
+    "repro_torch.configs.stablelm_12b", "repro_torch.models.frontends",
+    "repro_torch.models.encdec", "repro_torch.launch.steps",
 )
 BANNED = ("jax", "jaxlib", "repro")
 

@@ -299,18 +299,15 @@ def _tiny(**kw):
 
 
 # the ssm and hybrid cases became vlm and audio once those blocks were
-# ported: the count of cases stays, each on a branch still refused
-@pytest.mark.parametrize("kw,branch", [
-    (dict(frontend="vision"), "frontend"),
-    (dict(embed_onehot=True), "embed_onehot"),
-    (dict(arch_type="vlm"), "vlm"),
-    (dict(arch_type="audio"), "audio"),
-], ids=lambda v: v if isinstance(v, str) else None)
-def test_unported_branches_raise(kw, branch):
-    cfg = _tiny(**kw)
-    with pytest.raises(NotImplementedError, match=branch):
+# ported, and those and the flags became arch types with no LM block once
+# every block of the reference's dispatch was: the count of cases stays,
+# each on a branch still refused
+@pytest.mark.parametrize("arch_type", ["cnn", "rnn", "", "Dense"])
+def test_unported_branches_raise(arch_type):
+    cfg = _tiny(arch_type=arch_type)
+    with pytest.raises(NotImplementedError, match="no LM block"):
         blocks.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match=branch):
+    with pytest.raises(NotImplementedError, match="no LM block"):
         lm.init_params(cfg, torch.Generator("cpu").manual_seed(0), "cpu")
 
 

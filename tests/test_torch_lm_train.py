@@ -226,10 +226,16 @@ def test_chunked_cross_entropy_leaves_out_negative_labels():
 
 
 def test_frontend_embeds_are_not_ported():
+    """Front-end embeddings reach only a config with a front end (the vlm
+    path, ``tests/test_torch_vlm.py``): a config without one has no
+    ``frontend_proj`` to project them, and the loss raises on its key, as
+    the reference's does."""
     cfg = configs.get_reduced("yi-6b")
-    with pytest.raises(NotImplementedError, match="§1 item 3"):
-        lm.loss_fn({}, {"tokens": None, "labels": None,
-                        "frontend_embeds": torch.zeros(1)}, cfg)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(KeyError, match="frontend_proj"):
+        lm.loss_fn(params, {"tokens": toks, "labels": toks,
+                            "frontend_embeds": torch.zeros(1, 2, 256)}, cfg)
 
 
 # ----------------------------------------------------------------------

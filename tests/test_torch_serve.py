@@ -241,11 +241,12 @@ def test_encdec_rejected():
 
 
 def test_unported_arch_rejected(f32_pair):
-    """vlm, not hybrid, since the hybrid block is ported."""
+    """An arch type with no LM block (the CNN's), not vlm or hybrid, since
+    every block of the reference's dispatch is ported."""
     _, _, cfg, params = f32_pair
-    vlm = dataclasses.replace(cfg, arch_type="vlm")
-    with pytest.raises(NotImplementedError, match="vlm"):
-        serving.make_serve_engine(params, vlm, device="cpu")
+    cnn = dataclasses.replace(cfg, arch_type="cnn")
+    with pytest.raises(NotImplementedError, match="cnn"):
+        serving.make_serve_engine(params, cnn, device="cpu")
 
 
 def test_make_serve_engine_without_device_needs_a_card(monkeypatch, f32_pair):
