@@ -252,6 +252,28 @@ from the root of a checkout.  Phases, each of which raises on failure
    decode step traced against its byte floor, a 2048-token prompt's
    prefill traced;
 5. the serving CLI once on the reduced config;
+4p. (run after 5) the outer layer's checkpoints and tooling, on Table-2
+   case7 at full width and 4 nodes (one IDPA batch, 2 local steps of B =
+   64, AdamW): (a) the uninterrupted ``vmap`` (6 rounds) and ``heap`` (16
+   pushes, durations pinned) runs with exact K1-K8 launches, then each
+   broken after 3 rounds (checkpoint every 2) or 8 pushes (every 4) and
+   resumed by a fresh trainer: final merged weights and the loss trail
+   bit for bit, each state checkpoint's bytes and its save and restore
+   seconds; (b) ``tests/torch_chaos_worker.py --case case7`` on the card
+   (2 nodes, 4 rounds) SIGKILLed after its 3rd event and resumed by a new
+   process: its final weights within 1e-5 of the job run uninterrupted
+   here; (c) ``launch/train.py`` on reduced Phi-3 with ``--ckpt-every 2
+   --resume`` through ``run``: a round, the same command again (no new
+   event or file), then 2 rounds (the heap re-seeded; the final
+   checkpoint at ``last_event``); (d) (a)'s uninterrupted runs with
+   ``REPRO_SANITIZE=1``: identical bits, only the documented
+   ``sync_log`` labels, ``compile_budget(0)`` (no kernel build), and
+   an implicit sync inside ``sanitized`` raising; (e)
+   ``examples/train_bpt_cnn_torch.py`` at its defaults above its accuracy
+   floor, with exact K1-K8 launches (per local step, evals apart) and a
+   local step's device time; (f) ``ClusterSim`` (4 nodes, 2 iterations,
+   AGWU and SGWU), each work unit one case7 SGD step on the card, its
+   metrics equal to the CPU run's and its weights within 1e-5;
 6. a JSON line with every ported kernel (device-clock times as the extra
    fields ``device_ms`` and ``library_device_ms``, "not measured" being
    null; K1 also its prefill sums as ``prefill_*`` and ``gemma_prefill_*``,
@@ -278,7 +300,9 @@ from the root of a checkout.  Phases, each of which raises on failure
    ``seamless_prefill_*`` (4n); K1, K2 and K3 InternVL2's and Seamless's
    training steps as ``internvl_train_bf16_*`` / ``internvl_bf16_*`` and
    ``seamless_train_bf16_*`` / ``seamless_bf16_*``, K9's backward there
-   as ``internvl_bwd_*`` and ``seamless_bwd_*``), then the card
+   as ``internvl_bwd_*`` and ``seamless_bwd_*``; K1-K8 phase 4p(a)'s
+   launches as ``ckpt_launches`` and 4p(e)'s as ``example_launches``, K1,
+   K2, K3 and K9 4p(c)'s as ``ckpt_cli_launches``), then the card
    again, then the result line ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports no JAX and nothing of the JAX package ``repro``.
@@ -318,7 +342,11 @@ for phases 3e, 4i, 4j and 4k, and
 
     python3 chip_smoke.py --mm
 
-for phases 3f, 4l, 4m, 4n and 4o.
+for phases 3f, 4l, 4m, 4n and 4o, and
+
+    python3 chip_smoke.py --ckpt
+
+for phase 4p.
 """
 from __future__ import annotations
 
@@ -4380,6 +4408,416 @@ def phases_mm(torch, port, serving, counters, mods, card):
     return tuple(out)
 
 
+# ----------------------------------------------------------------------
+# Checkpoints, resume, the chaos worker, the sanitizer, the BPT-CNN example and the
+# cluster simulator (phase 4p)
+# ----------------------------------------------------------------------
+CKPT_NODES = 4
+CKPT_LOCAL_STEPS = 2
+CKPT_DURS = (1.0, 1.25, 1.5, 1.75)      # heap: pinned local-round seconds
+# engine -> (rounds, checkpoint every N events, break after N events)
+CKPT_RUNS = {"vmap": (6, 2, 3), "heap": (4, 4, 8)}
+SYNC_LABELS = {"vmap": ["upload", "round.losses"],
+               "heap": ["upload"] * CKPT_LOCAL_STEPS + ["local-round.loss"]}
+WORKER = ROOT / "tests" / "torch_chaos_worker.py"
+WORKER_ROUNDS = 4
+WORKER_NODES = 2                           # 4p(b): a state of 5 c_w an event
+EXAMPLE = ROOT / "examples" / "train_bpt_cnn_torch.py"
+SIM_ROWS = 16                              # 4p(f): a work unit's batch
+SIM_TOL = 1e-5
+
+
+def step_launches(cnn, cfg) -> tuple[dict, dict]:
+    """K1-K8 launches of one training step and of one forward (an eval)
+    of ``cfg``: a dense layer is K1 forward, K2 and K3 backward; a conv
+    K4, K5 (but the first, whose input is the image) and K6; a pool K7
+    and K8."""
+    shapes, _ = cnn._conv_shapes(cfg)
+    pools = sum(pooled for *_, pooled in shapes)
+    fc, cv = cfg.fc_layers, cfg.conv_layers
+    step = {"K1": fc, "K2": fc, "K3": fc, "K4": cv, "K5": cv - 1, "K6": cv,
+            "K7": pools, "K8": pools}
+    return step, {"K1": fc, "K4": cv, "K7": pools}
+
+
+def _import_path(path, name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bits(torch, a, b, tree) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(
+        tree.tree_leaves(a), tree.tree_leaves(b), strict=True))
+
+
+def _ckpt_trainer(port, cfg, params, data, name):
+    """Case7 on CKPT_NODES nodes, one IDPA batch (the allocation is fixed,
+    so the measured clock moves no weight), AdamW, B = 64; ``heap`` with
+    each node's local-round duration pinned at CKPT_DURS, so its event
+    order is fixed."""
+    xs, ys = data
+    ds = port.pipeline.IDPADataset({"images": xs, "labels": ys},
+                                   num_nodes=CKPT_NODES, batches=1)
+    kw = port.engine.engine_config(name, outer_nodes=CKPT_NODES,
+                                   local_steps=CKPT_LOCAL_STEPS,
+                                   warmup_steps=5, total_steps=100, seed=0)
+    tr = port.trainer.BPTTrainer(
+        lambda p, b: (port.cnn.cnn_loss(p, b, cfg), {}), params, ds,
+        _train_cfg(port.types, **kw), batch_size=TRAIN_BATCH)
+    if name == "heap":
+        orig = tr._local_round
+
+        def pin(p, opt, node, step):
+            p, opt, loss, _ = orig(p, opt, node, step)
+            return p, opt, loss, CKPT_DURS[node]
+
+        tr._local_round = pin
+    return tr
+
+
+def _timed(fn, store):
+    def wrapped(*a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        store.append(time.perf_counter() - t0)
+        return out
+    return wrapped
+
+
+def _crash_resume(torch, port, make, name, ckdir):
+    """The stream broken after CKPT_RUNS' N events, then a fresh trainer
+    resumed from the latest state checkpoint (and checkpointing no more):
+    (resumed events, save seconds, restore seconds, resumed-from step)."""
+    rounds, every, stop = CKPT_RUNS[name]
+    saves, restores = [], []
+    crashed = make()
+    crashed._save_run_state = _timed(crashed._save_run_state, saves)
+    hooks = port.engine.TrainHooks(checkpoint_every=every,
+                                   checkpoint_dir=ckdir)
+    for n, _ in enumerate(crashed.run(rounds, hooks), 1):
+        if n >= stop:
+            break
+    del crashed
+    resumed = make()
+    resumed._restore_run = _timed(resumed._restore_run, restores)
+    hooks = port.engine.TrainHooks(checkpoint_dir=ckdir, resume=True)
+    evs = list(resumed.run(rounds, hooks))
+    torch.cuda.synchronize()
+    return evs, saves, restores, (stop // every) * every
+
+
+def phase_ckpt(torch, port, mods, card):
+    """Phase 4p: (a) case7 crash and resume under ``vmap`` and ``heap``,
+    bit for bit; (b) the chaos worker SIGKILLed and resumed; (c) the
+    training CLI's ``--ckpt-every`` / ``--resume`` flows on reduced Phi-3;
+    (d) (a) again with the sanitizer armed; (e) the BPT-CNN example at its
+    defaults; (f) the cluster simulator training case7 on the card and on
+    the CPU.  Returns the K1-K8 launches of (a)'s uninterrupted runs and
+    of (e), and the K1-K3, K9 launches of (c)."""
+    import contextlib
+    import functools
+    import io
+    import shutil
+    import signal
+    import tempfile
+    import numpy as np
+    from repro_torch import sanitize
+    cnn, tree = port.cnn, port.tree
+    cfg = cnn.make_case("case7")
+    params = cnn.init_cnn(cfg, torch.Generator("cuda").manual_seed(0),
+                          device="cuda")
+    c_w = sum(p.numel() * p.element_size() for p in tree.tree_leaves(params))
+    data = port.synthetic.image_dataset(64 * CKPT_NODES * 2,
+                                        size=cfg.image_size, seed=0)
+    per_step, _ = step_launches(cnn, cfg)
+    out = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_4p_")
+    log(f"[ckpt] checkpoints under {root}: "
+        f"{shutil.disk_usage(root).free / 1e9:.1f} GB free")
+    try:
+        # (a) the uninterrupted runs: this phase's main path, counted
+        t0 = time.perf_counter()
+        ref = {}
+        _zero_counts(mods)
+        for name in CKPT_RUNS:
+            evs = list(_ckpt_trainer(port, cfg, params, data, name).run(
+                CKPT_RUNS[name][0]))
+            ref[name] = ([e.loss for e in evs], evs[-1].params, len(evs))
+        torch.cuda.synchronize()
+        out["ckpt"] = _counts(mods)
+        steps = (ref["vmap"][2] * CKPT_NODES + ref["heap"][2]) \
+            * CKPT_LOCAL_STEPS
+        want = {k: steps * n for k, n in per_step.items()}
+        if out["ckpt"] != want:
+            raise AssertionError(f"[ckpt] launches {out['ckpt']} != {want}")
+        log(f"[ckpt] case7 full width ({c_w // 4} params f32, c_w {c_w} B),"
+            f" {CKPT_NODES} nodes, one IDPA batch, {CKPT_LOCAL_STEPS} local"
+            f" steps of B={TRAIN_BATCH}: uninterrupted vmap "
+            f"{ref['vmap'][2]} rounds and heap {ref['heap'][2]} pushes "
+            f"(durations pinned at {CKPT_DURS} s) in "
+            f"{time.perf_counter() - t0:.2f} s; K1-K8 launches "
+            f"{out['ckpt']} = {steps} local steps x {per_step} (exact); "
+            f"card: {card}")
+        for name, (rounds, every, stop) in CKPT_RUNS.items():
+            make = functools.partial(_ckpt_trainer, port, cfg, params, data,
+                                     name)
+            ckdir = os.path.join(root, f"a-{name}")
+            t0 = time.perf_counter()
+            evs, saves, restores, start = _crash_resume(torch, port, make,
+                                                        name, ckdir)
+            losses, final, n = ref[name]
+            same = _bits(torch, evs[-1].params, final, tree)
+            trail = [e.loss for e in evs] == losses[start:]
+            if not (same and trail and len(evs) == n - start):
+                raise AssertionError(
+                    f"[ckpt] {name}: resumed run is not the uninterrupted "
+                    f"one: weights equal {same}, loss trail equal {trail}, "
+                    f"{len(evs)} events after {start}")
+            st = os.path.getsize(os.path.join(ckdir,
+                                              f"state_{start:08d}.npz"))
+            wt = os.path.getsize(os.path.join(ckdir,
+                                              f"ckpt_{start:08d}.npz"))
+            log(f"[ckpt] {name}: checkpoint every {every} events, broke "
+                f"after {stop} of {n}, a fresh trainer (checkpointing no "
+                f"more) resumed from event "
+                f"{start}: final merged weights and the loss trail "
+                f"bit-identical to the uninterrupted card run; state "
+                f"checkpoint {st} B ({st / c_w:.2f} c_w), weight checkpoint "
+                f"{wt} B; state saves {[round(s, 3) for s in saves]} s, "
+                f"restore {[round(s, 3) for s in restores]} s; crash + "
+                f"resume {time.perf_counter() - t0:.2f} s ({card})")
+            shutil.rmtree(ckdir)
+        gc.collect()
+
+        # (b) the chaos worker's job uninterrupted here, then the worker
+        # killed and resumed
+        t0 = time.perf_counter()
+        worker = _import_path(WORKER, "torch_chaos_worker")
+        argv = ["--device", "cuda", "--case", "case7", "--nodes",
+                str(WORKER_NODES), "--rounds", str(WORKER_ROUNDS)]
+        kill_dir = os.path.join(root, "b-kill")
+        w_ref = list(worker.build_trainer(
+            WORKER_NODES, device="cuda", case="case7").run(
+                WORKER_ROUNDS))[-1].params
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
+        cmd = [sys.executable, str(WORKER), *argv, "--ckpt-dir", kill_dir]
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE, text=True)
+        seen = 0
+        for line in proc.stdout:
+            if line.startswith("EVENT"):
+                seen += 1
+                if seen >= 3:
+                    os.kill(proc.pid, signal.SIGKILL)
+                    break
+        proc.wait(timeout=120)
+        proc.stdout.close()
+        if proc.returncode != -signal.SIGKILL:
+            raise AssertionError(f"[ckpt-kill] worker exited "
+                                 f"{proc.returncode}, not by SIGKILL")
+        killed_at = port.checkpoint.latest_step(kill_dir, kind="state")
+        res = subprocess.run(cmd + ["--resume"], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0 or "DONE" not in res.stdout:
+            raise AssertionError(f"[ckpt-kill] resume exited "
+                                 f"{res.returncode}:\n{res.stderr[-4000:]}")
+        w_res, _ = port.checkpoint.restore(kill_dir, w_ref,
+                                           step=worker.FINAL_STEP)
+        diff = max(float((a - b).abs().max()) for a, b in zip(
+            tree.tree_leaves(w_ref), tree.tree_leaves(w_res), strict=True))
+        if diff > 1e-5:
+            raise AssertionError(f"[ckpt-kill] resumed weights differ by "
+                                 f"{diff}")
+        log(f"[ckpt-kill] tests/torch_chaos_worker.py --case case7 (vmap, "
+            f"{WORKER_NODES} nodes, {WORKER_ROUNDS} rounds, a weight and a "
+            f"state checkpoint every event): SIGKILLed after its 3rd event "
+            f"(state checkpoint at {killed_at} on disk), resumed by a "
+            f"second process: final weights max_abs_diff {diff:.3g} from "
+            f"the job run uninterrupted here (bound 1e-5; "
+            f"{'exact' if diff == 0 else 'not exact'}) in "
+            f"{time.perf_counter() - t0:.2f} s ({card})")
+        shutil.rmtree(kill_dir)
+
+        # (c) the training CLI: run, re-run (nothing new), extended
+        t0 = time.perf_counter()
+        lm_cfg = port.configs.get_reduced(LM_ARCH)
+        lm_params = port.lm.init_params(
+            lm_cfg, torch.Generator("cuda").manual_seed(0), device="cuda")
+        ckdir = os.path.join(root, "c-cli")
+        argv = ["--arch", LM_ARCH, "--device", "cuda", "--nodes", "2",
+                "--rows", "64", "--seq-len", "32", "--ckpt-dir", ckdir,
+                "--ckpt-every", "2", "--resume"]
+        _zero_lm_counts(mods)
+        reps, files = [], []
+        for rounds in (1, 1, 2):
+            reps.append(_drive(port, argv + ["--rounds", str(rounds)],
+                               lm_cfg, lm_params))
+            files.append(sorted(os.listdir(ckdir)))
+        torch.cuda.synchronize()
+        out["cli"] = _lm_counts(mods)
+        if not all(out["cli"][k] for k in ("K1", "K2", "K3", "K9")):
+            raise AssertionError(f"[ckpt-cli] a kernel of the path never "
+                                 f"launched: {out['cli']}")
+        last = [r.last_event for r in reps]
+        if last != [2, 0, 4] or reps[1].losses or files[0] != files[1] \
+                or port.checkpoint.latest_step(ckdir) != 4 \
+                or not all(np.isfinite(r.losses).all() for r in reps):
+            raise AssertionError(f"[ckpt-cli] last events {last}, files "
+                                 f"{files}, losses "
+                                 f"{[r.losses for r in reps]}")
+        log(f"[ckpt-cli] launch/train.py --arch {LM_ARCH} (reduced) on 2 "
+            f"nodes with --ckpt-every 2 --resume: 1 round (last_event "
+            f"{last[0]}), the same command again (no new event, no new "
+            f"file), then --rounds 2 (events 2-3, the heap re-seeded; final "
+            f"ckpt step {port.checkpoint.latest_step(ckdir)} = last_event "
+            f"{last[2]}); losses {[round(x, 4) for x in reps[2].losses]}; "
+            f"K1-K3 and K9 launches {out['cli']} in "
+            f"{time.perf_counter() - t0:.2f} s ({card})")
+        shutil.rmtree(ckdir)
+        del lm_params, reps
+        gc.collect()
+
+        # (d) (a)'s uninterrupted runs again with the sanitizer armed
+        t0 = time.perf_counter()
+        os.environ["REPRO_SANITIZE"] = "1"
+        try:
+            for name, (rounds, _, _) in CKPT_RUNS.items():
+                sanitize.clear_sync_log()
+                with sanitize.compile_budget(0, label=f"4p(d) {name}"):
+                    evs = list(_ckpt_trainer(port, cfg, params, data,
+                                             name).run(rounds))
+                    torch.cuda.synchronize()
+                losses, final, n = ref[name]
+                if not _bits(torch, evs[-1].params, final, tree) or \
+                        [e.loss for e in evs] != losses:
+                    raise AssertionError(f"[ckpt-sanitize] {name}: armed "
+                                         "run differs from the unarmed one")
+                labels = sanitize.sync_log()
+                if labels != SYNC_LABELS[name] * n:
+                    raise AssertionError(f"[ckpt-sanitize] {name}: sync log "
+                                         f"{sorted(set(labels))} x "
+                                         f"{len(labels)}")
+                log(f"[ckpt-sanitize] {name} with REPRO_SANITIZE=1: {n} "
+                    f"events, final weights and the loss trail bit-identical"
+                    f" to the unarmed run; sync_log {len(labels)} entries, "
+                    f"each event {SYNC_LABELS[name]}; compile_budget(0) "
+                    "held")
+            x = torch.ones(4, device="cuda")
+            try:
+                with sanitize.sanitized("4p(d)"):
+                    float((x * 2).sum())
+            except RuntimeError as e:
+                caught = str(e).splitlines()[0]
+            else:
+                raise AssertionError("[ckpt-sanitize] an implicit sync "
+                                     "inside sanitized() did not raise")
+            log(f"[ckpt-sanitize] an implicit float() of a card tensor "
+                f"inside sanitized() raised: {caught!r}; 4p(d) "
+                f"{time.perf_counter() - t0:.2f} s ({card})")
+        finally:
+            os.environ.pop("REPRO_SANITIZE", None)
+            sanitize.clear_sync_log()
+        gc.collect()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (e) the BPT-CNN example at its defaults
+    t0 = time.perf_counter()
+    example = _import_path(EXAMPLE, "train_bpt_cnn_torch")
+    _zero_counts(mods)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rep = example.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    out["example"] = _counts(mods)
+    wall = time.perf_counter() - t0
+    dcfg = cnn.CNNConfig(name="case2-wide", image_size=32, conv_layers=4,
+                         filters=4, fc_layers=3, fc_neurons=2000)
+    d_step, d_eval = step_launches(cnn, dcfg)
+    n_steps = rep.steps * 3                 # pushes x the example's 3 steps
+    n_evals = rep.steps + len(rep.accuracies)   # Eq. 10's Q, the cadence
+    want = {k: n_steps * n + n_evals * d_eval.get(k, 0)
+            for k, n in d_step.items()}
+    if out["example"] != want:
+        raise AssertionError(f"[bpt-cnn] launches {out['example']} != {want}")
+    acc = rep.accuracies[-1][1]
+    lines = buf.getvalue().splitlines()
+    log("[bpt-cnn] " + " | ".join(
+        ln for ln in lines if not ln.startswith("[bpt-cnn]   event")))
+    trail = [re.search(r"loss=(\S+) clock=(\S+)s", ln).groups()
+             for ln in lines if ln.startswith("[bpt-cnn]   event")]
+    log(f"[bpt-cnn] per event (loss, virtual clock s): "
+        f"{[(float(a), float(b)) for a, b in trail]}")
+    log(f"[bpt-cnn] examples/train_bpt_cnn_torch.py at its defaults: "
+        f"{rep.steps} AGWU pushes, {n_steps} local steps, final accuracy "
+        f"{acc:.3f} (floor 0.3) in {wall:.2f} s; K1-K8 launches a local "
+        f"step {d_step} (exact: {out['example']} = {n_steps} steps x that + "
+        f"{n_evals} evals x {d_eval}) ({card})")
+    dparams = cnn.init_cnn(dcfg, torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    xs, ys = port.synthetic.image_dataset(32, size=32, seed=0)
+    batch = {"images": torch.as_tensor(xs, device="cuda"),
+             "labels": torch.as_tensor(ys, device="cuda")}
+    dtc = port.types.TrainConfig(optimizer="adamw", learning_rate=1e-3,
+                                 warmup_steps=10, total_steps=240)
+    body = port.trainer.make_step_body(
+        lambda p, b: (cnn.cnn_loss(p, b, dcfg), {}), dtc)
+    opt = port.optim.make_optimizer("adamw").init(dparams)
+    ms, names = device_ms(torch, lambda p, o, b: body(p, o, b, 1),
+                          [(dparams, opt, batch)], iters=10)
+    kern = sum(v for k, v in names.items()
+               if any(pat in k for pat, _ in KERNEL_NAMES))
+    log(f"[bpt-cnn] one local step (B=32): device {fmt_ms(ms)} ms, of which "
+        f"K1-K8 {kern:.4f} ms ({card})")
+    del dparams, opt, batch
+    gc.collect()
+
+    # (f) the cluster simulator, each work unit one case7 local step
+    t0 = time.perf_counter()
+    sim_mod = port.cluster_sim
+    host = port.weights.params_to_numpy(params)
+    xs, ys = port.synthetic.image_dataset(512, size=cfg.image_size, seed=3)
+    stc = port.types.TrainConfig(optimizer="sgd", learning_rate=1e-2,
+                                 warmup_steps=0, total_steps=10)
+    sbody = port.trainer.make_step_body(
+        lambda p, b: (cnn.cnn_loss(p, b, cfg), {}), stc)
+    for strategy in ("agwu", "sgwu"):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            def worker_train(j, w, idx, it, dev=dev):
+                rows = idx[:SIM_ROWS]
+                b = {"images": torch.as_tensor(xs[rows], device=dev),
+                     "labels": torch.as_tensor(ys[rows], device=dev)}
+                w, _, _ = sbody(w, (), b, it + 1)
+                return w, 1.0
+            sim = sim_mod.ClusterSim(len(xs), [1.0, 1.3, 1.7, 2.2],
+                                     iterations=2, batches=1,
+                                     strategy=strategy)
+            got[dev] = sim.run(init_weights=port.weights.params_from_numpy(
+                host, cfg, dev), worker_train=worker_train)
+        a, b = got["cuda"], got["cpu"]
+        metrics = [(r.makespan, r.sync_wait, r.comm_bytes,
+                    r.expected_comm_bytes, r.balance_degree,
+                    r.allocation.tolist()) for r in (a, b)]
+        diff = max(float(np.abs(x - y).max()) for x, y in zip(
+            tree.tree_leaves(port.weights.params_to_numpy(a.final_weights)),
+            tree.tree_leaves(port.weights.params_to_numpy(b.final_weights)),
+            strict=True))
+        if metrics[0] != metrics[1] or diff > SIM_TOL:
+            raise AssertionError(f"[cluster-sim] {strategy}: metrics "
+                                 f"{metrics} or weights max diff {diff}")
+        log(f"[cluster-sim] {strategy}: 4 nodes, 2 iterations, each work "
+            f"unit one case7 SGD step at B={SIM_ROWS} on the card: "
+            f"{a.summary()} equal to the CPU run's; final weights "
+            f"max_abs_diff {diff:.3g} (bound {SIM_TOL})")
+    log(f"[cluster-sim] 4p(f) {time.perf_counter() - t0:.2f} s ({card})")
+    return out
+
+
 def phase_cli():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
@@ -4425,6 +4863,10 @@ def main() -> int:
     ap.add_argument("--mm", action="store_true", help="run phases 3f, 4l, "
                     "4m, 4n and 4o (InternVL2, Seamless, StableLM) alone and"
                     " print no result line")
+    ap.add_argument("--ckpt", action="store_true", help="run phase 4p "
+                    "(checkpoints and resume, the chaos worker, the CLI's "
+                    "resume flows, the sanitizer, the BPT-CNN example, the "
+                    "cluster simulator) alone and print no result line")
     args = ap.parse_args()
     # torch.compile (the flex_attention yardstick) caches inside the checkout
     cache = SRC / "repro_torch" / "kernels" / "_build" / "compile_cache"
@@ -4440,7 +4882,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch import configs, serving, weights
     from repro_torch.checkpointing import checkpoint
-    from repro_torch.core import bpt_trainer, engine, gwu, tree, types
+    from repro_torch.core import (bpt_trainer, cluster_sim, engine, gwu,
+                                  tree, types)
     from repro_torch.data import pipeline, synthetic
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import conv2d as conv_mod
@@ -4460,7 +4903,8 @@ def main() -> int:
                            gwu=gwu, pipeline=pipeline, lm=lm,
                            configs=configs, checkpoint=checkpoint,
                            train=train_mod, steps=steps_mod, encdec=encdec,
-                           frontends=frontends, layers=layers)
+                           frontends=frontends, layers=layers,
+                           cluster_sim=cluster_sim)
     mods = {"dense": dense_mod, "conv2d": conv_mod, "pool2d": pool_mod,
             "rmsnorm": rms_mod, "flash_attention": flash_mod}
     counters = {"K1": dense_mod.dense_cuda, "K9": rms_mod.rmsnorm_cuda,
@@ -4526,6 +4970,12 @@ def main() -> int:
         phase_lm_step(torch, port, mods, card, SSM_TRAIN_ARCH,
                       SSM_TRAIN_LAYERS, "ssm-train", SSM_STEPS, SSM_MIN_FALL,
                       SSM_CORPUS_VOCAB)
+        log(card_line())
+        return 0
+    if args.ckpt:
+        t0 = time.perf_counter()
+        phase_ckpt(torch, port, mods, card)
+        log(f"[time] phase 4p {time.perf_counter() - t0:.1f} s")
         log(card_line())
         return 0
     if args.mm:
@@ -4596,6 +5046,10 @@ def main() -> int:
         torch, configs, serving, counters, card)
     phase_cli()
     lap("phases 4c, 5")
+    t0 = time.perf_counter()
+    ckpt = phase_ckpt(torch, port, mods, card)
+    log(f"[time] phase 4p {time.perf_counter() - t0:.1f} s")
+    lap("phase 4p")
 
     k1 = train_rows["K1"]
     yi, gem = k1_sums[("yi-6b", "decode")], k1_sums[("gemma2-27b", "decode")]
@@ -4640,6 +5094,9 @@ def main() -> int:
                               "tiles)",
         "train_launches": train_launches["K1"],
         "outer_launches": outer_launches["K1"],
+        "ckpt_launches": ckpt["ckpt"]["K1"],
+        "example_launches": ckpt["example"]["K1"],
+        "ckpt_cli_launches": ckpt["cli"]["K1"],
         "train_max_abs_err": k1["err"], "train_tolerance": k1["tol"],
         "train_ms": k1["ms"], "train_plain_ms": k1["plain_ms"],
         "train_bound_ms": k1["bound_ms"],
@@ -4739,6 +5196,10 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": train_launches[key],
             "outer_launches": outer_launches[key],
+            "ckpt_launches": ckpt["ckpt"][key],
+            "example_launches": ckpt["example"][key],
+            **({"ckpt_cli_launches": ckpt["cli"][key]}
+               if key in ("K2", "K3") else {}),
             "max_abs_err": r["err"], "tolerance": r["tol"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": dominant(r["bound_by"]),
@@ -4787,6 +5248,8 @@ def main() -> int:
     rows += attn_json_rows(attn_rows, gemma_launches["K9"],
                            launches["K9"], gem_pre_k9, k10_launches,
                            k10_diff)
+    rows[-2].update({"ckpt_cli_launches": ckpt["cli"]["K9"],
+                     "ckpt_cli_bwd_launches": ckpt["cli"]["K9 bwd"]})
     rows[-2].update(instance_fields(
         "bwd", lm_rows["K9 bwd"], lm_launches["K9 bwd"],
         lm_step_ms.get("K9 bwd"), lm_outer_launches["K9 bwd"],

@@ -17,7 +17,10 @@ Two entry points:
 
 - ``run(rounds, hooks)`` — a generator yielding one ``RoundEvent`` per
   merge (per round for SGWU/sync, per push for AGWU) so callers stream
-  losses, evaluate on their own cadence and early-stop.
+  losses, evaluate on their own cadence, checkpoint mid-run and
+  early-stop.  ``TrainHooks`` supplies the eval / checkpoint / callback
+  cadences, and ``resume`` continues a killed run from its latest state
+  checkpoint.
 - ``train(rounds, hooks)`` — drains ``run`` into a ``TrainReport``.
 
 Inner layer: the local step, ``make_step_body`` (value and grad, clip by
@@ -30,7 +33,8 @@ the hand-written kernels K1-K8.
 optimizer state and batches are nested dicts and lists of tensors; a step
 returns new ones and changes none of its inputs.  Batches come from the
 dataset as numpy and are placed on the params' device in one transfer per
-round (per local step on the per-node paths).
+round (per local step on the per-node paths), each upload a sanctioned
+sync of the sanitizer (``repro_torch.sanitize``, label ``upload``).
 """
 from __future__ import annotations
 
@@ -41,12 +45,14 @@ from typing import Callable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.checkpointing import checkpoint
 from repro_torch.core.engine import RoundEvent, TrainHooks, resolve_engine
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.core.types import TrainConfig
 from repro_torch.data.pipeline import IDPADataset
 from repro_torch.optim.optimizers import (apply_updates, clip_by_global_norm,
                                           make_optimizer, warmup_cosine)
+from repro_torch.sanitize import sanctioned_scope, sanctioned_sync
 
 __all__ = ["value_and_grad", "make_step_body", "make_node_round",
            "BPTTrainer", "TrainReport", "TrainHooks", "RoundEvent"]
@@ -118,7 +124,9 @@ class TrainReport:
     # non-empty when the executed backend differs from the requested one
     # (the EnginePlan's recorded device-count fallback reason)
     fallback: str = ""
-    # global index just past the last event (= its round + 1)
+    # global index just past the last event (= its round + 1); differs
+    # from ``steps`` when the run resumed from a state checkpoint, where
+    # ``steps`` counts only the events this process produced
     last_event: int = 0
 
     def summary(self) -> dict:
@@ -196,9 +204,13 @@ class BPTTrainer:
         return float(np.clip(q / max(self._q_ema, 1e-3), 0.25, 2.0))
 
     def _to_device(self, batch: dict) -> dict:
-        """A numpy batch on the trainer's device (one copy a leaf)."""
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in batch.items()}
+        """A numpy batch on the trainer's device (one copy a leaf): the
+        explicit placement of the reference's ``device_put``.  From
+        pageable host memory the copy waits for the card, so it is a
+        sanctioned sync (label ``upload``)."""
+        with sanctioned_scope("upload"):
+            return {k: torch.from_numpy(np.ascontiguousarray(v))
+                    .to(self.device) for k, v in batch.items()}
 
     # ------------------------------------------------------------------
     def _local_round(self, params, opt_state, node: int, step: int):
@@ -211,8 +223,9 @@ class BPTTrainer:
                 self.dataset.node_batch(node, self.batch_size, self.rng))
             params, opt_state, loss = self._train_step(
                 params, opt_state, batch, step)
-        # the Eq. 8 measurement boundary: the host read waits for the device
-        loss = float(loss)
+        # the Eq. 8 measurement boundary: the host read waits for the
+        # device — a sanctioned sync, not a hidden one
+        loss = float(sanctioned_sync(loss, "local-round.loss"))
         wall = time.perf_counter() - t0
         return params, opt_state, loss, wall * self.speed[node]
 
@@ -233,9 +246,13 @@ class BPTTrainer:
         return stacked_w, stacked_opt, torch.stack(losses)
 
     def _eval(self, params):
+        # accuracy evals read the card by design (the scalar feeds Eq.
+        # 7/10 weighting), and eval_fns are caller-supplied host code —
+        # the whole call is a sanctioned scope under the sync sanitizer
         if not self.eval_fn:
             return 0.0
-        return float(self.eval_fn(params))
+        with sanctioned_scope("eval"):
+            return float(self.eval_fn(params))
 
     @staticmethod
     def _node_slice(stacked, node: int):
@@ -255,19 +272,24 @@ class BPTTrainer:
         Resolves the execution engine (``engine.resolve_engine``), then
         yields each merge event — round index, per-node losses, virtual
         clock, cumulative sync-wait and comm-bytes, and the post-merge
-        global weights.  ``hooks`` layers accuracy evals every
-        ``eval_every`` events (0 keeps the engine's default) and an
-        ``on_round`` observer; breaking out of the iterator stops training.
+        global weights.  Callers evaluate / checkpoint / early-stop at
+        will; breaking out of the iterator stops training.
+
+        ``hooks`` layers cadences on the stream: accuracy evals every
+        ``eval_every`` events (0 keeps the engine's default),
+        ``checkpoint_every`` saves ``event.params`` into
+        ``checkpoint_dir`` via ``repro_torch.checkpointing`` — plus, for
+        resumable engines, a ``kind="state"`` checkpoint carrying the
+        engine snapshot, parameter-server log, IDPA allocation state and
+        host RNG state — and ``on_round`` observes every event before it
+        is yielded.  ``hooks.resume=True`` restores the latest state
+        checkpoint before the first event, so a killed run relaunched
+        with the same config continues losslessly (and a first launch
+        with ``resume=True`` simply starts from scratch).
 
         A generator: config errors raise at the first ``next()``.
         """
         hooks = hooks or TrainHooks()
-        if hooks.checkpoint_every or hooks.checkpoint_dir or hooks.resume:
-            raise NotImplementedError(
-                "checkpoint and resume hooks need the engines' snapshots "
-                "(the checkpoint module itself is ported), which are not "
-                "ported yet: ROADMAP.md §1 item 4 (outer layer, "
-                "checkpoints and tooling)")
         # the devices resolve_engine counts: the CUDA devices (its default)
         # when the params are on the card, one CPU device when on the CPU
         plan = resolve_engine(self.tc, None if self.device.type == "cuda"
@@ -276,13 +298,56 @@ class BPTTrainer:
         engine = plan.engine_cls(self, plan)
         self.last_engine = engine
         eval_every = hooks.eval_every or engine.default_eval_every
-        for ev in engine.events(rounds):
+        state = engine.setup(rounds)
+        start = 0
+        if hooks.resume and hooks.checkpoint_dir:
+            start = self._restore_run(engine, state, hooks.checkpoint_dir)
+        for ev in engine.events(rounds, start=start, state=state):
             n = ev.round + 1
             if self.eval_fn and n % eval_every == 0:
                 ev.accuracy = self._eval(ev.params)
+            if hooks.checkpoint_every and hooks.checkpoint_dir \
+                    and n % hooks.checkpoint_every == 0:
+                checkpoint.save(hooks.checkpoint_dir, ev.params, step=n)
+                self._save_run_state(engine, state, hooks.checkpoint_dir, n)
             if hooks.on_round:
                 hooks.on_round(ev)
             yield ev
+
+    def _save_run_state(self, engine, state, ckpt_dir: str, n: int) -> None:
+        """Write the resumable train state (``kind="state"``) at event n."""
+        snap = engine.snapshot(state)
+        if snap is None:
+            return                       # engine is not resumable
+        arrays, scalars = snap
+        scalars["trainer"] = {
+            "next_event": n,
+            "rng": self.rng.bit_generator.state,
+            "dataset": self.dataset.state_dict(),
+            "q_ema": self._q_ema,
+        }
+        checkpoint.save_state(ckpt_dir, arrays, n, scalars)
+
+    def _restore_run(self, engine, state, ckpt_dir: str) -> int:
+        """Restore the latest state checkpoint into ``state``; returns the
+        event index to resume from (0 when no state checkpoint exists)."""
+        step = checkpoint.latest_step(ckpt_dir, kind="state")
+        if step is None:
+            return 0
+        snap = engine.snapshot(state)
+        if snap is None:
+            raise ValueError(
+                f"{type(engine).__name__} does not support resumption but "
+                f"{ckpt_dir} holds a state checkpoint")
+        arrays_like, _ = snap
+        arrays, scalars, _ = checkpoint.restore_state(
+            ckpt_dir, arrays_like, step)
+        engine.restore_snapshot(state, arrays, scalars)
+        tr = scalars["trainer"]
+        self.rng.bit_generator.state = tr["rng"]
+        self.dataset.load_state_dict(tr["dataset"])
+        self._q_ema = tr["q_ema"]
+        return int(tr["next_event"])
 
     def train(self, rounds: int,
               hooks: Optional[TrainHooks] = None) -> TrainReport:

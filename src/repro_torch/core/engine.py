@@ -27,8 +27,10 @@ the reference's rules and messages.
 Engines stream: ``events(rounds)`` yields one ``RoundEvent`` per merge —
 per round for SGWU/sync, per push for AGWU — carrying the per-node losses,
 the virtual clock, the cumulative Eq. 8 sync-wait and Eq. 11 comm-bytes,
-and the post-merge global weights.  ``BPTTrainer.run`` layers the eval
-and callback cadences (``TrainHooks``) on top.
+and the post-merge global weights.  ``BPTTrainer.run`` layers the eval,
+checkpoint and callback cadences (``TrainHooks``) on top.  Every engine
+snapshots its state in the reference's trees and scalar keys, so a state
+checkpoint written by either package resumes in the other.
 """
 from __future__ import annotations
 
@@ -42,7 +44,9 @@ import torch
 
 from repro_torch.core.gwu import broadcast_tree
 from repro_torch.core.param_server import ParameterServer
+from repro_torch.core.tree import tree_map
 from repro_torch.core.types import TrainConfig
+from repro_torch.sanitize import sanctioned_sync, sanitized
 
 __all__ = [
     "RoundEvent", "TrainHooks", "EnginePlan", "OuterEngine",
@@ -64,7 +68,8 @@ class RoundEvent:
     SGWU/sync engines emit one event per round; AGWU engines emit one per
     push (``node`` says which node pushed).  ``params`` is the global
     weight set AFTER this event's merge — callers may evaluate it or
-    early-stop on ``loss``.
+    early-stop on ``loss``, or checkpoint it via
+    ``repro_torch.checkpointing``.
     """
     round: int                 # event index (SGWU: round; AGWU: push count)
     node_losses: np.ndarray    # losses this event (AGWU: the pushing node's)
@@ -89,10 +94,13 @@ class TrainHooks:
 
     ``eval_every=0`` keeps each engine's historical default: every round
     for SGWU, every 5 rounds for the sync baseline, every m pushes for
-    AGWU.  ``checkpoint_every``, ``checkpoint_dir`` and ``resume`` are the
-    reference's checkpoint and resume hooks; the port's ``BPTTrainer``
-    refuses them until the checkpoint module is ported (``ROADMAP.md`` §1
-    item 4).
+    AGWU.  ``checkpoint_every`` saves ``event.params`` through
+    ``repro_torch.checkpointing.checkpoint.save`` into ``checkpoint_dir``
+    and, for resumable engines, a ``kind="state"`` train-state checkpoint
+    (engine snapshot + parameter-server log + IDPA state + RNG state).
+    ``resume=True`` restores the latest train-state checkpoint from
+    ``checkpoint_dir`` before the first round — a killed run relaunched
+    with the same hooks continues losslessly.
     """
     on_round: Optional[Callable[[RoundEvent], None]] = None
     eval_every: int = 0            # events between accuracy evals (0=default)
@@ -209,6 +217,16 @@ class OuterEngine:
     Engines never read TrainConfig substrate flags — ``resolve_engine``
     already decided everything and recorded it in the ``EnginePlan`` they
     are constructed with.
+
+    Crash-safe resumption: ``snapshot(state) -> (arrays, scalars)``
+    captures everything ``setup`` and the rounds so far produced — a tree
+    of weight and optimizer tensors plus a JSON-able scalar dict (server
+    version log, clocks, heap entries).  ``restore_snapshot(state,
+    arrays, scalars)`` rebuilds a fresh ``setup`` state in place, after
+    which ``events(rounds, start=n, state=state)`` continues from event
+    ``n`` exactly where the killed run stopped.  Engines that return
+    ``None`` from ``snapshot`` are not resumable (no state checkpoint is
+    written for them).
     """
     backend = ""
     strategy = ""
@@ -229,10 +247,32 @@ class OuterEngine:
     def run_round(self, state, r: int) -> RoundEvent:
         raise NotImplementedError
 
-    def events(self, rounds: int) -> Iterator[RoundEvent]:
-        state = self.setup(rounds)
-        for r in range(self.total_events(rounds)):
-            yield self.run_round(state, r)
+    def events(self, rounds: int, start: int = 0,
+               state: Any = None) -> Iterator[RoundEvent]:
+        state = self.setup(rounds) if state is None else state
+        for r in range(start, self.total_events(rounds)):
+            # the round body runs under the sync sanitizer
+            # (REPRO_SANITIZE=1): a hidden host sync raises; the event is
+            # yielded OUTSIDE the scope so consumers (eval / checkpoint
+            # hooks) may read freely
+            with sanitized(f"{self.backend}.run_round"):
+                ev = self.run_round(state, r)
+            yield ev
+
+    def snapshot(self, state):
+        """``(arrays, scalars)`` capturing the resumable train state, or
+        ``None`` for engines that do not support resumption."""
+        return None
+
+    def restore_snapshot(self, state, arrays, scalars) -> None:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support resumption")
+
+    def _place(self, tree):
+        """A restored tree on the trainer's device, placed explicitly (the
+        reference commits its numpy trees with ``device_put``)."""
+        device = self.t.device
+        return tree_map(lambda x: x.to(device), tree)
 
     # -- fault-schedule access ------------------------------------------
     @property
@@ -267,6 +307,15 @@ class ScanEngine(OuterEngine):
                 "fault schedules need outer_strategy='sgwu' or 'agwu'")
         return _ScanState(t.params0, t.opt.init(t.params0))
 
+    def snapshot(self, st):
+        arrays = {"params": st.params, "opt": st.opt_state}
+        return arrays, {"clock": st.clock}
+
+    def restore_snapshot(self, st, arrays, scalars):
+        st.params = self._place(arrays["params"])
+        st.opt_state = self._place(arrays["opt"])
+        st.clock = float(scalars["clock"])
+
     def run_round(self, st, r):
         t = self.t
         batches = [t.dataset.node_batch(0, t.batch_size, t.rng)
@@ -279,7 +328,7 @@ class ScanEngine(OuterEngine):
         t0 = time.perf_counter()
         st.params, st.opt_state, loss = t._node_round(
             st.params, st.opt_state, stacked, r)
-        loss = float(loss)                   # waits for the device
+        loss = float(sanctioned_sync(loss, "scan.loss"))
         st.clock += (time.perf_counter() - t0) * t.speed[0]
         return RoundEvent(round=r, node_losses=np.asarray([loss]),
                           loss=loss, virtual_clock=st.clock,
@@ -313,6 +362,21 @@ class _StackedSGWUEngine(OuterEngine):
     def setup(self, rounds):
         return _StackedState(*self._build())
 
+    def snapshot(self, st):
+        arrays = {"global": st.server.global_weights, "opt": st.stacked_opt}
+        scalars = {"clock": st.clock, "sync_wait": st.sync_wait,
+                   "server": st.server.state_dict()}
+        return arrays, scalars
+
+    def restore_snapshot(self, st, arrays, scalars):
+        st.server.global_weights = self._place(arrays["global"])
+        # load_state_dict also drops the server's stacked-replica cache:
+        # the next pull rebroadcasts the restored global weights
+        st.server.load_state_dict(scalars["server"])
+        st.stacked_opt = self._place(arrays["opt"])
+        st.clock = float(scalars["clock"])
+        st.sync_wait = float(scalars["sync_wait"])
+
     def run_round(self, st, r):
         t = self.t
         faults = self.faults
@@ -335,8 +399,9 @@ class _StackedSGWUEngine(OuterEngine):
         stacked_w, st.stacked_opt, node_losses = t._stacked_round(
             stacked_w, st.stacked_opt, batches, r)
         # the Eq. 8 measurement boundary: the host read waits for the
-        # device, so the wall covers the round's device work
-        node_losses = node_losses.cpu().numpy()
+        # device, so the wall covers the round's device work — a
+        # sanctioned sync, not a hidden one
+        node_losses = sanctioned_sync(node_losses, "round.losses")
         wall = time.perf_counter() - t0
         # a dead node's slice still computes, but its result never reaches
         # the barrier: its duration is 0 (no push to wait for), its merge
@@ -398,6 +463,21 @@ class SequentialEngine(OuterEngine):
         t = self.t
         return _SequentialState(ParameterServer(t.params0, t.m),
                                 [t.opt.init(t.params0) for _ in range(t.m)])
+
+    def snapshot(self, st):
+        arrays = {"global": st.server.global_weights,
+                  "opt": {str(j): s for j, s in enumerate(st.opt_states)}}
+        scalars = {"clock": st.clock, "sync_wait": st.sync_wait,
+                   "server": st.server.state_dict()}
+        return arrays, scalars
+
+    def restore_snapshot(self, st, arrays, scalars):
+        st.server.global_weights = self._place(arrays["global"])
+        st.server.load_state_dict(scalars["server"])
+        st.opt_states = [self._place(arrays["opt"][str(j)])
+                         for j in range(len(st.opt_states))]
+        st.clock = float(scalars["clock"])
+        st.sync_wait = float(scalars["sync_wait"])
 
     def run_round(self, st, r):
         t = self.t
@@ -562,9 +642,24 @@ class HeapEngine(OuterEngine):
             ev = self._process(st, i)
         return ev
 
-    def events(self, rounds):
-        st = self.setup(rounds)
-        i = 0
+    def events(self, rounds, start=0, state=None):
+        st = self.setup(rounds) if state is None else state
+        # a restored snapshot of a COMPLETED shorter run holds an empty
+        # heap (each node finished its configured rounds, so nothing was
+        # re-pulled); extending ``rounds`` on resume re-seeds those nodes
+        # at the current clock — the same transition as a rejoin.  Fresh
+        # and mid-run states already carry current-epoch entries, so
+        # this is a no-op for them.
+        live = {(j, e) for _, j, _, e in st.heap}
+        for j in range(self.t.m):
+            if j in st.down or st.rounds_done[j] >= st.rounds:
+                continue
+            if (j, int(st.epoch[j])) not in live:
+                st.local[j], _ = st.server.pull(j)
+                heapq.heappush(st.heap, (st.clock, j,
+                                         int(st.rounds_done[j]),
+                                         int(st.epoch[j])))
+        i = start
         budget = self.total_events(rounds)
         while i < budget:
             self._apply_faults(st, i)
@@ -572,11 +667,53 @@ class HeapEngine(OuterEngine):
                 # permanent failures: the dead nodes' rounds never run;
                 # the surviving nodes have completed all of theirs
                 return
-            ev = self._process(st, i)
+            with sanitized(f"{self.backend}.push"):
+                ev = self._process(st, i)
             if ev is None:
                 continue                    # dropped (lost) push
             yield ev
             i += 1
+
+    # ---------------- crash-safe snapshot ----------------------------
+    def snapshot(self, st):
+        t = self.t
+        arrays = {
+            "global": st.server.global_weights,
+            "local": {str(j): st.local[j] for j in range(t.m)},
+            "opt": {str(j): s for j, s in enumerate(st.opt_states)},
+            "base": {str(j): st.server._base[j] for j in range(t.m)},
+        }
+        scalars = {
+            "clock": st.clock,
+            "heap": [[vt, j, r, e] for vt, j, r, e in st.heap],
+            "rounds_done": st.rounds_done.tolist(),
+            "node_durs": st.node_durs.tolist(),
+            "down": sorted(st.down),
+            "slow": st.slow.tolist(),
+            "epoch": st.epoch.tolist(),
+            "fault_cursor": st.fault_cursor,
+            "server": st.server.state_dict(),
+        }
+        return arrays, scalars
+
+    def restore_snapshot(self, st, arrays, scalars):
+        t = self.t
+        st.server.global_weights = self._place(arrays["global"])
+        st.server.load_state_dict(scalars["server"])
+        for j in range(t.m):
+            st.local[j] = self._place(arrays["local"][str(j)])
+            st.opt_states[j] = self._place(arrays["opt"][str(j)])
+            st.server._base[j] = self._place(arrays["base"][str(j)])
+        st.heap = [(float(vt), int(j), int(r), int(e))
+                   for vt, j, r, e in scalars["heap"]]
+        heapq.heapify(st.heap)
+        st.rounds_done = np.asarray(scalars["rounds_done"], np.int64)
+        st.node_durs = np.asarray(scalars["node_durs"], np.float64)
+        st.down = set(scalars["down"])
+        st.slow = np.asarray(scalars["slow"], np.float64)
+        st.epoch = np.asarray(scalars["epoch"], np.int64)
+        st.fault_cursor = int(scalars["fault_cursor"])
+        st.clock = float(scalars["clock"])
 
 
 # ----------------------------------------------------------------------

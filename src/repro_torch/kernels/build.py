@@ -12,6 +12,8 @@ edited source or header rebuilds and an unchanged one is loaded from
 ``_build/`` (listed in ``.gitignore``).  ``build()`` starts one ``nvcc`` per missing source, all
 at once, and waits for them together.  A failed build raises
 ``KernelBuildError`` with the compiler's output; nothing falls back.
+``compiles()`` says how many ``nvcc`` runs this process started (the
+sanitizer's compile budgets read it).
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "KernelBuildError", "build", "load", "build_log"]
+__all__ = ["SOURCES", "KernelBuildError", "build", "load", "build_log",
+           "compiles"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -39,6 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOGS: dict[str, str] = {}
+_COMPILES = [0]          # nvcc runs started by this process
 
 
 class KernelBuildError(RuntimeError):
@@ -83,6 +87,7 @@ def build(names=None) -> dict[str, Path]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)
+        _COMPILES[0] += 1
     failed = []
     for name, (proc, tmp, target) in procs.items():
         out, _ = proc.communicate()
@@ -111,3 +116,8 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _LIBS[name] = lib
     return lib
+
+
+def compiles() -> int:
+    """The ``nvcc`` runs this process started."""
+    return _COMPILES[0]

@@ -17,8 +17,11 @@ reference.  ``--engine`` selects the outer-layer engine
 by name (``repro_torch.core.engine.ENGINES``); ``--device-outer`` and
 ``--mesh`` resolve as ``engine.resolve_engine`` says (one card: the
 fused node loop, with the fallback recorded).  ``--ckpt-dir`` saves the
-final weights with ``checkpointing.checkpoint.save``; ``--ckpt-every`` and
-``--resume`` need the engines' snapshots, which are not ported yet.
+final weights with ``checkpointing.checkpoint.save`` at step
+``TrainReport.last_event``; ``--ckpt-every N`` also saves a weight and a
+resumable train-state checkpoint every N merge events, and ``--resume``
+restores the latest train-state checkpoint before the first round, as
+the reference's flags do.
 
 ``run(args, cfg)`` is the CLI's body for any ``ModelConfig`` (a
 depth-cut full-width config, say); ``main`` parses the flags and picks
@@ -27,6 +30,7 @@ the reduced or full config of ``--arch``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -35,7 +39,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.checkpointing import checkpoint
-from repro_torch.core.bpt_trainer import BPTTrainer
+from repro_torch.core.bpt_trainer import BPTTrainer, TrainHooks
 from repro_torch.core.device import resolve_device
 from repro_torch.core.engine import ENGINES, engine_config
 from repro_torch.core.faults import FaultSchedule
@@ -47,10 +51,6 @@ from repro_torch.models import lm
 from repro_torch.models.frontends import random_frontend_embeds
 
 __all__ = ["build_lm_dataset", "make_parser", "run", "main"]
-
-_RESUME = ("--ckpt-every and --resume need the engines' snapshots, which "
-           "are not ported yet: ROADMAP.md §1 item 4 (outer layer, "
-           "checkpoints and tooling)")
 
 
 def build_lm_dataset(cfg, seq_len: int, num_rows: int, nodes: int,
@@ -95,9 +95,13 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default="",
                     help="save the final weights here")
     ap.add_argument("--ckpt-every", type=int, default=0,
-                    help="not ported yet (engine snapshots)")
+                    help="save a weight checkpoint AND a resumable "
+                    "train-state checkpoint into --ckpt-dir every N merge "
+                    "events (0 = only the final weights)")
     ap.add_argument("--resume", action="store_true",
-                    help="not ported yet (engine snapshots)")
+                    help="restore the latest train-state checkpoint from "
+                    "--ckpt-dir before the first round (a fresh dir just "
+                    "starts from scratch — safe to always pass)")
     ap.add_argument("--faults", default="",
                     help="fault schedule: comma-separated "
                     "kind:node@event[xfactor] atoms, e.g. "
@@ -110,9 +114,16 @@ def run(args, cfg, params=None, hooks=None):
     """Train ``cfg`` as the flags in ``args`` say; returns the
     ``TrainReport``.  ``params`` (on ``args.device``) replaces the
     seeded init, e.g. to start from the reference's weights; ``hooks``
-    (a ``TrainHooks``) observes each merge event through ``on_round``."""
-    if args.ckpt_every or args.resume:
-        raise NotImplementedError(_RESUME)
+    (a ``TrainHooks``) observes each merge event through ``on_round``;
+    ``--ckpt-every`` / ``--resume`` set its checkpoint fields."""
+    if args.ckpt_every:
+        if not args.ckpt_dir:
+            raise SystemExit("--ckpt-every needs --ckpt-dir")
+        hooks = dataclasses.replace(
+            hooks or TrainHooks(), checkpoint_every=args.ckpt_every,
+            checkpoint_dir=args.ckpt_dir, resume=args.resume)
+    elif args.resume:
+        raise SystemExit("--resume needs --ckpt-every and --ckpt-dir")
     device = resolve_device(args.device)
     if cfg.arch_type == "encdec":
         raise SystemExit("use examples/train_bpt_cnn.py or a decoder arch "
@@ -168,13 +179,17 @@ def run(args, cfg, params=None, hooks=None):
         print(f"[train] engine fallback: {report.fallback}")
     print(f"[train] done in {wall:.1f}s wall; report:")
     print(json.dumps(report.summary(), indent=2, default=str))
-    if not report.losses:   # a fault schedule that stops every node
-        print("[train] no merge event ran")
+    if not report.losses:
+        # --resume from a state checkpoint of an already-finished run:
+        # nothing left to train, no new events
+        print("[train] resumed past the final round; no new rounds ran")
         return report
     first, last = report.losses[0], report.losses[-1]
     print(f"[train] loss {first:.4f} -> {last:.4f} "
           f"({'improved' if last < first else 'NO IMPROVEMENT'})")
     if args.ckpt_dir:
+        # last_event, not steps: on a resumed run, steps counts only the
+        # events this process produced and would mislabel the checkpoint
         path = checkpoint.save(args.ckpt_dir, report.final_params,
                                step=report.last_event,
                                metadata={"arch": cfg.name})

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import lm
+from repro_torch.sanitize import sanctioned_scope
 
 from .scheduler import Request, SlotAllocator
 
@@ -103,15 +104,18 @@ def _first_tensor(out):
 
 class MeasuredTimer:
     """Advance the clock by measured wall time; the card is synchronised
-    before the clock is read, so the time covers the device work."""
+    before the clock is read, so the time covers the device work.  The
+    sync is the measurement, so it is a sanctioned scope of the
+    sanitizer (label ``measured-timer.<kind>``)."""
     source = "measured"
 
     def call(self, kind: str, units: float, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
-        t = _first_tensor(out)
-        if t is not None and t.device.type == "cuda":
-            torch.cuda.synchronize(t.device)
+        with sanctioned_scope(f"measured-timer.{kind}"):
+            t = _first_tensor(out)
+            if t is not None and t.device.type == "cuda":
+                torch.cuda.synchronize(t.device)
         return out, (time.perf_counter() - t0) * 1e3
 
 

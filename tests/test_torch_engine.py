@@ -2,7 +2,9 @@
 matrix of ``tests/test_engine.py`` (backend, strategy, requested,
 fallback text, error text) on one device, ``engine_config``, the engine
 registry, the event counts and default eval cadences of the streaming
-API, and the ``NotImplementedError`` of what is not ported yet."""
+API, and the ``NotImplementedError`` of what is not ported yet (the
+multi-device engines and the planner).  The checkpoint and resume hooks
+are held in ``tests/test_torch_chaos.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -194,15 +196,6 @@ def test_summary_matches_the_reference_keys():
     jrep = jtr.train(1)
     assert set(rep.summary()) - {"fallback"} == set(jrep.summary())
     assert rep.summary()["fallback"] == rep.fallback
-
-
-@pytest.mark.parametrize("hooks", [
-    TrainHooks(checkpoint_every=2), TrainHooks(checkpoint_dir="ckpt"),
-    TrainHooks(resume=True)], ids=["every", "dir", "resume"])
-def test_checkpoint_and_resume_hooks_are_not_ported(hooks):
-    tr = _trainer()
-    with pytest.raises(NotImplementedError, match="§1 item 4"):
-        next(iter(tr.run(1, hooks)))
 
 
 @pytest.mark.parametrize("kw", [{"model_cfg": object()},

@@ -16,6 +16,10 @@ PORT = REPO / "src" / "repro_torch"
 SCANNED = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
                                         REPO / "examples" /
                                         "quickstart_torch.py",
+                                        REPO / "examples" /
+                                        "train_bpt_cnn_torch.py",
+                                        REPO / "tests" /
+                                        "torch_chaos_worker.py",
                                         REPO / "tools" / "train_probe.py"]
 SLICE_MODULES = (
     "repro_torch", "repro_torch.core.types", "repro_torch.core.device",
@@ -47,6 +51,8 @@ SLICE_MODULES = (
     "repro_torch.configs.seamless_m4t_large_v2",
     "repro_torch.configs.stablelm_12b", "repro_torch.models.frontends",
     "repro_torch.models.encdec", "repro_torch.launch.steps",
+    "repro_torch.sanitize", "repro_torch.sanitize.harness",
+    "repro_torch.core.cluster_sim",
 )
 BANNED = ("jax", "jaxlib", "repro")
 

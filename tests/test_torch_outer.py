@@ -24,6 +24,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 import repro.core.engine as jengine  # noqa: E402
 from repro.core.bpt_trainer import BPTTrainer as JTrainer  # noqa: E402
 from repro.core.faults import FaultSchedule as JFaults  # noqa: E402

@@ -24,15 +24,20 @@ SGWU node steps, at most 6.0e-04 off, while every step's gradients
 agreed within 3.3e-07; one AGWU element whose gradient was at rounding
 level in one step, 2.97e-07 of the table's largest, took AdamW's step of
 the other sign).  The CLI's ``--ckpt-dir`` checkpoint restores in both
-packages.
+packages, and ``--ckpt-every`` / ``--resume`` run the reference's flows:
+a finished command re-run trains nothing, a larger ``--rounds``
+continues.
 """
 import dataclasses
+import os
 
 import jax
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import repro.core.engine as jengine  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
@@ -189,7 +194,68 @@ def test_cli_checkpoint_restores_in_both_packages(tmp_path, capsys):
         "arch": "yi-6b"}
 
 
-@pytest.mark.parametrize("flag", [["--ckpt-every", "2"], ["--resume"]])
-def test_snapshot_flags_are_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="§1 item 4"):
-        train.main(["--device", "cpu", "--ckpt-dir", "x"] + flag)
+@pytest.mark.parametrize("flags", [["--ckpt-every", "2"],
+                                   ["--resume", "--ckpt-dir", "x"]],
+                         ids=["every-without-dir", "resume-without-every"])
+def test_snapshot_flags_need_their_partners(flags):
+    """``--ckpt-every`` needs ``--ckpt-dir`` and ``--resume`` needs both,
+    with the reference's messages."""
+    with pytest.raises(SystemExit) as want:
+        jtrain.main(["--rounds", "1"] + flags)
+    with pytest.raises(SystemExit) as got:
+        train.main(["--device", "cpu", "--rounds", "1"] + flags)
+    assert str(got.value) == str(want.value) != ""
+
+
+def _resume_flow(run_cli, ckdir, capsys):
+    """The CLI with ``--ckpt-every 2 --resume``: a run of 2 rounds, the same
+    command again, then 3 rounds.  Returns the three reports, what the
+    second one printed and the directory's files after each run."""
+    argv = ["--nodes", "2", "--rows", "32", "--seq-len", "16",
+            "--batch-size", "4", "--ckpt-dir", str(ckdir), "--ckpt-every",
+            "2", "--resume"]
+    reps, files, out = [], [], ""
+    for rounds in (2, 2, 3):
+        capsys.readouterr()
+        reps.append(run_cli(argv + ["--rounds", str(rounds)]))
+        if len(reps) == 2:
+            out = capsys.readouterr().out
+        files.append(sorted(os.listdir(ckdir)))
+    return reps, out, files
+
+
+def test_cli_resume_flows_match_the_reference(pinned, tmp_path, capsys):
+    """Re-running a finished command prints the reference's line and
+    writes no stray checkpoint; a larger ``--rounds`` continues (the AGWU
+    heap re-seeded); the final ``ckpt_*`` step is ``last_event`` — in the
+    port as in the reference, event for event."""
+    arch = "yi-6b"
+    cfg = _f32(configs.get_reduced)(arch)
+    jparams = jlm.init_params(jax.random.PRNGKey(0),
+                              jconfigs.get_reduced(arch))
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                               cfg, device="cpu")
+    jreps, jout, jfiles = _resume_flow(jtrain.main, tmp_path / "jax",
+                                       capsys)
+    reps, out, files = _resume_flow(
+        lambda argv: train.run(train.make_parser().parse_args(
+            argv + ["--device", "cpu"]), cfg, params),
+        tmp_path / "port", capsys)
+    assert "resumed past the final round; no new rounds ran" in out
+    assert "resumed past the final round; no new rounds ran" in jout
+    assert files == jfiles
+    assert files[0] == files[1]             # the re-run wrote nothing
+    assert reps[1].losses == [] and reps[1].last_event == 0
+    assert [r.last_event for r in reps] == [r.last_event for r in jreps] \
+        == [4, 0, 6]
+    assert reps[2].steps == 2               # events 4 and 5, re-seeded
+    assert ckpt.latest_step(str(tmp_path / "port")) == reps[2].last_event
+    assert ckpt.latest_step(str(tmp_path / "port"), kind="state") == 6
+    for a, b in zip(reps, jreps):
+        assert a.comm_bytes == b.comm_bytes
+        assert a.virtual_makespan == b.virtual_makespan
+        np.testing.assert_allclose(a.losses, b.losses, rtol=1e-4, atol=1e-6)
+    got, _ = ckpt.restore(str(tmp_path / "port"), params)
+    for a, b in zip(tree_leaves(got), tree_leaves(reps[2].final_params),
+                    strict=True):
+        assert torch.equal(a, b)
