@@ -274,6 +274,29 @@ from the root of a checkout.  Phases, each of which raises on failure
    local step's device time; (f) ``ClusterSim`` (4 nodes, 2 iterations,
    AGWU and SGWU), each work unit one case7 SGD step on the card, its
    metrics equal to the CPU run's and its weights within 1e-5;
+4q. (run after 4p) the multi-device outer layer, one controller over a
+   pool of four ``cuda:0`` (``BPTTrainer(devices=)``): first K1-K8 at the
+   batch family's shard shapes (case7 at B = 16) and K1-K3 at the channel
+   family's column shards (M = 32, each fc width halved) against their
+   plain versions, with their times summed over a node step; then (a)
+   Table-2 case7, nothing cut, one IDPA batch, B = 32 a node, 2 local
+   steps, 2 SGWU rounds: ``device`` on ``nodes4`` and on
+   ``nodes2xmodel2`` under the batch and the channel family, each held to
+   ``vmap`` on the card within rtol 1e-5 / atol 1e-6 (losses, merged
+   weights) with exact K1-K8 launches, scheduled == executed, then each
+   again with ``REPRO_SANITIZE=1`` (identical bits, the named sync
+   points only, no kernel build), and the family the H100 ``HW`` default
+   picks for case7 with its costs; (b) ``heap-device`` (8 pushes,
+   durations pinned) held to ``heap``, and ``device`` and ``heap-device``
+   broken and resumed bit for bit; (c) the quickstart on a ``[cuda:0,
+   cpu]`` pool (node 1 takes the plain versions) held to the all-card
+   run within 4d(a)'s tolerances, and armed (the ``node-move`` syncs
+   logged); (d) Phi-3-mini at full width, 2 layers, through
+   ``launch/train.py`` on ``nodes2xmodel2`` (the generic batch plan): the
+   split gradient against the whole batch's (3c's bf16 gates), then 2
+   rounds held to ``vmap`` (the bf16 loss gate; params within 2 lr a
+   step), exact K1-K3 and K9 launches; then the wall and device ms of a
+   case7 round of ``device`` and ``vmap``, in turns;
 6. a JSON line with every ported kernel (device-clock times as the extra
    fields ``device_ms`` and ``library_device_ms``, "not measured" being
    null; K1 also its prefill sums as ``prefill_*`` and ``gemma_prefill_*``,
@@ -302,8 +325,10 @@ from the root of a checkout.  Phases, each of which raises on failure
    ``seamless_train_bf16_*`` / ``seamless_bf16_*``, K9's backward there
    as ``internvl_bwd_*`` and ``seamless_bwd_*``; K1-K8 phase 4p(a)'s
    launches as ``ckpt_launches`` and 4p(e)'s as ``example_launches``, K1,
-   K2, K3 and K9 4p(c)'s as ``ckpt_cli_launches``), then the card
-   again, then the result line ``{"ok": true, "device": {...}}``.
+   K2, K3 and K9 4p(c)'s as ``ckpt_cli_launches``; K1-K8 phase 4q's
+   batch-family shards as ``multi_batch_*`` and K1-K3 its channel-family
+   column shards as ``multi_channel_*``, launches from 4q(a)), then the
+   card again, then the result line ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports no JAX and nothing of the JAX package ``repro``.
 
@@ -346,7 +371,11 @@ for phases 3f, 4l, 4m, 4n and 4o, and
 
     python3 chip_smoke.py --ckpt
 
-for phase 4p.
+for phase 4p, and
+
+    python3 chip_smoke.py --multi
+
+for phase 4q.
 """
 from __future__ import annotations
 
@@ -727,12 +756,12 @@ def conv_flops(B, H, W, Cin, Cout, k, padding, ref):
     return 2.0 * B * th * tw * Cin * Cout
 
 
-def case7_step_shapes(cnn):
-    """The shapes one case7 training step at B = 64 hands each kernel, as
-    (shape, launches per step)."""
+def case7_step_shapes(cnn, B=TRAIN_BATCH):
+    """The shapes one case7 training step at B images (default 64) hands
+    each kernel, as (shape, launches per step)."""
     cfg = cnn.make_case("case7")
     shapes, final = cnn._conv_shapes(cfg)
-    B, k = TRAIN_BATCH, cfg.filter_size
+    k = cfg.filter_size
     dims = ([final * final * cfg.filters] + [cfg.fc_neurons]
             * (cfg.fc_layers - 1) + [cfg.num_classes])
     fc = {}
@@ -955,6 +984,33 @@ def _compare(torch, key, spec, args):
 RERUN = ("K1", "K2", "K3", "K4", "K5", "K6")   # checked bit for bit
 
 
+def _time_shape(torch, spec, gen, s, n, args, row, head):
+    """Kernel (events and device clock), plain, library and bound times of
+    one shape, added n times into ``row``'s sums and logged after
+    ``head``; returns the kernel's device ms by kernel name."""
+    nbytes = spec["nbytes"](s)
+    copies = max(2, min(64, math.ceil(256e6 / nbytes)))
+    sets = [args] + [spec["make"](gen, s) for _ in range(copies - 1)]
+    k_ms = time_ms(torch, spec["kern"], sets)
+    k_dev, seen = device_ms(torch, spec["kern"], sets)
+    p_ms = time_ms(torch, spec["plain"], sets, iters=20)
+    lib_args = spec.get("lib_args", lambda *a: a)
+    lib_sets = [lib_args(*a) for a in sets]
+    l_ms = time_ms(torch, spec["lib"], lib_sets)
+    l_dev, _ = device_ms(torch, spec["lib"], lib_sets)
+    b_ms, by = roof_ms(nbytes, spec["flops"](s))
+    log(f"{head}{k_ms:<10.5f} {fmt_ms(k_dev):<12} {p_ms:<10.5f} "
+        f"{l_ms:<10.5f} {fmt_ms(l_dev):<12} {b_ms:.5f}")
+    row["ms"] += n * k_ms
+    row["device_ms"] = add_ms(row["device_ms"], n, k_dev)
+    row["library_device_ms"] = add_ms(row["library_device_ms"], n, l_dev)
+    row["plain_ms"] += n * p_ms
+    row["library_ms"] += n * l_ms
+    row["bound_ms"] += n * b_ms
+    row["bound_by"][by] = row["bound_by"].get(by, 0.0) + n * b_ms
+    return seen
+
+
 def phase_train_kernels(torch, ref, mods, cnn, only=None):
     """K2-K8 (and K1 at the FC shapes) against their plain versions on the
     card, at every case7 B = 64 shape and the ragged, wide and tied cases;
@@ -1001,21 +1057,9 @@ def phase_train_kernels(torch, ref, mods, cnn, only=None):
                 log(f"[train-k] {key:<4} {str(s):<34} {'-':>2} {S:>4}  "
                     f"{err:<11.4g} {tol:<10.4g}")
                 continue
-            nbytes = spec["nbytes"](s)
-            copies = max(2, min(64, math.ceil(256e6 / nbytes)))
-            sets = [args] + [spec["make"](gen, s) for _ in range(copies - 1)]
-            k_ms = time_ms(torch, spec["kern"], sets)
-            k_dev, seen = device_ms(torch, spec["kern"], sets)
-            p_ms = time_ms(torch, spec["plain"], sets, iters=20)
-            lib_args = spec.get("lib_args", lambda *a: a)
-            lib_sets = [lib_args(*a) for a in sets]
-            l_ms = time_ms(torch, spec["lib"], lib_sets)
-            l_dev, _ = device_ms(torch, spec["lib"], lib_sets)
-            b_ms, by = roof_ms(nbytes, spec["flops"](s))
-            log(f"[train-k] {key:<4} {str(s):<34} {n:>2} {S:>4}  "
-                f"{err:<11.4g} {tol:<10.4g} {k_ms:<10.5f} "
-                f"{fmt_ms(k_dev):<12} {p_ms:<10.5f} {l_ms:<10.5f} "
-                f"{fmt_ms(l_dev):<12} {b_ms:.5f}")
+            seen = _time_shape(torch, spec, gen, s, n, args, row,
+                               f"[train-k] {key:<4} {str(s):<34} {n:>2} "
+                               f"{S:>4}  {err:<11.4g} {tol:<10.4g} ")
             if key == "K6":     # each pass's device time
                 passes = {re.search(r"conv_dw_\w+", name).group(0): ms
                           for name, ms in seen.items()}
@@ -1025,15 +1069,6 @@ def phase_train_kernels(torch, ref, mods, cnn, only=None):
                 log(f"[train-k] K6   {str(s):<34} device ms by pass: "
                     + ", ".join(f"{k} {v:.5f}"
                                 for k, v in sorted(passes.items())))
-            row["ms"] += n * k_ms
-            row["device_ms"] = add_ms(row["device_ms"], n, k_dev)
-            row["library_device_ms"] = add_ms(row["library_device_ms"], n,
-                                              l_dev)
-            row["plain_ms"] += n * p_ms
-            row["library_ms"] += n * l_ms
-            row["bound_ms"] += n * b_ms
-            row["bound_by"][by] = row["bound_by"].get(by, 0.0) + n * b_ms
-            del sets, lib_sets
         if key in RERUN:
             # fixed summation orders: identical bits on a rerun, at every
             # case7 shape and the split, long and wide cases
@@ -2923,14 +2958,15 @@ class _PinnedClock:
             self.real
 
 
-def _drive(port, argv, cfg, params, on_round=None):
-    """``launch/train.py``'s ``run`` quietly (its report is checked here)."""
+def _drive(port, argv, cfg, params, on_round=None, devices=None):
+    """``launch/train.py``'s ``run`` quietly (its report is checked here),
+    over the device pool ``devices`` where one is given."""
     import contextlib
     import io
     args = port.train.make_parser().parse_args(argv)
     hooks = port.engine.TrainHooks(on_round=on_round)
     with contextlib.redirect_stdout(io.StringIO()):
-        return port.train.run(args, cfg, params, hooks)
+        return port.train.run(args, cfg, params, hooks, devices=devices)
 
 
 def _named_leaves(tree, prefix=()):
@@ -4487,11 +4523,12 @@ def _timed(fn, store):
     return wrapped
 
 
-def _crash_resume(torch, port, make, name, ckdir):
-    """The stream broken after CKPT_RUNS' N events, then a fresh trainer
-    resumed from the latest state checkpoint (and checkpointing no more):
-    (resumed events, save seconds, restore seconds, resumed-from step)."""
-    rounds, every, stop = CKPT_RUNS[name]
+def _crash_resume(torch, port, make, runs, ckdir):
+    """The stream of ``runs`` = (rounds, checkpoint every N events, break
+    after N events) broken, then a fresh trainer resumed from the latest
+    state checkpoint (and checkpointing no more): (resumed events, save
+    seconds, restore seconds, resumed-from step)."""
+    rounds, every, stop = runs
     saves, restores = [], []
     crashed = make()
     crashed._save_run_state = _timed(crashed._save_run_state, saves)
@@ -4566,8 +4603,8 @@ def phase_ckpt(torch, port, mods, card):
                                      name)
             ckdir = os.path.join(root, f"a-{name}")
             t0 = time.perf_counter()
-            evs, saves, restores, start = _crash_resume(torch, port, make,
-                                                        name, ckdir)
+            evs, saves, restores, start = _crash_resume(
+                torch, port, make, CKPT_RUNS[name], ckdir)
             losses, final, n = ref[name]
             same = _bits(torch, evs[-1].params, final, tree)
             trail = [e.loss for e in evs] == losses[start:]
@@ -4818,6 +4855,460 @@ def phase_ckpt(torch, port, mods, card):
     return out
 
 
+# ----------------------------------------------------------------------
+# The multi-device outer layer (phase 4q): the mesh engines over a pool
+# of one card repeated, a mixed card + host pool, and an LM on a 2-D mesh
+# ----------------------------------------------------------------------
+MULTI_NODES = 4                    # 4q(a) nodes4, 4q(b)
+MULTI_HYBRID = "nodes2xmodel2"     # 4q(a)'s 2-D mesh and 4q(d)'s
+MULTI_B = 32                       # a node's stripe; the batch family: 2 x 16
+MULTI_LOCAL = 2
+MULTI_ROUNDS = 2
+MULTI_TOL = (1e-5, 1e-6)           # rtol, atol (tests/test_device_outer.py:61)
+MIXED_TOL = ((1e-4, 1e-6), (1e-3, 1e-5))   # 4d(a)'s card vs CPU: losses,
+#                                            merged params (rtol, atol)
+MULTI_DURS = (1.0, 1.25, 1.5, 1.75)        # 4q(b): pinned local rounds (s)
+# 4q(b), on 2 nodes: engine -> (rounds, checkpoint every N events, break
+# after N events)
+MULTI_RUNS = {"device": (4, 2, 3), "heap-device": (3, 2, 5)}
+MULTI_LABELS = {"upload", "round.losses", "node-move"}   # 4q's sync_log
+
+
+def _multi_trainer(port, cfg, params, data, name, m, devices=None, mesh="",
+                   family="", model_cfg=None):
+    """A CNN on m nodes, one IDPA batch (the allocation is fixed, so the
+    measured clock moves no weight), AdamW, B = MULTI_B, MULTI_LOCAL local
+    steps, over the pool ``devices``; the heap engines' local rounds
+    pinned at MULTI_DURS, so their event order is fixed."""
+    xs, ys = data
+    ds = port.pipeline.IDPADataset({"images": xs, "labels": ys},
+                                   num_nodes=m, batches=1)
+    kw = port.engine.engine_config(name, outer_nodes=m,
+                                   local_steps=MULTI_LOCAL, warmup_steps=5,
+                                   total_steps=100, seed=0, mesh_name=mesh)
+    tr = port.trainer.BPTTrainer(
+        lambda p, b: (port.cnn.cnn_loss(p, b, cfg), {}), params, ds,
+        _train_cfg(port.types, **kw), batch_size=MULTI_B,
+        model_cfg=model_cfg, plan_family=family, devices=devices)
+    if name in ("heap", "heap-device"):
+        orig = tr._local_round
+
+        def pin(p, opt, node, step):
+            p, opt, loss, _ = orig(p, opt, node, step)
+            return p, opt, loss, MULTI_DURS[node]
+
+        tr._local_round = pin
+    return tr
+
+
+def hybrid_step_launches(step, plan) -> dict:
+    """K1-K8 launches of one node step under a 2-D plan: the batch family
+    runs the step on each of its K shards; the channel family launches
+    K1-K3 once a shard of each column-parallel fc."""
+    K = plan.model
+    if plan.family == "batch":
+        return {k: K * n for k, n in step.items()}
+    fc = sum(K if lp.parallel_dim == "channel" else 1
+             for lp in plan.layers if lp.kind == "fc")
+    return {**step, "K1": fc, "K2": fc, "K3": fc}
+
+
+def _held(np, tree, tag, got, want, tol_losses, tol_params):
+    """Every event's node losses and the final merged weights of ``got``
+    within tolerance of ``want``'s; returns the two worst differences."""
+    (lr, la), (pr, pa) = tol_losses, tol_params
+    ld = pd = 0.0
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_allclose(a.node_losses, b.node_losses, rtol=lr,
+                                   atol=la, err_msg=tag)
+        ld = max(ld, float(np.abs(a.node_losses - b.node_losses).max()))
+    for x, y in zip(tree.tree_leaves(got[-1].params),
+                    tree.tree_leaves(want[-1].params), strict=True):
+        x, y = (t.detach().float().cpu().numpy() for t in (x, y))
+        np.testing.assert_allclose(x, y, rtol=pr, atol=pa, err_msg=tag)
+        pd = max(pd, float(np.abs(x - y).max()))
+    return ld, pd
+
+
+def phase_multi(torch, port, mods, card):
+    """Phase 4q: (a) case7 on ``nodes4`` and on ``nodes2xmodel2`` under
+    the batch and channel families, over four ``cuda:0``, held to ``vmap``
+    with exact K1-K8 launches, then armed with the sanitizer; (b) AGWU
+    ``heap-device`` held to ``heap``, and resume bit for bit for
+    ``device`` and ``heap-device``; (c) a mixed pool [cuda:0, cpu] held to
+    the all-card run; (d) Phi-3-mini at full width on ``nodes2xmodel2``
+    (the generic batch plan) held to ``vmap``; then the wall and device
+    ms a round of ``device`` against ``vmap``.  Returns the K1-K8
+    launches of (a)'s runs by family."""
+    import functools
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch import sanitize
+    from repro_torch.core import planner
+    cnn, tree, weights = port.cnn, port.tree, port.weights
+    cfg = cnn.make_case("case7")
+    params = cnn.init_cnn(cfg, torch.Generator("cuda").manual_seed(0),
+                          device="cuda")
+    c_w = sum(p.numel() * p.element_size() for p in tree.tree_leaves(params))
+    data = port.synthetic.image_dataset(MULTI_B * MULTI_NODES * 2,
+                                        size=cfg.image_size, seed=0)
+    card0 = torch.device("cuda", 0)
+    pool = [card0] * MULTI_NODES
+    step, _ = step_launches(cnn, cfg)
+    out = {}
+
+    def run(name, m, **kw):
+        tr = _multi_trainer(port, cfg, params, data, name, m, **kw)
+        _zero_counts(mods)
+        t0 = time.perf_counter()
+        evs = list(tr.run(MULTI_ROUNDS))
+        torch.cuda.synchronize()
+        return tr, evs, _counts(mods), time.perf_counter() - t0
+
+    def steps_of(m, per):
+        return {k: m * MULTI_LOCAL * MULTI_ROUNDS * n for k, n in per.items()}
+
+    # (a) the references, then nodes4 and the 2-D families
+    t_a = time.perf_counter()
+    ref = {m: run("vmap", m)[1] for m in (MULTI_NODES, 2)}
+    log(f"[multi] case7 full width ({c_w // 4} params f32, c_w {c_w} B), "
+        f"one IDPA batch, {MULTI_LOCAL} local steps of B={MULTI_B}, AdamW,"
+        f" {MULTI_ROUNDS} SGWU rounds; pool {MULTI_NODES} x cuda:0; held "
+        f"to vmap on the same card within rtol {MULTI_TOL[0]:g} / atol "
+        f"{MULTI_TOL[1]:g} (losses, merged weights); card: {card}")
+    cases = [("nodes4", MULTI_NODES, dict(mesh="nodes4"), step)]
+    for family in ("batch", "channel"):
+        plan = planner.plan_for_axes(cfg, nodes=2, model=2,
+                                     batch_size=MULTI_B, family=family)
+        cases.append((family, 2, dict(mesh=MULTI_HYBRID, family=family,
+                                      model_cfg=cfg),
+                      hybrid_step_launches(step, plan)))
+    armed = {}
+    for tag, m, kw, per in cases:
+        tr, evs, counts, wall = run("device", m, devices=pool, **kw)
+        plan = tr.last_plan
+        if plan.backend != "device" or plan.fallback:
+            raise AssertionError(f"[multi] {tag}: backend {plan.backend} "
+                                 f"({plan.fallback!r})")
+        want = steps_of(m, per)
+        if counts != want:
+            raise AssertionError(f"[multi] {tag}: launches {counts} != "
+                                 f"{want}")
+        eng = tr.last_engine
+        sched = ""
+        if eng.netplan is not None:
+            planned = [lp for lp in eng.netplan.layers if lp.kind != "pool"]
+            if eng.netplan.family != kw["family"] or \
+                    eng.executed != planned:
+                raise AssertionError(f"[multi] {tag}: scheduled "
+                                     f"{[lp.name for lp in planned]} != "
+                                     f"executed {eng.executed}")
+            sched = (f"; scheduled == executed ({len(planned)} conv/fc "
+                     f"LayerPlans: " + ", ".join(
+                         f"{lp.name} {lp.parallel_dim}" for lp in planned
+                         if lp.kind == "fc") + ")")
+        ld, pd = _held(np, tree, f"[multi] {tag}", evs, ref[m], MULTI_TOL,
+                       MULTI_TOL)
+        out[tag] = counts
+        armed[tag] = (m, kw, evs)
+        log(f"[multi] {tag} ({m} nodes, mesh {kw['mesh']}): backend device,"
+            f" {len(evs)} rounds in {wall:.3f} s, losses "
+            f"{[e.loss for e in evs]}, max diff to vmap: losses {ld:.3g}, "
+            f"merged weights {pd:.3g}; K1-K8 launches {counts} (exact, "
+            f"{m} nodes x {MULTI_LOCAL} x {MULTI_ROUNDS} steps x {per})"
+            + sched)
+    for K in (2, 4):
+        pick = planner.plan_for_axes(cfg, nodes=2, model=K,
+                                     batch_size=MULTI_B)
+        costs = {f: planner.plan_for_axes(cfg, nodes=2, model=K,
+                                          batch_size=MULTI_B,
+                                          family=f).total_cost_s * 1e3
+                 for f in ("batch", "channel")}
+        log(f"[multi] the H100 HW default ({planner.HW()}) picks "
+            f"{pick.family} for case7 at (nodes 2, model {K}), B={MULTI_B}: "
+            f"cost {pick.total_cost_s * 1e3:.5f} ms; forced batch "
+            f"{costs['batch']:.5f} ms, forced channel "
+            f"{costs['channel']:.5f} ms; fc dims "
+            f"{[lp.parallel_dim for lp in pick.layers if lp.kind == 'fc']}")
+    # the sanitizer armed: the same runs, the same bits, only the sync
+    # points the code names
+    os.environ["REPRO_SANITIZE"] = "1"
+    try:
+        for tag, (m, kw, evs) in armed.items():
+            sanitize.clear_sync_log()
+            with sanitize.compile_budget(0, label=f"4q(a) {tag}"):
+                _, again, _, _ = run("device", m, devices=pool, **kw)
+            same = _bits(torch, again[-1].params, evs[-1].params, tree) and \
+                [e.loss for e in again] == [e.loss for e in evs]
+            labels = sanitize.sync_log()
+            want = (["upload"] * m + ["round.losses"]) * MULTI_ROUNDS
+            if not same or labels != want:
+                raise AssertionError(f"[multi-sanitize] {tag}: bits equal "
+                                     f"{same}, sync log {labels}")
+        log(f"[multi-sanitize] {list(armed)} with REPRO_SANITIZE=1: "
+            f"identical bits, sync_log m x upload + round.losses a round, "
+            f"compile_budget(0) held; 4q(a) {time.perf_counter() - t_a:.1f}"
+            f" s")
+    finally:
+        os.environ.pop("REPRO_SANITIZE", None)
+        sanitize.clear_sync_log()
+
+    # (b) AGWU with node-pinned weights, and resume
+    t_b = time.perf_counter()
+    _, href, _, _ = run("heap", MULTI_NODES)
+    tr, hevs, counts, wall = run("heap-device", MULTI_NODES, devices=pool)
+    want = steps_of(MULTI_NODES, step)
+    keys = [[(e.node, e.virtual_clock, e.comm_bytes) for e in evs]
+            for evs in (hevs, href)]
+    if tr.last_plan.backend != "heap-device" or keys[0] != keys[1] \
+            or counts != want:
+        raise AssertionError(f"[multi] heap-device: backend "
+                             f"{tr.last_plan.backend}, events {keys}, "
+                             f"launches {counts}")
+    ld, pd = _held(np, tree, "[multi] heap-device", hevs, href, MULTI_TOL,
+                   MULTI_TOL)
+    out["heap-device"] = counts
+    log(f"[multi] heap-device ({MULTI_NODES} nodes pinned to cuda:0, "
+        f"durations pinned at {MULTI_DURS} s): {len(hevs)} pushes in "
+        f"{wall:.3f} s, node order {[e.node for e in hevs]}, clock and comm"
+        f" equal to heap's; max diff to heap: losses {ld:.3g}, merged "
+        f"weights {pd:.3g}; K1-K8 launches {counts} (exact)")
+    root = tempfile.mkdtemp(prefix="chip_smoke_4q_")
+    try:
+        for name, runs in MULTI_RUNS.items():
+            make = functools.partial(
+                _multi_trainer, port, cfg, params, data, name, 2,
+                devices=pool[:2], mesh="nodes2" if name == "device" else "")
+            full = list(make().run(runs[0]))
+            ckdir = os.path.join(root, name)
+            evs, saves, restores, start = _crash_resume(torch, port, make,
+                                                        runs, ckdir)
+            same = _bits(torch, evs[-1].params, full[-1].params, tree)
+            trail = [e.loss for e in evs] == [e.loss for e in full[start:]]
+            if not (same and trail and len(evs) == len(full) - start):
+                raise AssertionError(
+                    f"[multi-resume] {name}: weights equal {same}, loss "
+                    f"trail equal {trail}, {len(evs)} events after {start}")
+            log(f"[multi-resume] {name}: broke after {runs[2]} of "
+                f"{len(full)} events (a state checkpoint every {runs[1]}), "
+                f"a fresh trainer resumed from event {start}: final merged "
+                f"weights and the loss trail bit-identical; saves "
+                f"{[round(s, 3) for s in saves]} s, restore "
+                f"{[round(s, 3) for s in restores]} s")
+            shutil.rmtree(ckdir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[multi] 4q(b) {time.perf_counter() - t_b:.1f} s")
+
+    # (c) a mixed pool: node 0 on the card, node 1 on the host
+    t_c = time.perf_counter()
+    qcfg = cnn.CNNConfig(**QUICKSTART)
+    qtree = weights.params_to_numpy(cnn.init_cnn(
+        qcfg, torch.Generator("cpu").manual_seed(0), device="cpu"))
+    qdata = port.synthetic.image_dataset(MULTI_B * 2 * 2, size=16, seed=0)
+    mixed = [card0, torch.device("cpu")]
+    runs = {}
+    for tag, devs in (("card", [card0, card0]), ("mixed", mixed),
+                      ("armed", mixed)):
+        if tag == "armed":
+            os.environ["REPRO_SANITIZE"] = "1"
+            sanitize.clear_sync_log()
+        try:
+            tr = _multi_trainer(port, qcfg, weights.params_from_numpy(
+                qtree, qcfg, "cuda"), qdata, "device", 2, devices=devs,
+                mesh="nodes2")
+            _zero_counts(mods)
+            evs = list(tr.run(MULTI_ROUNDS))
+            torch.cuda.synchronize()
+            runs[tag] = (evs, _counts(mods), sanitize.sync_log())
+        finally:
+            os.environ.pop("REPRO_SANITIZE", None)
+    (cevs, ccounts, _), (mevs, mcounts, _) = runs["card"], runs["mixed"]
+    aevs, _, labels = runs["armed"]
+    half = {k: n // 2 for k, n in ccounts.items()}
+    if mcounts != half or not all(ccounts.values()):
+        raise AssertionError(f"[multi-mixed] launches {mcounts}, the card "
+                             f"run's {ccounts}: the host node must launch "
+                             "none")
+    if set(labels) != MULTI_LABELS or \
+            labels.count("round.losses") != MULTI_ROUNDS or \
+            not _bits(torch, aevs[-1].params, mevs[-1].params, tree):
+        raise AssertionError(f"[multi-mixed] armed run: sync log {labels}")
+    sanitize.clear_sync_log()
+    ld, pd = _held(np, tree, "[multi-mixed]", mevs, cevs, *MIXED_TOL)
+    log(f"[multi-mixed] quickstart on nodes2 over [cuda:0, cpu]: node 1 "
+        f"on the host (plain versions: K1-K8 {mcounts}, half the all-card "
+        f"run's {ccounts}); held to the all-card run: losses max diff "
+        f"{ld:.3g} (rtol {MIXED_TOL[0][0]:g}, atol {MIXED_TOL[0][1]:g}), "
+        f"merged weights {pd:.3g} (rtol {MIXED_TOL[1][0]:g}, atol "
+        f"{MIXED_TOL[1][1]:g}); armed with REPRO_SANITIZE=1: identical "
+        f"bits, sync_log {labels}; 4q(c) {time.perf_counter() - t_c:.1f} s")
+
+    # (d) Phi-3-mini at full width on the 2-D mesh, the generic batch plan
+    t_d = time.perf_counter()
+    phase_multi_lm(torch, port, mods, card, pool)
+    log(f"[multi-lm] 4q(d) {time.perf_counter() - t_d:.1f} s")
+
+    # records: the wall and device ms a round of device against vmap, and
+    # of the 2-D families against vmap on 2 nodes, in turns on the same
+    # card (after a warm-up round each)
+    one = dict(devices=pool, mesh="nodes4")
+    two = dict(devices=pool, mesh=MULTI_HYBRID, model_cfg=cfg)
+    for tag, name, m, kw in (
+            ("vmap", "vmap", 4, {}), ("nodes4", "device", 4, one),
+            ("nodes4", "device", 4, one), ("vmap", "vmap", 4, {}),
+            ("vmap", "vmap", 2, {}),
+            ("batch", "device", 2, dict(two, family="batch")),
+            ("channel", "device", 2, dict(two, family="channel")),
+            ("vmap", "vmap", 2, {})):
+        dev_ms, busy_ms, wall_ms = _outer_profile(torch, port, _multi_trainer(
+            port, cfg, params, data, name, m, **kw), 1)
+        log(f"[multi-profile] {tag} round ({m} nodes, {MULTI_LOCAL} steps "
+            f"of B={MULTI_B}): wall {wall_ms:.3f} ms, device busy "
+            f"{busy_ms:.3f} ms, device ms by kernel: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items()))
+    return out
+
+
+def phase_multi_lm(torch, port, mods, card, pool):
+    """Phase 4q(d): Phi-3-mini at full width and LM_OUTER_LAYERS layers
+    through ``launch/train.py``'s ``run`` on ``nodes2xmodel2`` (the generic
+    batch plan: each node's 8 rows split in two) and on ``vmap``, 2 nodes:
+    the split gradient at the first params against the whole batch's, then
+    the two trajectories."""
+    import numpy as np
+    from repro_torch.core import planner
+    from repro_torch.data.pipeline import host_batch
+    lm, tree = port.lm, port.tree
+    cfg = dataclasses.replace(port.configs.get_config(LM_ARCH),
+                              num_layers=LM_OUTER_LAYERS)
+    params = lm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            device="cuda")
+    rows = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ + 1)).astype(np.int32)
+    batch = {"rows": torch.as_tensor(rows, device="cuda")}
+
+    def loss_fn(p, b):
+        return lm.loss_fn(p, host_batch(b["rows"]), cfg)
+
+    (loss, _), grads = port.trainer.value_and_grad(loss_fn, params, batch)
+    plan = planner.plan_for_axes(None, nodes=2, model=2,
+                                 batch_size=LM_BATCH)
+    split = port.trainer._split_grads(loss_fn, planner.grad_combine(plan))
+    with planner.plan_scope(plan, pool[:2]):
+        sloss, sgrads = split(params, batch)
+    tl, atol, rtol = LM_TOL["bfloat16"]
+    worst = 0.0
+    if not abs(float(sloss) - float(loss)) <= tl * max(1.0, abs(float(loss))):
+        raise AssertionError(f"[multi-lm] split loss {float(sloss)} vs "
+                             f"{float(loss)}")
+    for a, b in zip(tree.tree_leaves(sgrads), tree.tree_leaves(grads),
+                    strict=True):
+        d = (a.float() - b.float()).abs()
+        if not bool((d <= atol + rtol * b.float().abs()).all()):
+            raise AssertionError(f"[multi-lm] a split grad leaf differs by "
+                                 f"{float(d.max())}")
+        worst = max(worst, float(d.max()))
+    log(f"[multi-lm] {LM_ARCH} full width, {LM_OUTER_LAYERS} layers: one "
+        f"batch of {LM_BATCH} x {LM_SEQ} split over 2 model devices and "
+        f"recombined (grad_combine) against the whole batch: loss "
+        f"{float(sloss):.6f} vs {float(loss):.6f}, every grad leaf within "
+        f"atol {atol:g} / rtol {rtol:g} (max diff {worst:.3g})")
+    del grads, sgrads
+    base = ["--device", "cuda", "--full", "--arch", LM_ARCH, "--nodes", "2",
+            "--rounds", str(MULTI_ROUNDS)]
+    steps = 2 * 2 * MULTI_ROUNDS              # nodes x local steps x rounds
+    per = lm_step_launches(LM_OUTER_LAYERS)
+    runs = {}
+    for tag, extra, devs, shards in (
+            ("vmap", ["--engine", "vmap"], None, 1),
+            ("device", ["--engine", "device", "--mesh", MULTI_HYBRID], pool,
+             2)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_lm_counts(mods)
+        t0 = time.perf_counter()
+        rep = _drive(port, base + extra, cfg, params, devices=devs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _lm_counts(mods)
+        want = {k: shards * steps * n for k, n in per.items()}
+        if rep.backend != tag or counts != want or \
+                not np.isfinite(rep.losses).all():
+            raise AssertionError(f"[multi-lm] {tag}: backend {rep.backend},"
+                                 f" launches {counts} != {want}, losses "
+                                 f"{rep.losses}")
+        runs[tag] = rep
+        log(f"[multi-lm] {tag}: {len(rep.losses)} rounds in {wall:.2f} s, "
+            f"losses {[round(x, 6) for x in rep.losses]}, comm "
+            f"{rep.comm_bytes} B, launches {counts} (exact), "
+            f"max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    a, b = runs["device"], runs["vmap"]
+    # AdamW moves an element about lr a step, either way: elements whose
+    # bf16 gradient rounds to the other sign part by up to 2 lr a step
+    patol = 2 * LM_LR * MULTI_LOCAL * MULTI_ROUNDS
+    ld = max(abs(x - y) for x, y in zip(a.losses, b.losses))
+    pd = max(float((x.float() - y.float()).abs().max()) for x, y in zip(
+        tree.tree_leaves(a.final_params), tree.tree_leaves(b.final_params),
+        strict=True))
+    if a.comm_bytes != b.comm_bytes or \
+            ld > tl * max(1.0, max(abs(x) for x in b.losses)) or pd > patol:
+        raise AssertionError(f"[multi-lm] device vs vmap: losses "
+                             f"{a.losses} vs {b.losses}, params max diff "
+                             f"{pd} (atol {patol}), comm {a.comm_bytes} vs "
+                             f"{b.comm_bytes}")
+    log(f"[multi-lm] device (nodes2xmodel2, generic batch plan) held to "
+        f"vmap: losses max diff {ld:.3g} (bf16 loss gate {tl:g} x |loss|),"
+        f" merged params max diff {pd:.3g} (atol {patol:g} = 2 lr x "
+        f"{MULTI_LOCAL * MULTI_ROUNDS} steps), comm equal ({card})")
+    del runs, a, b, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_multi_kernels(torch, ref, mods, cnn):
+    """K1-K8 at the batch family's shard shapes (case7 at B = MULTI_B / 2)
+    and K1-K3 at the channel family's column shards (B = MULTI_B, each fc
+    width cut in two), against their plain versions, with their times
+    summed over one node step's launches.  Returns {family: {kernel:
+    row}}."""
+    specs = _train_specs(torch, ref, mods)
+    gen = torch.Generator("cuda").manual_seed(4)
+    batch = case7_step_shapes(cnn, MULTI_B // 2)
+    whole = case7_step_shapes(cnn, MULTI_B)
+    shards = {key: {(M, Din, Dout // 2, relu): 2 * n
+                    for (M, Din, Dout, relu), n in whole[key].items()}
+              for key in ("K1", "K2", "K3")}
+    batch = {key: {s: 2 * n for s, n in cases.items()}
+             for key, cases in batch.items()}
+    rows = {}
+    for family, shapes in (("batch", batch), ("channel", shards)):
+        rows[family] = {}
+        for key, cases in shapes.items():
+            spec, row = specs[key], _new_row()
+            for s, n in cases.items():
+                args = spec["make"](gen, s)
+                err, tol = _compare(torch, key, spec, args)
+                if not err <= tol:
+                    raise AssertionError(f"[multi-k] {family} {key} {s}: "
+                                         f"max_abs_err {err} > tol {tol}")
+                _note_err(row, err, tol)
+                _time_shape(torch, spec, gen, s, n, args, row,
+                            f"[multi-k] {family:<7} {key} {str(s):<34} "
+                            f"{n:>2} {err:<11.4g} {tol:<10.4g} ")
+            rows[family][key] = row
+            log(f"[multi-k] {family} {key}, one node step "
+                f"({sum(cases.values())} launches): kernel {row['ms']:.5f} "
+                f"ms (device {fmt_ms(row['device_ms'])}), plain "
+                f"{row['plain_ms']:.5f}, library {row['library_ms']:.5f} "
+                f"(device {fmt_ms(row['library_device_ms'])}), bound "
+                f"{row['bound_ms']:.5f} ms ({dominant(row['bound_by'])})")
+    return rows
+
+
 def phase_cli():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
@@ -4867,6 +5358,10 @@ def main() -> int:
                     "(checkpoints and resume, the chaos worker, the CLI's "
                     "resume flows, the sanitizer, the BPT-CNN example, the "
                     "cluster simulator) alone and print no result line")
+    ap.add_argument("--multi", action="store_true", help="run phase 4q "
+                    "(the multi-device engines, the planner's families, a "
+                    "mixed pool, an LM on a 2-D mesh) alone and print no "
+                    "result line")
     args = ap.parse_args()
     # torch.compile (the flex_attention yardstick) caches inside the checkout
     cache = SRC / "repro_torch" / "kernels" / "_build" / "compile_cache"
@@ -4978,6 +5473,14 @@ def main() -> int:
         log(f"[time] phase 4p {time.perf_counter() - t0:.1f} s")
         log(card_line())
         return 0
+    if args.multi:
+        t0 = time.perf_counter()
+        phase_multi_kernels(torch, ref, mods, cnn)
+        log(f"[time] phase 4q's kernels {time.perf_counter() - t0:.1f} s")
+        phase_multi(torch, port, mods, card)
+        log(f"[time] phase 4q {time.perf_counter() - t0:.1f} s")
+        log(card_line())
+        return 0
     if args.mm:
         t0 = time.perf_counter()
         phase_mm_parity(torch, port)
@@ -5050,6 +5553,9 @@ def main() -> int:
     ckpt = phase_ckpt(torch, port, mods, card)
     log(f"[time] phase 4p {time.perf_counter() - t0:.1f} s")
     lap("phase 4p")
+    multi_rows = phase_multi_kernels(torch, ref, mods, cnn)
+    multi = phase_multi(torch, port, mods, card)
+    lap("phase 4q")
 
     k1 = train_rows["K1"]
     yi, gem = k1_sums[("yi-6b", "decode")], k1_sums[("gemma2-27b", "decode")]
@@ -5150,6 +5656,25 @@ def main() -> int:
             "bias (q, k, v, o, the mixer's in_proj 1600 -> 6457 and "
             "out_proj, the MLP's three)"),
     }]
+    def multi_fields(key):
+        """K1-K8's phase-4q instances: the batch family's shards (K1-K8),
+        the channel family's column shards (K1-K3)."""
+        out = instance_fields(
+            "multi_batch", multi_rows["batch"][key], multi["batch"][key],
+            None, None, f"one case7 node step of phase 4q(a)'s batch family "
+            f"(nodes2xmodel2, each node's B {MULTI_B} split over 2 model "
+            f"devices): {2 * STEP_LAUNCHES[key]} f32 launches at B "
+            f"{MULTI_B // 2}; launches: the run's")
+        if key in multi_rows["channel"]:
+            out.update(instance_fields(
+                "multi_channel", multi_rows["channel"][key],
+                multi["channel"][key], None, None,
+                f"one case7 node step of phase 4q(a)'s channel family: each "
+                f"fc's columns in 2 shards, {2 * STEP_LAUNCHES[key]} f32 "
+                f"launches at M {MULTI_B}; launches: the run's"))
+        return out
+
+    rows[0].update(multi_fields("K1"))
     served = {**ssm_serve, VLM_ARCH: vlm, STABLE_ARCH: stable}
     for arch, (prefix, phase) in SERVED.items():
         s_launches, s_pre, s_dec, s_pf = served[arch]
@@ -5206,6 +5731,7 @@ def main() -> int:
             "library_ms": r["library_ms"], "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"],
             "step_device_ms": (train["device_ms"] or {}).get(key),
+            **multi_fields(key),
             **({"pass_device_ms": r["passes"]} if r["passes"] else {}),
             "work": f"one case7 training step at B=64: "
                     f"{STEP_LAUNCHES[key]} f32 launches" + (

@@ -10,8 +10,11 @@ virtual completion times — the event order (and therefore the staleness
 pattern AGWU sees) is exactly the paper's.
 
 The execution substrates are the engines of ``core.engine``;
-``engine.resolve_engine`` maps a TrainConfig to one of them and records a
-device-count fallback on ``TrainReport.fallback``.
+``engine.resolve_engine`` maps a TrainConfig (and the device pool, the
+trainer's ``devices=``) to one of them and records a device-count
+fallback on ``TrainReport.fallback``.  On a mesh, node j's round runs on
+node j's device (``_get_device_round``); on a 2-D ``(nodes, model)`` mesh
+it runs the per-layer plan of ``core.planner``.
 
 Two entry points:
 
@@ -46,10 +49,12 @@ import numpy as np
 import torch
 
 from repro_torch.checkpointing import checkpoint
+from repro_torch.core import planner
 from repro_torch.core.engine import RoundEvent, TrainHooks, resolve_engine
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.core.types import TrainConfig
 from repro_torch.data.pipeline import IDPADataset
+from repro_torch.launch.mesh import place
 from repro_torch.optim.optimizers import (apply_updates, clip_by_global_norm,
                                           make_optimizer, warmup_cosine)
 from repro_torch.sanitize import sanctioned_scope, sanctioned_sync
@@ -67,16 +72,50 @@ def value_and_grad(loss_fn, params, batch):
     return (loss.detach(), aux), tree_unflatten(params, grads)
 
 
-def make_step_body(loss_fn, train_cfg: TrainConfig):
+def _split_grads(loss_fn, combine):
+    """``(loss, grads)`` of one batch split over the model devices of the
+    active plan scope: shard k takes rows k*B/K .. (k+1)*B/K on device k,
+    with the params placed there, and ``combine`` (``planner.
+    grad_combine``) weights and sums the shards' values on the params'
+    device."""
+
+    def grads_fn(params, batch):
+        devices = planner.current_devices()
+        home = tree_leaves(params)[0].device
+        rows = tree_leaves(batch)[0].shape[0]
+        blk = rows // len(devices)
+        losses, grads, shards = [], [], []
+        for k, device in enumerate(devices):
+            shard = place({key: v[k * blk:(k + 1) * blk]
+                           for key, v in batch.items()}, device)
+            (loss, _), g = value_and_grad(loss_fn, place(params, device),
+                                          shard)
+            losses.append(loss)
+            grads.append(g)
+            shards.append(shard)
+        return combine(losses, grads, shards, home)
+
+    return grads_fn
+
+
+def make_step_body(loss_fn, train_cfg: TrainConfig, combine=None):
     """``step_body(params, opt_state, batch, step) -> (params, opt_state,
-    loss)``: one optimizer step, the reference's order of operations."""
+    loss)``: one optimizer step, the reference's order of operations.
+    ``combine`` (a batch-family plan's ``planner.grad_combine``) splits the
+    batch over the scope's model devices and recombines the shards' loss
+    and gradients BEFORE clipping, so the clip sees the same global norm
+    the unsplit paths clip."""
     opt = make_optimizer(train_cfg.optimizer)
     schedule = warmup_cosine(train_cfg.learning_rate, train_cfg.warmup_steps,
                              train_cfg.total_steps)
     grad_clip = train_cfg.grad_clip
+    split = _split_grads(loss_fn, combine) if combine is not None else None
 
     def step_body(params, opt_state, batch, step):
-        (loss, _), grads = value_and_grad(loss_fn, params, batch)
+        if split is not None:
+            loss, grads = split(params, batch)
+        else:
+            (loss, _), grads = value_and_grad(loss_fn, params, batch)
         if grad_clip:
             grads, _ = clip_by_global_norm(grads, grad_clip)
         updates, opt_state = opt.update(grads, opt_state, params,
@@ -86,13 +125,13 @@ def make_step_body(loss_fn, train_cfg: TrainConfig):
     return step_body
 
 
-def make_node_round(loss_fn, train_cfg: TrainConfig):
+def make_node_round(loss_fn, train_cfg: TrainConfig, combine=None):
     """``node_round(params, opt_state, batches, step) -> (params,
     opt_state, last loss)``: one node's local iteration.  ``batches``
     leaves carry a leading ``local_steps`` axis; ``step`` is the round
     index, held constant over the local steps as the reference's scan
-    holds it."""
-    step_body = make_step_body(loss_fn, train_cfg)
+    holds it.  ``combine``: as ``make_step_body``'s."""
+    step_body = make_step_body(loss_fn, train_cfg, combine)
 
     def node_round(params, opt_state, batches, step):
         steps = len(tree_leaves(batches)[0])
@@ -117,9 +156,11 @@ class TrainReport:
     comm_bytes: int
     allocation: np.ndarray
     final_params: object = None
-    # which outer-layer execution backend actually ran: "vmap" (stacked
-    # single-device round), "sequential" (per-node loop), "heap" (AGWU),
-    # "scan" (sync baseline)
+    # which outer-layer execution backend actually ran: "device" (node j
+    # on mesh device j), "vmap" (stacked single-device round),
+    # "sequential" (per-node loop), "heap"/"heap-device" (AGWU), "scan"
+    # (sync baseline).  The device paths fall back to "vmap"/"heap" when
+    # the pool has too few devices — callers can assert on this.
     backend: str = ""
     # non-empty when the executed backend differs from the requested one
     # (the EnginePlan's recorded device-count fallback reason)
@@ -158,22 +199,30 @@ class BPTTrainer:
                  accuracy_weighting: str = "normalized",
                  model_cfg=None,
                  plan_family: str = "",
-                 fault_schedule=None):
+                 fault_schedule=None,
+                 devices: Optional[Sequence] = None):
         # accuracy_weighting:
         #   "paper"      — Eq. (10) verbatim: scale = gamma * Q.
         #   "normalized" — Q is divided by its running mean, so the relative
         #     contribution weighting the paper wants is kept while the
         #     update magnitude stays ~gamma.
-        if model_cfg is not None or plan_family:
-            raise NotImplementedError(
-                "model_cfg and plan_family drive the 2-D (nodes, model) "
-                "mesh planner, which is not ported yet: ROADMAP.md §1 "
-                "item 5 (multi-device and planning)")
         self.loss_fn = loss_fn
         self.dataset = dataset
         self.tc = train_cfg
         self.batch_size = batch_size
         self.eval_fn = eval_fn
+        # optional model config (a CNNConfig): lets the 2-D hybrid-mesh
+        # engine plan per-layer parallelization (core.planner); without it
+        # a 2-D mesh runs the generic batch-family plan.  ``plan_family``
+        # forces a planner family ("batch"/"channel"); "" lets the cost
+        # model pick.
+        self.model_cfg = model_cfg
+        self.plan_family = plan_family
+        # the device pool resolve_engine decides against (the reference
+        # reads jax.devices() there): a list of torch.device, the same
+        # device repeated to emulate several; None counts the CUDA devices
+        # when the params are on the card, else the params' one device
+        self.devices = None if devices is None else list(devices)
         self.m = train_cfg.outer_nodes
         # optional FaultSchedule (core.faults): node churn the engines
         # replay — fail/rejoin/slow transitions keyed on event indices
@@ -203,14 +252,15 @@ class BPTTrainer:
             0.9 * self._q_ema + 0.1 * q
         return float(np.clip(q / max(self._q_ema, 1e-3), 0.25, 2.0))
 
-    def _to_device(self, batch: dict) -> dict:
-        """A numpy batch on the trainer's device (one copy a leaf): the
-        explicit placement of the reference's ``device_put``.  From
-        pageable host memory the copy waits for the card, so it is a
+    def _to_device(self, batch: dict, device=None) -> dict:
+        """A numpy batch on ``device`` (default the trainer's; one copy a
+        leaf): the explicit placement of the reference's ``device_put``.
+        From pageable host memory the copy waits for the card, so it is a
         sanctioned sync (label ``upload``)."""
+        device = self.device if device is None else device
         with sanctioned_scope("upload"):
             return {k: torch.from_numpy(np.ascontiguousarray(v))
-                    .to(self.device) for k, v in batch.items()}
+                    .to(device) for k, v in batch.items()}
 
     # ------------------------------------------------------------------
     def _local_round(self, params, opt_state, node: int, step: int):
@@ -218,9 +268,11 @@ class BPTTrainer:
         Returns (params, opt_state, loss, duration)."""
         t0 = time.perf_counter()
         loss = None
+        device = tree_leaves(params)[0].device    # the node's device
         for _ in range(self.tc.local_steps):
             batch = self._to_device(
-                self.dataset.node_batch(node, self.batch_size, self.rng))
+                self.dataset.node_batch(node, self.batch_size, self.rng),
+                device)
             params, opt_state, loss = self._train_step(
                 params, opt_state, batch, step)
         # the Eq. 8 measurement boundary: the host read waits for the
@@ -245,6 +297,55 @@ class BPTTrainer:
             losses.append(loss)
         return stacked_w, stacked_opt, torch.stack(losses)
 
+    def _get_device_round(self, mesh, netplan=None, executed=None):
+        """The round of a mesh engine: ``round_fn(stacked_w, stacked_opt,
+        batches, step) -> (stacked_w, stacked_opt, losses)`` over
+        node-sharded stacks (lists of m trees, node j's on its mesh
+        device) and ``batches`` as ``_place_node_batches`` gives them.
+        Node j's ``make_node_round`` runs on node j's device, one node
+        after another (one controller drives every device, as the
+        reference's ``shard_map`` does).
+
+        On a 2-D ``(nodes, model)`` mesh the round executes ``netplan``
+        (``core.planner.NetworkPlan``) under a ``plan_scope`` holding the
+        node's model-axis devices: a batch-family plan splits the node's
+        stripe over them and recombines the shards' loss and gradients
+        with the exact sample-count-weighted ``grad_combine``; a
+        channel-family plan's fc layers go column-parallel in
+        ``kernels.ops``.  ``executed`` (a list) receives the LayerPlans
+        the first node round's first forward consumed, once."""
+        node_round = self._node_round
+        if netplan is not None and netplan.combine_grads:
+            node_round = make_node_round(self.loss_fn, self.tc,
+                                         planner.grad_combine(netplan))
+
+        def round_fn(stacked_w, stacked_opt, batches, step):
+            losses = []
+            for j in range(self.m):
+                devices = mesh.model_devices(j, self.m)
+                if netplan is None:
+                    w, s, loss = node_round(stacked_w[j], stacked_opt[j],
+                                            batches[j], step)
+                else:
+                    with planner.plan_scope(netplan, devices) as sc:
+                        w, s, loss = node_round(stacked_w[j],
+                                                stacked_opt[j], batches[j],
+                                                step)
+                    if executed is not None and not executed:
+                        executed.extend(sc.executed)
+                stacked_w[j], stacked_opt[j] = w, s
+                losses.append(loss)
+            return stacked_w, stacked_opt, losses
+
+        return round_fn
+
+    def _place_node_batches(self, batches, mesh) -> list:
+        """Node j's slice of the stacked numpy batches on node j's device
+        (its stripe is split over the model devices inside the step)."""
+        return [self._to_device({k: v[j] for k, v in batches.items()},
+                                mesh.node_device(j, self.m))
+                for j in range(self.m)]
+
     def _eval(self, params):
         # accuracy evals read the card by design (the scalar feeds Eq.
         # 7/10 weighting), and eval_fns are caller-supplied host code —
@@ -260,9 +361,11 @@ class BPTTrainer:
         return tree_map(lambda x: x[node], stacked)
 
     def _eval_nodes(self, stacked) -> list:
-        """Per-node accuracies for a node-stacked tree, node by node."""
-        return [max(self._eval(self._node_slice(stacked, j)), 1e-3)
-                for j in range(self.m)]
+        """Per-node accuracies for a node-stacked tree (or a node-sharded
+        stack: a list of node trees), node by node."""
+        trees = stacked if isinstance(stacked, list) else \
+            [self._node_slice(stacked, j) for j in range(self.m)]
+        return [max(self._eval(tree), 1e-3) for tree in trees]
 
     # ------------------------------------------------------------------
     def run(self, rounds: int,
@@ -290,10 +393,13 @@ class BPTTrainer:
         A generator: config errors raise at the first ``next()``.
         """
         hooks = hooks or TrainHooks()
-        # the devices resolve_engine counts: the CUDA devices (its default)
-        # when the params are on the card, one CPU device when on the CPU
-        plan = resolve_engine(self.tc, None if self.device.type == "cuda"
-                              else [self.device])
+        # the devices resolve_engine counts: the trainer's pool when one
+        # was given, else the CUDA devices (its default) when the params
+        # are on the card, one CPU device when on the CPU
+        devices = self.devices
+        if devices is None and self.device.type != "cuda":
+            devices = [self.device]
+        plan = resolve_engine(self.tc, devices)
         self.last_plan = plan
         engine = plan.engine_cls(self, plan)
         self.last_engine = engine

@@ -1,5 +1,5 @@
-"""The outer layer's single-device execution engines for the BPT training
-loop, from ``repro/core/engine.py``.
+"""The outer layer's execution engines for the BPT training loop, from
+``repro/core/engine.py``.
 
 The paper's outer layer is ONE algorithm — pull the global weights, run
 ``local_steps`` local iterations per node, merge under Eq. 7 (SGWU) or
@@ -10,15 +10,22 @@ Eq. 9-10 (AGWU) — with interchangeable execution substrates:
 | ``ScanEngine``      | ``scan``       | sync baseline: one node round per round  |
 | ``SequentialEngine``| ``sequential`` | per-node loop through the server (SGWU)  |
 | ``VmapEngine``      | ``vmap``       | node-stacked params, Eq. 7 on the stack  |
-| ``HeapEngine``      | ``heap``       | AGWU event-ordered heap, host server     |
+| ``ShardMapEngine``  | ``device``     | node j on mesh device j; a 2-D ``(nodes, |
+|                     |                | model)`` mesh runs the planner's plan    |
+| ``HeapEngine``      | ``heap``       | AGWU event-ordered heap, server weights  |
+| ``HeapDeviceEngine``| ``heap-device``| AGWU heap, node-pinned weights + deltas  |
 
-The reference's ``device`` (``ShardMapEngine``) and ``heap-device``
-(``HeapDeviceEngine``) substrates place each node on its own device; they
-are not ported yet (``ROADMAP.md`` §1 item 5).  ``VmapEngine`` keeps the
-reference's node-stacked structure without ``torch.func.vmap``: the
-port's step takes gradients with ``torch.autograd`` and its kernels read
-``data_ptr()``, neither of which works under a functorch transform, so
-the m node rounds run as a loop over node slices of the stack.
+``VmapEngine`` keeps the reference's node-stacked structure without
+``torch.func.vmap``: the port's step takes gradients with
+``torch.autograd`` and its kernels read ``data_ptr()``, neither of which
+works under a functorch transform, so the m node rounds run as a loop
+over node slices of the stack.  The mesh engines are one controller
+driving a pool of devices, as the reference's ``shard_map`` is: a
+node-sharded stack is a list of m trees, node j's on its mesh device,
+and the Eq. 7 merge sums them on the server's device
+(``gwu.sgwu_merge_and_rebroadcast_sharded``).  The pool is explicit
+(``BPTTrainer(devices=...)``; ``launch.mesh``): the same device may
+repeat, so four ``cuda:0`` run the sharded path on one card.
 
 ``resolve_engine(TrainConfig) -> EnginePlan`` is the single point that
 inspects the ``fused_outer`` / ``device_outer`` / ``mesh_name`` flags, with
@@ -42,20 +49,21 @@ from typing import Any, Callable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.gwu import broadcast_tree
+from repro_torch.core import planner
+from repro_torch.core.gwu import broadcast_tree, tree_sub
 from repro_torch.core.param_server import ParameterServer
 from repro_torch.core.tree import tree_map
 from repro_torch.core.types import TrainConfig
+from repro_torch.launch.mesh import (default_devices, make_mesh,
+                                     make_nodes_mesh, place, place_copy)
 from repro_torch.sanitize import sanctioned_sync, sanitized
 
 __all__ = [
     "RoundEvent", "TrainHooks", "EnginePlan", "OuterEngine",
-    "ScanEngine", "SequentialEngine", "VmapEngine", "HeapEngine",
-    "ENGINES", "engine_config", "resolve_engine",
+    "ScanEngine", "SequentialEngine", "VmapEngine", "ShardMapEngine",
+    "HeapEngine", "HeapDeviceEngine", "ENGINES", "engine_config",
+    "resolve_engine",
 ]
-
-_MULTI_DEVICE = ("ROADMAP.md §1 item 5 (multi-device and planning: "
-                 "ShardMapEngine, HeapDeviceEngine and the meshes)")
 
 
 # ----------------------------------------------------------------------
@@ -122,18 +130,34 @@ class EnginePlan:
     ``TrainReport.fallback``.
     """
     engine_cls: type
-    backend: str               # scan|sequential|vmap|heap
+    backend: str               # scan|sequential|vmap|device|heap|heap-device
     strategy: str              # sync|sgwu|agwu
     requested: str             # backend the config asked for
+    mesh: Any = None           # the `nodes` mesh (ShardMapEngine only)
     fallback: str = ""         # "" unless backend != requested
+    devices: Any = None        # the device pool the plan was resolved
+                               # against (HeapDeviceEngine pins node j to
+                               # devices[j]; ShardMapEngine via ``mesh``)
 
 
-def _default_devices() -> list:
-    """The CUDA devices when PyTorch sees a card, else one CPU device."""
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+def _nodes_mesh(cfg: TrainConfig, m: int, devices):
+    """The `nodes` mesh for the device-sharded outer layer, or None when
+    the pool has too few devices (the transparent fallback).  A
+    ``mesh_name`` whose `nodes` axis mismatches ``outer_nodes`` is a
+    config bug, not a capacity problem, and raises.  2-D hybrid meshes
+    (``nodesNxmodelK``) pass: only the ``nodes`` axis is validated here;
+    the ``model`` axis is the planner's."""
+    name = cfg.mesh_name  # reprolint: disable=RPL101
+    try:
+        mesh = make_mesh(name, devices=devices) if name \
+            else make_nodes_mesh(m, devices=devices)
+    except RuntimeError:
+        return None
+    if "nodes" not in mesh.axis_names or mesh.shape["nodes"] != m:
+        raise ValueError(
+            f"mesh {name!r} needs a `nodes` axis of size "
+            f"{m}, has axes {dict(mesh.shape)}")
+    return mesh
 
 
 def resolve_engine(cfg: TrainConfig, devices: Optional[Sequence] = None
@@ -141,38 +165,36 @@ def resolve_engine(cfg: TrainConfig, devices: Optional[Sequence] = None
     """Map a TrainConfig (+ available devices) to an execution plan.
 
     The only place in the port that inspects the ``fused_outer`` /
-    ``device_outer`` / ``mesh_name`` combinations.  ``devices`` defaults
-    to ``_default_devices()``; ``BPTTrainer`` passes the devices of its
-    params' kind.  Every rule:
+    ``device_outer`` / ``mesh_name`` combinations.  ``devices`` (the pool,
+    a list of ``torch.device``) defaults to ``launch.mesh.
+    default_devices()`` (the distinct CUDA devices, or one CPU device);
+    ``BPTTrainer`` passes its ``devices=`` or the devices of its params'
+    kind.  Every rule:
 
-    - ``sync``: always ``ScanEngine``.
-    - ``sgwu`` + ``device_outer``: with fewer devices than ``outer_nodes``,
-      falls back to ``VmapEngine`` with the reason recorded in
-      ``EnginePlan.fallback``; with enough devices, or a ``mesh_name``,
-      raises ``NotImplementedError`` (``ShardMapEngine`` and the meshes
-      are not ported).
+    - ``sync``: always ``ScanEngine``; rejects ``uneven_batches``.
+    - ``sgwu`` + ``device_outer``: ``ShardMapEngine`` on the ``mesh_name``
+      mesh (or an auto 1-D `nodes` mesh); a 2-D ``nodesNxmodelK`` mesh
+      turns on the per-layer inner planner (``core.planner``); a mesh
+      without a matching `nodes` axis raises; too few devices falls back
+      to ``VmapEngine`` with the reason recorded in
+      ``EnginePlan.fallback``.
     - ``sgwu`` + ``fused_outer``: ``VmapEngine``.
     - ``sgwu`` sequential: ``SequentialEngine``; rejects
       ``uneven_batches`` (only stacked rounds realize masked stripes).
-    - ``agwu``: ``HeapEngine``, recording a fallback when
-      ``device_outer`` asks for more devices than exist and raising
-      ``NotImplementedError`` when enough exist (``HeapDeviceEngine``);
-      rejects ``uneven_batches``.
+    - ``agwu``: ``HeapDeviceEngine`` when ``device_outer`` and >= m
+      devices exist (node-pinned weights, Eq. 10 delta pushes), else
+      ``HeapEngine`` (fallback recorded); rejects ``uneven_batches``.
     """
     if devices is None:
-        devices = _default_devices()
+        devices = default_devices()
     m = cfg.outer_nodes
     device_outer = cfg.device_outer  # reprolint: disable=RPL101
     if cfg.outer_strategy == "sgwu":
         if device_outer:
-            if cfg.mesh_name:  # reprolint: disable=RPL101
-                raise NotImplementedError(
-                    f"mesh_name={cfg.mesh_name!r} needs the "  # reprolint: disable=RPL101
-                    f"named meshes: {_MULTI_DEVICE}")
-            if len(devices) >= m:
-                raise NotImplementedError(
-                    f"device_outer with {m} nodes on {len(devices)} "
-                    f"devices needs ShardMapEngine: {_MULTI_DEVICE}")
+            mesh = _nodes_mesh(cfg, m, devices)
+            if mesh is not None:
+                return EnginePlan(ShardMapEngine, "device", "sgwu",
+                                  "device", mesh=mesh)
             return EnginePlan(
                 VmapEngine, "vmap", "sgwu", "device",
                 fallback=f"device_outer needs {m} devices, have "
@@ -194,9 +216,8 @@ def resolve_engine(cfg: TrainConfig, devices: Optional[Sequence] = None
     if cfg.outer_strategy == "agwu":
         if device_outer:
             if len(devices) >= m:
-                raise NotImplementedError(
-                    f"device_outer with {m} nodes on {len(devices)} "
-                    f"devices needs HeapDeviceEngine: {_MULTI_DEVICE}")
+                return EnginePlan(HeapDeviceEngine, "heap-device", "agwu",
+                                  "heap-device", devices=list(devices))
             return EnginePlan(
                 HeapEngine, "heap", "agwu", "heap-device",
                 fallback=f"device_outer needs {m} devices, have "
@@ -345,9 +366,10 @@ class _StackedState:
 
 
 class _StackedSGWUEngine(OuterEngine):
-    """The stacked SGWU round loop (the reference shares it between its
-    fused-vmap and device-sharded engines), so the Eq. 7/8 bookkeeping
-    lives exactly once.
+    """The stacked SGWU round loop shared by the fused-vmap and
+    device-sharded engines — they differ only in the server mode, the
+    round callable, the batch placement and the node stack's layout, so
+    the Eq. 7/8 bookkeeping lives exactly once.
 
     Per-node virtual durations are an equal share of the measured round
     wall scaled by the node speed factors — the heterogeneity emulation
@@ -358,6 +380,13 @@ class _StackedSGWUEngine(OuterEngine):
     def _build(self):
         """-> (server, stacked_opt)"""
         raise NotImplementedError
+
+    def _place_batches(self, batches):
+        """The round's stacked numpy batches on the device(s)."""
+        return self.t._to_device(batches)
+
+    def _round(self, stacked_w, stacked_opt, batches, step):
+        return self.t._stacked_round(stacked_w, stacked_opt, batches, step)
 
     def setup(self, rounds):
         return _StackedState(*self._build())
@@ -391,17 +420,18 @@ class _StackedSGWUEngine(OuterEngine):
         batches = t.dataset.stacked_round_batches(
             t.batch_size, t.tc.local_steps, t.rng,
             uneven=t.tc.uneven_batches)
-        batches = t._to_device(batches)      # one explicit placement
+        batches = self._place_batches(batches)   # one explicit placement
         # the Eq. 8 wall starts AFTER the host batch draw + device
         # placement: data prep is the main server's work, not node compute,
         # and must not pollute the sync-wait or the IDPA duration feedback
         t0 = time.perf_counter()
-        stacked_w, st.stacked_opt, node_losses = t._stacked_round(
+        stacked_w, st.stacked_opt, node_losses = self._round(
             stacked_w, st.stacked_opt, batches, r)
         # the Eq. 8 measurement boundary: the host read waits for the
         # device, so the wall covers the round's device work — a
         # sanctioned sync, not a hidden one
-        node_losses = sanctioned_sync(node_losses, "round.losses")
+        node_losses = np.asarray(sanctioned_sync(node_losses,
+                                                 "round.losses"))
         wall = time.perf_counter() - t0
         # a dead node's slice still computes, but its result never reaches
         # the barrier: its duration is 0 (no push to wait for), its merge
@@ -441,6 +471,81 @@ class VmapEngine(_StackedSGWUEngine):
         server = ParameterServer(t.params0, t.m)
         stacked_opt = broadcast_tree(t.opt.init(t.params0), t.m)
         return server, stacked_opt
+
+
+class ShardMapEngine(_StackedSGWUEngine):
+    """Device-sharded outer layer: the paper's m physical nodes.
+
+    The round structure of ``VmapEngine``, but node j's weights, optimizer
+    state and batch live on mesh device j (``plan.mesh``), its round runs
+    there (``BPTTrainer._get_device_round``), and the Eq. 7 merge in the
+    device-resident ParameterServer moves each node's weights to the
+    server's device, sums them in node order and copies the result back to
+    every node.
+
+    On a 2-D ``(nodes, model)`` mesh (the ``nodesNxmodelK`` family) the
+    engine also plans per-layer inner parallelism:
+    ``core.planner.plan_network`` gives the ``NetworkPlan`` each node's
+    round executes over the node's model devices — ``self.netplan`` holds
+    it and ``self.executed`` the LayerPlans the kernels' ops consumed.
+    The reference records those once a trace; the port's ops take a plan
+    at every eager forward, so ``executed`` holds the first node round's
+    first forward only.  Weights and optimizer state stay one tree a
+    node, on the node's first device.
+    """
+    backend = "device"
+    netplan = None      # NetworkPlan (2-D meshes only)
+
+    def __init__(self, trainer, plan):
+        super().__init__(trainer, plan)
+        self.executed = []   # LayerPlans consumed by the kernels' ops
+
+    def _build(self):
+        t, mesh = self.t, self.plan.mesh
+        server = ParameterServer(t.params0, t.m, mesh=mesh)
+        stacked_opt = self._node_trees(t.opt.init(t.params0))
+        netplan = None
+        if dict(mesh.shape).get("model", 1) > 1:
+            netplan = planner.plan_network(
+                t.model_cfg, mesh, batch_size=t.batch_size,
+                family=t.plan_family)
+            self.netplan = netplan
+        self._round_fn = t._get_device_round(mesh, netplan, self.executed)
+        return server, stacked_opt
+
+    def _node_trees(self, tree, stacked=False):
+        """m copies of ``tree`` (of its slice ``[j]`` for node j where
+        ``stacked``), node j's in buffers of its own on its mesh device."""
+        t, mesh = self.t, self.plan.mesh
+        return [place_copy(tree_map(lambda x: x[j], tree) if stacked
+                           else tree, mesh.node_device(j, t.m))
+                for j in range(t.m)]
+
+    def _place_batches(self, batches):
+        return self.t._place_node_batches(batches, self.plan.mesh)
+
+    def _round(self, stacked_w, stacked_opt, batches, step):
+        return self._round_fn(stacked_w, stacked_opt, batches, step)
+
+    def snapshot(self, st):
+        # the reference's format: the optimizer states stacked on a
+        # leading node axis, on the server's device
+        device = self.t.device
+        opt = tree_map(lambda *xs: torch.stack([x.to(device) for x in xs]),
+                       *st.stacked_opt)
+        arrays = {"global": st.server.global_weights, "opt": opt}
+        scalars = {"clock": st.clock, "sync_wait": st.sync_wait,
+                   "server": st.server.state_dict()}
+        return arrays, scalars
+
+    def restore_snapshot(self, st, arrays, scalars):
+        # re-establish the device-resident layout: the global weights on
+        # the server's device, node j's optimizer state on its device
+        st.server.global_weights = self._place(arrays["global"])
+        st.server.load_state_dict(scalars["server"])
+        st.stacked_opt = self._node_trees(arrays["opt"], stacked=True)
+        st.clock = float(scalars["clock"])
+        st.sync_wait = float(scalars["sync_wait"])
 
 
 # ------------------------ sequential SGWU ---------------------------
@@ -523,6 +628,7 @@ class _HeapState:
     opt_states: list
     heap: list                     # (virtual_time, node, round, epoch)
     local: dict
+    base_local: dict               # heap-device: node-resident W(k)
     rounds_done: np.ndarray
     node_durs: np.ndarray
     rounds: int
@@ -538,8 +644,8 @@ class HeapEngine(OuterEngine):
     """AGWU keeps its event-ordered heap (the ordering IS the algorithm).
 
     One ``RoundEvent`` per push: ``total_events`` is m x rounds.  A push
-    ships the node's full local weights to the host-side server, which
-    applies Eq. 10.
+    ships the node's full local weights to the server, which applies
+    Eq. 10 (``HeapDeviceEngine``: node-pinned weights, delta pushes).
 
     Node churn: fault-schedule transitions are keyed on the EVENT index
     (the i-th successful push) and applied before each heap pop.  A
@@ -553,6 +659,7 @@ class HeapEngine(OuterEngine):
     """
     backend = "heap"
     strategy = "agwu"
+    device_nodes = False
 
     def __init__(self, trainer, plan):
         super().__init__(trainer, plan)
@@ -561,15 +668,25 @@ class HeapEngine(OuterEngine):
     def total_events(self, rounds):
         return rounds * self.t.m
 
+    def _pull(self, st, j):
+        w, _ = st.server.pull(j)
+        if self.device_nodes:
+            w = place(w, self.plan.devices[j])
+            st.base_local[j] = w       # W(k) snapshot, node-resident
+        return w
+
     def setup(self, rounds):
         t = self.t
         server = ParameterServer(t.params0, t.m)
         st = _HeapState(server, [t.opt.init(t.params0) for _ in range(t.m)],
-                        [], {}, np.zeros(t.m, np.int64), np.ones(t.m),
+                        [], {}, {}, np.zeros(t.m, np.int64), np.ones(t.m),
                         rounds, slow=np.ones(t.m),
                         epoch=np.zeros(t.m, np.int64))
         for j in range(t.m):
-            st.local[j], _ = server.pull(j)
+            if self.device_nodes:
+                st.opt_states[j] = place(st.opt_states[j],
+                                         self.plan.devices[j])
+            st.local[j] = self._pull(st, j)
             heapq.heappush(st.heap, (0.0, j, 0, 0))
         return st
 
@@ -588,7 +705,7 @@ class HeapEngine(OuterEngine):
             elif e.kind == "rejoin":
                 st.down.discard(e.node)
                 if st.rounds_done[e.node] < st.rounds:
-                    st.local[e.node], _ = st.server.pull(e.node)
+                    st.local[e.node] = self._pull(st, e.node)
                     heapq.heappush(
                         st.heap, (st.clock, e.node,
                                   int(st.rounds_done[e.node]),
@@ -614,7 +731,13 @@ class HeapEngine(OuterEngine):
         st.node_durs[j] = dur
         st.clock = vt + dur
         q = t._eval(w2) if t.eval_fn else 1.0
-        st.server.push_agwu(j, w2, t._q_effective(q), virtual_time=st.clock)
+        if self.device_nodes:
+            delta = tree_sub(w2, st.base_local[j])   # on node j's device
+            st.server.push_agwu_delta(j, delta, t._q_effective(q),
+                                      virtual_time=st.clock)
+        else:
+            st.server.push_agwu(j, w2, t._q_effective(q),
+                                virtual_time=st.clock)
         st.rounds_done[j] += 1
         alive = np.array([jj not in st.down for jj in range(t.m)])
         if alive.any() and \
@@ -624,7 +747,7 @@ class HeapEngine(OuterEngine):
                 st.node_durs * t.dataset.totals / max(t.batch_size, 1),
                 active=alive if st.down else None)
         if st.rounds_done[j] < st.rounds:
-            st.local[j], _ = st.server.pull(j)
+            st.local[j] = self._pull(st, j)
             heapq.heappush(st.heap, (st.clock, j, int(st.rounds_done[j]),
                                      int(st.epoch[j])))
         return RoundEvent(round=i, node=j,
@@ -655,7 +778,7 @@ class HeapEngine(OuterEngine):
             if j in st.down or st.rounds_done[j] >= st.rounds:
                 continue
             if (j, int(st.epoch[j])) not in live:
-                st.local[j], _ = st.server.pull(j)
+                st.local[j] = self._pull(st, j)
                 heapq.heappush(st.heap, (st.clock, j,
                                          int(st.rounds_done[j]),
                                          int(st.epoch[j])))
@@ -681,7 +804,9 @@ class HeapEngine(OuterEngine):
             "global": st.server.global_weights,
             "local": {str(j): st.local[j] for j in range(t.m)},
             "opt": {str(j): s for j, s in enumerate(st.opt_states)},
-            "base": {str(j): st.server._base[j] for j in range(t.m)},
+            "base": {str(j): (st.base_local[j] if self.device_nodes
+                              else st.server._base[j])
+                     for j in range(t.m)},
         }
         scalars = {
             "clock": st.clock,
@@ -701,9 +826,18 @@ class HeapEngine(OuterEngine):
         st.server.global_weights = self._place(arrays["global"])
         st.server.load_state_dict(scalars["server"])
         for j in range(t.m):
-            st.local[j] = self._place(arrays["local"][str(j)])
-            st.opt_states[j] = self._place(arrays["opt"][str(j)])
-            st.server._base[j] = self._place(arrays["base"][str(j)])
+            local, opt = arrays["local"][str(j)], arrays["opt"][str(j)]
+            base = arrays["base"][str(j)]
+            if self.device_nodes:      # back onto node j's pinned device
+                local, opt, base = (place(a, self.plan.devices[j])
+                                    for a in (local, opt, base))
+                st.base_local[j] = base
+            else:
+                local, opt, base = (self._place(a)
+                                    for a in (local, opt, base))
+                st.server._base[j] = base
+            st.local[j] = local
+            st.opt_states[j] = opt
         st.heap = [(float(vt), int(j), int(r), int(e))
                    for vt, j, r, e in scalars["heap"]]
         heapq.heapify(st.heap)
@@ -716,6 +850,15 @@ class HeapEngine(OuterEngine):
         st.clock = float(scalars["clock"])
 
 
+class HeapDeviceEngine(HeapEngine):
+    """AGWU with each node's weights and optimizer state pinned to its own
+    device (``plan.devices[j]``); a push computes the Eq. 10 delta
+    W_j(k) - W(k) on the node's device and ships ONLY the delta to the
+    server (``push_agwu_delta``)."""
+    backend = "heap-device"
+    device_nodes = True
+
+
 # ----------------------------------------------------------------------
 # engine selection by name (drivers / benchmarks)
 # ----------------------------------------------------------------------
@@ -723,7 +866,9 @@ ENGINES = {
     "scan": ScanEngine,
     "sequential": SequentialEngine,
     "vmap": VmapEngine,
+    "device": ShardMapEngine,
     "heap": HeapEngine,
+    "heap-device": HeapDeviceEngine,
 }
 
 _ENGINE_CONFIGS = {
@@ -743,7 +888,7 @@ def engine_config(name: str, **overrides) -> dict:
 
     Drivers select substrates by name (``--engine vmap``) instead of
     setting flag combinations by hand; device-count fallbacks still apply
-    (a ``device`` request on one device runs — and records — ``vmap``).
+    (a ``device`` request on a small pool runs — and records — ``vmap``).
     """
     if name not in _ENGINE_CONFIGS:
         raise ValueError(

@@ -11,6 +11,11 @@ merged global tree never move under a later write.  A node-stacked tree
 is always materialised (one buffer per node), never an ``expand`` view:
 a write into node j must reach neither the other nodes nor the merged
 global weights.
+
+On a mesh (``launch.mesh.Mesh``) the node axis is a list instead: a
+node-sharded stack is a list of m trees, node j's resident on its mesh
+device (``Mesh.node_device``).  ``sgwu_merge_and_rebroadcast_sharded`` is
+Eq. 7 across those devices.
 """
 from __future__ import annotations
 
@@ -21,10 +26,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.launch.mesh import place
 
 __all__ = ["sgwu_merge", "sgwu_merge_stacked", "sgwu_merge_and_rebroadcast",
            "broadcast_tree", "agwu_gamma", "agwu_update",
-           "agwu_update_delta", "tree_sub", "tree_add_scaled"]
+           "agwu_update_delta", "tree_sub", "tree_add_scaled",
+           "sgwu_merge_and_rebroadcast_sharded"]
 
 
 def tree_sub(a, b):
@@ -37,18 +44,21 @@ def tree_add_scaled(base, delta, scale):
     return tree_map(lambda x, d: x + scale * d, base, delta)
 
 
+def _weighted_leaf(nodes, weights):
+    """sum_j nodes[j] * weights[j] as a chain of multiply-adds in node
+    order: the fused multiply-adds the reference's XLA reduction contracts
+    to.  ``nodes`` is a stacked leaf or a sequence of the nodes' leaves;
+    ``weights`` a host tensor, taken as Python numbers in their dtype."""
+    w = weights.to(nodes[0].dtype).tolist()
+    acc = nodes[0] * w[0]
+    for j in range(1, len(w)):
+        acc.add_(nodes[j], alpha=w[j])
+    return acc
+
+
 def _weighted_sum(stacked, weights):
-    """sum_j stacked[j] * weights[j] over the leading axis, leafwise, as a
-    chain of multiply-adds in node order: the fused multiply-adds the
-    reference's XLA reduction contracts to.  ``weights`` is a host tensor,
-    taken per leaf as Python numbers in the leaf's dtype."""
-    def per_leaf(leaf):
-        w = weights.to(leaf.dtype).tolist()
-        acc = leaf[0] * w[0]
-        for j in range(1, len(w)):
-            acc.add_(leaf[j], alpha=w[j])
-        return acc
-    return tree_map(per_leaf, stacked)
+    """sum_j stacked[j] * weights[j] over the leading axis, leafwise."""
+    return tree_map(lambda leaf: _weighted_leaf(leaf, weights), stacked)
 
 
 def _merge_weights(accuracies, num_nodes: int) -> torch.Tensor:
@@ -93,6 +103,42 @@ def sgwu_merge_and_rebroadcast(stacked, accuracies):
     """
     merged = sgwu_merge_stacked(stacked, accuracies)
     return merged, broadcast_tree(merged, len(accuracies))
+
+
+def sgwu_merge_and_rebroadcast_sharded(stacked: list, accuracies, mesh,
+                                       device=None):
+    """Eq. (7) across the devices of a ``nodes`` mesh.
+
+    ``stacked`` is a node-sharded stack: a list of m trees, node j's on
+    ``mesh.node_device(j, m)``.  Each node's leaf is moved to ``device``
+    (the server's; default node 0's) and the weighted leaves are summed
+    there in node order — the ops of ``sgwu_merge_stacked``, so the
+    merged tree is the same floats as the single-device merge.  The merged
+    tree is then copied back into each node's tree on its device (the
+    reference donates the stack for this; here its buffers are written in
+    place, so the caller hands ``stacked`` over).  Returns ``(merged,
+    stacked)``.  A copy between the host and the card is a sanctioned sync
+    (``node-move``).
+    """
+    num_nodes = len(accuracies)
+    if num_nodes == 0:
+        raise ValueError("need at least one local weight set")
+    if len(stacked) != num_nodes:
+        raise ValueError(f"{len(stacked)} node trees != {num_nodes} "
+                         "accuracies")
+    if num_nodes % mesh.shape["nodes"] != 0:
+        raise ValueError(
+            f"{num_nodes} nodes do not divide the `nodes` mesh axis "
+            f"({mesh.shape['nodes']})")
+    if device is None:
+        device = mesh.node_device(0, num_nodes)
+    weights = _merge_weights(accuracies, num_nodes)
+    merged = tree_map(lambda *xs: _weighted_leaf(xs, weights),
+                      *(place(t, device) for t in stacked))
+    for j, tree in enumerate(stacked):
+        node = place(merged, mesh.node_device(j, num_nodes))
+        tree_map(lambda dst, src: dst.copy_(src), tree, node)
+    return merged, stacked
 
 
 def sgwu_merge(local_weights: Sequence, accuracies: Sequence[float]):

@@ -10,6 +10,13 @@ The weights stay on the device they were given; the server's own state
 (versions, base versions, bytes, the update log) is host bookkeeping.  A
 worker's base is the global tree it pulled, held by reference, which is
 safe because ``gwu`` builds every new global tree out of place.
+
+With ``mesh=`` (a ``launch.mesh.Mesh`` with a ``nodes`` axis) the server
+is device-resident: the node-stacked replicas are a list of m trees,
+node j's on its mesh device, and the SGWU merge is Eq. 7 across those
+devices (``gwu.sgwu_merge_and_rebroadcast_sharded``), summed on the
+global weights' device.  Versions and Eq. 11 comm bytes are the same in
+both modes.
 """
 from __future__ import annotations
 
@@ -18,8 +25,10 @@ from typing import Any, Optional, Sequence
 
 from repro_torch.core.gwu import (agwu_gamma, agwu_update, agwu_update_delta,
                                   broadcast_tree, sgwu_merge,
-                                  sgwu_merge_and_rebroadcast)
-from repro_torch.core.tree import tree_leaves, tree_map
+                                  sgwu_merge_and_rebroadcast,
+                                  sgwu_merge_and_rebroadcast_sharded)
+from repro_torch.core.tree import tree_leaves
+from repro_torch.launch.mesh import place, place_copy
 
 __all__ = ["ParameterServer", "Submission"]
 
@@ -40,10 +49,18 @@ class ParameterServer:
     """Global weight store with SGWU and AGWU update paths."""
 
     def __init__(self, init_weights, num_workers: int, mesh=None):
+        # ``mesh`` switches on DEVICE-RESIDENT mode: node j's replica lives
+        # on its mesh device (on a 2-D (nodes, model) mesh, on the first
+        # device of its row), and the SGWU merge sums the nodes' weights
+        # on the global weights' device and copies the result back
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "the device-resident parameter server (mesh=) is not ported "
-                "yet: ROADMAP.md §1 item 5 (multi-device and planning)")
+            if "nodes" not in mesh.axis_names:
+                raise ValueError("device-resident mode needs a `nodes` axis")
+            if num_workers % mesh.shape["nodes"] != 0:
+                raise ValueError(
+                    f"{num_workers} workers do not divide the `nodes` "
+                    f"axis ({mesh.shape['nodes']})")
         self.global_weights = init_weights
         self.version = 0
         self.num_workers = num_workers
@@ -86,6 +103,11 @@ class ParameterServer:
         """
         if self._stacked is not None and self._stacked_version == self.version:
             stacked, self._stacked = self._stacked, None
+        elif self.mesh is not None:       # node j's replica on its device
+            self._stacked = None
+            stacked = [place_copy(self.global_weights,
+                                  self.mesh.node_device(j, self.num_workers))
+                       for j in range(self.num_workers)]
         else:
             self._stacked = None
             stacked = broadcast_tree(self.global_weights, self.num_workers)
@@ -143,7 +165,7 @@ class ParameterServer:
                            self.outstanding_versions(exclude=worker))
         leaves = tree_leaves(self.global_weights)
         if leaves:              # the physical push: to the server's device
-            delta = tree_map(lambda d: d.to(leaves[0].device), delta)
+            delta = place(delta, leaves[0].device)
         self._stacked = None    # any AGWU push stales the replica cache
         self.global_weights = agwu_update_delta(
             self.global_weights, delta, gamma, accuracy)
@@ -191,7 +213,9 @@ class ParameterServer:
         ``stacked_weights`` is ONE tree with a leading node axis of size
         m (worker j's weights at index j); the merge rebroadcasts into a
         new stack that the next ``pull_all_stacked`` hands out, so callers
-        need not keep it.  Bookkeeping matches m individual submissions.
+        need not keep it.  In mesh mode it is the list of m node trees,
+        and the merge writes the result into them (the caller hands them
+        over).  Bookkeeping matches m individual submissions.
         ``active`` marks nodes that missed the barrier (failed mid-round):
         they must arrive with accuracy 0 (Eq. 7 excludes them) and are not
         charged a transfer — their push never happened.
@@ -210,8 +234,15 @@ class ParameterServer:
             self.comm_bytes += self.weight_bytes
             self.update_log.append(
                 Submission(worker, self.version, float(q), virtual_time))
-        self.global_weights, self._stacked = sgwu_merge_and_rebroadcast(
-            stacked_weights, accuracies)
+        if self.mesh is not None:
+            leaves = tree_leaves(self.global_weights)
+            self.global_weights, self._stacked = \
+                sgwu_merge_and_rebroadcast_sharded(
+                    stacked_weights, accuracies, self.mesh,
+                    device=leaves[0].device if leaves else None)
+        else:
+            self.global_weights, self._stacked = sgwu_merge_and_rebroadcast(
+                stacked_weights, accuracies)
         self.version += 1
         self.num_updates += 1
         self._stacked_version = self.version

@@ -9,6 +9,7 @@ refused.  It never synchronises and never falls back.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -84,10 +85,18 @@ def workspace(numel: int, device) -> torch.Tensor:
 def run(lib: str, symbol: str, device, ptrs, ints, floats=()) -> None:
     """Launch ``symbol`` of kernel library ``lib`` with ``ptrs`` (tensors
     or None), ``ints`` and ``floats`` (C ``float``) on ``device``'s current
-    stream."""
+    stream.  The C entries act on the calling thread's current device
+    (their launch and their per-device attributes), so a launch on
+    another card than the current one makes that card current for the
+    call, as PyTorch's own ops do."""
     fn = _FNS.get((lib, symbol)) or _bind(lib, symbol, len(ptrs), len(ints),
                                           len(floats))
-    err = fn(*[None if t is None else t.data_ptr() for t in ptrs], *ints,
-             *floats, torch.cuda.current_stream(device).cuda_stream)
+    guard = contextlib.nullcontext() if \
+        device.index == torch.cuda.current_device() else \
+        torch.cuda.device(device)
+    with guard:
+        err = fn(*[None if t is None else t.data_ptr() for t in ptrs],
+                 *ints, *floats,
+                 torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError {err}")

@@ -9,10 +9,21 @@ Where a gradient is wanted (grad mode on and an input requires grad) the
 call goes through the kernel's ``torch.autograd.Function``, whose forward
 and backward route by device the same way; otherwise the launcher (or
 plain version) is called directly, so serving pays nothing for autograd.
+
+Under an active ``core.planner.plan_scope`` (the 2-D ``(nodes, model)``
+engine), ``conv2d`` and ``dense`` take their layer's ``LayerPlan``, as the
+reference's ``ops.conv2d`` / ``ops.dense`` do.  A ``channel`` fc runs the
+column-parallel dataflow: K launches of K1 on K column shards of the
+weight, each on its model device, gathered back into the full output
+(K2 and K3 on the shards backward).  The plan's ``tile`` is recorded but
+not passed on: the CUDA kernels choose their own tiles, and no kernel has
+a tile knob.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import planner
 
 from . import conv2d as _conv
 from . import dense as _dense
@@ -40,9 +51,31 @@ def dense(x, w, b=None, activation: str = "none"):
     ``x`` may carry leading batch dims; they flatten into the kernel's row
     axis and reshape back.  ``w`` is cast to ``x.dtype`` as the reference
     does, and ``b`` enters the f32 epilogue.  Differentiable: K2 and K3
-    are its backward on the card.
+    are its backward on the card.  Under a ``channel`` LayerPlan the call
+    runs column-parallel over the scope's model devices.
     """
     _check_activation(activation)
+    lp = planner.take("fc")
+    if lp is not None and lp.parallel_dim == "channel":
+        return _column_parallel_dense(x, w, b, activation, lp)
+    return _dense_call(x, w, b, activation)
+
+
+def _column_parallel_dense(x, w, b, activation, lp):
+    devices = planner.current_devices()
+    if len(devices) != lp.shards:
+        raise ValueError(f"{lp.name}: a {lp.shards}-way channel plan on "
+                         f"{len(devices)} model devices")
+    xs = planner.rep_in(x, devices)
+    ws = planner.shard_dim(w, devices)
+    bs = planner.shard_dim(b, devices) if b is not None else \
+        (None,) * len(devices)
+    outs = [_dense_call(xk, wk, bk, activation)
+            for xk, wk, bk in zip(xs, ws, bs, strict=True)]
+    return planner.gather_cols(outs, x.device)
+
+
+def _dense_call(x, w, b, activation):
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     w = w.to(x.dtype).contiguous()
@@ -66,6 +99,7 @@ def conv2d(x, w, b=None, padding: str = "SAME", stride: int = 1,
     striding); a strided call on a CUDA tensor raises
     ``NotImplementedError``, on a CPU tensor it takes the plain version."""
     _check_activation(activation)
+    planner.take("conv")        # recorded; the conv kernels tile themselves
     if padding not in ("SAME", "VALID"):
         raise ValueError(padding)
     w = w.to(x.dtype)

@@ -15,8 +15,11 @@ the same seed, and every loss takes the first rows of them, as many as
 its batch has.  Encoder-decoder configs are refused, as in the
 reference.  ``--engine`` selects the outer-layer engine
 by name (``repro_torch.core.engine.ENGINES``); ``--device-outer`` and
-``--mesh`` resolve as ``engine.resolve_engine`` says (one card: the
-fused node loop, with the fallback recorded).  ``--ckpt-dir`` saves the
+``--mesh`` resolve as ``engine.resolve_engine`` says, against the
+visible CUDA devices (or one CPU device): with too few, a ``nodes4``
+request falls back and prints ``[train] engine fallback: ...``, as the
+reference does on one device.  ``run(..., devices=)`` passes a device
+pool instead (four ``cuda:0`` run the sharded engines on one card).  ``--ckpt-dir`` saves the
 final weights with ``checkpointing.checkpoint.save`` at step
 ``TrainReport.last_event``; ``--ckpt-every N`` also saves a weight and a
 resumable train-state checkpoint every N merge events, and ``--resume``
@@ -74,12 +77,13 @@ def make_parser() -> argparse.ArgumentParser:
                     help="select the execution engine by name (overrides "
                     "--outer/--device-outer)")
     ap.add_argument("--device-outer", action="store_true",
-                    help="ask for one node per device (falls back to the "
-                    "fused node loop when fewer than --nodes devices "
-                    "exist)")
+                    help="shard the node axis over a real `nodes` device "
+                    "mesh (one node per device; falls back to the fused "
+                    "node loop when fewer than --nodes devices exist)")
     ap.add_argument("--mesh", default="",
-                    help="named mesh for the node axis (not ported: "
-                    "raises with --device-outer)")
+                    help="named launch.mesh.MESHES entry for the node axis "
+                    "(e.g. nodes4; needs a `nodes` axis of size --nodes); "
+                    "empty = auto 1-D nodes mesh")
     ap.add_argument("--uneven-batches", action="store_true",
                     help="IDPA-proportional per-node batch loads "
                     "(padded+masked stripes; needs the SGWU stacked paths)")
@@ -110,12 +114,14 @@ def make_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(args, cfg, params=None, hooks=None):
+def run(args, cfg, params=None, hooks=None, devices=None):
     """Train ``cfg`` as the flags in ``args`` say; returns the
     ``TrainReport``.  ``params`` (on ``args.device``) replaces the
     seeded init, e.g. to start from the reference's weights; ``hooks``
     (a ``TrainHooks``) observes each merge event through ``on_round``;
-    ``--ckpt-every`` / ``--resume`` set its checkpoint fields."""
+    ``--ckpt-every`` / ``--resume`` set its checkpoint fields;
+    ``devices`` (a list of ``torch.device``) is the pool the engine is
+    resolved against (``BPTTrainer(devices=)``)."""
     if args.ckpt_every:
         if not args.ckpt_dir:
             raise SystemExit("--ckpt-every needs --ckpt-dir")
@@ -171,7 +177,7 @@ def run(args, cfg, params=None, hooks=None):
         if args.faults else None
     trainer = BPTTrainer(loss_fn, params, ds, tc,
                          batch_size=args.batch_size, speed_factors=speeds,
-                         fault_schedule=faults)
+                         fault_schedule=faults, devices=devices)
     t0 = time.time()
     report = trainer.train(args.rounds, hooks)
     wall = time.time() - t0

@@ -32,11 +32,12 @@ The labels of ``sync_log()`` are recorded all the same, so the order of
 the sanctioned syncs is checked on the CPU too.
 
 Labels: the reference's ``scan.loss``, ``round.losses``,
-``local-round.loss``, ``eval`` and ``measured-timer.<kind>``, and one the
-reference does not have, ``upload``: ``jax.device_put`` places a numpy
+``local-round.loss``, ``eval`` and ``measured-timer.<kind>``, and two the
+reference does not have: ``upload`` (``jax.device_put`` places a numpy
 batch without a sync, while ``Tensor.to("cuda")`` from pageable host
 memory waits for the copy, so each batch upload is a sanctioned sync
-here.
+here) and ``node-move`` (``launch.mesh.place``: a tree moved between the
+host and the card, as a mixed pool's merge and replicas move them).
 """
 from __future__ import annotations
 

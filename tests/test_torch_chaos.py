@@ -2,12 +2,14 @@
 layer under node churn and process death, on the CPU.
 
 * **Churn convergence** — kill k=2 of m=8 nodes mid-training under the
-  heap (AGWU) and vmap (SGWU) engines; training must still converge to
-  the fault-free trajectory within ``CHURN_LOSS_TOL``.
+  heap (AGWU), vmap and device-sharded (SGWU) engines, the last on a pool
+  of eight CPU devices; training must still converge to the fault-free
+  trajectory within ``CHURN_LOSS_TOL``.
 * **Crash-safe resumption** — in-process: break the event stream, build a
   fresh trainer, resume from the state checkpoint, and require the final
   merged weights and the loss trail BIT-identical to an uninterrupted run
-  (``scan``, ``vmap``, ``sequential``, ``heap``).  Out-of-process:
+  (``scan``, ``vmap``, ``sequential``, ``heap``, and on a pool of CPU
+  devices ``device`` and ``heap-device``).  Out-of-process:
   SIGKILL ``tests/torch_chaos_worker.py`` between rounds and require the
   resumed process's final weights within 1e-5 of the worker's job run
   uninterrupted (exact on the CPU).
@@ -22,8 +24,7 @@ layer under node churn and process death, on the CPU.
 
 AGWU's virtual clock is built from measured wall times, so its pop order
 is timing-dependent run to run; every heap assertion here pins per-node
-durations (``_pin_durations``).  The reference's ``device`` engine cases
-wait for the multi-device engines (``ROADMAP.md`` §1 item 5).
+durations (``_pin_durations``).
 """
 import os
 import signal
@@ -70,7 +71,7 @@ CHAOS = dict(name="chaos", image_size=8, conv_layers=1, filters=4,
 
 
 def _make_trainer(m=4, batches=1, faults=None, speed_factors=None,
-                  seed=0, **tc_kwargs):
+                  seed=0, devices=None, **tc_kwargs):
     cfg = CNNConfig(**CHAOS)
     xs, ys = image_dataset(64 * m * 2, size=8, seed=0)
     params = init_cnn(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -82,7 +83,7 @@ def _make_trainer(m=4, batches=1, faults=None, speed_factors=None,
                      seed=seed, **tc_kwargs)
     return BPTTrainer(lambda p, b: (cnn_loss(p, b, cfg), {}), params, ds,
                       tc, batch_size=16, fault_schedule=faults,
-                      speed_factors=speed_factors)
+                      speed_factors=speed_factors, devices=devices)
 
 
 ENGINE_KW = {
@@ -90,7 +91,13 @@ ENGINE_KW = {
     "sequential": dict(outer_strategy="sgwu", fused_outer=False),
     "heap": dict(outer_strategy="agwu"),
     "scan": dict(outer_strategy="sync"),
+    # the multi-device engines, on a pool of one CPU device per node
+    "device": dict(outer_strategy="sgwu", device_outer=True,
+                   devices=[torch.device("cpu")] * 8),
+    "heap-device": dict(outer_strategy="agwu", device_outer=True,
+                        devices=[torch.device("cpu")] * 8),
 }
+HEAPS = ("heap", "heap-device")
 
 
 def _pin_durations(tr, per_node):
@@ -124,7 +131,7 @@ def _max_diff(ws_a, ws_b):
 # ----------------------------------------------------------------------
 class TestChurnConvergence:
     @pytest.mark.parametrize("seed", [0, 1])
-    @pytest.mark.parametrize("engine_name", ["heap", "vmap"])
+    @pytest.mark.parametrize("engine_name", ["heap", "vmap", "device"])
     def test_k2_of_m8_converges_to_reference(self, engine_name, seed):
         m, rounds = 8, 4
         # heap indices are push counts (m per virtual round); barrier
@@ -223,7 +230,8 @@ class TestNodeStatusObservability:
 # ----------------------------------------------------------------------
 class TestCrashResume:
     @pytest.mark.parametrize("engine_name",
-                             ["vmap", "sequential", "heap", "scan"])
+                             ["vmap", "sequential", "heap", "scan",
+                              "device", "heap-device"])
     def test_resume_is_bit_identical(self, engine_name, tmp_path):
         rounds, m = 6, 4
         kw = ENGINE_KW[engine_name]
@@ -231,17 +239,19 @@ class TestCrashResume:
 
         def make():
             tr = _make_trainer(m=m, **kw)
-            if engine_name == "heap":
+            if engine_name in HEAPS:
                 _pin_durations(tr, durs)
             return tr
 
-        ref_events = _drain(make(), rounds)
+        ref = make()
+        ref_events = _drain(ref, rounds)
+        assert ref.last_plan.backend == engine_name
 
         # crash: consume part of the stream, then abandon the trainer
         crashed = make()
         hooks = TrainHooks(checkpoint_every=2, checkpoint_dir=str(tmp_path))
         consumed = 0
-        stop_at = 8 if engine_name == "heap" else 3
+        stop_at = 8 if engine_name in HEAPS else 3
         for _ev in crashed.run(rounds, hooks):
             consumed += 1
             if consumed >= stop_at:
@@ -264,9 +274,10 @@ class TestCrashResume:
         # the state checkpoint holds the reference's scalar keys
         scalars = checkpoint.load_manifest(str(tmp_path), last_ckpt,
                                            kind="state")["metadata"]
-        want = {"scan": {"clock"},
-                "heap": {"clock", "heap", "rounds_done", "node_durs",
-                         "down", "slow", "epoch", "fault_cursor", "server"}
+        heap_keys = {"clock", "heap", "rounds_done", "node_durs", "down",
+                     "slow", "epoch", "fault_cursor", "server"}
+        want = {"scan": {"clock"}, "heap": heap_keys,
+                "heap-device": heap_keys
                 }.get(engine_name, {"clock", "sync_wait", "server"})
         assert set(scalars) == want | {"trainer"}
         assert set(scalars["trainer"]) == {"next_event", "rng", "dataset",
@@ -396,13 +407,14 @@ def _pair_trainer(tree, engine_name, port):
     kw = dict(**ENGINE_KW[engine_name], outer_nodes=m, optimizer="adamw",
               learning_rate=2e-3, total_steps=100, warmup_steps=5,
               local_steps=2, seed=0)
+    devices = kw.pop("devices", None)
     if port:
         cfg = CNNConfig(**CHAOS)
         tr = BPTTrainer(lambda p, b: (cnn_loss(p, b, cfg), {}),
                         weights.params_from_numpy(tree, cfg, "cpu"),
                         IDPADataset({"images": xs, "labels": ys},
                                     num_nodes=m, batches=1),
-                        TrainConfig(**kw), batch_size=16)
+                        TrainConfig(**kw), batch_size=16, devices=devices)
     else:
         cfg = jcnn.CNNConfig(**CHAOS)
         tr = JTrainer(lambda p, b: (jcnn.cnn_loss(p, b, cfg), {}),
@@ -410,7 +422,7 @@ def _pair_trainer(tree, engine_name, port):
                       JDataset({"images": xs, "labels": ys}, num_nodes=m,
                                batches=1),
                       JTrainConfig(**kw), batch_size=16)
-    if engine_name == "heap":
+    if engine_name in HEAPS:
         _pin_durations(tr, 1.0 + 0.25 * np.arange(m))
     return tr
 
@@ -422,25 +434,25 @@ def _leaves(params):
     return [np.asarray(x) for x in jax.tree_util.tree_leaves(params)]
 
 
-@pytest.mark.parametrize("engine_name", ["vmap", "heap"])
-@pytest.mark.parametrize("writer", ["jax", "port"])
-def test_state_checkpoint_resumes_across_packages(chaos_tree, engine_name,
-                                                  writer, tmp_path,
-                                                  monkeypatch):
-    rounds, split = (4 if engine_name == "heap" else 6), 4
+def _resume_across(tree, names, writer, tmp_path, monkeypatch):
+    """The writer package's run checkpointed at every event and stopped at
+    event 4, resumed by the other package; returns (the resumed tail, the
+    reader's uninterrupted run from event 4).  ``names`` maps a package
+    to its engine."""
+    rounds, split = (4 if names["jax"] == "heap" else 6), 4
     mods = {"jax": jengine, "port": engine}
     hooks = {"jax": JHooks, "port": TrainHooks}
     reader = "port" if writer == "jax" else "jax"
     for module in mods.values():
         monkeypatch.setattr(module, "time", _Clock())
     # the reader's uninterrupted run
-    ref = list(_pair_trainer(chaos_tree, engine_name,
+    ref = list(_pair_trainer(tree, names[reader],
                              reader == "port").run(rounds))
     for module in mods.values():
         monkeypatch.setattr(module, "time", _Clock())
     # the writer's run, checkpointing at every event, stopped at `split`
     h = hooks[writer](checkpoint_every=1, checkpoint_dir=str(tmp_path))
-    wrote = _pair_trainer(chaos_tree, engine_name, writer == "port")
+    wrote = _pair_trainer(tree, names[writer], writer == "port")
     for ev in wrote.run(rounds, h):
         if ev.round + 1 == split:
             break
@@ -448,9 +460,41 @@ def test_state_checkpoint_resumes_across_packages(chaos_tree, engine_name,
     # the reader resumes it
     h = hooks[reader](checkpoint_every=1, checkpoint_dir=str(tmp_path),
                       resume=True)
-    tail = list(_pair_trainer(chaos_tree, engine_name,
+    tail = list(_pair_trainer(tree, names[reader],
                               reader == "port").run(rounds, h))
-    want = ref[split:]
+    return tail, ref[split:]
+
+
+@pytest.mark.parametrize("engine_name", ["vmap", "heap"])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_state_checkpoint_resumes_across_packages(chaos_tree, engine_name,
+                                                  writer, tmp_path,
+                                                  monkeypatch):
+    tail, want = _resume_across(chaos_tree, {"jax": engine_name,
+                                             "port": engine_name},
+                                writer, tmp_path, monkeypatch)
+    _assert_tail(tail, want)
+
+
+@pytest.mark.parametrize("port_engine,jax_engine",
+                         [("device", "vmap"), ("heap-device", "heap")])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_device_state_checkpoint_resumes_across_packages(
+        chaos_tree, port_engine, jax_engine, writer, tmp_path, monkeypatch):
+    """The multi-device engines snapshot in the reference's format: the
+    port's ``device`` (on four CPU devices) and the JAX package's ``vmap``
+    share the stacked SGWU state, the port's ``heap-device`` and the JAX
+    ``heap`` the AGWU state (node j's base in ``base``), so each resumes
+    the other's state checkpoint."""
+    tail, want = _resume_across(chaos_tree, {"jax": jax_engine,
+                                             "port": port_engine},
+                                writer, tmp_path, monkeypatch)
+    _assert_tail(tail, want)
+
+
+def _assert_tail(tail, want):
+    """The resumed tail within ``tests/test_torch_outer.py``'s
+    tolerances of the reader's uninterrupted run, event for event."""
     assert len(tail) == len(want) > 0
     for a, b in zip(tail, want):
         assert (a.round, a.node) == (b.round, b.node)

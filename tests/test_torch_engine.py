@@ -2,9 +2,10 @@
 matrix of ``tests/test_engine.py`` (backend, strategy, requested,
 fallback text, error text) on one device, ``engine_config``, the engine
 registry, the event counts and default eval cadences of the streaming
-API, and the ``NotImplementedError`` of what is not ported yet (the
-multi-device engines and the planner).  The checkpoint and resume hooks
-are held in ``tests/test_torch_chaos.py``."""
+API, and the multi-device engines' and the planner's arguments, which
+resolve as the reference's do.  The checkpoint and resume hooks are held
+in ``tests/test_torch_chaos.py``, the multi-device engines' trajectories
+in ``tests/test_torch_device_outer.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -75,16 +76,22 @@ def test_resolve_engine_defaults_to_the_visible_devices():
 
 @pytest.mark.parametrize("strategy", ["sgwu", "agwu"])
 def test_enough_devices_for_the_device_engines_is_not_ported(strategy):
-    """m = 1 fits any backend: the reference runs its device engines,
-    which the port does not have yet."""
+    """m = 1 fits any backend: the port runs its device engines there, as
+    the reference does (once not ported, now resolved alike); a named mesh
+    resolves on a pool large enough for it."""
     cfg = TrainConfig(outer_strategy=strategy, device_outer=True,
                       outer_nodes=1)
-    with pytest.raises(NotImplementedError, match="§1 item 5"):
-        engine.resolve_engine(cfg, ONE_CPU)
-    with pytest.raises(NotImplementedError, match="named meshes"):
-        engine.resolve_engine(TrainConfig(
-            outer_strategy="sgwu", device_outer=True, mesh_name="nodes2",
-            outer_nodes=2), ONE_CPU)
+    want = jengine.resolve_engine(JTrainConfig(
+        outer_strategy=strategy, device_outer=True, outer_nodes=1),
+        jax.devices()[:1])
+    plan = engine.resolve_engine(cfg, ONE_CPU)
+    assert (plan.backend, plan.requested, plan.fallback) == \
+        (want.backend, want.requested, want.fallback)
+    assert plan.engine_cls is engine.ENGINES[want.backend]
+    plan = engine.resolve_engine(TrainConfig(
+        outer_strategy="sgwu", device_outer=True, mesh_name="nodes2",
+        outer_nodes=2), ONE_CPU * 2)
+    assert plan.backend == "device" and plan.mesh.shape == {"nodes": 2}
 
 
 @pytest.mark.parametrize("name", ["scan", "sequential", "vmap", "device",
@@ -96,10 +103,12 @@ def test_engine_config_roundtrip(name):
     jplan = jengine.resolve_engine(JTrainConfig(**got), jax.devices()[:1])
     assert plan.requested == name == jplan.requested
     assert (plan.backend, plan.fallback) == (jplan.backend, jplan.fallback)
-    if name in engine.ENGINES:
+    if name not in ("device", "heap-device"):
         assert plan.backend == name and not plan.fallback
-    else:
+    else:                   # 2 nodes on one device: the recorded fallback
         assert plan.fallback
+        assert engine.resolve_engine(TrainConfig(**got),
+                                     ONE_CPU * 2).backend == name
 
 
 def test_engine_config_unknown_name():
@@ -111,9 +120,13 @@ def test_engine_config_unknown_name():
 
 
 def test_registry_holds_the_single_device_engines():
+    """The registry holds the reference's six engines, the single-device
+    ones and the multi-device ``device`` and ``heap-device``."""
     assert engine.ENGINES == {
         "scan": engine.ScanEngine, "sequential": engine.SequentialEngine,
-        "vmap": engine.VmapEngine, "heap": engine.HeapEngine}
+        "vmap": engine.VmapEngine, "device": engine.ShardMapEngine,
+        "heap": engine.HeapEngine, "heap-device": engine.HeapDeviceEngine}
+    assert set(engine.ENGINES) == set(jengine.ENGINES)
     for name, cls in engine.ENGINES.items():
         assert cls.backend == name
         assert cls.strategy == jengine.ENGINES[name].strategy
@@ -201,13 +214,17 @@ def test_summary_matches_the_reference_keys():
 @pytest.mark.parametrize("kw", [{"model_cfg": object()},
                                 {"plan_family": "batch"}])
 def test_planner_arguments_are_not_ported(kw):
+    """The planner's arguments, once refused, are taken and kept as the
+    reference keeps them; a trainer without a mesh never reads them."""
     cfg = cnn.CNNConfig(**SMALL)
     params = cnn.init_cnn(cfg, torch.Generator().manual_seed(0),
                           device="cpu")
     ds = IDPADataset({"x": np.zeros((8, 1))}, num_nodes=2, batches=1)
-    with pytest.raises(NotImplementedError, match="§1 item 5"):
-        BPTTrainer(lambda p, b: (p, {}), params, ds, TrainConfig(
-            outer_nodes=2), batch_size=4, **kw)
+    tr = BPTTrainer(lambda p, b: (p, {}), params, ds, TrainConfig(
+        outer_nodes=2), batch_size=4, **kw)
+    assert tr.model_cfg is kw.get("model_cfg")
+    assert tr.plan_family == kw.get("plan_family", "")
+    assert tr.devices is None
 
 
 def test_config_errors_raise_at_the_first_next():

@@ -15,6 +15,9 @@ from repro.core.param_server import ParameterServer as JServer  # noqa: E402
 from repro_torch.core import gwu  # noqa: E402
 from repro_torch.core.param_server import ParameterServer  # noqa: E402
 from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+
+CPU = torch.device("cpu")
 
 
 def _np_tree(rng, lead=()):
@@ -157,9 +160,17 @@ def test_parameter_server_bookkeeping_equals_the_reference():
 
 
 def test_parameter_server_errors():
+    """The server's refusals, with the reference's messages; ``mesh=``
+    (once not ported) refuses a mesh without a `nodes` axis as the
+    reference's does."""
     w = _t(_f32(_np_tree(np.random.default_rng(5))))
-    with pytest.raises(NotImplementedError, match="§1 item 5"):
-        ParameterServer(w, 2, mesh=object())
+    with pytest.raises(ValueError) as got:
+        ParameterServer(w, 2, mesh=make_mesh("tiny", devices=[CPU] * 4))
+    with pytest.raises(ValueError) as want:
+        JServer(_f32(_np_tree(np.random.default_rng(5))), 2,
+                mesh=jax.sharding.Mesh(np.asarray(jax.devices()[:1]),
+                                       ("model",)))
+    assert str(got.value) == str(want.value)
     ps = ParameterServer(w, 2)
     with pytest.raises(RuntimeError, match="never pulled"):
         ps.push_agwu(0, w, 1.0)

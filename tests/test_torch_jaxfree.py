@@ -52,7 +52,9 @@ SLICE_MODULES = (
     "repro_torch.configs.stablelm_12b", "repro_torch.models.frontends",
     "repro_torch.models.encdec", "repro_torch.launch.steps",
     "repro_torch.sanitize", "repro_torch.sanitize.harness",
-    "repro_torch.core.cluster_sim",
+    "repro_torch.core.cluster_sim", "repro_torch.launch.mesh",
+    "repro_torch.launch.roofline", "repro_torch.core.dag",
+    "repro_torch.core.planner",
 )
 BANNED = ("jax", "jaxlib", "repro")
 

@@ -947,3 +947,97 @@ def test_moe_layer_on_card_matches_the_cpu_path(cf):
         assert a.dtype == torch.bfloat16 and torch.equal(a, b)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _multi_trainer(name, m, devices=None, mesh="", family=""):
+    """A small CNN on m nodes from one CPU draw placed on cuda:0, one IDPA
+    batch, B 16, over the pool ``devices``."""
+    from repro_torch.core.bpt_trainer import BPTTrainer
+    from repro_torch.core.engine import engine_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.core.types import TrainConfig
+    from repro_torch.data.pipeline import IDPADataset
+    from repro_torch.data.synthetic import image_dataset
+    from repro_torch.models import cnn
+    cfg = cnn.CNNConfig(name="multi", image_size=8, conv_layers=1,
+                        filters=4, fc_layers=2, fc_neurons=32)
+    params = tree_map(lambda x: x.to("cuda:0"), cnn.init_cnn(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    xs, ys = image_dataset(64 * m, size=8, seed=0)
+    ds = IDPADataset({"images": xs, "labels": ys}, num_nodes=m, batches=1)
+    tc = TrainConfig(**engine_config(
+        name, outer_nodes=m, optimizer="adamw", learning_rate=2e-3,
+        warmup_steps=5, total_steps=100, local_steps=2, seed=0,
+        mesh_name=mesh))
+    tr = BPTTrainer(lambda p, b: (cnn.cnn_loss(p, b, cfg), {}), params, ds,
+                    tc, batch_size=16, model_cfg=cfg if family else None,
+                    plan_family=family, devices=devices)
+    if name.startswith("heap"):
+        orig = tr._local_round
+
+        def pinned(p, o, node, step):
+            p, o, loss, _ = orig(p, o, node, step)
+            return p, o, loss, 1.0 + 0.25 * node
+
+        tr._local_round = pinned
+    return tr
+
+
+@pytest.mark.cuda
+def test_kernels_and_the_device_engines_on_distinct_cards(monkeypatch):
+    """A pool of distinct cards (four H100s on one host): K1 on the second
+    card while the first is current gives the plain version's output; the
+    ``device`` engine on ``nodes2`` over two cards, on ``nodes2xmodel2``
+    over four (batch and channel families: shards, collectives and the
+    recombination cross cards) and ``heap-device`` are held to ``vmap`` /
+    ``heap`` on cuda:0 within the outer layer's rtol 1e-5 / atol 1e-6;
+    the batch family runs armed with the sync sanitizer (a copy between
+    two cards makes the host wait for neither)."""
+    _card()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards or more")
+    import numpy as np
+    from repro_torch import sanitize
+    from repro_torch.core.tree import tree_leaves
+    gen = torch.Generator("cuda:1").manual_seed(0)
+    x = torch.randn((64, 200), generator=gen, device="cuda:1")
+    w = torch.randn((200, 70), generator=gen, device="cuda:1")
+    assert torch.cuda.current_device() == 0
+    got = dense.dense_cuda(x, w, None)
+    want = ref.dense_ref(x, w, None)
+    torch.cuda.synchronize(1)
+    assert got.device == x.device
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+    def held(got, want):
+        np.testing.assert_allclose(got.losses, want.losses, rtol=1e-5,
+                                   atol=1e-6)
+        for a, b in zip(tree_leaves(got.final_params),
+                        tree_leaves(want.final_params), strict=True):
+            assert a.device == b.device == torch.device("cuda", 0)
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-6)
+
+    cards = [torch.device("cuda", i) for i in range(n)]
+    vmap = _multi_trainer("vmap", 2).train(2)
+    rep = _multi_trainer("device", 2, cards[:2], "nodes2").train(2)
+    assert rep.backend == "device"
+    held(rep, vmap)
+    heap = _multi_trainer("heap", 2).train(2)
+    rep = _multi_trainer("heap-device", 2, cards[:2]).train(2)
+    assert rep.backend == "heap-device"
+    held(rep, heap)
+    if n < 4:
+        return
+    for family in ("batch", "channel"):
+        if family == "batch":
+            monkeypatch.setenv("REPRO_SANITIZE", "1")
+        tr = _multi_trainer("device", 2, cards[:4], "nodes2xmodel2",
+                            family)
+        rep = tr.train(2)
+        monkeypatch.delenv("REPRO_SANITIZE", raising=False)
+        assert rep.backend == "device"
+        assert tr.last_plan.mesh.model_devices(1, 2) == tuple(cards[2:4])
+        held(rep, vmap)
+    sanitize.clear_sync_log()

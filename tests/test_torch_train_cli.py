@@ -259,3 +259,25 @@ def test_cli_resume_flows_match_the_reference(pinned, tmp_path, capsys):
     for a, b in zip(tree_leaves(got), tree_leaves(reps[2].final_params),
                     strict=True):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--outer", "sgwu", "--device-outer", "--mesh", "nodes4"],
+    ["--engine", "device", "--mesh", "nodes4"],
+    ["--engine", "heap-device"]], ids=["device-outer", "engine", "agwu"])
+def test_mesh_request_on_the_cpu_falls_back_as_the_reference(flags,
+                                                              capsys):
+    """``--mesh nodes4`` on one CPU device: the run falls back to the
+    fused node loop and prints the reference's fallback line (the
+    reference on its one device); the AGWU device engine alike."""
+    argv = ["--nodes", "4", "--rounds", "1", "--rows", "32", "--seq-len",
+            "16", "--batch-size", "4"] + flags
+    want = jtrain.main(argv)
+    want_out = capsys.readouterr().out
+    got = train.main(["--device", "cpu"] + argv)
+    got_out = capsys.readouterr().out
+    line = [ln for ln in want_out.splitlines()
+            if ln.startswith("[train] engine fallback:")]
+    assert line and line[0] in got_out.splitlines()
+    assert (got.backend, got.fallback) == (want.backend, want.fallback)
+    assert got.backend in ("vmap", "heap")
