@@ -297,6 +297,19 @@ from the root of a checkout.  Phases, each of which raises on failure
    rounds held to ``vmap`` (the bf16 loss gate; params within 2 lr a
    step), exact K1-K3 and K9 launches; then the wall and device ms of a
    case7 round of ``device`` and ``vmap``, in turns;
+4r. (run after 4q) the dry-run tooling: (a) ``block_skip`` on the card:
+   Gemma-2-27B at full width and 8 layers on phase 4c's 5000-token
+   prompt, and Hymba-1.5B at full depth on phase 4j's 2048-token prompt,
+   each prefilled (``lm.prefill``, bf16 compute copy) under
+   ``get_config(arch, "opt")`` and under the plain config: logits and
+   every cache leaf bit-identical, the kv blocks skipped counted, each
+   run's device ms (``device_ms``) taken in turns, plain then opt;
+   (b) started before (a), on the host while (a) runs on the card:
+   ``python -m repro_torch.launch.dryrun`` for ``gemma2-27b train_4k
+   pod`` and ``granite-moe-3b-a800m decode_32k pod`` in subprocesses
+   (fake process groups of 256 ranks, no card), each under a time limit;
+   their roofline rows (data-sheet estimates, not measurements) and wall
+   seconds printed, a failure failing the phase;
 6. a JSON line with every ported kernel (device-clock times as the extra
    fields ``device_ms`` and ``library_device_ms``, "not measured" being
    null; K1 also its prefill sums as ``prefill_*`` and ``gemma_prefill_*``,
@@ -375,7 +388,11 @@ for phase 4p, and
 
     python3 chip_smoke.py --multi
 
-for phase 4q.
+for phase 4q, and
+
+    python3 chip_smoke.py --dryrun
+
+for phase 4r.
 """
 from __future__ import annotations
 
@@ -5309,6 +5326,133 @@ def phase_multi_kernels(torch, ref, mods, cnn):
     return rows
 
 
+DRYRUN_COMBOS = (("gemma2-27b", "train_4k", "pod"),
+                 ("granite-moe-3b-a800m", "decode_32k", "pod"))
+DRYRUN_LIMIT_S = 300                 # each dry-run subprocess's time limit
+DRYRUN_DIR = ROOT / "experiments" / "dryrun_torch"
+SKIP_PROMPTS = (("gemma2-27b", 8, GEMMA_LONG), ("hymba-1.5b", 0, 2048))
+
+
+def start_dryruns():
+    """Phase 4r(b)'s dry-runs, started in subprocesses on the host (no
+    card: CUDA hidden from them); ``finish_dryruns`` waits for them."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for arch, shape, mesh in DRYRUN_COMBOS:
+        stem = DRYRUN_DIR / f"{arch}__{shape}__{mesh}__smoke"
+        stem.with_suffix(".json").unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--tag", "smoke"]
+        with open(stem.with_suffix(".log"), "w") as out:
+            proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                    stderr=subprocess.STDOUT)
+        procs.append(((arch, shape, mesh), stem, time.perf_counter(), proc))
+    return procs
+
+
+def finish_dryruns(procs):
+    """Wait for phase 4r(b)'s dry-runs (each at most DRYRUN_LIMIT_S from
+    its start; one past it is killed and fails the phase), print each
+    roofline row, the seconds its two depth runs took (the record's
+    ``compile_s``) and the wall seconds from its start to the end of its
+    wait here (an upper bound: they are waited for after 4r(a))."""
+    failed = []
+    for (arch, shape, mesh), stem, t0, proc in procs:
+        left = max(1.0, DRYRUN_LIMIT_S - (time.perf_counter() - t0))
+        try:
+            proc.wait(timeout=left)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            failed.append(f"{arch} {shape} {mesh}: past {DRYRUN_LIMIT_S} s")
+            continue
+        wall = time.perf_counter() - t0
+        fn = stem.with_suffix(".json")
+        if proc.returncode != 0 or not fn.exists():
+            log(stem.with_suffix(".log").read_text()[-3000:])
+            failed.append(f"{arch} {shape} {mesh}: exit {proc.returncode}")
+            continue
+        rec = json.loads(fn.read_text())
+        log(f"[dryrun] {arch} x {shape} x {mesh}: {rec['compile_s']} s in "
+            f"its steps, done within {wall:.1f} s wall on the host "
+            f"(torch {rec['torch']}); roofline row (H100 "
+            f"data-sheet estimate) {json.dumps(rec['roofline'])}")
+    if failed:
+        raise AssertionError(f"dry-runs failed: {failed}")
+
+
+def phase_block_skip(torch, configs, lm, card):
+    """Phase 4r(a): each SKIP_PROMPTS arch (0 layers: full depth)
+    prefilled under its ``opt`` config (``attn_block_skip``) and its plain
+    one, from one bf16 compute copy of seeded params: logits and every
+    cache leaf bit-identical, the skipped kv blocks counted, and each
+    prefill's device ms, plain then opt."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import attention
+    for arch, layers, prompt in SKIP_PROMPTS:
+        t0 = time.perf_counter()
+        plain = configs.get_config(arch)
+        opt = configs.get_config(arch, "opt")
+        if layers:
+            plain = dataclasses.replace(plain, num_layers=layers)
+            opt = dataclasses.replace(opt, num_layers=layers)
+        params = lm.compute_params(lm.init_params(
+            plain, torch.Generator("cuda").manual_seed(0), device="cuda"),
+            plain)
+        gen = torch.Generator("cuda").manual_seed(1)
+        toks = torch.randint(0, plain.vocab_size, (1, prompt),
+                             generator=gen, device="cuda", dtype=torch.int32)
+        with torch.inference_mode():
+            want_logits, want = lm.prefill(params, toks, plain)
+            attention.reset_block_skips()
+            got_logits, got = lm.prefill(params, toks, opt)
+            skipped = attention.BLOCK_SKIPS["skipped"]
+            torch.cuda.synchronize()
+            same = torch.equal(got_logits, want_logits) and all(
+                torch.equal(a, b) for a, b in zip(
+                    tree_leaves(got.layers), tree_leaves(want.layers),
+                    strict=True)) and torch.equal(got.lengths, want.lengths)
+            n_leaves = len(tree_leaves(got.layers))
+            del got, want, got_logits, want_logits
+            if not same:
+                raise AssertionError(f"{arch}: block_skip changed the "
+                                     "prefill's logits or cache")
+            if not skipped:
+                raise AssertionError(f"{arch}: block_skip skipped nothing")
+            times = {}
+            for tag, cfg in (("plain", plain), ("opt", opt)):
+                times[tag], _ = device_ms(torch, lambda c=cfg: lm.prefill(
+                    params, toks, c), [()], iters=1, warmup=1, tries=2)
+        log(f"[block_skip] {arch}: {plain.num_layers} layers, windows "
+            f"{sorted(set(lm.layer_windows(plain)))}, a {prompt}-token "
+            f"prefill: logits and all {n_leaves} cache leaves bit-identical "
+            f"under opt; {skipped} kv blocks skipped (chunks "
+            f"{plain.attn_q_chunk or 512} x {plain.attn_k_chunk or 1024}); "
+            f"device ms, plain then opt: {fmt_ms(times['plain'])}, "
+            f"{fmt_ms(times['opt'])} ({card}; "
+            f"{time.perf_counter() - t0:.1f} s)")
+        del params, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_dryrun(torch, configs, lm, card):
+    """Phase 4r: (b)'s dry-runs on the host while (a) runs on the card."""
+    t0 = time.perf_counter()
+    procs = start_dryruns()
+    try:
+        phase_block_skip(torch, configs, lm, card)
+    except BaseException:
+        for *_, proc in procs:
+            proc.kill()
+            proc.wait()
+        raise
+    log(f"[time] phase 4r(a) {time.perf_counter() - t0:.1f} s")
+    finish_dryruns(procs)
+    log(f"[time] phase 4r {time.perf_counter() - t0:.1f} s")
+
+
 def phase_cli():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + os.pathsep + env.get("PYTHONPATH", "")
@@ -5362,6 +5506,9 @@ def main() -> int:
                     "(the multi-device engines, the planner's families, a "
                     "mixed pool, an LM on a 2-D mesh) alone and print no "
                     "result line")
+    ap.add_argument("--dryrun", action="store_true", help="run phase 4r "
+                    "(block_skip on the card, the dry-run on the host) alone"
+                    " and print no result line")
     args = ap.parse_args()
     # torch.compile (the flex_attention yardstick) caches inside the checkout
     cache = SRC / "repro_torch" / "kernels" / "_build" / "compile_cache"
@@ -5481,6 +5628,10 @@ def main() -> int:
         log(f"[time] phase 4q {time.perf_counter() - t0:.1f} s")
         log(card_line())
         return 0
+    if args.dryrun:
+        phase_dryrun(torch, configs, lm, card)
+        log(card_line())
+        return 0
     if args.mm:
         t0 = time.perf_counter()
         phase_mm_parity(torch, port)
@@ -5556,6 +5707,10 @@ def main() -> int:
     multi_rows = phase_multi_kernels(torch, ref, mods, cnn)
     multi = phase_multi(torch, port, mods, card)
     lap("phase 4q")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dryrun(torch, configs, lm, card)
+    lap("phase 4r")
 
     k1 = train_rows["K1"]
     yi, gem = k1_sums[("yi-6b", "decode")], k1_sums[("gemma2-27b", "decode")]

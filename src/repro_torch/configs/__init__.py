@@ -1,5 +1,11 @@
 """Registry of the architectures the port serves: ``get_config(name)`` /
-``get_reduced(name)``, as in ``repro/configs/__init__.py``."""
+``get_reduced(name)``, as in ``repro/configs/__init__.py``.
+
+``LONG_CONTEXT_OK`` lists the archs that run ``long_500k`` natively
+(sub-quadratic or sliding-window path); the pure full-attention archs
+skip that shape (``SKIPS``), and ``pairs()`` lists the rest: the 33
+(arch, shape) baseline pairs the dry-run sweeps.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -9,7 +15,8 @@ from repro_torch.core.types import ModelConfig
 
 from .shapes import SHAPES, get_shape  # noqa: F401  (re-exported)
 
-__all__ = ["ARCH_NAMES", "SHAPES", "get_config", "get_reduced", "get_shape"]
+__all__ = ["ARCH_NAMES", "SHAPES", "LONG_CONTEXT_OK", "SKIPS", "get_config",
+           "get_reduced", "get_shape", "pairs"]
 
 _MODULES = {
     "yi-6b": "yi_6b",
@@ -25,6 +32,15 @@ _MODULES = {
 }
 
 ARCH_NAMES = tuple(_MODULES)
+
+# archs whose long_500k decode runs without a variant flag
+LONG_CONTEXT_OK = ("mamba2-370m", "hymba-1.5b", "gemma2-27b")
+
+# shape skips: pure full-attention archs skip long_500k
+SKIPS: dict[tuple[str, str], str] = {
+    (arch, "long_500k"): "full-attention 500k decode (no sub-quadratic path)"
+    for arch in ARCH_NAMES if arch not in LONG_CONTEXT_OK
+}
 
 
 def _module(name: str):
@@ -51,3 +67,9 @@ def get_config(name: str, variant: str = "") -> ModelConfig:
 
 def get_reduced(name: str) -> ModelConfig:
     return _module(name).reduced()
+
+
+def pairs(include_skips: bool = False):
+    """All (arch, shape) baseline pairs, minus the documented skips."""
+    return [(arch, shape) for arch in ARCH_NAMES for shape in SHAPES
+            if include_skips or (arch, shape) not in SKIPS]

@@ -1,0 +1,1109 @@
+"""Multi-pod dry-run: build and run every (arch x shape x mesh) step over
+placeholder devices, from ``repro/launch/dryrun.py``.
+
+Run it as ``python -m repro_torch.launch.dryrun``; it needs no card.
+
+The reference lowers one SPMD step on 512 placeholder host devices and
+GSPMD adds the collectives.  The port's counterpart is DTensor over a
+*fake* process group in one process:
+
+  1. a fake group of ``mesh.size`` ranks (``FakeStore``), created inside
+     ``lower_and_compile`` and destroyed after it (no import creates one),
+     and a ``DeviceMesh`` with the mesh's shape and axis names;
+  2. every param, optimizer leaf, batch leaf and cache leaf a DTensor of
+     fake CPU tensors (``FakeTensorMode``: shapes, no storage), placed by
+     ``launch.sharding``'s specs (``shardlib.placements``), built from
+     its local shard without a collective;
+  3. one eager run of the step (``launch.steps``) with the logical rules
+     installed, so ``shardlib.constrain`` redistributes at the reference's
+     sites.  The tensors are fake CPU tensors, so every kernel call takes
+     its plain version (``kernels/ops.py`` dispatches by device type);
+  4. ``_StepRecorder``, a dispatch mode under DTensor, sees the local ops
+     that device 0 runs and records:
+     - FLOPs: what ``torch.utils.flop_counter`` counts for each local op
+       (its formula table; matmul-class ops);
+     - bytes: the inputs and outputs of every local aten op that is not a
+       view, which is the traffic of the eager plain path;
+     - collectives: ``roofline.CollectiveRecorder``, kind -> output bytes
+       on one device (the counterpart of parsing the compiled HLO);
+     - temp: the peak of live local bytes allocated during the step (its
+       outputs included: the eager step donates nothing);
+     FLOPs, bytes and collective bytes are multiplied by the chips, as
+     the reference multiplies its per-device cost analysis: replicated
+     work counts on every device that does it;
+  5. records everything into ``experiments/dryrun_torch/<arch>__<shape>__
+     <mesh>.json``.
+
+Depth.  An eager fake run costs time in proportion to the layers times
+the attention blocks, so the full depth is never run: the 1- and 2-layer
+configurations (``_calib_cfg``, at the config's own attention chunks,
+not widened) are, and every count and the temp peak are extrapolated to
+L layers as ``calibrated_costs`` does (``per_layer``, ``outside``).  The
+record's ``full_artifact`` is the 1-layer run (the reference's counts
+its loop bodies once), and ``extrapolated`` names the fields that come
+from the extrapolation.  Argument bytes are computed exactly at full depth
+from the specs; output bytes from the two runs, which is exact because
+every output leaf is either per layer or layer-free.
+
+No score corrections.  ``_attn_score_bytes`` and ``_banded_flops_corr``
+are ported and recorded as the reference records them, but not
+subtracted: the port's counts never include widened score matrices (the
+chunks are never widened), and under ``attn_block_skip`` the skipped kv
+blocks are really skipped (``models.attention.live_block``).
+
+Where DTensor has no sharding rule for an op, or one GSPMD does not
+share, the dry-run adjusts it; each site may add or drop collectives
+against GSPMD's, and the records count them (``view_replications``,
+``retries``):
+  - ``aten.searchsorted`` (``models/moe.py``'s dispatch): a registered
+    rule computes it on replicated operands (the sorted expert ids are
+    all-gathered);
+  - a view that would split or flatten a sharded dim in a way DTensor
+    cannot shard (Yi-6B's 4 kv heads over a 16-wide `model` axis; older
+    DTensor also refuses to flatten a batch- and sequence-sharded
+    tensor) is taken after its input is replicated on that mesh axis;
+  - ``aten.bmm`` with both operands sharded on the batch dim only, a
+    strided shard included (an einsum flattens a batch- and a
+    head-sharded dim into it), runs shard by shard, where DTensor would
+    gather the strided batch first;
+  - ``aten.logsumexp`` over a sharded dim (the loss's vocab-sharded
+    logits) is reduced as a max and a sum, each all-reduced on its small
+    result, where DTensor would gather the logits;
+  - ``aten.index_add`` (the embedding's backward) and
+    ``aten.constant_pad_nd`` (the mamba mixer's causal conv), where a
+    torch version's rule fails, are taken again on replicated operands
+    (``_RETRIED``); a replicated output that 2.11's pad rule gives one
+    placement is given one a mesh dim (``_every_mesh_dim``);
+  - where a torch version (2.11) has no rule for them: ``aten.detach_``
+    (autograd's, in the backward's redistributions) takes that version's
+    ``aten.detach`` rule, and ``aten.flip`` (``cumsum``'s backward, in
+    the mamba mixer's SSD) a registered one, sharded on any dim it does
+    not reverse; both keep the placements, no collective;
+  - ``_dtensor.shard_dim_alltoall``: on a CPU mesh DTensor would gather
+    and chunk instead of the all-to-all a GPU mesh issues; the dry-run
+    issues the all-to-all (``_cpu_mesh_alltoall``).
+DTensor internals run outside the recorder where they are not the
+step's: its sharding and shape propagation of each new op schema
+(``_meta_propagation_unrecorded``, and a warm-up step before the
+recorded ones) and ``_StridedShard``'s host-side size arithmetic
+(``_strided_shard_shapes``); a vocab-sharded gather whose size-1 dim is
+selected before its reduction gets its mask reshaped
+(``_mask_after_select``).  For the step's run the dry-run also swaps in
+its own versions of four model functions (``_sharded_model_paths``;
+the card and CPU paths never take them, and the models hold no DTensor
+branch): ``ops.dense``'s and ``ops.rmsnorm``'s plain versions on x's
+leading dims (no flatten into rows), ``attention.write_kv`` as the
+reference's one-hot select, and ``attention.chunked_attention`` with a
+copy of its kv head per q head where q's head dim is sharded past the
+kv heads.
+
+The collectives depend on the torch version: DTensor 2.13 keeps a
+flattened batch- and sequence-sharded tensor as a strided shard, older
+versions replicate the sequence first.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import math
+import os
+import re
+import sys
+import time
+import traceback
+import weakref
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.core import shardlib
+from repro_torch.launch import roofline, sharding, steps
+from repro_torch.launch.mesh import placeholder_mesh
+
+__all__ = ["OUT_DIR", "build_lowered", "calibrated_costs", "lower_and_compile",
+           "save_result", "main", "SCORE_BYTES_PER_ELEM", "fake_world",
+           "torch_version_of"]
+
+OUT_DIR = "experiments/dryrun_torch"
+
+
+# ----------------------------------------------------------------------
+# The fake world
+# ----------------------------------------------------------------------
+@contextlib.contextmanager
+def fake_world(mesh):
+    """A fake process group of ``mesh.size`` ranks (this process is rank
+    0) and its ``DeviceMesh``; the group is destroyed on exit."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("the dry-run needs a process without a group")
+    n = math.prod(mesh.shape.values())
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield init_device_mesh("cpu", tuple(mesh.shape.values()),
+                               mesh_dim_names=tuple(mesh.axis_names))
+    finally:
+        dist.destroy_process_group()
+
+
+def _local_shape(shape, placements, dmesh) -> tuple:
+    """Device 0's shard shape: each sharded dim split in ``torch.chunk``'s
+    way over its mesh dims in order, device 0 taking the first piece."""
+    from torch.distributed.tensor import Shard
+    out = list(shape)
+    for mdim, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            n = dmesh.shape[mdim]
+            out[pl.dim] = -(-out[pl.dim] // n)
+    return tuple(out)
+
+
+def _nbytes(shape, dtype) -> int:
+    return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+
+def _distribute(tree, specs, dmesh, stats=None):
+    """DTensors of fake zeros shaped like ``tree``'s (meta) leaves,
+    placed by ``specs``; no collective.  ``stats["bytes"]`` sums the
+    local shard bytes."""
+    from torch.distributed.tensor import DTensor
+
+    def one(leaf, spec):
+        pl = shardlib.placements(spec, dmesh)
+        local = _local_shape(tuple(leaf.shape), pl, dmesh)
+        if stats is not None:
+            stats["bytes"] += _nbytes(local, leaf.dtype)
+        return DTensor.from_local(
+            torch.zeros(local, dtype=leaf.dtype), dmesh, pl, run_check=False,
+            shape=tuple(leaf.shape),
+            stride=torch.empty(leaf.shape, device="meta").stride())
+    return _map2(one, tree, specs)
+
+
+def _map2(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree and its spec tree (specs are tuples,
+    so the spec tree is walked by the data tree's structure)."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _map2(fn, getattr(tree, f.name), getattr(specs, f.name))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map2(fn, v, s) for v, s in zip(tree, specs,
+                                                          strict=True))
+    return fn(tree, specs)
+
+
+def local_bytes(tree, specs, mesh) -> int:
+    """Summed local shard bytes of a (meta) tree placed by ``specs`` on
+    ``mesh`` (device 0's shards; exact where the axes divide)."""
+    total = [0]
+
+    def one(leaf, spec):
+        shp = list(leaf.shape)
+        for dim, ax in enumerate(spec):
+            for a in (ax if isinstance(ax, tuple) else (ax,) if ax else ()):
+                shp[dim] = -(-shp[dim] // mesh.shape[a])
+        total[0] += _nbytes(shp, leaf.dtype)
+    _map2(one, tree, specs)
+    return total[0]
+
+
+# ----------------------------------------------------------------------
+# The recorder
+# ----------------------------------------------------------------------
+def _is_shard(p) -> bool:
+    """A ``Shard`` or a ``_StridedShard`` (not a subclass of ``Shard``)."""
+    return not (p.is_replicate() or p.is_partial())
+
+
+_UNEVEN = re.compile(r"not evenly divisible by mesh dimension (\d+)")
+
+
+def _blocking_mesh_dim(msg: str, placements):
+    """The mesh dim whose sharding stops a view, from DTensor's refusal:
+    named where the message names it (a dim the axis does not divide),
+    else (a sharded dim flattened or split, which older DTensor refuses)
+    the last mesh dim that shards; None if the error is another one."""
+    m = _UNEVEN.search(msg)
+    if m is not None:
+        mdim = int(m.group(1))
+    elif "without redistribution" in msg:
+        sharded = [i for i, p in enumerate(placements) if _is_shard(p)]
+        mdim = sharded[-1] if sharded else None
+    else:
+        return None
+    if mdim is None or placements[mdim].is_replicate():
+        return None
+    return mdim
+
+
+_VIEW_OPS = set()
+_RETRIED = {}
+
+
+def _replicate_dims(x, dims):
+    """``x`` replicated on every mesh dim that shards one of ``dims``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return x
+    pl = [Replicate() if _is_shard(p) and p.dim in dims else p
+          for p in x.placements]
+    return x if pl == list(x.placements) else \
+        x.redistribute(x.device_mesh, pl)
+
+
+def _every_mesh_dim(out):
+    """``out`` with one placement a mesh dim: a replicated DTensor that
+    carries fewer (torch 2.11's ``constant_pad_nd`` rule on replicated
+    operands) is replicated on every mesh dim; others as they are."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(out, DTensor) or \
+            len(out.placements) == out.device_mesh.ndim:
+        return out
+    if not all(p.is_replicate() for p in out.placements):
+        raise RuntimeError(f"{out.placements} on a {out.device_mesh.ndim}-D "
+                           "mesh")
+    return DTensor.from_local(
+        out.to_local(), out.device_mesh,
+        (Replicate(),) * out.device_mesh.ndim, run_check=False,
+        shape=out.shape, stride=out.stride())
+
+
+def _index_add_args(args):
+    # the index and the source replicated whole; self as it is
+    self_, dim, index, source = args[:4]
+    return (self_, dim, _replicate_dims(index, range(index.ndim)),
+            _replicate_dims(source, range(source.ndim))) + tuple(args[4:])
+
+
+def _pad_args(args):
+    # the input replicated whole
+    x = args[0]
+    return (_replicate_dims(x, range(x.ndim)),) + tuple(args[1:])
+
+
+def _recorder_cls():
+    from torch.distributed.tensor import DTensor, Replicate
+    if not _VIEW_OPS:
+        _VIEW_OPS.update((torch.ops.aten.view.default,
+                          torch.ops.aten._unsafe_view.default,
+                          torch.ops.aten.reshape.default))
+        _RETRIED.update({torch.ops.aten.index_add.default: _index_add_args,
+                         torch.ops.aten.constant_pad_nd.default: _pad_args})
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+    from torch.utils.weak import WeakIdKeyDictionary
+
+    class _StepRecorder(TorchDispatchMode):
+        """Counts device 0's local ops; DTensor ops are passed on
+        (``NotImplemented``), so the mode sees what they desugar to."""
+
+        def __init__(self):
+            super().__init__()
+            self.flops = 0
+            self.bytes = 0
+            self.coll = roofline.CollectiveRecorder()
+            self.live = 0
+            self.peak = 0
+            self._storages = WeakIdKeyDictionary()
+            self._nested = False
+            self.view_replications = 0
+            self.retries = 0
+
+        def _pass_on(self, fn, *args, **kwargs):
+            """``fn`` recorded, its DTensor ops left to DTensor."""
+            self._nested = True
+            try:
+                with self:
+                    return fn(*args, **kwargs)
+            finally:
+                self._nested = False
+
+        def _bmm(self, a, b):
+            """A bmm whose operands are both sharded on the batch dim
+            alone (strided too: an einsum flattens a batch- and a
+            head-sharded dim into it) runs shard by shard, as GSPMD runs
+            it; DTensor would gather a strided batch first.  A replicated
+            operand is split to the other's placement, without a
+            collective."""
+            target = []
+            for pa, pb in zip(a.placements, b.placements, strict=True):
+                if pa.is_replicate():
+                    target.append(pb)
+                elif (pb.is_replicate() or pa == pb) and _is_shard(pa):
+                    target.append(pa)
+                else:
+                    target = None
+                    break
+            if target is None or not all(
+                    p.is_replicate() or p.dim == 0 for p in target) \
+                    or all(p.is_replicate() for p in target):
+                return self._pass_on(torch.bmm, a, b)
+            target = tuple(target)
+            with self:
+                if tuple(a.placements) != target:
+                    a = a.redistribute(a.device_mesh, target)
+                if tuple(b.placements) != target:
+                    b = b.redistribute(b.device_mesh, target)
+                local = torch.bmm(a.to_local(), b.to_local())
+            shape = (a.shape[0], a.shape[1], b.shape[2])
+            return DTensor.from_local(
+                local, a.device_mesh, target, run_check=False, shape=shape,
+                stride=(shape[1] * shape[2], shape[2], 1))
+
+        def _retried(self, func, args, kwargs):
+            """An op whose DTensor rule, in some torch versions, gives
+            local shapes that do not fit (``index_add``: the embedding's
+            backward) or plans no redistribution (``constant_pad_nd``) is
+            taken again, when it fails, on operands replicated where
+            ``_RETRIED`` says; the failed attempt's counts are dropped.
+            A replicated output that a version's rule gives fewer
+            placements than the mesh has dims is given one a mesh dim."""
+            saved = (self.flops, self.bytes, dict(self.coll.bytes),
+                     dict(self.coll.counts), self.peak)
+            try:
+                return _every_mesh_dim(self._pass_on(func, *args, **kwargs))
+            except (RuntimeError, IndexError):
+                pass
+            (self.flops, self.bytes, self.coll.bytes, self.coll.counts,
+             self.peak) = saved
+            self.retries += 1
+            with self:
+                args = _RETRIED[func](args)
+            return _every_mesh_dim(self._pass_on(func, *args, **kwargs))
+
+        def _logsumexp(self, x, dim, keepdim=False):
+            """logsumexp over a sharded dim as GSPMD reduces it: a max and
+            a sum, each all-reduced on its (small) result, where DTensor
+            would gather the whole input (a vocab-sharded logits chunk)."""
+            dims = [d % x.ndim for d in dim]
+            if not any(_is_shard(p) and p.dim in dims
+                       for p in x.placements):
+                return self._pass_on(torch.logsumexp, x, dims, keepdim)
+            with self:
+                m = torch.amax(x, dim=dims, keepdim=True)
+                total = torch.sum(torch.exp(x - m), dim=dims,
+                                  keepdim=keepdim)
+                return torch.log(total) + m.reshape(total.shape)
+
+        def _view(self, func, args, kwargs):
+            """A view DTensor cannot shard (a sharded dim split into
+            factors its mesh axis does not divide) is taken after its
+            input is replicated on that mesh axis, as GSPMD reshards at
+            such a reshape; the redistribution is recorded."""
+            x, rest = args[0], args[1:]
+            relaid = False
+            for _ in range(x.device_mesh.ndim + 2):
+                try:
+                    return self._pass_on(func, x, *rest, **kwargs)
+                except (RuntimeError, ValueError) as e:
+                    msg = str(e)
+                    if "Cannot view a tensor" in msg and not relaid:
+                        # a local shard laid out apart from its global
+                        # tensor (after a redistribution): copied
+                        # contiguous, as an eager reshape would copy it
+                        relaid = True
+                        with self:
+                            x = DTensor.from_local(
+                                x.to_local().contiguous(), x.device_mesh,
+                                x.placements, run_check=False,
+                                shape=x.shape, stride=x.stride())
+                        continue
+                    pl = list(x.placements)
+                    mdim = _blocking_mesh_dim(msg, pl)
+                    if mdim is None:
+                        raise
+                    pl[mdim] = Replicate()
+                self.view_replications += 1
+                with self:
+                    x = x.redistribute(x.device_mesh, pl)
+            raise RuntimeError(f"{func} found no placement")
+
+        def _free(self, n):
+            self.live -= n
+
+        def _track(self, t):
+            st = t.untyped_storage()
+            if st in self._storages:
+                return
+            n = st.nbytes()
+            self._storages[st] = n
+            self.live += n
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(st, self._free, n)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if any(issubclass(t, DTensor) for t in types):
+                if self._nested:
+                    return NotImplemented
+                if func in _VIEW_OPS:
+                    return self._view(func, args, kwargs)
+                if func is torch.ops.aten.bmm.default:
+                    return self._bmm(*args)
+                if func is torch.ops.aten.logsumexp.default:
+                    return self._logsumexp(*args, **kwargs)
+                if func in _RETRIED:
+                    return self._retried(func, args, kwargs)
+                return NotImplemented
+            out = func(*args, **kwargs)
+            if _PAUSED:
+                return out
+            outs = [t for t in torch.utils._pytree.tree_leaves(out)
+                    if isinstance(t, torch.Tensor)]
+            for t in outs:
+                self._track(t)
+            if self.coll.add(func, out):
+                return out
+            packet = func._overloadpacket
+            if packet in flop_registry:
+                self.flops += flop_registry[packet](*args, **kwargs,
+                                                    out_val=out)
+            if not func.is_view:
+                ins = [t for t in torch.utils._pytree.tree_leaves(
+                    (args, kwargs)) if isinstance(t, torch.Tensor)]
+                self.bytes += sum(t.numel() * t.element_size()
+                                  for t in ins + outs)
+            return out
+
+    return _StepRecorder
+
+
+@contextlib.contextmanager
+def _cpu_mesh_alltoall():
+    """Shard(i) -> Shard(j) as the all-to-all a GPU mesh issues, where
+    DTensor would all-gather and chunk on a CPU mesh."""
+    from torch.distributed.tensor import _collective_utils, placement_types
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+
+    mods = [m for m in (_collective_utils, placement_types)
+            if hasattr(m, "shard_dim_alltoall")]
+    saved = [m.shard_dim_alltoall for m in mods]
+    for m in mods:
+        m.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved, strict=True):
+            m.shard_dim_alltoall = f
+
+
+@contextlib.contextmanager
+def _strided_shard_shapes():
+    """``_StridedShard``'s shard-size helpers run outside every mode: they
+    index an ``arange`` on the host, which ``FakeTensorMode`` cannot read
+    back.  They compute shapes only, so nothing is left uncounted, and
+    their results are kept: the same sizes recur at every layer."""
+    import functools
+    import inspect
+
+    from torch.distributed.tensor import placement_types
+    from torch.utils._python_dispatch import _disable_current_modes
+    cls = getattr(placement_types, "_StridedShard", None)
+    names = [n for n in ("local_shard_size_and_offset",
+                         "_local_shard_size_and_offset")
+             if cls is not None and n in vars(cls)]
+    saved = {n: vars(cls)[n] for n in names}
+
+    def unmoded(raw):
+        kind = type(raw) if isinstance(raw, (staticmethod, classmethod)) \
+            else None
+        fn = raw.__func__ if kind else raw
+
+        memo = {}
+
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            key = (args, tuple(sorted(kwargs.items())))
+            try:
+                return memo[key]
+            except KeyError:
+                pass
+            except TypeError:           # an unhashable argument
+                key = None
+            with _disable_current_modes():
+                out = fn(*args, **kwargs)
+            if key is not None:
+                memo[key] = out
+            return out
+        return kind(run) if kind else run
+
+    for n in names:
+        setattr(cls, n, unmoded(inspect.getattr_static(cls, n)))
+    try:
+        yield
+    finally:
+        for n, raw in saved.items():
+            setattr(cls, n, raw)
+
+
+@contextlib.contextmanager
+def _mask_after_select():
+    """A vocab-sharded ``gather`` followed by a select of its size-1 dim
+    (``lm._ce_chunk``'s gold logit) reduces a partial whose output has
+    one dim less than its mask; DTensor would index the mask as an
+    embedding's.  The mask is reshaped to the output first."""
+    try:
+        from torch.distributed.tensor._ops._mask_buffer import MaskBuffer
+    except ImportError:
+        yield
+        return
+    orig = MaskBuffer.apply_mask
+
+    def apply_mask(self, tensor):
+        data = self.data
+        if data is not None and data.ndim > tensor.ndim and \
+                data.numel() == tensor.numel():
+            tensor[data.reshape(tensor.shape)] = 0.0
+            return
+        orig(self, tensor)
+
+    MaskBuffer.apply_mask = apply_mask
+    try:
+        yield
+    finally:
+        MaskBuffer.apply_mask = orig
+
+
+_PAUSED = []
+
+
+@contextlib.contextmanager
+def _meta_propagation_unrecorded():
+    """DTensor's sharding propagation runs ops of its own the first time
+    it meets an op's schema: the op on fake global-shaped inputs to learn
+    its output's shape, an op's decomposition to learn its strategy (the
+    embedding backward's ``index_add``).  Those runs are not the step's,
+    so the recorder passes them by."""
+    import functools
+
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    names = [n for n in ("propagate_op_sharding_non_cached",
+                         "_propagate_tensor_meta_non_cached",
+                         "_propagate_tensor_meta")
+             if n in vars(ShardingPropagator)]
+    if not names:
+        raise RuntimeError("DTensor's output-shape propagation not found")
+    saved = {n: vars(ShardingPropagator)[n] for n in names}
+
+    def paused(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            _PAUSED.append(1)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _PAUSED.pop()
+        return run
+
+    for n, fn in saved.items():
+        setattr(ShardingPropagator, n, paused(fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ShardingPropagator, n, fn)
+
+
+def _plain_dense(x, w, b, activation):
+    # ``ops._dense_call`` on x's leading dims as they are: flattening a
+    # batch- and sequence-sharded x into rows would give a strided shard
+    # (split on the host at every op) or, in older DTensor, a gather
+    from repro_torch.kernels import ref
+    _host_only(x)
+    return ref.dense_ref(x, w, b, activation=activation)
+
+
+def _plain_rmsnorm(x, scale, eps: float = 1e-6):
+    # ``ops.rmsnorm`` on x's leading dims, for the same reason
+    from repro_torch.kernels import ref
+    _host_only(x)
+    return ref.rmsnorm_ref(x, scale, eps=eps)
+
+
+def _one_hot_write_kv(ck, cv, k, v, lens):
+    # ``attention.write_kv`` as the reference's one-hot select, copied
+    # back in place: DTensor has no rule for an index_put on sharded rows
+    _host_only(ck)
+    S = ck.shape[1]
+    write = (torch.arange(S)[None, :] == lens[:, None])[:, :, None, None]
+    ck.copy_(torch.where(write, k.to(ck.dtype), ck))
+    cv.copy_(torch.where(write, v.to(cv.dtype), cv))
+
+
+def _head_split_attention(orig):
+    # ``attention.chunked_attention`` with a q whose head dim is sharded
+    # more ways than there are kv heads: it cannot be grouped (KH, G)
+    # where it lies, so each q head takes its own copy of its kv head
+    import functools
+
+    @functools.wraps(orig)
+    def run(q, k, v, **kwargs):
+        ways = math.prod(q.device_mesh.size(m) for m, p in enumerate(
+            q.placements) if p.is_shard(2)) if hasattr(q, "placements") \
+            else 1
+        if k.shape[2] % ways:
+            k, v = (t.repeat_interleave(q.shape[2] // t.shape[2], dim=2)
+                    for t in (k, v))
+        return orig(q, k, v, **kwargs)
+    return run
+
+
+def _host_only(x):
+    if x.device.type != "cpu":
+        raise NotImplementedError(
+            "the dry-run's model paths take the dry-run's fake CPU shards "
+            f"only, not a tensor on {x.device}")
+
+
+@contextlib.contextmanager
+def _sharded_model_paths():
+    """The model functions DTensor cannot take as the card and CPU paths
+    write them, replaced for the step's run by the dry-run's own
+    (listed in the module's docstring); restored on exit."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    swaps = [(ops, "_dense_call", _plain_dense),
+             (ops, "rmsnorm", _plain_rmsnorm),
+             (attention, "write_kv", _one_hot_write_kv),
+             (attention, "chunked_attention",
+              _head_split_attention(attention.chunked_attention))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+_RULES_REGISTERED = []
+
+
+def _sharding_rules():
+    """Sharding strategies for the ops DTensor has none for (each listed
+    in the module's docstring); registered once per process."""
+    if _RULES_REGISTERED:
+        return
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.searchsorted.Tensor)
+    def _searchsorted(sorted_seq, values, *args, **kwargs):
+        # every operand replicated: the sorted expert ids are gathered
+        return [([Replicate()], [Replicate(), Replicate(), None])]
+    _RULES_REGISTERED.append(_searchsorted)
+
+    if _has_no_rule(torch.ops.aten.flip.default):
+        @register_sharding(torch.ops.aten.flip.default)
+        def _flip(x, dims):
+            # sharded on any dim it does not reverse, or partial, as is
+            rev = {d % x.ndim for d in dims}
+            return [([Replicate()], [Replicate(), None]),
+                    ([Partial()], [Partial(), None])] + [
+                ([Shard(d)], [Shard(d), None])
+                for d in range(x.ndim) if d not in rev]
+        _RULES_REGISTERED.append(_flip)
+
+    if _has_no_rule(torch.ops.aten.detach_.default):
+        # the placements kept, as the version's rule for aten.detach
+        from torch.distributed.tensor import DTensor
+        prop = DTensor._op_dispatcher.sharding_propagator
+        like = torch.ops.aten.detach.default
+        prop.register_op_strategy(torch.ops.aten.detach_.default,
+                                  prop.op_strategy_funcs[like],
+                                  prop.op_to_schema_info.get(like))
+        _RULES_REGISTERED.append(torch.ops.aten.detach_.default)
+
+
+def _has_no_rule(op) -> bool:
+    """Whether this torch's DTensor has no sharding rule for ``op``."""
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    return not any(op in t for t in (getattr(prop, a, None) for a in (
+        "op_to_rules", "op_strategy_funcs", "op_single_dim_strategy_funcs"))
+        if isinstance(t, dict))
+
+
+# ----------------------------------------------------------------------
+# Lowering
+# ----------------------------------------------------------------------
+@dataclasses.dataclass
+class LoweredStep:
+    """One step ready to run: the step function and its DTensor inputs."""
+    fn: object
+    args: tuple
+    argument_bytes: int
+    rules: dict
+
+    def compile(self) -> "CompiledStep":
+        """Run the step once under the recorder (the counterpart of
+        ``Lowered.compile``): returns its recorded costs."""
+        from torch.distributed.tensor.experimental import implicit_replication
+        from repro_torch.models import attention
+        rec = _recorder_cls()()
+        attention.reset_block_skips()
+        with shardlib.rules_scope(self.rules), implicit_replication(), \
+                _cpu_mesh_alltoall(), _strided_shard_shapes(), \
+                _mask_after_select(), _meta_propagation_unrecorded(), \
+                _sharded_model_paths(), rec:
+            out = self.fn(*self.args)
+            out_bytes = sum(_local(t).numel() * _local(t).element_size()
+                            for t in _tensor_leaves(out))
+        return CompiledStep(flops=float(rec.flops), bytes=float(rec.bytes),
+                            coll=rec.coll.result(), temp=float(rec.peak),
+                            argument_bytes=float(self.argument_bytes),
+                            output_bytes=float(out_bytes),
+                            block_skips=attention.BLOCK_SKIPS["skipped"],
+                            view_replications=rec.view_replications,
+                            retries=rec.retries)
+
+
+@dataclasses.dataclass
+class CompiledStep:
+    flops: float
+    bytes: float
+    coll: dict
+    temp: float
+    argument_bytes: float
+    output_bytes: float
+    block_skips: int = 0
+    view_replications: int = 0
+    retries: int = 0
+
+    def memory_analysis(self) -> dict:
+        return {"temp_size_in_bytes": self.temp,
+                "argument_size_in_bytes": self.argument_bytes,
+                "output_size_in_bytes": self.output_bytes,
+                "generated_code_size_in_bytes": 0.0}
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _tensor_leaves(tree):
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [x for f in dataclasses.fields(tree)
+                for x in _tensor_leaves(getattr(tree, f.name))]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tensor_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tensor_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def input_trees(cfg, shape, mesh):
+    """The step's abstract (meta) inputs and their specs, in call order."""
+    params = steps.abstract_params(cfg)
+    pspecs = sharding.param_specs(params, mesh)
+    batch = steps.input_specs(cfg, shape)
+    bspecs = sharding.batch_specs(batch, mesh, shape.mode)
+    if shape.mode == "train":
+        opt_state = steps.abstract_opt_state(cfg)
+        ospecs = sharding.opt_state_specs(opt_state, params, mesh)
+        return (params, opt_state, batch), (pspecs, ospecs, bspecs)
+    if shape.mode == "prefill":
+        return (params, batch), (pspecs, bspecs)
+    cache = steps.abstract_cache(cfg, shape)
+    cspecs = sharding.cache_specs(cache, mesh, shape.global_batch)
+    cache_len = torch.empty((), dtype=torch.int32, device="meta")
+    return (params, cache, cache_len, batch), \
+        (pspecs, cspecs, shardlib.P(), bspecs)
+
+
+def argument_bytes(cfg, shape, mesh) -> int:
+    trees, specs = input_trees(cfg, shape, mesh)
+    return sum(local_bytes(t, s, mesh) for t, s in zip(trees, specs,
+                                                        strict=True))
+
+
+def build_lowered(cfg, shape, mesh, dmesh, remat=True):
+    """The step with DTensor inputs on ``dmesh`` (inside ``fake_world``
+    and ``FakeTensorMode``): the counterpart of the reference's
+    ``jit(...).lower``."""
+    trees, specs = input_trees(cfg, shape, mesh)
+    stats = {"bytes": 0}
+    args = tuple(_distribute(t, s, dmesh, stats)
+                 for t, s in zip(trees, specs, strict=True))
+    if shape.mode == "train":
+        fn = steps.make_train_step(cfg, remat=remat)
+    elif shape.mode == "prefill":
+        fn = steps.make_prefill_step(cfg)
+    else:
+        fn = steps.make_decode_step(cfg)
+    return LoweredStep(fn=fn, args=args, argument_bytes=stats["bytes"],
+                       rules=sharding.logical_rules(mesh, cfg))
+
+
+def _costs(compiled, chips):
+    """(global_flops, global_bytes, global_coll_bytes, coll_detail)."""
+    flops = compiled.flops * chips          # recorded per device
+    byts = compiled.bytes * chips
+    coll = compiled.coll
+    cbytes = roofline.collective_bytes(coll) * chips
+    return flops, byts, cbytes, coll.get("_counts", {})
+
+
+def _calib_cfg(cfg, shape, k: int):
+    """k-layer calibration config at the config's own chunks."""
+    kw = dict(num_layers=k)
+    if cfg.num_encoder_layers:
+        kw["num_encoder_layers"] = k
+    return dataclasses.replace(cfg, **kw)
+
+
+def _run_depths(cfg, shape, mesh, remat=True, depths=(1, 2)):
+    """The k-layer steps (1 and 2 layers) run under the recorder, in one
+    fake world, after the first depth's step once as a warm-up:
+    {k: CompiledStep}."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    _sharding_rules()
+    out = {}
+    with fake_world(mesh) as dmesh:
+        # an unrecorded warm-up: DTensor's first meeting with each op
+        # schema runs work of its own, which no step repeats
+        for k in (depths[0],) + tuple(depths):
+            with FakeTensorMode(allow_non_fake_inputs=True):
+                low = build_lowered(_calib_cfg(cfg, shape, k), shape, mesh,
+                                    dmesh, remat=remat)
+                out[k] = low.compile()
+    return out
+
+
+def calibrated_costs(cfg, shape, mesh, remat=True, per=None):
+    """Cost from the 1-/2-layer runs, extrapolated to L layers."""
+    if per is None:
+        runs = _run_depths(cfg, shape, mesh, remat=remat)
+        per = {k: _costs(runs[k], mesh.devices.size) for k in (1, 2)}
+    L = cfg.num_layers
+    df = per[2][0] - per[1][0]
+    db = per[2][1] - per[1][1]
+    dc = per[2][2] - per[1][2]
+    counts = {kind: per[1][3].get(kind, 0) + (L - 1) * (
+        per[2][3].get(kind, 0) - per[1][3].get(kind, 0))
+        for kind in set(per[1][3]) | set(per[2][3])}
+    return {
+        "flops": per[1][0] + (L - 1) * df,
+        "bytes": per[1][1] + (L - 1) * db,
+        "coll_bytes": per[1][2] + (L - 1) * dc,
+        "per_layer": {"flops": df, "bytes": db, "coll_bytes": dc},
+        "outside": {"flops": per[1][0] - df, "bytes": per[1][1] - db,
+                    "coll_bytes": per[1][2] - dc},
+        "coll_counts_L1": per[1][3],
+        "coll_counts_L2": per[2][3],
+        "coll_counts": counts,
+    }
+
+
+# The reference's calibrated score traffic per element of a widened score
+# matrix (train = fwd + remat + bwd, prefill = fwd), kept for its record.
+SCORE_BYTES_PER_ELEM = {"train": 55.0, "prefill": 35.0}
+
+
+def _attn_score_bytes(cfg, shape) -> float:
+    """The reference's analytic traffic of materialised score/prob
+    matrices (recorded, not subtracted: see the module docstring)."""
+    if not cfg.num_heads or shape.mode == "decode":
+        return 0.0
+    if cfg.arch_type == "encdec":
+        se = shape.seq_len // 2
+        sd = shape.seq_len - se
+        elems = cfg.num_encoder_layers * se * se + \
+            cfg.num_layers * (sd * sd + sd * se)
+    else:
+        s = shape.seq_len
+        elems = cfg.num_layers * s * s
+    appearances = 3 if shape.mode == "train" else 1
+    factor = SCORE_BYTES_PER_ELEM[shape.mode]
+    return float(appearances * factor * shape.global_batch
+                 * cfg.num_heads * elems)
+
+
+def _banded_flops_corr(cfg, shape) -> float:
+    """The reference's analytic FLOP reduction from attn_block_skip
+    (recorded, not subtracted: see the module docstring)."""
+    if not (cfg.attn_block_skip and cfg.num_heads) or shape.mode == "decode":
+        return 0.0
+    from repro_torch.models.blocks import GLOBAL_WINDOW, layer_windows
+    S = shape.seq_len if cfg.arch_type != "encdec" else shape.seq_len // 2
+    qc, kc = cfg.attn_q_chunk or 512, cfg.attn_k_chunk or 1024
+    wins = np.asarray(layer_windows(cfg))
+    fracs = np.where(wins >= GLOBAL_WINDOW, 0.5 + qc / (2 * S),
+                     np.minimum(1.0, (wins + qc + kc) / S))
+    apps = 3 if shape.mode == "train" else 1
+    per_layer_attn = apps * 4.0 * shape.global_batch * cfg.num_heads \
+        * S * S * cfg.head_dim
+    return float(per_layer_attn * np.sum(1.0 - fracs))
+
+
+EXTRAPOLATED = ("memory_analysis.temp_size_in_bytes",
+                "memory_analysis.output_size_in_bytes", "calibrated")
+
+
+def lower_and_compile(arch: str, shape_name: str, mesh_name: str,
+                      variant: str = "", remat: bool = True,
+                      verbose: bool = True, calibrate: bool = True,
+                      cfg_override=None):
+    cfg = cfg_override or configs.get_config(arch, variant)
+    shape = configs.get_shape(shape_name)
+    mesh = placeholder_mesh(mesh_name)
+    chips = mesh.devices.size
+
+    t0 = time.time()
+    runs = _run_depths(cfg, shape, mesh, remat=remat)
+    compile_s = time.time() - t0
+    per = {k: _costs(runs[k], chips) for k in (1, 2)}
+    L = cfg.num_layers
+    m1, m2 = runs[1].memory_analysis(), runs[2].memory_analysis()
+
+    def extrap(key):
+        return m1[key] + (L - 1) * (m2[key] - m1[key])
+    mem_d = {
+        "temp_size_in_bytes": extrap("temp_size_in_bytes"),
+        "argument_size_in_bytes": float(argument_bytes(cfg, shape, mesh)),
+        "output_size_in_bytes": extrap("output_size_in_bytes"),
+        "generated_code_size_in_bytes": 0.0,
+    }
+    full_flops, full_bytes, full_coll, full_counts = per[1]
+
+    result = {
+        "arch": arch, "shape": shape_name, "mesh": mesh_name,
+        "variant": variant, "chips": chips, "compile_s": round(compile_s, 1),
+        "torch": torch.__version__,
+        "memory_analysis": mem_d,
+        "full_artifact": {
+            "flops_body_once": full_flops, "bytes_body_once": full_bytes,
+            "coll_bytes_body_once": full_coll, "coll_counts": full_counts,
+        },
+        "extrapolated": list(EXTRAPOLATED),
+        "block_skips": {f"L{k}": runs[k].block_skips for k in (1, 2)},
+        "view_replications": {f"L{k}": runs[k].view_replications
+                              for k in (1, 2)},
+        "retries": {f"L{k}": runs[k].retries for k in (1, 2)},
+    }
+    if per[2][0] < per[1][0] or per[2][1] < per[1][1]:
+        raise RuntimeError(
+            f"the 2-layer run counted less than the 1-layer run "
+            f"(FLOPs {per[1][0]:.4g} -> {per[2][0]:.4g}, bytes "
+            f"{per[1][1]:.4g} -> {per[2][1]:.4g}): a count outside the step")
+
+    if calibrate:
+        cal = calibrated_costs(cfg, shape, mesh, remat=remat, per=per)
+        score_corr = _attn_score_bytes(cfg, shape)
+        banded_corr = _banded_flops_corr(cfg, shape)
+        rep = roofline.RooflineReport(
+            arch=arch, shape=shape_name, mesh=mesh_name, chips=chips,
+            hlo_flops=cal["flops"], hlo_bytes=cal["bytes"],
+            coll_bytes=cal["coll_bytes"], coll_detail=cal["coll_counts_L2"],
+            model_flops_=roofline.model_flops(cfg, shape),
+            per_device_hbm=mem_d["temp_size_in_bytes"]
+            + mem_d["argument_size_in_bytes"])
+        result["calibrated"] = cal
+        result["attn_score_bytes_corr"] = score_corr
+        result["banded_flops_corr"] = banded_corr
+        row = rep.row()
+        row["memory_naive_ms"] = row["memory_flash_ms"] = row["memory_ms"]
+        result["roofline"] = row
+
+    if verbose:
+        msg = (f"[dryrun] {arch} x {shape_name} x {mesh_name}"
+               f"{' (' + variant + ')' if variant else ''}: "
+               f"run {compile_s:.1f}s")
+        if calibrate:
+            r = result["roofline"]
+            msg += (f"  flops {r['flops_T']}T coll {r['coll_G']}GB "
+                    f"bottleneck={r['bottleneck']} "
+                    f"useful={r['useful_frac']}")
+        print(msg)
+        print(f"  memory_analysis: {mem_d}")
+    return result
+
+
+def torch_version_of(records) -> str:
+    """The one torch version that wrote every record (``"torch"``; a
+    record without it counts as its own version): the collectives and
+    the counts depend on the version's DTensor rules, so records of two
+    versions are not compared or mixed.  Raises ``ValueError`` if they
+    differ."""
+    versions = {r.get("torch", "unrecorded") for r in records}
+    if len(versions) > 1:
+        raise ValueError("dry-run records of several torch versions: "
+                         f"{sorted(versions)}")
+    return versions.pop() if versions else torch.__version__
+
+
+def save_result(result: dict, tag: str = "") -> str:
+    os.makedirs(OUT_DIR, exist_ok=True)
+    suffix = f"__{tag}" if tag else ""
+    fn = (f"{OUT_DIR}/{result['arch']}__{result['shape']}__"
+          f"{result['mesh']}{suffix}.json")
+    with open(fn, "w") as f:
+        json.dump(result, f, indent=1)
+    return fn
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="all",
+                    help=f"one of {configs.ARCH_NAMES} or 'all'")
+    ap.add_argument("--shape", default="all",
+                    help="train_4k|prefill_32k|decode_32k|long_500k|all")
+    ap.add_argument("--mesh", default="pod",
+                    help="pod|multipod|tiny|tiny3d|both")
+    ap.add_argument("--variant", default="",
+                    help="'' or 'swa' (sliding-window long-context variant)"
+                         " or 'opt'")
+    ap.add_argument("--tag", default="", help="output filename tag")
+    ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--no-calibrate", action="store_true",
+                    help="leave the calibrated costs and the roofline row "
+                         "out of the record")
+    ap.add_argument("--include-skips", action="store_true")
+    args = ap.parse_args(argv)
+
+    archs = configs.ARCH_NAMES if args.arch == "all" else [args.arch]
+    shapes = list(configs.SHAPES) if args.shape == "all" else [args.shape]
+    meshes = ["pod", "multipod"] if args.mesh == "both" else [args.mesh]
+
+    failures = []
+    for arch in archs:
+        for shape in shapes:
+            if (arch, shape) in configs.SKIPS and not args.include_skips \
+                    and not args.variant:
+                print(f"[skip] {arch} x {shape}: "
+                      f"{configs.SKIPS[(arch, shape)]}")
+                continue
+            for mesh in meshes:
+                try:
+                    res = lower_and_compile(
+                        arch, shape, mesh, variant=args.variant,
+                        remat=not args.no_remat,
+                        calibrate=not args.no_calibrate)
+                    fn = save_result(res, tag=args.tag or args.variant)
+                    print(f"  -> {fn}", flush=True)
+                except Exception as e:  # noqa: BLE001 — report every combo
+                    traceback.print_exc()
+                    failures.append((arch, shape, mesh, str(e)[:200]))
+    if failures:
+        print(f"\n{len(failures)} FAILURES:")
+        for f in failures:
+            print("  ", f)
+        return 1
+    print("\nall dry-runs passed")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

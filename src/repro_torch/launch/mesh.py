@@ -12,8 +12,10 @@ reference's ``--xla_force_host_platform_device_count`` does) and defaults
 to ``default_devices()``: the distinct CUDA devices, or one CPU device
 where no card is visible.
 
-``make_production_mesh`` (the TPU pod shapes) is not ported; it belongs to
-the dry-run, which waits (``ROADMAP.md`` §1 item 5).
+``make_production_mesh`` builds the production shapes (``pod``, 16 x 16;
+``multipod``, 2 x 16 x 16) over placeholder devices, by default the CPU
+device repeated: the dry-run (``launch/dryrun.py``) reads only their
+shape and axis names.
 """
 from __future__ import annotations
 
@@ -28,8 +30,8 @@ from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.sanitize import sanctioned_scope
 
 __all__ = ["Mesh", "MESHES", "default_devices", "make_mesh",
-           "make_nodes_mesh", "make_hybrid_mesh", "data_axes", "place",
-           "place_copy"]
+           "make_nodes_mesh", "make_hybrid_mesh", "make_production_mesh",
+           "placeholder_mesh", "data_axes", "place", "place_copy"]
 
 MESHES = {
     "pod": ((16, 16), ("data", "model")),               # 256 chips (v5e pod)
@@ -171,6 +173,17 @@ def make_hybrid_mesh(num_nodes: int, model_parallel: int,
             f"{len(pool)} (pass a devices= pool of {need} to emulate)")
     return Mesh(np.asarray(pool[:need], dtype=object).reshape(
         num_nodes, model_parallel), ("nodes", "model"))
+
+
+def placeholder_mesh(name: str) -> Mesh:
+    """``MESHES[name]`` over placeholder devices (the CPU device repeated),
+    the counterpart of the reference's forced host-platform devices."""
+    return make_mesh(name, [torch.device("cpu")] *
+                     math.prod(MESHES[name][0]))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    return placeholder_mesh("multipod" if multi_pod else "pod")
 
 
 def data_axes(mesh) -> tuple:

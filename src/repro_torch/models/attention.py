@@ -4,29 +4,61 @@ decode path, from ``repro/models/attention.py``.
 Prefill runs the reference's ``chunked_attention`` (plain jnp there, not
 a Pallas kernel; plain PyTorch here) with its chunk sizes, so the bf16
 rounding of p, which follows the running max of each key chunk, is the
-reference's.  Its sharding constraints and ``block_skip`` are left out:
-they change where the work runs, not its values.  Both paths take the
-sliding window (as data, one int per layer) and Gemma-2's attention
-soft-cap, and Qwen3's per-head q/k RMSNorm (``qk_norm``) after the
-projections and before the rotary embedding.  The prefill path also takes
-a cross-attention memory (``kv_source``, the encoder-decoder's): k and v
-are projected from it and neither q nor k is roped.  The reference's
-``attn_kv_gather`` only constrains the sharding of q, k and v, so it is
-accepted and changes nothing here.
+reference's.  Both paths take the sliding window (one int per layer)
+and Gemma-2's attention soft-cap, and Qwen3's per-head q/k RMSNorm
+(``qk_norm``) after the projections and before the rotary embedding.  The
+prefill path also takes a cross-attention memory (``kv_source``, the
+encoder-decoder's): k and v are projected from it and neither q nor k is
+roped.
+
+The reference's sharding constraints are kept (``core.shardlib``): with
+no rules installed they return their input, so they change nothing
+outside the dry-run.  ``attn_kv_gather`` picks which ones: q and the
+output stay sequence-sharded and only k and v are gathered, instead of
+the head-sharded layout.
+
+``block_skip`` (``cfg.attn_block_skip``, on in the ``opt`` variant) skips
+on the host every kv block that lies wholly outside the causal or window
+band of a q chunk.  A skipped block after the last live one would add
+``p = 0`` at ``alpha = 1``; one before the first live one would be wiped
+by ``alpha = 0`` when the first live block comes, and every row has a
+live key (itself).  So the result equals the unskipped path bit for bit.
+``BLOCK_SKIPS["skipped"]`` counts the blocks skipped since the last
+``reset_block_skips()``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.shardlib import constrain
+
 from .layers import (apply_rope, dense, init_dense, init_rms_norm, rms_norm,
                      softcap)
 
 __all__ = ["init_attention", "project_qkv", "chunked_attention",
            "attention_block", "init_kv_cache", "decode_attention_block",
-           "NEG_INF"]
+           "write_kv", "NEG_INF", "BLOCK_SKIPS", "reset_block_skips",
+           "live_block"]
 
 NEG_INF = -1e30
+
+# kv blocks ``chunked_attention(block_skip=True)`` skipped
+BLOCK_SKIPS = {"skipped": 0}
+
+
+def reset_block_skips() -> None:
+    BLOCK_SKIPS["skipped"] = 0
+
+
+def live_block(q_first: int, q_last: int, k_first: int, k_last: int, *,
+               causal: bool, window) -> bool:
+    """Whether a (q chunk, kv block) pair holds any unmasked score: not
+    wholly after the chunk's last row (causal), not wholly at or past
+    the window behind its first row.  Python ints throughout."""
+    if causal and k_first > q_last:
+        return False
+    return not (window and k_last <= q_first - int(window))
 
 
 def init_attention(gen, d_model: int, num_heads: int, num_kv_heads: int,
@@ -65,14 +97,15 @@ def _scale(D: int) -> float:
 
 def chunked_attention(q, k, v, *, causal: bool = True, window=None,
                       attn_softcap: float = 0.0, q_chunk: int = 512,
-                      k_chunk: int = 1024):
+                      k_chunk: int = 1024, block_skip: bool = False):
     """Blockwise online-softmax GQA attention.  q (B, Sq, H, D), k and v
     (B, Sk, KH, D) -> (B, Sq, H, D) in q's dtype.
 
     ``window`` None or 0 is full attention, else token i attends to j in
     (i - window, i].  Scores and the running max, sum and accumulator are
     f32; p is cast to v's dtype before the PV product, as the reference
-    does.
+    does.  ``block_skip`` skips the kv blocks ``live_block`` rules out
+    (the chunks' real, ragged bounds) and counts them in ``BLOCK_SKIPS``.
     """
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
@@ -97,6 +130,12 @@ def chunked_attention(q, k, v, *, causal: bool = True, window=None,
                        device=dev)
         lsum = torch.zeros((B, rows, KH, G), dtype=torch.float32, device=dev)
         for ki in range(nk):
+            if block_skip and not live_block(
+                    qi * q_chunk, qi * q_chunk + rows - 1, ki * k_chunk,
+                    min((ki + 1) * k_chunk, Sk) - 1, causal=causal,
+                    window=win):
+                BLOCK_SKIPS["skipped"] += 1
+                continue
             k_blk = k[:, ki * k_chunk:(ki + 1) * k_chunk]
             v_blk = v[:, ki * k_chunk:(ki + 1) * k_chunk]
             k_pos = ki * k_chunk + k_range[:k_blk.shape[1]]
@@ -152,10 +191,25 @@ def attention_block(params, x, positions, cfg, *, window=None,
     self-attention)."""
     B, S, _ = x.shape
     q, k, v = project_qkv(params, x, positions, cfg, kv_source)
+    if cfg.attn_kv_gather:
+        # q and the attention output stay sequence-sharded; only K/V
+        # (kv_dim << d_model under GQA) are gathered to the full sequence
+        q = constrain(q, "batch", "seq", None, None)
+        k = constrain(k, "batch", None, None, None)
+        v = constrain(v, "batch", None, None, None)
+    else:
+        # the SP<->TP boundary: attention runs head-sharded, so its chunk
+        # loops are collective-free (the all-to-all lives here, per layer)
+        q = constrain(q, "batch", None, "heads", None)
+        k = constrain(k, "batch", None, "kv_heads", None)
+        v = constrain(v, "batch", None, "kv_heads", None)
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             attn_softcap=cfg.attn_softcap,
                             q_chunk=cfg.attn_q_chunk or 512,
-                            k_chunk=cfg.attn_k_chunk or 1024)
+                            k_chunk=cfg.attn_k_chunk or 1024,
+                            block_skip=cfg.attn_block_skip)
+    out = constrain(out, "batch", "seq", None, None) if cfg.attn_kv_gather \
+        else constrain(out, "batch", None, "heads", None)
     out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
     return dense(params["wo"], out), (k, v)
 
@@ -168,15 +222,26 @@ def init_kv_cache(batch: int, seq_len: int, num_kv_heads: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def write_kv(ck, cv, k, v, lens) -> None:
+    """Write each row's new k, v (B, 1, KH, D) IN PLACE into the cache
+    ck, cv (B, S, KH, D) at its own position ``lens[b]``; a row whose
+    length has reached S writes nothing (the reference's one-hot select,
+    done as an ``index_put`` that rewrites the old value there)."""
+    B, S = ck.shape[:2]
+    rows = torch.arange(B, device=ck.device)
+    at = lens.clamp(max=S - 1).long()
+    live = (lens < S)[:, None, None]
+    ck[rows, at] = torch.where(live, k[:, 0].to(ck.dtype), ck[rows, at])
+    cv[rows, at] = torch.where(live, v[:, 0].to(cv.dtype), cv[rows, at])
+
+
 def decode_attention_block(params, x, cache, cache_len, cfg, *, window=None):
     """One new token per row against a KV cache.
 
     x: (B, 1, d_model); cache k/v: (B, S, KH, D); cache_len: (B,) int
     per-row counts of valid tokens (or a scalar).  Each row's new k/v is
-    written IN PLACE at its own position ``lens[b]``; a row whose length
-    has reached S writes nothing (the reference's one-hot select, done as
-    an ``index_put`` that rewrites the old value there).  Returns
-    (out (B, 1, d_model), cache).
+    written IN PLACE by ``write_kv``.  Returns (out (B, 1, d_model),
+    cache).
     """
     B = x.shape[0]
     H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -193,11 +258,7 @@ def decode_attention_block(params, x, cache, cache_len, cfg, *, window=None):
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
 
-    rows = torch.arange(B, device=x.device)
-    at = lens.clamp(max=S - 1).long()
-    live = (lens < S)[:, None, None]
-    ck[rows, at] = torch.where(live, k[:, 0].to(ck.dtype), ck[rows, at])
-    cv[rows, at] = torch.where(live, v[:, 0].to(cv.dtype), cv[rows, at])
+    write_kv(ck, cv, k, v, lens)
 
     s = torch.einsum("bhgd,bkhd->bhgk", q.reshape(B, KH, G, D).float(),
                      ck.float()) / float(np.sqrt(np.float32(D)))

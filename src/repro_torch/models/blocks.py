@@ -12,11 +12,13 @@ vlm, audio and encdec types run the dense block, as the reference's
 dispatch does (the encoder-decoder's own stacks are ``models/encdec.py``).
 
 ``check_supported`` raises ``NotImplementedError`` for any other
-``arch_type``.  ``mlp_megatron``, ``attn_block_skip``,
-``attn_kv_gather``, ``embed_reshard`` and ``bf16_params_compute`` only
-change sharding, skipping or the place of a cast in the reference, not
-its values, and are accepted as they are; so is ``embed_onehot``, whose
-one-hot product picks the embedding rows exactly.
+``arch_type``.  ``mlp_megatron`` (the prefill MLP's sharding
+constraints), ``attn_kv_gather`` and ``attn_block_skip`` act as in the
+reference (``layers.mlp``, ``attention.attention_block``) and change no
+value.  ``embed_reshard`` and ``bf16_params_compute`` only change
+sharding or the place of a cast in the reference, not its values, and are
+accepted as they are; so is ``embed_onehot``, whose one-hot product picks
+the embedding rows exactly.
 """
 from __future__ import annotations
 
@@ -131,7 +133,7 @@ def block_forward(params, x, positions, cfg, window=None,
             k, v = kv
             blk_cache["kv"] = {"k": k.to(cache_dtype), "v": v.to(cache_dtype)}
         kv = blk_cache
-    x, aux = _ffn_residual(params, x, cfg)
+    x, aux = _ffn_residual(params, x, cfg, megatron=cfg.mlp_megatron)
     return x, kv, aux
 
 
@@ -151,9 +153,9 @@ def _post_norm(params, name, out, cfg):
         else out
 
 
-def _ffn_residual(params, x, cfg):
+def _ffn_residual(params, x, cfg, megatron: bool = False):
     """x plus the moe or mlp sublayer of ``ln2(x)``, and the moe's aux
-    (0 otherwise)."""
+    (0 otherwise).  ``megatron`` is the prefill MLP's (``layers.mlp``)."""
     if "moe" in params:
         h2 = rms_norm(params["ln2"], x, cfg.norm_eps)
         out, aux = moe_layer(params["moe"], h2, cfg)
@@ -163,7 +165,8 @@ def _ffn_residual(params, x, cfg):
         return x, aux
     h2 = rms_norm(params["ln2"], x, cfg.norm_eps)
     return x + _post_norm(params, "pn2", mlp(params["mlp"], h2,
-                                             cfg.activation), cfg), aux
+                                             cfg.activation,
+                                             megatron=megatron), cfg), aux
 
 
 def init_block_cache(batch, seq_len, cfg, *, stack=(), dtype=torch.bfloat16,

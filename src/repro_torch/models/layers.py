@@ -13,6 +13,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.shardlib import constrain
 from repro_torch.kernels import ops
 
 __all__ = [
@@ -94,8 +95,14 @@ def init_mlp(gen, d_model: int, d_ff: int, *, stack=(), dtype=torch.float32,
     }
 
 
-def mlp(params, x, activation: str = "silu"):
-    """Gated MLP (SwiGLU / GeGLU; ``jax.nn.gelu``'s tanh form)."""
+def mlp(params, x, activation: str = "silu", megatron: bool = False):
+    """Gated MLP (SwiGLU / GeGLU; ``jax.nn.gelu``'s tanh form).
+
+    megatron=True keeps the reference's tensor-parallel dataflow under
+    sharding rules: x gathered over the sequence once, the hidden kept
+    ff-sharded on `model`, the output reduce-scattered back to
+    sequence-sharded.  Without rules the constraints return their input.
+    """
     if activation == "silu":
         act = F.silu
     elif activation == "gelu":
@@ -103,7 +110,12 @@ def mlp(params, x, activation: str = "silu"):
             return F.gelu(h, approximate="tanh")
     else:
         raise ValueError(f"activation={activation!r}: 'silu' or 'gelu'")
+    if megatron:
+        x = constrain(x, "batch", None, None)          # gather seq
     h = act(dense(params["wg"], x)) * dense(params["wi"], x)
+    if megatron:
+        h = constrain(h, "batch", None, "mlp_ff")      # ff stays sharded
+        return constrain(dense(params["wo"], h), "batch", "seq", None)
     return dense(params["wo"], h)
 
 

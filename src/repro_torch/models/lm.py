@@ -18,6 +18,13 @@ whose P front-end positions carry no loss.  The reference's embedding
 flags ``embed_onehot`` (a one-hot product whose one nonzero term is the
 looked-up row) and ``embed_reshard`` (a sharding constraint) give the
 rows the plain lookup gives, so the lookup serves all three.
+
+The reference's sharding constraints (``core.shardlib.constrain``) stand
+where it has them: the embedded rows and every layer boundary
+sequence-sharded, ``embed_reshard``'s d-sharded table and rows, the
+loss chunks' logits vocab-sharded.  ``embed_onehot``'s constraint is on
+the one-hot matrix, which the lookup never builds.  With no rules
+installed each returns its input.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve_device
+from repro_torch.core.shardlib import constrain
 
 from .blocks import (block_decode, block_forward, check_supported,
                      init_block, init_block_cache, layer_windows)
@@ -159,12 +167,20 @@ def forward(params, tokens, cfg, frontend_embeds=None, collect_cache=False,
     blocks' inputs are kept."""
     check_supported(cfg)
     dt = _dtype(cfg)
-    x = embed(params["embed"], tokens).to(dt)
+    if cfg.embed_reshard:
+        # the vocab-sharded table resharded d-sharded, so the lookup is
+        # local to each shard
+        x = embed({"table": constrain(params["embed"]["table"], None, "tp")},
+                  tokens).to(dt)
+        x = constrain(x, "batch", None, "tp")
+    else:
+        x = embed(params["embed"], tokens).to(dt)
     if frontend_embeds is not None:
         fe = torch.matmul(frontend_embeds.to(dt),
                           params["frontend_proj"]["w"].to(dt))
         x = torch.cat([fe, x], dim=1)
     B, S, _ = x.shape
+    x = constrain(x, "batch", "seq", "embed")
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
@@ -172,9 +188,12 @@ def forward(params, tokens, cfg, frontend_embeds=None, collect_cache=False,
         lp = layer_params(params["layers"], i)
 
         def block(x, lp=lp, win=win):
-            return block_forward(lp, x, positions, cfg, window=win,
-                                 collect_cache=collect_cache,
-                                 cache_dtype=cache_dtype)
+            # sequence-sharded at the layer boundary (Megatron-SP style)
+            x = constrain(x, "batch", "seq", "embed")
+            x, kv, a = block_forward(lp, x, positions, cfg, window=win,
+                                     collect_cache=collect_cache,
+                                     cache_dtype=cache_dtype)
+            return constrain(x, "batch", "seq", "embed"), kv, a
         x, kv, a = (checkpoint(block, x, use_reentrant=False) if remat
                     else block(x))
         aux = aux + a
@@ -187,7 +206,7 @@ def forward(params, tokens, cfg, frontend_embeds=None, collect_cache=False,
 def _ce_chunk(h, lbl, table, cap):
     """(sum of the chunk's token NLLs, its count of labels >= 0): logits
     in the activation dtype, soft-capped there, then f32."""
-    logits = h @ table.T
+    logits = constrain(h @ table.T, "batch", None, "vocab")
     if cap:
         logits = softcap(logits, cap)
     logits = logits.float()

@@ -21,9 +21,11 @@ Every step keeps the reference's values and order:
   dtype after each add; no ``index_add_`` or atomics, so a forward on
   the card reruns bit for bit.
 
-The reference's sharding constraints (``constrain``, ``constrain_div``)
-are left out: they change where the work runs, not its values.  The
-router and the expert products are library calls here, as they are
+The reference's sharding constraints stand where it has them
+(``core.shardlib``): x gathered over the sequence before the dispatch
+gather, the capacity buffer and the experts' output expert- (or
+capacity-) sharded.  With no rules installed they return their input.
+The router and the expert products are library calls here, as they are
 ``jnp`` products outside any Pallas kernel there.
 
 The forward's four parts run under ``torch.profiler.record_function``
@@ -37,6 +39,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
+
+from repro_torch.core.shardlib import constrain, constrain_div
 
 from .layers import _normal, init_dense
 
@@ -140,10 +144,15 @@ def moe_layer(params, x, cfg, capacity_factor: float = 0.0):
     # dispatch: each kept slot receives exactly one token copy; dropped
     # copies all land in the trash slot E * C, which is cut off unread
     with record_function("moe.dispatch"):
-        xv = x.gather(1, r["src_tok"][..., None].expand(B, T, d))
+        # gather x before the k-fold copy expansion, so a sharded x moves
+        # once, not k times
+        x_full = constrain(x, "batch", None, None)
+        xv = x_full.gather(1, r["src_tok"][..., None].expand(B, T, d))
         buf = x.new_zeros((B, E * C + 1, d)).scatter(
             1, slot[..., None].expand(B, T, d), xv)
         buf = buf[:, :E * C].reshape(B, E, C, d)
+        # the expert-parallel layout: the dispatch all-to-all lives here
+        buf = constrain_div(buf, "batch", "expert", "capacity", None)
 
     # the experts, every capacity row of every expert, in x's dtype
     with record_function("moe.experts"):
@@ -152,6 +161,7 @@ def moe_layer(params, x, cfg, capacity_factor: float = 0.0):
                              params["wg"].to(x.dtype))) \
             * torch.einsum("becd,edf->becf", buf, params["wi"].to(x.dtype))
         y = torch.einsum("becf,efd->becd", h, params["wo"].to(x.dtype))
+        y = constrain_div(y, "batch", "expert", "capacity", None)
 
     # combine: the copies back in token order (copy j of token s at s*k+j),
     # each weighted by where(keep, p, 0) in x's dtype, then each token's k
@@ -159,7 +169,7 @@ def moe_layer(params, x, cfg, capacity_factor: float = 0.0):
     with record_function("moe.combine"):
         y = torch.cat([y.reshape(B, E * C, d), y.new_zeros((B, 1, d))],
                       dim=1)
-        inv = torch.empty_like(order).scatter_(1, order, torch.arange(
+        inv = torch.empty_like(order).scatter(1, order, torch.arange(
             T, device=x.device).expand(B, T).contiguous())
         tok_slot = slot.gather(1, inv)                           # (B, T)
         w = torch.where(keep.gather(1, inv), r["top_p"].reshape(B, T), 0.0)

@@ -1,0 +1,305 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``), hillclimb and
+refresh_rooflines on the CPU.
+
+- argument bytes: the dry-run's ``argument_size_in_bytes`` equals the sum
+  of the local shard bytes implied by the reference's specs over the
+  reference's abstract trees, for all 10 archs at four (shape, mesh)
+  combinations, and the DTensors a built step takes hold exactly that;
+- ``hillclimb --plan``: its rows equal the reference's ``plan_search`` for
+  ``case1`` over 8 devices when both score with the reference's ``HW``;
+- ``refresh()`` reproduces a stored roofline row;
+- the reference's own tiny-mesh combinations, run as
+  ``python -m repro_torch.launch.dryrun`` in a subprocess:
+  ``granite-moe-3b-a800m decode_32k tiny``, ``hymba-1.5b long_500k
+  tiny3d`` and ``mamba2-370m decode_32k tiny`` (calibrated); the other
+  two are in ``tests/test_torch_dryrun_cli.py`` and the extrapolation
+  check in ``tests/test_torch_roofline.py`` (each file under 60 s);
+- a combination that fails is counted and ``main`` returns 1;
+- importing the new modules starts no process group;
+- the models and ``kernels/ops.py`` hold no DTensor branch: the dry-run
+  swaps in its own model functions for its run only;
+- records name the torch that wrote them, and ``refresh()`` and
+  ``tools/dryrun_table.py`` refuse records of two versions.
+
+Every in-process dry-run creates its fake process group and destroys it
+before it returns.
+"""
+import json
+import math
+import os
+import subprocess
+import sys
+import textwrap
+import types
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.launch import sharding as jsharding  # noqa: E402
+from repro.launch import steps as jsteps  # noqa: E402
+from repro.launch.mesh import MESHES as JMESHES  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch import dryrun, hillclimb, roofline  # noqa: E402
+from repro_torch.launch import refresh_rooflines  # noqa: E402
+from repro_torch.launch.mesh import placeholder_mesh  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENV = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+NEW_MODULES = ("repro_torch.core.shardlib", "repro_torch.launch.sharding",
+               "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb",
+               "repro_torch.launch.refresh_rooflines",
+               "repro_torch.launch.roofline")
+
+
+def _ref_local_bytes(tree, specs, mesh_shape) -> int:
+    leaves = jax.tree_util.tree_leaves(tree)
+    spec_leaves = jax.tree_util.tree_leaves(
+        specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    total = 0
+    for leaf, spec in zip(leaves, spec_leaves, strict=True):
+        shp = list(leaf.shape)
+        for dim, ax in enumerate(tuple(spec)):
+            for a in (ax if isinstance(ax, tuple) else (ax,) if ax else ()):
+                shp[dim] = -(-shp[dim] // mesh_shape[a])
+        total += math.prod(shp) * np.dtype(leaf.dtype).itemsize
+    return total
+
+
+def _ref_argument_bytes(arch, shape_name, mesh_name) -> int:
+    cfg, shape = jconfigs.get_config(arch), jconfigs.get_shape(shape_name)
+    dims, axes = JMESHES[mesh_name]
+    mesh = types.SimpleNamespace(shape=dict(zip(axes, dims)),
+                                 axis_names=tuple(axes))
+    params = jsteps.abstract_params(cfg)
+    batch = jsteps.input_specs(cfg, shape)
+    n = _ref_local_bytes(params, jsharding.param_specs(params, mesh),
+                         mesh.shape)
+    n += _ref_local_bytes(batch, jsharding.batch_specs(batch, mesh,
+                                                       shape.mode),
+                          mesh.shape)
+    if shape.mode == "train":
+        opt = jsteps.abstract_opt_state(cfg)
+        n += _ref_local_bytes(opt, jsharding.opt_state_specs(opt, params,
+                                                             mesh),
+                              mesh.shape)
+    elif shape.mode == "decode":
+        cache = jsteps.abstract_cache(cfg, shape)
+        n += _ref_local_bytes(cache, jsharding.cache_specs(
+            cache, mesh, shape.global_batch), mesh.shape)
+        n += 4          # cache_len, an int32 scalar
+    return n
+
+
+COMBOS = [("train_4k", "pod"), ("prefill_32k", "multipod"),
+          ("decode_32k", "tiny"), ("long_500k", "tiny3d")]
+
+
+@pytest.mark.parametrize("shape,mesh", COMBOS)
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_argument_bytes_equal_reference_specs(arch, shape, mesh):
+    got = dryrun.argument_bytes(configs.get_config(arch),
+                                configs.get_shape(shape),
+                                placeholder_mesh(mesh))
+    assert got == _ref_argument_bytes(arch, shape, mesh)
+
+
+def test_built_step_holds_the_argument_bytes():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    cfg = configs.get_config("granite-moe-3b-a800m")
+    shape = configs.get_shape("decode_32k")
+    mesh = placeholder_mesh("tiny")
+    with dryrun.fake_world(mesh) as dm, FakeTensorMode():
+        low = dryrun.build_lowered(cfg, shape, mesh, dm)
+        held = sum(t.to_local().numel() * t.to_local().element_size()
+                   for t in dryrun._tensor_leaves(low.args))
+    assert not torch.distributed.is_initialized()
+    assert low.argument_bytes == held == \
+        _ref_argument_bytes("granite-moe-3b-a800m", "decode_32k", "tiny")
+
+
+def test_hillclimb_plan_equals_reference(monkeypatch):
+    from repro.launch import hillclimb as jhillclimb
+    from repro.launch import roofline as jroofline
+    ref = jroofline.HW()
+    rates = roofline.HW(peak_flops=ref.peak_flops, hbm_bw=ref.hbm_bw,
+                        ici_bw=ref.ici_bw)
+    monkeypatch.setattr(roofline, "HW", lambda: rates)
+    got = hillclimb.plan_search("case1", 8, 32)
+    want = jhillclimb.plan_search("case1", 8, 32)
+    assert [(r["nodes"], r["model"], r["family"]) for r in got] == \
+        [(r["nodes"], r["model"], r["family"]) for r in want]
+    for g, w in zip(got, want, strict=True):
+        assert g["layers"] == w["layers"]
+        for key in ("inner_cost_s", "merge_cost_s_per_step", "step_cost_s",
+                    "cost_per_sample_s"):
+            assert g[key] == pytest.approx(w[key], rel=1e-12), key
+
+
+def test_hillclimb_plan_cli(capsys):
+    assert hillclimb.main(["--plan", "--cnn", "case1", "--devices", "4"]) \
+        == 0
+    out = capsys.readouterr().out
+    rows = json.loads(out.split("\n", 1)[1])
+    assert rows and {"nodes", "model", "family", "layers"} <= set(rows[0])
+    assert hillclimb.parse_value("True") is True
+    assert hillclimb.parse_value("3") == 3
+    assert hillclimb.parse_value("0.5") == 0.5
+    assert hillclimb.parse_value("gelu") == "gelu"
+
+
+def test_refresh_reproduces_a_stored_row(tmp_path, monkeypatch):
+    monkeypatch.setattr(dryrun, "OUT_DIR", str(tmp_path))
+    res = dryrun.lower_and_compile("mamba2-370m", "decode_32k", "tiny",
+                                   verbose=False)
+    assert not torch.distributed.is_initialized()
+    fn = dryrun.save_result(res, tag="refresh")
+    row = dict(res["roofline"])
+    with open(fn) as f:
+        data = json.load(f)
+    data["roofline"] = {"stale": True}
+    with open(fn, "w") as f:
+        json.dump(data, f)
+    assert refresh_rooflines.refresh(str(tmp_path / "*.json")) == 1
+    with open(fn) as f:
+        assert json.load(f)["roofline"] == row
+
+
+def run_dryrun(*args, timeout=300):
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+        cwd=REPO, env=ENV, capture_output=True, text=True, timeout=timeout)
+
+
+def _record(name):
+    with open(os.path.join(REPO, dryrun.OUT_DIR, name)) as f:
+        return json.load(f)
+
+
+def test_tiny_mesh_moe_decode():
+    r = run_dryrun("--arch", "granite-moe-3b-a800m", "--shape",
+                   "decode_32k", "--mesh", "tiny", "--no-calibrate",
+                   "--tag", "test")
+    assert r.returncode == 0, r.stderr[-3000:]
+    data = _record("granite-moe-3b-a800m__decode_32k__tiny__test.json")
+    assert data["chips"] == 4
+    assert data["memory_analysis"]["temp_size_in_bytes"] > 0
+    assert "roofline" not in data and "calibrated" not in data
+
+
+def test_multipod_tiny3d():
+    """The `pod` axis shards: a 3-level mesh runs the long-context decode
+    (batch 1: the kv sequence sharded over every axis)."""
+    r = run_dryrun("--arch", "hymba-1.5b", "--shape", "long_500k",
+                   "--mesh", "tiny3d", "--no-calibrate", "--tag", "test")
+    assert r.returncode == 0, r.stderr[-3000:]
+    data = _record("hymba-1.5b__long_500k__tiny3d__test.json")
+    assert data["chips"] == 8
+    assert data["memory_analysis"]["argument_size_in_bytes"] > 0
+
+
+def test_calibration_path():
+    r = run_dryrun("--arch", "mamba2-370m", "--shape", "decode_32k",
+                   "--mesh", "tiny", "--tag", "test")
+    assert r.returncode == 0, r.stderr[-3000:]
+    data = _record("mamba2-370m__decode_32k__tiny__test.json")
+    row = data["roofline"]
+    assert row["bottleneck"] in ("compute", "memory", "collective")
+    assert data["calibrated"]["flops"] > 0
+    assert data["calibrated"]["per_layer"]["flops"] > 0
+    assert "memory_analysis.temp_size_in_bytes" in data["extrapolated"]
+
+
+def test_failure_is_counted_and_returns_1(capsys):
+    assert dryrun.main(["--arch", "yi-6b", "--shape", "decode_32k",
+                        "--mesh", "tiny", "--variant", "nonesuch",
+                        "--tag", "test"]) == 1
+    assert "1 FAILURES" in capsys.readouterr().out
+
+
+def test_imports_start_no_process_group():
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        import torch.distributed as dist
+        for name in {NEW_MODULES!r}:
+            importlib.import_module(name)
+        assert not dist.is_initialized()
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "repro")
+                     or m.startswith("torch.testing._internal.distributed"))
+        print(",".join(bad))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=ENV,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
+
+
+def test_model_paths_swapped_only_for_the_run(monkeypatch):
+    """The models and ``kernels/ops.py`` hold no DTensor branch: a DTensor
+    takes ``ops.dense``'s row path as a plain CPU tensor does, and only
+    inside the dry-run's run (``_sharded_model_paths``) the plain version
+    on its leading dims; the swap is undone after it, and the dry-run's
+    versions refuse a tensor off the CPU."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention
+    names = ((ops, "_dense_call"), (ops, "rmsnorm"), (attention, "write_kv"),
+             (attention, "chunked_attention"))
+    before = [getattr(m, n) for m, n in names]
+    seen = []
+    dense_ref = ref.dense_ref
+    monkeypatch.setattr(ref, "dense_ref", lambda x, *a, **k: (
+        seen.append((type(x).__name__, x.ndim)), dense_ref(x, *a, **k))[1])
+
+    x = torch.randn(2, 6, 8, generator=torch.Generator().manual_seed(0))
+    w = torch.randn(8, 4, generator=torch.Generator().manual_seed(1))
+    plain = ops.dense(x, w)
+    with dryrun._sharded_model_paths():
+        assert [getattr(m, n) for m, n in names] != before
+        assert torch.equal(ops.dense(x, w), plain)
+        with pytest.raises(NotImplementedError):
+            ops.rmsnorm(torch.empty(2, 8, device="meta"),
+                        torch.empty(8, device="meta"))
+    assert [getattr(m, n) for m, n in names] == before
+    assert seen == [("Tensor", 2), ("Tensor", 3)]
+
+    seen.clear()
+    mesh = placeholder_mesh("tiny")
+    with dryrun.fake_world(mesh) as dm, FakeTensorMode():
+        xd = DTensor.from_local(torch.zeros(1, 6, 8), dm,
+                                (Shard(0), Replicate()), run_check=False,
+                                shape=(2, 6, 8), stride=(48, 8, 1))
+        wd = DTensor.from_local(torch.zeros(8, 4), dm,
+                                (Replicate(), Replicate()), run_check=False)
+        outside = ops.dense(xd, wd)
+        with dryrun._sharded_model_paths():
+            inside = ops.dense(xd, wd)
+    assert not torch.distributed.is_initialized()
+    assert outside.shape == inside.shape == (2, 6, 4)
+    assert seen == [("DTensor", 2), ("DTensor", 3)]
+
+
+def test_records_of_two_torch_versions_are_refused(tmp_path, capsys):
+    """Every record names the torch that wrote it; ``refresh()`` and
+    ``tools/dryrun_table.py`` refuse records of two versions."""
+    from tools import dryrun_table
+    for i, (arch, shape) in enumerate(sorted(configs.pairs())[:2]):
+        with open(tmp_path / f"{arch}__{shape}__pod.json", "w") as f:
+            json.dump({"arch": arch, "shape": shape, "mesh": "pod",
+                       "torch": f"2.{11 + i}.0"}, f)
+    with pytest.raises(ValueError, match="torch versions"):
+        refresh_rooflines.refresh(str(tmp_path / "*.json"))
+    assert dryrun_table.main(["--meshes", "pod", "--dir",
+                              str(tmp_path)]) == 1
+    out, err = capsys.readouterr()
+    assert "torch versions" in err and "| arch |" not in out
+    assert dryrun.torch_version_of([{"torch": "2.13.0"}] * 2) == "2.13.0"
+    with pytest.raises(ValueError):
+        dryrun.torch_version_of([{"torch": "2.13.0"}, {}])

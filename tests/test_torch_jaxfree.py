@@ -54,7 +54,9 @@ SLICE_MODULES = (
     "repro_torch.sanitize", "repro_torch.sanitize.harness",
     "repro_torch.core.cluster_sim", "repro_torch.launch.mesh",
     "repro_torch.launch.roofline", "repro_torch.core.dag",
-    "repro_torch.core.planner",
+    "repro_torch.core.planner", "repro_torch.core.shardlib",
+    "repro_torch.launch.sharding", "repro_torch.launch.dryrun",
+    "repro_torch.launch.hillclimb", "repro_torch.launch.refresh_rooflines",
 )
 BANNED = ("jax", "jaxlib", "repro")
 
@@ -66,6 +68,9 @@ def test_import_leaves_jax_and_repro_out():
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in {BANNED!r})
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            bad.append("a process group")
         print(",".join(bad))
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
