@@ -309,7 +309,13 @@ from the root of a checkout.  Phases, each of which raises on failure
    pod`` and ``granite-moe-3b-a800m decode_32k pod`` in subprocesses
    (fake process groups of 256 ranks, no card), each under a time limit;
    their roofline rows (data-sheet estimates, not measurements) and wall
-   seconds printed, a failure failing the phase;
+   seconds printed, a failure failing the phase; and the five
+   ``decode_32k`` pairs on ``tiny`` that
+   ``tests/test_torch_dryrun_collectives.py`` holds against the JAX
+   dry-run (Yi-6B, Phi-3-mini, Mamba2-370M, Hymba-1.5B, Qwen3-MoE), each
+   held here to the reference's numbers written into the script:
+   ``outside`` not negative and the per-layer collective bytes within 2x
+   (both at f32 width);
 6. a JSON line with every ported kernel (device-clock times as the extra
    fields ``device_ms`` and ``library_device_ms``, "not measured" being
    null; K1 also its prefill sums as ``prefill_*`` and ``gemma_prefill_*``,
@@ -5328,9 +5334,34 @@ def phase_multi_kernels(torch, ref, mods, cnn):
 
 DRYRUN_COMBOS = (("gemma2-27b", "train_4k", "pod"),
                  ("granite-moe-3b-a800m", "decode_32k", "pod"))
+# the five decode pairs on the 2 x 2 mesh whose collectives are held to the
+# reference's: its dry-run's calibrated (total, per-layer, outside)
+# collective bytes, from ``repro.launch.dryrun`` (jax 0.9.0, 8 forced host
+# devices) on the CPU, the numbers ``tests/test_torch_dryrun_collectives.py``
+# holds the port's (torch 2.13) within 2x of.  Both sides are compared with
+# every floating payload at 4 bytes an element; these five HLOs carry only
+# f32 collectives, so the numbers are also the reference's own
+DRYRUN_REFERENCE = {
+    "yi-6b": (469237760, 8388608, 200802304),
+    "phi3-mini-3.8b": (302972928, 6291456, 101646336),
+    "mamba2-370m": (452042752, 6177792, 155508736),
+    "hymba-1.5b": (2415921152, 73449472, 65538048),
+    "qwen3-moe-30b-a3b": (14475722752, 291766272, 470941696),
+}
+DRYRUN_HELD = tuple((arch, "decode_32k", "tiny") for arch in DRYRUN_REFERENCE)
 DRYRUN_LIMIT_S = 300                 # each dry-run subprocess's time limit
 DRYRUN_DIR = ROOT / "experiments" / "dryrun_torch"
 SKIP_PROMPTS = (("gemma2-27b", 8, GEMMA_LONG), ("hymba-1.5b", 0, 2048))
+
+
+def json_of(stem):
+    # the record beside ``stem`` (an arch's name may hold a dot:
+    # ``with_suffix`` would cut it there)
+    return stem.parent / f"{stem.name}.json"
+
+
+def log_of(stem):
+    return stem.parent / f"{stem.name}.log"
 
 
 def start_dryruns():
@@ -5339,12 +5370,12 @@ def start_dryruns():
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
     DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for arch, shape, mesh in DRYRUN_COMBOS:
+    for arch, shape, mesh in DRYRUN_COMBOS + DRYRUN_HELD:
         stem = DRYRUN_DIR / f"{arch}__{shape}__{mesh}__smoke"
-        stem.with_suffix(".json").unlink(missing_ok=True)
+        json_of(stem).unlink(missing_ok=True)
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                arch, "--shape", shape, "--mesh", mesh, "--tag", "smoke"]
-        with open(stem.with_suffix(".log"), "w") as out:
+        with open(log_of(stem), "w") as out:
             proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
                                     stderr=subprocess.STDOUT)
         procs.append(((arch, shape, mesh), stem, time.perf_counter(), proc))
@@ -5368,9 +5399,9 @@ def finish_dryruns(procs):
             failed.append(f"{arch} {shape} {mesh}: past {DRYRUN_LIMIT_S} s")
             continue
         wall = time.perf_counter() - t0
-        fn = stem.with_suffix(".json")
+        fn = json_of(stem)
         if proc.returncode != 0 or not fn.exists():
-            log(stem.with_suffix(".log").read_text()[-3000:])
+            log(log_of(stem).read_text()[-3000:])
             failed.append(f"{arch} {shape} {mesh}: exit {proc.returncode}")
             continue
         rec = json.loads(fn.read_text())
@@ -5378,8 +5409,36 @@ def finish_dryruns(procs):
             f"its steps, done within {wall:.1f} s wall on the host "
             f"(torch {rec['torch']}); roofline row (H100 "
             f"data-sheet estimate) {json.dumps(rec['roofline'])}")
+        if (arch, shape, mesh) in DRYRUN_HELD:
+            failed += held_to_reference(arch, rec)
     if failed:
         raise AssertionError(f"dry-runs failed: {failed}")
+
+
+def held_to_reference(arch, rec):
+    """A DRYRUN_HELD record's collective bytes printed beside the
+    reference's, its own and at f32 width (``dryrun.collectives_at_f32``);
+    its faults: ``outside`` negative, or its per-layer bytes at f32 width
+    off the reference's by more than 2x either way."""
+    from repro_torch.launch.dryrun import collectives_at_f32
+    cal, wide = rec["calibrated"], collectives_at_f32(rec)
+    true = (cal["coll_bytes"], cal["per_layer"]["coll_bytes"],
+            cal["outside"]["coll_bytes"])
+    got = (wide["coll_bytes"], wide["per_layer"], wide["outside"])
+    want = DRYRUN_REFERENCE[arch]
+    ratio = got[1] / want[1]
+    log(f"[dryrun] {arch} decode_32k tiny collective bytes (total, per "
+        f"layer, outside; torch {rec['torch']}): {true[0]:.0f}, "
+        f"{true[1]:.0f}, {true[2]:.0f}, at f32 width {got[0]:.0f}, "
+        f"{got[1]:.0f}, {got[2]:.0f}; the reference's {want[0]}, {want[1]}, "
+        f"{want[2]}; per layer at f32 width x{ratio:.3f}")
+    faults = []
+    if min(true[2], got[2]) < 0:
+        faults.append(f"{arch} decode_32k tiny: outside {true[2]:.0f} < 0")
+    if not 0.5 <= ratio <= 2.0:
+        faults.append(f"{arch} decode_32k tiny: per-layer collective bytes "
+                      f"x{ratio:.3f} the reference's")
+    return faults
 
 
 def phase_block_skip(torch, configs, lm, card):

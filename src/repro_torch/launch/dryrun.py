@@ -59,19 +59,21 @@ against GSPMD's, and the records count them (``view_replications``,
     rule computes it on replicated operands (the sorted expert ids are
     all-gathered);
   - a view that would split or flatten a sharded dim in a way DTensor
-    cannot shard (Yi-6B's 4 kv heads over a 16-wide `model` axis; older
-    DTensor also refuses to flatten a batch- and sequence-sharded
-    tensor) is taken after its input is replicated on that mesh axis;
+    cannot shard (Yi-6B's 4 kv heads over a 16-wide `model` axis; a head
+    count the axis does not divide; older DTensor also refuses to
+    flatten a batch- and sequence-sharded tensor) is taken after its
+    input is replicated on that mesh axis;
   - ``aten.bmm`` with both operands sharded on the batch dim only, a
     strided shard included (an einsum flattens a batch- and a
     head-sharded dim into it), runs shard by shard, where DTensor would
     gather the strided batch first;
-  - ``aten.logsumexp`` over a sharded dim (the loss's vocab-sharded
-    logits) is reduced as a max and a sum, each all-reduced on its small
-    result, where DTensor would gather the logits;
-  - ``aten.index_add`` (the embedding's backward) and
-    ``aten.constant_pad_nd`` (the mamba mixer's causal conv), where a
-    torch version's rule fails, are taken again on replicated operands
+  - ``aten.logsumexp`` (the loss's vocab-sharded logits) and
+    ``aten._softmax`` (decode attention's scores over a
+    sequence-sharded cache) over a sharded dim are reduced as a max and
+    a sum, each all-reduced on its small result, where DTensor would
+    gather the input;
+  - ``aten.constant_pad_nd`` (the mamba mixer's causal conv), where a
+    torch version's rule fails, is taken again on a replicated operand
     (``_RETRIED``); a replicated output that 2.11's pad rule gives one
     placement is given one a mesh dim (``_every_mesh_dim``);
   - where a torch version (2.11) has no rule for them: ``aten.detach_``
@@ -88,14 +90,55 @@ step's: its sharding and shape propagation of each new op schema
 recorded ones) and ``_StridedShard``'s host-side size arithmetic
 (``_strided_shard_shapes``); a vocab-sharded gather whose size-1 dim is
 selected before its reduction gets its mask reshaped
-(``_mask_after_select``).  For the step's run the dry-run also swaps in
-its own versions of four model functions (``_sharded_model_paths``;
-the card and CPU paths never take them, and the models hold no DTensor
-branch): ``ops.dense``'s and ``ops.rmsnorm``'s plain versions on x's
-leading dims (no flatten into rows), ``attention.write_kv`` as the
-reference's one-hot select, and ``attention.chunked_attention`` with a
-copy of its kv head per q head where q's head dim is sharded past the
-kv heads.
+(``_mask_after_select``).
+
+For the step's run the dry-run swaps in its own versions of model
+functions (``_sharded_model_paths``; the card and CPU paths never take
+them, and the models and ``kernels/ops.py`` hold no DTensor branch), so
+that each issues the collective the reference's compiled HLO issues
+there, on the same bytes:
+  - ``ops._dense_call`` and ``ops.rmsnorm``: the plain versions on x's
+    leading dims (no flatten into rows); in a decode step (only: the
+    step's mode decides) a product whose contraction is sharded is
+    all-reduced at once, as GSPMD reduces a dot, where DTensor would
+    carry the partial sum into the residual stream;
+  - ``layers.embed`` (and the names ``lm`` and ``encdec`` import it
+    under), in every mode: a vocab-parallel lookup, each shard its own
+    rows and zeros elsewhere, all-reduced once; the table never moves
+    (``index_select`` has no such DTensor rule: the whole table was
+    all-to-all'ed);
+  - ``attention.write_kv``: the reference's one-hot select;
+  - ``attention.chunked_attention``: a copy of its kv head per q head
+    where q's head dim is sharded past the kv heads;
+  - ``attention._cache_contract`` (decode's scores and p @ v): each
+    device contracts its own shards, a batch or head dim staying
+    sharded and a summed sequence leaving a partial o, all-reduced; no
+    operand is gathered (DTensor would gather p, and torch 2.11 the
+    whole cache);
+  - ``mamba._ssd_decode``: the SSM update sharded on heads over the
+    model axis, as GSPMD shards it: local where the cache's heads are
+    sharded (Mamba2), one all-gather of the new state into a cache
+    whose head count the axis does not divide (Hymba's 25; GSPMD pads).
+The decode step returns its logits replicated, the reference's out
+sharding (``P()``): two all-gathers, vocab then batch
+(``_replicated_logits``).
+
+Conventions against the reference's counts:
+  - collective bytes are each payload's own, a bf16 collective at 2
+    bytes an element, as an H100 would move it.  The reference's
+    host-compiled HLO carries its collectives in f32 (XLA's CPU backend
+    computes bf16 activations in f32), so the two are compared at one
+    width, each floating payload of either side at 4 bytes an element
+    (``collectives_at_f32``, the port's side; the records and their
+    roofline keep the true bytes);
+  - FLOPs: ``torch.utils.flop_counter``'s table, matmul-class ops only;
+    XLA's cost analysis counts every op, so the port's FLOPs read lower
+    and its ``useful_frac`` higher than the reference's on the same
+    pair.  A convention, not a fault;
+  - every collective's call site is kept (``coll_sites``: kind, op,
+    dtype and shape, the innermost frames of the port), the counterpart
+    of the HLO's ``op_name``, and every counted FLOP's (``flop_sites``:
+    op and operand shapes).
 
 The collectives depend on the torch version: DTensor 2.13 keeps a
 flattened batch- and sequence-sharded tensor as a strided shard, older
@@ -106,6 +149,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -123,9 +167,9 @@ from repro_torch.core import shardlib
 from repro_torch.launch import roofline, sharding, steps
 from repro_torch.launch.mesh import placeholder_mesh
 
-__all__ = ["OUT_DIR", "build_lowered", "calibrated_costs", "lower_and_compile",
-           "save_result", "main", "SCORE_BYTES_PER_ELEM", "fake_world",
-           "torch_version_of"]
+__all__ = ["OUT_DIR", "build_lowered", "calibrated_costs",
+           "collectives_at_f32", "lower_and_compile", "save_result", "main",
+           "SCORE_BYTES_PER_ELEM", "fake_world", "torch_version_of"]
 
 OUT_DIR = "experiments/dryrun_torch"
 
@@ -226,16 +270,22 @@ def _is_shard(p) -> bool:
 _UNEVEN = re.compile(r"not evenly divisible by mesh dimension (\d+)")
 
 
-def _blocking_mesh_dim(msg: str, placements):
-    """The mesh dim whose sharding stops a view, from DTensor's refusal:
-    named where the message names it (a dim the axis does not divide),
-    else (a sharded dim flattened or split, which older DTensor refuses)
-    the last mesh dim that shards; None if the error is another one."""
+def _blocking_mesh_dim(msg: str, x):
+    """The mesh dim whose sharding stops a view of ``x``, from DTensor's
+    refusal: named where the message names it (a dim the axis does not
+    divide); where it does not (torch 2.11's "unevenly sharded"), the
+    mesh dim that shards a dim unevenly; else (a sharded dim flattened or
+    split, which older DTensor refuses) the last mesh dim that shards;
+    None if the error is another one."""
+    placements = x.placements
+    sharded = [i for i, p in enumerate(placements) if _is_shard(p)]
     m = _UNEVEN.search(msg)
     if m is not None:
         mdim = int(m.group(1))
+    elif "unevenly sharded" in msg:
+        mdim = next((i for i in sharded if x.shape[placements[i].dim]
+                     % x.device_mesh.size(i)), None)
     elif "without redistribution" in msg:
-        sharded = [i for i, p in enumerate(placements) if _is_shard(p)]
         mdim = sharded[-1] if sharded else None
     else:
         return None
@@ -276,13 +326,6 @@ def _every_mesh_dim(out):
         shape=out.shape, stride=out.stride())
 
 
-def _index_add_args(args):
-    # the index and the source replicated whole; self as it is
-    self_, dim, index, source = args[:4]
-    return (self_, dim, _replicate_dims(index, range(index.ndim)),
-            _replicate_dims(source, range(source.ndim))) + tuple(args[4:])
-
-
 def _pad_args(args):
     # the input replicated whole
     x = args[0]
@@ -295,8 +338,7 @@ def _recorder_cls():
         _VIEW_OPS.update((torch.ops.aten.view.default,
                           torch.ops.aten._unsafe_view.default,
                           torch.ops.aten.reshape.default))
-        _RETRIED.update({torch.ops.aten.index_add.default: _index_add_args,
-                         torch.ops.aten.constant_pad_nd.default: _pad_args})
+        _RETRIED.update({torch.ops.aten.constant_pad_nd.default: _pad_args})
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils.flop_counter import flop_registry
     from torch.utils.weak import WeakIdKeyDictionary
@@ -310,6 +352,7 @@ def _recorder_cls():
             self.flops = 0
             self.bytes = 0
             self.coll = roofline.CollectiveRecorder()
+            self.flop_sites = {}
             self.live = 0
             self.peak = 0
             self._storages = WeakIdKeyDictionary()
@@ -358,22 +401,37 @@ def _recorder_cls():
                 local, a.device_mesh, target, run_check=False, shape=shape,
                 stride=(shape[1] * shape[2], shape[2], 1))
 
+        def _softmax(self, x, dim, half_to_float):
+            """softmax over a sharded dim as GSPMD takes it: the max
+            all-reduced on its (small) result, then the sum likewise,
+            where DTensor would gather the input (decode attention's
+            scores over a sequence-sharded cache)."""
+            d = dim % x.ndim
+            if not any(_is_shard(p) and p.dim == d for p in x.placements):
+                return self._pass_on(torch.ops.aten._softmax.default, x, dim,
+                                     half_to_float)
+            with self:
+                e = torch.exp(x - torch.amax(x, dim=d, keepdim=True))
+                return e / torch.sum(e, dim=d, keepdim=True)
+
         def _retried(self, func, args, kwargs):
-            """An op whose DTensor rule, in some torch versions, gives
-            local shapes that do not fit (``index_add``: the embedding's
-            backward) or plans no redistribution (``constant_pad_nd``) is
-            taken again, when it fails, on operands replicated where
-            ``_RETRIED`` says; the failed attempt's counts are dropped.
+            """An op whose DTensor rule, in some torch versions, plans no
+            redistribution (``constant_pad_nd``) is taken again, when it
+            fails, on operands replicated where ``_RETRIED`` says; the
+            failed attempt's counts are dropped.
             A replicated output that a version's rule gives fewer
             placements than the mesh has dims is given one a mesh dim."""
             saved = (self.flops, self.bytes, dict(self.coll.bytes),
-                     dict(self.coll.counts), self.peak)
+                     dict(self.coll.counts),
+                     {k: list(v) for k, v in self.coll.sites.items()},
+                     {k: list(v) for k, v in self.flop_sites.items()},
+                     self.peak)
             try:
                 return _every_mesh_dim(self._pass_on(func, *args, **kwargs))
             except (RuntimeError, IndexError):
                 pass
             (self.flops, self.bytes, self.coll.bytes, self.coll.counts,
-             self.peak) = saved
+             self.coll.sites, self.flop_sites, self.peak) = saved
             self.retries += 1
             with self:
                 args = _RETRIED[func](args)
@@ -417,7 +475,7 @@ def _recorder_cls():
                                 shape=x.shape, stride=x.stride())
                         continue
                     pl = list(x.placements)
-                    mdim = _blocking_mesh_dim(msg, pl)
+                    mdim = _blocking_mesh_dim(msg, x)
                     if mdim is None:
                         raise
                     pl[mdim] = Replicate()
@@ -448,6 +506,8 @@ def _recorder_cls():
                     return self._view(func, args, kwargs)
                 if func is torch.ops.aten.bmm.default:
                     return self._bmm(*args)
+                if func is torch.ops.aten._softmax.default:
+                    return self._softmax(*args, **kwargs)
                 if func is torch.ops.aten.logsumexp.default:
                     return self._logsumexp(*args, **kwargs)
                 if func in _RETRIED:
@@ -464,8 +524,15 @@ def _recorder_cls():
                 return out
             packet = func._overloadpacket
             if packet in flop_registry:
-                self.flops += flop_registry[packet](*args, **kwargs,
-                                                    out_val=out)
+                n = flop_registry[packet](*args, **kwargs, out_val=out)
+                self.flops += n
+                shapes = [list(t.shape) for t in args
+                          if isinstance(t, torch.Tensor)]
+                site = self.flop_sites.setdefault(
+                    f"{packet.__name__} {shapes} @ {roofline.call_site(5)}",
+                    [0, 0])
+                site[0] += 1
+                site[1] += n
             if not func.is_view:
                 ins = [t for t in torch.utils._pytree.tree_leaves(
                     (args, kwargs)) if isinstance(t, torch.Tensor)]
@@ -582,9 +649,8 @@ _PAUSED = []
 def _meta_propagation_unrecorded():
     """DTensor's sharding propagation runs ops of its own the first time
     it meets an op's schema: the op on fake global-shaped inputs to learn
-    its output's shape, an op's decomposition to learn its strategy (the
-    embedding backward's ``index_add``).  Those runs are not the step's,
-    so the recorder passes them by."""
+    its output's shape, an op's decomposition to learn its strategy.
+    Those runs are not the step's, so the recorder passes them by."""
     import functools
 
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
@@ -615,13 +681,40 @@ def _meta_propagation_unrecorded():
             setattr(ShardingPropagator, n, fn)
 
 
-def _plain_dense(x, w, b, activation):
+def _plain_dense(x, w, b, activation, *, decode):
     # ``ops._dense_call`` on x's leading dims as they are: flattening a
     # batch- and sequence-sharded x into rows would give a strided shard
     # (split on the host at every op) or, in older DTensor, a gather
     from repro_torch.kernels import ref
     _host_only(x)
-    return ref.dense_ref(x, w, b, activation=activation)
+    if not decode or not any(
+            px.is_shard(x.ndim - 1) or pw.is_shard(0) for px, pw in zip(
+                getattr(x, "placements", ()), getattr(w, "placements", ()))):
+        return ref.dense_ref(x, w, b, activation=activation)
+    # a contraction over a sharded dim leaves each shard a partial sum.
+    # In a decode step it is all-reduced at once, as GSPMD reduces it,
+    # where DTensor would carry it into the residual stream and reduce it
+    # again at every later norm.  Prefill and training keep DTensor's own
+    # plan: there the block's constraint reduces it (an explicit
+    # reduction's backward would gather the gradient, and the backward
+    # would run replicated)
+    out = _reduced(x @ w.to(x.dtype))
+    if b is not None:
+        out = out + b.to(out.dtype)
+    if activation == "relu":
+        out = torch.relu(out)
+    elif activation != "none":
+        raise ValueError(activation)
+    return out
+
+
+def _reduced(t):
+    """``t`` with every partial placement reduced (all-reduced), the
+    others kept; a plain tensor as it is."""
+    from torch.distributed.tensor import Replicate
+    old = list(getattr(t, "placements", ()))
+    pl = [Replicate() if p.is_partial() else p for p in old]
+    return t if pl == old else t.redistribute(t.device_mesh, pl)
 
 
 def _plain_rmsnorm(x, scale, eps: float = 1e-6):
@@ -659,6 +752,86 @@ def _head_split_attention(orig):
     return run
 
 
+def _vocab_parallel_embed(params, tokens):
+    # ``layers.embed`` as GSPMD shards it: over a vocab-sharded table each
+    # shard looks up the rows in its own range and zeros elsewhere (the
+    # masked partial of DTensor's ``aten.embedding`` rule, which
+    # ``index_select`` lacks: it would move the table), and the rows are
+    # all-reduced once, before the cast, as the reference's decode step
+    # all-reduces them; the caller's own constraint then takes its slice
+    # locally.  The table never moves
+    import torch.nn.functional as F
+    _host_only(tokens)
+    return _reduced(F.embedding(tokens, params["table"]))
+
+
+def _local_contract(eq, a, b):
+    # ``attention._cache_contract`` as GSPMD partitions a dot: each device
+    # contracts its own shards, with no operand gathered.  On each mesh
+    # dim an operand's sharded letter splits the other operand where it
+    # holds it (locally); a letter kept in the output stays sharded (a
+    # batch dim: b, the kv heads), one summed leaves a partial sum,
+    # reduced at once (the sequence of a sequence-sharded cache: p @ v).
+    # DTensor's einsum would flatten the batch- and head-sharded dims
+    # (which torch 2.11 refuses: the whole cache gathered) and gather a
+    # sequence-sharded p
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    _host_only(a)
+    (la, lb), lo = eq.split("->")[0].split(","), eq.split("->")[1]
+    letters = [{la[pa.dim] if pa.is_shard() else None,
+                lb[pb.dim] if pb.is_shard() else None} - {None}
+               for pa, pb in zip(getattr(a, "placements", ()),
+                                 getattr(b, "placements", ()))]
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)) or any(
+            len(xs) > 1 for xs in letters) or any(
+            not (p.is_replicate() or type(p) is Shard)
+            for p in a.placements + b.placements):
+        # a plain tensor, or placements DTensor has to move first
+        return torch.einsum(eq, a.float(), b.float())
+    to_a, to_b, out = [], [], []
+    for xs in letters:
+        x = min(xs, default=None)
+        to_a.append(Shard(la.index(x)) if x and x in la else Replicate())
+        to_b.append(Shard(lb.index(x)) if x and x in lb else Replicate())
+        out.append(Replicate() if x is None else
+                   Shard(lo.index(x)) if x in lo else Partial())
+    a, b = (t.redistribute(t.device_mesh, pl) for t, pl in ((a, to_a),
+                                                            (b, to_b)))
+    size = dict(zip(la, a.shape)) | dict(zip(lb, b.shape))
+    shape = tuple(size[c] for c in lo)
+    local = torch.einsum(eq, a.to_local().float(), b.to_local().float())
+    return _reduced(DTensor.from_local(
+        local, a.device_mesh, out, run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride()))
+
+
+def _heads_sharded_ssd(ssm, dt, A, xs, Bv, Cv, D):
+    # ``mamba._ssd_decode`` sharded on heads over the model axis, as GSPMD
+    # shards it, a head count the axis does not divide too (GSPMD pads
+    # it): the state a local slice of the cache, and the caller's copy
+    # back into the cache local where the cache's heads are sharded, an
+    # all-gather where they are not.  y is a product and a sum, which an
+    # uneven heads shard allows (the einsum would flatten the heads)
+    from torch.distributed.tensor import DTensor, Shard
+    _host_only(ssm)
+
+    def heads(t):
+        if not isinstance(t, DTensor):
+            return t
+        pl = list(t.placements)
+        mdim = t.device_mesh.mesh_dim_names.index(shardlib.get_rules()["tp"])
+        if not pl[mdim].is_replicate():
+            return t
+        pl[mdim] = Shard(1)
+        return t.redistribute(t.device_mesh, pl)
+    ssm, dt, xs = heads(ssm), heads(dt), heads(xs)
+    dA = torch.exp(dt * A)
+    state = ssm * dA[..., None, None] + \
+        (dt[:, :, None] * xs)[..., None] * Bv[:, None, None, :]
+    y = (state * Cv[:, None, None, :]).sum(-1) + xs * D[:, None]
+    return state, y
+
+
 def _host_only(x):
     if x.device.type != "cpu":
         raise NotImplementedError(
@@ -667,17 +840,24 @@ def _host_only(x):
 
 
 @contextlib.contextmanager
-def _sharded_model_paths():
+def _sharded_model_paths(decode: bool = False):
     """The model functions DTensor cannot take as the card and CPU paths
     write them, replaced for the step's run by the dry-run's own
-    (listed in the module's docstring); restored on exit."""
+    (listed in the module's docstring; ``decode``: the step is a decode
+    step); restored on exit."""
     from repro_torch.kernels import ops
-    from repro_torch.models import attention
-    swaps = [(ops, "_dense_call", _plain_dense),
+    from repro_torch.models import attention, encdec, layers, lm, mamba
+    swaps = [(ops, "_dense_call", functools.partial(_plain_dense,
+                                                     decode=decode)),
              (ops, "rmsnorm", _plain_rmsnorm),
              (attention, "write_kv", _one_hot_write_kv),
              (attention, "chunked_attention",
-              _head_split_attention(attention.chunked_attention))]
+              _head_split_attention(attention.chunked_attention)),
+             (attention, "_cache_contract", _local_contract),
+             (mamba, "_ssd_decode", _heads_sharded_ssd)]
+    # the callers' own names: ``lm`` and ``encdec`` import ``embed``
+    swaps += [(mod, "embed", _vocab_parallel_embed)
+              for mod in (layers, lm, encdec)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -746,6 +926,7 @@ class LoweredStep:
     args: tuple
     argument_bytes: int
     rules: dict
+    decode: bool = False
 
     def compile(self) -> "CompiledStep":
         """Run the step once under the recorder (the counterpart of
@@ -757,7 +938,7 @@ class LoweredStep:
         with shardlib.rules_scope(self.rules), implicit_replication(), \
                 _cpu_mesh_alltoall(), _strided_shard_shapes(), \
                 _mask_after_select(), _meta_propagation_unrecorded(), \
-                _sharded_model_paths(), rec:
+                _sharded_model_paths(self.decode), rec:
             out = self.fn(*self.args)
             out_bytes = sum(_local(t).numel() * _local(t).element_size()
                             for t in _tensor_leaves(out))
@@ -767,7 +948,8 @@ class LoweredStep:
                             output_bytes=float(out_bytes),
                             block_skips=attention.BLOCK_SKIPS["skipped"],
                             view_replications=rec.view_replications,
-                            retries=rec.retries)
+                            retries=rec.retries, coll_sites=rec.coll.sites,
+                            flop_sites=rec.flop_sites)
 
 
 @dataclasses.dataclass
@@ -781,6 +963,8 @@ class CompiledStep:
     block_skips: int = 0
     view_replications: int = 0
     retries: int = 0
+    coll_sites: dict = dataclasses.field(default_factory=dict)
+    flop_sites: dict = dataclasses.field(default_factory=dict)
 
     def memory_analysis(self) -> dict:
         return {"temp_size_in_bytes": self.temp,
@@ -842,9 +1026,20 @@ def build_lowered(cfg, shape, mesh, dmesh, remat=True):
     elif shape.mode == "prefill":
         fn = steps.make_prefill_step(cfg)
     else:
-        fn = steps.make_decode_step(cfg)
+        fn = _replicated_logits(steps.make_decode_step(cfg))
     return LoweredStep(fn=fn, args=args, argument_bytes=stats["bytes"],
-                       rules=sharding.logical_rules(mesh, cfg))
+                       rules=sharding.logical_rules(mesh, cfg),
+                       decode=shape.mode == "decode")
+
+
+def _replicated_logits(decode):
+    """The decode step with the reference's out shardings: the logits
+    replicated (``P()``: gathered over the vocab and the batch), the cache
+    in its specs (the port's is updated in place)."""
+    def run(*args):
+        logits, cache = decode(*args)
+        return shardlib.constrain(logits, *(None,) * logits.ndim), cache
+    return run
 
 
 def _costs(compiled, chips):
@@ -880,6 +1075,28 @@ def _run_depths(cfg, shape, mesh, remat=True, depths=(1, 2)):
                                     dmesh, remat=remat)
                 out[k] = low.compile()
     return out
+
+
+def collectives_at_f32(record) -> dict:
+    """A record's calibrated collective bytes with every floating payload
+    counted at 4 bytes an element, the width the reference's
+    host-compiled HLO gives its collectives: {"coll_bytes",
+    "per_layer", "outside"}, from its ``coll_sites`` extrapolated as
+    ``calibrated_costs`` extrapolates (a record of ``configs``' own
+    config).  For holding the port against the reference only: the
+    record's own counts are the payloads' true bytes."""
+    per = {}
+    for k in (1, 2):
+        n = 0
+        for key, (_, nbytes) in record["coll_sites"][f"L{k}"].items():
+            dtype = getattr(torch, key.split(" ")[2].split("[")[0])
+            n += nbytes * 4 // dtype.itemsize if dtype.is_floating_point \
+                else nbytes
+        per[k] = n * record["chips"]
+    L = configs.get_config(record["arch"], record["variant"]).num_layers
+    dc = per[2] - per[1]
+    return {"coll_bytes": per[1] + (L - 1) * dc, "per_layer": dc,
+            "outside": per[1] - dc}
 
 
 def calibrated_costs(cfg, shape, mesh, remat=True, per=None):
@@ -992,6 +1209,8 @@ def lower_and_compile(arch: str, shape_name: str, mesh_name: str,
         "view_replications": {f"L{k}": runs[k].view_replications
                               for k in (1, 2)},
         "retries": {f"L{k}": runs[k].retries for k in (1, 2)},
+        "coll_sites": {f"L{k}": runs[k].coll_sites for k in (1, 2)},
+        "flop_sites": {f"L{k}": runs[k].flop_sites for k in (1, 2)},
     }
     if per[2][0] < per[1][0] or per[2][1] < per[1][1]:
         raise RuntimeError(

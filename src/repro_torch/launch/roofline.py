@@ -34,11 +34,13 @@ compiled artifact.
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 from typing import Optional
 
 __all__ = ["HW", "LM_HW", "RooflineReport", "analyze_compiled",
-           "collective_bytes", "CollectiveRecorder", "COLLECTIVE_KINDS",
-           "model_flops"]
+           "call_site", "collective_bytes", "CollectiveRecorder",
+           "COLLECTIVE_KINDS", "model_flops"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,11 +97,16 @@ class CollectiveRecorder:
     ``add(func, out)`` is called by the dry-run's dispatch mode for every
     local op; ``result()`` is the reference's dict: kind -> summed output
     bytes on one device, and ``_counts``: kind -> number of collectives.
+    ``sites`` keeps each collective's call site: "kind op dtype[shape] @
+    file:line < caller" -> [count, bytes], the frames the port's
+    innermost three outside the dry-run's and the sharding layer's own
+    (``call_site``).
     """
 
     def __init__(self):
         self.bytes: dict[str, int] = {}
         self.counts: dict[str, int] = {}
+        self.sites: dict[str, list] = {}
 
     def add(self, func, out) -> bool:
         kind = _kind(func)
@@ -109,12 +116,45 @@ class CollectiveRecorder:
         b = sum(_nbytes(t) for t in outs if hasattr(t, "numel"))
         self.bytes[kind] = self.bytes.get(kind, 0) + b
         self.counts[kind] = self.counts.get(kind, 0) + 1
+        t = outs[0]
+        key = (f"{kind} {func._overloadpacket.__name__} "
+               f"{str(t.dtype).removeprefix('torch.')}"
+               f"[{','.join(map(str, t.shape))}] "
+               f"@ {call_site()}")
+        site = self.sites.setdefault(key, [0, 0])
+        site[0] += 1
+        site[1] += b
         return True
 
     def result(self) -> dict:
         out = dict(self.bytes)
         out["_counts"] = dict(self.counts)
         return out
+
+
+# the recorder's and the sharding layer's own frames, never a call site
+_NOT_SITES = ("launch/roofline.py", "launch/dryrun.py", "core/shardlib.py")
+
+
+def call_site(depth: int = 3) -> str:
+    """The innermost ``depth`` frames of the port's package that issued
+    an op (a collective, a counted FLOP), as package-relative ``file:line``, innermost first,
+    outside ``_NOT_SITES``; where there are none (the dry-run's own out
+    shardings), the dry-run's innermost public function."""
+    found, fallback = [], None
+    f = sys._getframe(1)
+    while f is not None and len(found) < depth:
+        name = f.f_code.co_filename.replace(os.sep, "/")
+        i = name.rfind("repro_torch/")
+        if i >= 0:
+            rel = f"{name[i + len('repro_torch/'):]}:{f.f_lineno}"
+            if not rel.startswith(_NOT_SITES):
+                found.append(rel)
+            elif fallback is None and rel.startswith(_NOT_SITES[1]) and \
+                    not f.f_code.co_name.startswith("_"):
+                fallback = rel
+        f = f.f_back
+    return " < ".join(found) or fallback or "?"
 
 
 def collective_bytes(coll: dict) -> int:

@@ -235,6 +235,12 @@ def write_kv(ck, cv, k, v, lens) -> None:
     cv[rows, at] = torch.where(live, v[:, 0].to(cv.dtype), cv[rows, at])
 
 
+def _cache_contract(eq, a, b):
+    """One of a decode step's contractions with the cache (the scores,
+    then p @ v): ``torch.einsum`` in f32."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
 def decode_attention_block(params, x, cache, cache_len, cfg, *, window=None):
     """One new token per row against a KV cache.
 
@@ -260,8 +266,8 @@ def decode_attention_block(params, x, cache, cache_len, cfg, *, window=None):
 
     write_kv(ck, cv, k, v, lens)
 
-    s = torch.einsum("bhgd,bkhd->bhgk", q.reshape(B, KH, G, D).float(),
-                     ck.float()) / float(np.sqrt(np.float32(D)))
+    s = _cache_contract("bhgd,bkhd->bhgk", q.reshape(B, KH, G, D),
+                        ck) / float(np.sqrt(np.float32(D)))
     if cfg.attn_softcap:
         s = softcap(s, cfg.attn_softcap)
     k_pos = torch.arange(S, device=x.device)
@@ -270,6 +276,6 @@ def decode_attention_block(params, x, cache, cache_len, cfg, *, window=None):
         mask = mask & (lens[:, None] - k_pos[None, :] < int(window))
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", p.to(cv.dtype).float(), cv.float())
+    o = _cache_contract("bhgk,bkhd->bhgd", p.to(cv.dtype), cv)
     out = dense(params["wo"], o.reshape(B, 1, H * D).to(x.dtype))
     return out, cache

@@ -262,6 +262,16 @@ def init_mamba_cache(batch: int, cfg, *, stack=(), dtype=torch.bfloat16,
     }
 
 
+def _ssd_decode(ssm, dt, A, xs, Bv, Cv, D):
+    """One token of the SSD recurrence in f32: the new state (B, H, P, N)
+    from ``ssm`` and y (B, H, P)."""
+    dA = torch.exp(dt * A)                                   # (B, H)
+    state = ssm * dA[..., None, None] + \
+        (dt[:, :, None] * xs)[..., None] * Bv[:, None, None, :]
+    y = torch.einsum("bhpn,bn->bhp", state, Cv) + xs * D[:, None]
+    return state, y
+
+
 def mamba_decode_step(params, x, cache, cfg):
     """x: (B, 1, d_model); cache: {'ssm': (B, H, P, N), 'conv': (B, k-1,
     Cd)}, written in place.  Every row's state advances, a free slot's
@@ -288,11 +298,8 @@ def mamba_decode_step(params, x, cache, cfg):
     with record_function("mamba.ssd"):
         dt = F.softplus(dt.float() + params["dt_bias"].float())
         A = -torch.exp(params["A_log"].float())
-        dA = torch.exp(dt * A)                               # (B, H)
-        state = cache["ssm"] * dA[..., None, None] + \
-            (dt[:, :, None] * xs)[..., None] * Bv[:, None, None, :]
-        y = torch.einsum("bhpn,bn->bhp", state, Cv) + \
-            xs * params["D"].float()[:, None]
+        state, y = _ssd_decode(cache["ssm"], dt, A, xs, Bv, Cv,
+                               params["D"].float())
     with record_function("mamba.gate_norm"):
         y = y.reshape(Bsz, H * P)
         var = y.square().mean(dim=-1, keepdim=True)

@@ -249,9 +249,11 @@ def test_model_paths_swapped_only_for_the_run(monkeypatch):
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.models import attention
+    from repro_torch.models import attention, encdec, layers, lm, mamba
     names = ((ops, "_dense_call"), (ops, "rmsnorm"), (attention, "write_kv"),
-             (attention, "chunked_attention"))
+             (attention, "chunked_attention"), (attention, "_cache_contract"),
+             (mamba, "_ssd_decode"), (layers, "embed"), (lm, "embed"),
+             (encdec, "embed"))
     before = [getattr(m, n) for m, n in names]
     seen = []
     dense_ref = ref.dense_ref
@@ -260,13 +262,37 @@ def test_model_paths_swapped_only_for_the_run(monkeypatch):
 
     x = torch.randn(2, 6, 8, generator=torch.Generator().manual_seed(0))
     w = torch.randn(8, 4, generator=torch.Generator().manual_seed(1))
-    plain = ops.dense(x, w)
+    table = {"table": w.T.contiguous()}
+    tokens = torch.tensor([[0, 3, 1], [2, 2, 0]])
+    ssd = [torch.rand(s, generator=torch.Generator().manual_seed(i))
+           for i, s in enumerate(((2, 3, 4, 5), (2, 3), (3,), (2, 3, 4),
+                                  (2, 5), (2, 5), (3,)))]
+    # decode attention's two contractions with the cache: the scores
+    # (q against k), then p @ v, bf16 operands as the cache holds them
+    contract = [(eq, *(torch.randn(s, generator=torch.Generator().manual_seed(
+        9 + i + j)).to(torch.bfloat16) for j, s in enumerate(shapes)))
+        for i, (eq, shapes) in enumerate((
+            ("bhgd,bkhd->bhgk", ((2, 3, 2, 4), (2, 5, 3, 4))),
+            ("bhgk,bkhd->bhgd", ((2, 3, 2, 5), (2, 5, 3, 4)))))]
+    plain = (ops.dense(x, w), lm.embed(table, tokens),
+             mamba._ssd_decode(*ssd))
     with dryrun._sharded_model_paths():
-        assert [getattr(m, n) for m, n in names] != before
-        assert torch.equal(ops.dense(x, w), plain)
+        assert all(getattr(m, n) is not b
+                   for (m, n), b in zip(names, before, strict=True))
+        assert torch.equal(ops.dense(x, w), plain[0])
+        assert torch.equal(lm.embed(table, tokens), plain[1])
+        for got, want in zip(mamba._ssd_decode(*ssd), plain[2],
+                             strict=True):
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        for eq, a, b in contract:
+            assert torch.equal(attention._cache_contract(eq, a, b),
+                               torch.einsum(eq, a.float(), b.float()))
         with pytest.raises(NotImplementedError):
             ops.rmsnorm(torch.empty(2, 8, device="meta"),
                         torch.empty(8, device="meta"))
+        with pytest.raises(NotImplementedError):
+            attention._cache_contract(
+                contract[1][0], *(t.to("meta") for t in contract[1][1:]))
     assert [getattr(m, n) for m, n in names] == before
     assert seen == [("Tensor", 2), ("Tensor", 3)]
 
