@@ -312,10 +312,12 @@ from the root of a checkout.  Phases, each of which raises on failure
    seconds printed, a failure failing the phase; and the five
    ``decode_32k`` pairs on ``tiny`` that
    ``tests/test_torch_dryrun_collectives.py`` holds against the JAX
-   dry-run (Yi-6B, Phi-3-mini, Mamba2-370M, Hymba-1.5B, Qwen3-MoE), each
-   held here to the reference's numbers written into the script:
-   ``outside`` not negative and the per-layer collective bytes within 2x
-   (both at f32 width);
+   dry-run (Yi-6B, Phi-3-mini, Mamba2-370M, Hymba-1.5B, Qwen3-MoE) and
+   the two ``prefill_32k`` pairs cut to 2048 tokens that
+   ``tests/test_torch_dryrun_prefill_collectives.py`` holds (Mamba2-370M,
+   Hymba-1.5B), each held here to the reference's numbers written into
+   the script: ``outside`` not negative and the per-layer collective
+   bytes within 2x (both at f32 width);
 6. a JSON line with every ported kernel (device-clock times as the extra
    fields ``device_ms`` and ``library_device_ms``, "not measured" being
    null; K1 also its prefill sums as ``prefill_*`` and ``gemma_prefill_*``,
@@ -5334,21 +5336,39 @@ def phase_multi_kernels(torch, ref, mods, cnn):
 
 DRYRUN_COMBOS = (("gemma2-27b", "train_4k", "pod"),
                  ("granite-moe-3b-a800m", "decode_32k", "pod"))
-# the five decode pairs on the 2 x 2 mesh whose collectives are held to the
+# the pairs on the 2 x 2 mesh whose collectives are held to the
 # reference's: its dry-run's calibrated (total, per-layer, outside)
 # collective bytes, from ``repro.launch.dryrun`` (jax 0.9.0, 8 forced host
 # devices) on the CPU, the numbers ``tests/test_torch_dryrun_collectives.py``
-# holds the port's (torch 2.13) within 2x of.  Both sides are compared with
-# every floating payload at 4 bytes an element; these five HLOs carry only
-# f32 collectives, so the numbers are also the reference's own
+# (the five decode pairs) and ``tests/test_torch_dryrun_prefill_collectives
+# .py`` (the two prefills, their sequence cut to DRYRUN_CUT's) hold the
+# port's (torch 2.13) within 2x of.  Both sides are compared with every
+# floating payload at 4 bytes an element; these HLOs carry only f32
+# collectives, so the numbers are also the reference's own
 DRYRUN_REFERENCE = {
-    "yi-6b": (469237760, 8388608, 200802304),
-    "phi3-mini-3.8b": (302972928, 6291456, 101646336),
-    "mamba2-370m": (452042752, 6177792, 155508736),
-    "hymba-1.5b": (2415921152, 73449472, 65538048),
-    "qwen3-moe-30b-a3b": (14475722752, 291766272, 470941696),
+    ("yi-6b", "decode_32k"): (469237760, 8388608, 200802304),
+    ("phi3-mini-3.8b", "decode_32k"): (302972928, 6291456, 101646336),
+    ("mamba2-370m", "decode_32k"): (452042752, 6177792, 155508736),
+    ("hymba-1.5b", "decode_32k"): (2415921152, 73449472, 65538048),
+    ("qwen3-moe-30b-a3b", "decode_32k"): (14475722752, 291766272,
+                                          470941696),
+    ("mamba2-370m", "prefill_32k"): (26908688384, 543424512, 824311808),
+    ("hymba-1.5b", "prefill_32k"): (57902465024, 1809426432, 819200),
 }
-DRYRUN_HELD = tuple((arch, "decode_32k", "tiny") for arch in DRYRUN_REFERENCE)
+DRYRUN_CUT = {"prefill_32k": 2048}   # a held pair's sequence, cut
+DRYRUN_HELD = tuple((arch, shape, "tiny") for arch, shape in DRYRUN_REFERENCE)
+# a dry-run of one pair with its shape's sequence cut (argv: arch, shape,
+# mesh, sequence), its record saved as the CLI's ``--tag smoke`` saves it
+DRYRUN_CUT_RUN = """
+import dataclasses, sys
+from repro_torch import configs
+from repro_torch.launch import dryrun
+arch, shape, mesh, seq = sys.argv[1:]
+configs.SHAPES[shape] = dataclasses.replace(configs.SHAPES[shape],
+                                            seq_len=int(seq))
+print("  ->", dryrun.save_result(dryrun.lower_and_compile(arch, shape, mesh),
+                                 tag="smoke"))
+"""
 DRYRUN_LIMIT_S = 300                 # each dry-run subprocess's time limit
 DRYRUN_DIR = ROOT / "experiments" / "dryrun_torch"
 SKIP_PROMPTS = (("gemma2-27b", 8, GEMMA_LONG), ("hymba-1.5b", 0, 2048))
@@ -5375,6 +5395,9 @@ def start_dryruns():
         json_of(stem).unlink(missing_ok=True)
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
                arch, "--shape", shape, "--mesh", mesh, "--tag", "smoke"]
+        if (arch, shape, mesh) in DRYRUN_HELD and shape in DRYRUN_CUT:
+            cmd = [sys.executable, "-c", DRYRUN_CUT_RUN, arch, shape, mesh,
+                   str(DRYRUN_CUT[shape])]
         with open(log_of(stem), "w") as out:
             proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
                                     stderr=subprocess.STDOUT)
@@ -5410,12 +5433,12 @@ def finish_dryruns(procs):
             f"(torch {rec['torch']}); roofline row (H100 "
             f"data-sheet estimate) {json.dumps(rec['roofline'])}")
         if (arch, shape, mesh) in DRYRUN_HELD:
-            failed += held_to_reference(arch, rec)
+            failed += held_to_reference(arch, shape, rec)
     if failed:
         raise AssertionError(f"dry-runs failed: {failed}")
 
 
-def held_to_reference(arch, rec):
+def held_to_reference(arch, shape, rec):
     """A DRYRUN_HELD record's collective bytes printed beside the
     reference's, its own and at f32 width (``dryrun.collectives_at_f32``);
     its faults: ``outside`` negative, or its per-layer bytes at f32 width
@@ -5425,19 +5448,21 @@ def held_to_reference(arch, rec):
     true = (cal["coll_bytes"], cal["per_layer"]["coll_bytes"],
             cal["outside"]["coll_bytes"])
     got = (wide["coll_bytes"], wide["per_layer"], wide["outside"])
-    want = DRYRUN_REFERENCE[arch]
+    want = DRYRUN_REFERENCE[arch, shape]
     ratio = got[1] / want[1]
-    log(f"[dryrun] {arch} decode_32k tiny collective bytes (total, per "
+    name = f"{arch} {shape} tiny" + (f" cut to {DRYRUN_CUT[shape]} tokens"
+                                     if shape in DRYRUN_CUT else "")
+    log(f"[dryrun] {name} collective bytes (total, per "
         f"layer, outside; torch {rec['torch']}): {true[0]:.0f}, "
         f"{true[1]:.0f}, {true[2]:.0f}, at f32 width {got[0]:.0f}, "
         f"{got[1]:.0f}, {got[2]:.0f}; the reference's {want[0]}, {want[1]}, "
         f"{want[2]}; per layer at f32 width x{ratio:.3f}")
     faults = []
     if min(true[2], got[2]) < 0:
-        faults.append(f"{arch} decode_32k tiny: outside {true[2]:.0f} < 0")
+        faults.append(f"{name}: outside {true[2]:.0f} < 0")
     if not 0.5 <= ratio <= 2.0:
-        faults.append(f"{arch} decode_32k tiny: per-layer collective bytes "
-                      f"x{ratio:.3f} the reference's")
+        faults.append(f"{name}: per-layer collective bytes x{ratio:.3f} the "
+                      "reference's")
     return faults
 
 

@@ -96,12 +96,24 @@ For the step's run the dry-run swaps in its own versions of model
 functions (``_sharded_model_paths``; the card and CPU paths never take
 them, and the models and ``kernels/ops.py`` hold no DTensor branch), so
 that each issues the collective the reference's compiled HLO issues
-there, on the same bytes:
-  - ``ops._dense_call`` and ``ops.rmsnorm``: the plain versions on x's
-    leading dims (no flatten into rows); in a decode step (only: the
-    step's mode decides) a product whose contraction is sharded is
-    all-reduced at once, as GSPMD reduces a dot, where DTensor would
-    carry the partial sum into the residual stream;
+there, on the same bytes; each record counts, per swapped name, the
+calls that took the dry-run's own path (``swaps``):
+  - ``ops._dense_call``: each device contracts its own shards on x's
+    leading dims (``_local_einsum``; no flatten into rows) after
+    ``_dense_layout`` places the operands as GSPMD places them: the
+    weight gathered where x is sharded on its batch or sequence (never
+    x, once per projection), its gradient reduce-scattered back; x
+    gathered (or reduced) once where its contraction is split and the
+    weight's output is sharded; in prefill a replicated x's sequence
+    sliced before a row-sharded weight; in decode a replicated weight
+    split on its output columns where it widens (the mamba mixer's
+    ``in_proj``), else on its contraction with x, as the reference's
+    HLO splits them.  Outside
+    training a partial product is all-reduced at once, as GSPMD reduces
+    a dot, where DTensor would carry it into the residual stream; in
+    training the block's constraint reduce-scatters it, and its
+    gradient comes back whole, as the transpose of GSPMD's all-reduce;
+  - ``ops.rmsnorm``: the plain version on x's leading dims;
   - ``layers.embed`` (and the names ``lm`` and ``encdec`` import it
     under), in every mode: a vocab-parallel lookup, each shard its own
     rows and zeros elsewhere, all-reduced once; the table never moves
@@ -118,10 +130,27 @@ there, on the same bytes:
   - ``mamba._ssd_decode``: the SSM update sharded on heads over the
     model axis, as GSPMD shards it: local where the cache's heads are
     sharded (Mamba2), one all-gather of the new state into a cache
-    whose head count the axis does not divide (Hymba's 25; GSPMD pads).
+    whose head count the axis does not divide (Hymba's 25; GSPMD pads);
+  - ``mamba.ssd_chunked`` on a sequence-sharded input: each device its
+    own chunks, the intra-chunk form and the inter-chunk term
+    contracted shard-locally; the chunk states and decays all-gathered
+    once, the recurrence run on every device (DTensor gathered the
+    intra-chunk scores and selected a chunk on a sharded dim at every
+    step);
+  - ``mamba._causal_conv`` on a sequence-sharded input: each shard after
+    the k - 1 rows before it, a halo moved by a collective-permute
+    (``permute_tensor``'s one-peer all-to-all, which the recorder names
+    so), where DTensor all-to-all'ed the whole input;
+  - ``mamba._conv_tail``: the cache's conv rows from the last shard's
+    rows, gathered k - 1 a shard (DTensor gathered the whole input);
+  - ``mamba._split_proj`` and ``mamba._split_conv``: decode's
+    column-split in-projection output and its conv output each gathered
+    on its channels once, not for each of the slices taken from it.
 The decode step returns its logits replicated, the reference's out
 sharding (``P()``): two all-gathers, vocab then batch
-(``_replicated_logits``).
+(``_replicated_logits``).  A norm's output gathered for several
+projections moves once a step (``_redistributed_once``: the
+compiler's common-subexpression pass leaves one all-gather).
 
 Conventions against the reference's counts:
   - collective bytes are each payload's own, a bf16 collective at 2
@@ -161,6 +190,7 @@ import weakref
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import configs
 from repro_torch.core import shardlib
@@ -520,7 +550,7 @@ def _recorder_cls():
                     if isinstance(t, torch.Tensor)]
             for t in outs:
                 self._track(t)
-            if self.coll.add(func, out):
+            if self.coll.add(func, out, args):
                 return out
             packet = func._overloadpacket
             if packet in flop_registry:
@@ -681,24 +711,32 @@ def _meta_propagation_unrecorded():
             setattr(ShardingPropagator, n, fn)
 
 
-def _plain_dense(x, w, b, activation, *, decode):
-    # ``ops._dense_call`` on x's leading dims as they are: flattening a
-    # batch- and sequence-sharded x into rows would give a strided shard
-    # (split on the host at every op) or, in older DTensor, a gather
+def _plain_dense(x, w, b, activation, *, mode):
+    # ``ops._dense_call`` on x's leading dims as they are (flattening a
+    # batch- and sequence-sharded x into rows would give a strided shard,
+    # split on the host at every op, or in older DTensor a gather), each
+    # device contracting its own shards (``_local_einsum``) after
+    # ``_dense_layout`` has placed the operands as GSPMD places them
+    from torch.distributed.tensor import DTensor
     from repro_torch.kernels import ref
     _host_only(x)
-    if not decode or not any(
-            px.is_shard(x.ndim - 1) or pw.is_shard(0) for px, pw in zip(
-                getattr(x, "placements", ()), getattr(w, "placements", ()))):
+    out = None
+    placed = _dense_layout(x, w.to(x.dtype), mode) if isinstance(
+        x, DTensor) and isinstance(w, DTensor) else None
+    if placed is not None:
+        lead = "abcdefgh"[:x.ndim - 1]
+        out = _local_einsum(f"{lead}y,yz->{lead}z", *placed)
+    if out is None:
         return ref.dense_ref(x, w, b, activation=activation)
-    # a contraction over a sharded dim leaves each shard a partial sum.
-    # In a decode step it is all-reduced at once, as GSPMD reduces it,
-    # where DTensor would carry it into the residual stream and reduce it
-    # again at every later norm.  Prefill and training keep DTensor's own
-    # plan: there the block's constraint reduces it (an explicit
-    # reduction's backward would gather the gradient, and the backward
-    # would run replicated)
-    out = _reduced(x @ w.to(x.dtype))
+    _took("_dense_call")
+    if mode != "train":
+        # a contraction over a sharded dim leaves each shard a partial
+        # sum.  In a decode or prefill step it is all-reduced at once, as
+        # GSPMD reduces it, where DTensor would carry it into the residual
+        # stream and reduce it again, in f32, at every later norm.
+        # Training leaves it to the block's constraint (an explicit
+        # reduction's backward would gather the gradient)
+        out = _reduced(out)
     if b is not None:
         out = out + b.to(out.dtype)
     if activation == "relu":
@@ -706,6 +744,119 @@ def _plain_dense(x, w, b, activation, *, decode):
     elif activation != "none":
         raise ValueError(activation)
     return out
+
+
+def _dense_layout(x, w, mode):
+    """x and w of a dense placed as GSPMD places a dot's operands, on
+    each mesh dim:
+      - x sharded on a leading dim (batch, sequence) and w sharded: the
+        weight is gathered and x stays where it is (DTensor would gather
+        x, once per projection and again in the remat); its gradient is
+        reduce-scattered back to its shard;
+      - x's contraction split (sharded, or a partial sum) where w's
+        output is sharded (the encoder-decoder's residual stream, which
+        no block constraint lays out): x is gathered or reduced, and the
+        product runs column-parallel (DTensor would move the weight and
+        reduce-scatter the product, the MLP's whole hidden);
+      - in prefill, x replicated on the model axis and w sharded on its
+        rows (the attention output of a head count the axis does not
+        divide, into ``wo``): x's sequence is sliced locally and the
+        weight gathered, so the output leaves sequence-sharded (DTensor
+        would slice the contraction, a partial sum all-reduced at the
+        next norm).  In training x's batch is sliced instead (DTensor's
+        own product where it does not divide: None), so x's gradient
+        reaches the attention's backward split over the batch, which
+        runs split; a sequence-sliced x's gradient would reach its
+        q-chunk loop sequence-sharded and make it run whole on every
+        device;
+      - in decode, x and the weight both replicated on the model axis
+        (the mamba mixer's; DTensor would run it whole on every device),
+        the product split as the reference's propagation splits it: a
+        widening weight (``in_proj``, whose slices feed the
+        channel-sharded conv and the heads-sharded SSD) on its output
+        columns, the reference's dot f32[64,2192] for Mamba2's [1024,4384]
+        and f32[64,3229] for Hymba's (uneven, 6457 columns); a narrowing
+        one (``out_proj``, into the replicated residual stream) on its
+        contraction, locally, and reduced, the reference's [64,1600] x
+        [1600,1600] and all-reduce for Hymba.
+    Gathers come first (x's once a step), then local slices, whose
+    gradients stay sliced (``_split_locally``): a sliced x's gradient
+    reaches the attention's backward split as the forward split x."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    rules = shardlib.get_rules() or {}
+    tp = mesh.mesh_dim_names.index(rules["tp"]) if "tp" in rules else None
+    xp, wp = list(x.placements), list(w.placements)
+    for m, n in enumerate(mesh.shape):
+        if _is_shard(xp[m]) and xp[m].dim != x.ndim - 1:
+            if not wp[m].is_replicate():
+                wp[m] = Replicate()
+        elif not xp[m].is_replicate() and wp[m].is_shard(1):
+            xp[m] = Replicate()
+        elif m != tp or not xp[m].is_replicate():
+            continue
+        elif mode == "train" and wp[m].is_shard(0):
+            if x.shape[0] % (n * math.prod(mesh.size(i) for i, p in
+                                           enumerate(xp) if p.is_shard(0))):
+                return None
+            xp[m], wp[m] = Shard(0), Replicate()
+        elif mode == "prefill" and wp[m].is_shard(0) and x.ndim >= 3 and \
+                x.shape[-2] % n == 0:
+            xp[m], wp[m] = Shard(x.ndim - 2), Replicate()
+        elif mode == "decode" and wp[m].is_replicate() and \
+                w.shape[1] > w.shape[0]:
+            wp[m] = Shard(1)
+        elif mode == "decode" and wp[m].is_replicate() and \
+                x.shape[-1] % n == 0:
+            xp[m], wp[m] = Shard(x.ndim - 1), Shard(0)
+    return _placed(x, xp), _placed(w, wp)
+
+
+def _placed(t, placements):
+    """``t`` on ``placements``: first gathered (or reduced) where they
+    replicate what ``t`` splits, once a step for each tensor
+    (``_redistributed_once``; the backward reduce-scatters), then split
+    locally where they shard what ``t`` replicates."""
+    from torch.distributed.tensor import Replicate
+    whole = [Replicate() if q.is_replicate() else p
+             for p, q in zip(t.placements, placements, strict=True)]
+    return _split_locally(_redistributed_once(t, whole), placements)
+
+
+@dataclasses.dataclass
+class _Run:
+    """The state of one step's run under ``_sharded_model_paths``: the
+    redistributions already made (``_redistributed_once``) and, for each
+    swapped name, how many calls took the dry-run's own path
+    (``_took``)."""
+    memo: object
+    taken: dict
+
+
+_RUNS = []
+
+
+def _took(name):
+    """Counts a call of the swapped ``name`` that took the dry-run's own
+    path (not the model's, which it falls back to where the placements
+    need none)."""
+    if _RUNS:
+        _RUNS[-1].taken[name] = _RUNS[-1].taken.get(name, 0) + 1
+
+
+def _redistributed_once(x, placements):
+    """``x`` redistributed to ``placements``, once a step for each
+    tensor and target (a norm's output gathered for q, k and v moves
+    once, as the compiler's common-subexpression pass leaves one
+    all-gather); ``_sharded_model_paths`` holds the step's memo."""
+    if placements == list(x.placements):
+        return x
+    memo = _RUNS[-1].memo if _RUNS else {}
+    seen = memo.setdefault(x, {})
+    key = tuple(placements)
+    if key not in seen:
+        seen[key] = x.redistribute(x.device_mesh, placements)
+    return seen[key]
 
 
 def _reduced(t):
@@ -721,6 +872,7 @@ def _plain_rmsnorm(x, scale, eps: float = 1e-6):
     # ``ops.rmsnorm`` on x's leading dims, for the same reason
     from repro_torch.kernels import ref
     _host_only(x)
+    _took("rmsnorm")
     return ref.rmsnorm_ref(x, scale, eps=eps)
 
 
@@ -728,6 +880,7 @@ def _one_hot_write_kv(ck, cv, k, v, lens):
     # ``attention.write_kv`` as the reference's one-hot select, copied
     # back in place: DTensor has no rule for an index_put on sharded rows
     _host_only(ck)
+    _took("write_kv")
     S = ck.shape[1]
     write = (torch.arange(S)[None, :] == lens[:, None])[:, :, None, None]
     ck.copy_(torch.where(write, k.to(ck.dtype), ck))
@@ -746,6 +899,7 @@ def _head_split_attention(orig):
             q.placements) if p.is_shard(2)) if hasattr(q, "placements") \
             else 1
         if k.shape[2] % ways:
+            _took("chunked_attention")
             k, v = (t.repeat_interleave(q.shape[2] // t.shape[2], dim=2)
                     for t in (k, v))
         return orig(q, k, v, **kwargs)
@@ -759,50 +913,112 @@ def _vocab_parallel_embed(params, tokens):
     # ``index_select`` lacks: it would move the table), and the rows are
     # all-reduced once, before the cast, as the reference's decode step
     # all-reduces them; the caller's own constraint then takes its slice
-    # locally.  The table never moves
-    import torch.nn.functional as F
+    # locally.  The table never moves.  Their gradient is reduced whole
+    # before the lookup's backward (a partial one, from a product that
+    # splits them, has no redistribution to the masked partial)
     _host_only(tokens)
-    return _reduced(F.embedding(tokens, params["table"]))
+    _took("embed")
+    return _ReducedGrad.apply(_reduced(F.embedding(tokens,
+                                                   params["table"])))
 
 
-def _local_contract(eq, a, b):
-    # ``attention._cache_contract`` as GSPMD partitions a dot: each device
-    # contracts its own shards, with no operand gathered.  On each mesh
-    # dim an operand's sharded letter splits the other operand where it
-    # holds it (locally); a letter kept in the output stays sharded (a
-    # batch dim: b, the kv heads), one summed leaves a partial sum,
-    # reduced at once (the sequence of a sequence-sharded cache: p @ v).
-    # DTensor's einsum would flatten the batch- and head-sharded dims
-    # (which torch 2.11 refuses: the whole cache gathered) and gather a
-    # sequence-sharded p
+class _ReducedGrad(torch.autograd.Function):
+    """The identity, its gradient's partial sums reduced (all-reduced)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduced(grad)
+
+
+def _contiguous(shape) -> tuple:
+    """A contiguous tensor's strides for ``shape``, computed (an empty
+    meta tensor would be an op the recorder counts, at the global
+    shape)."""
+    return tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+
+
+def _local_einsum(eq, a, b, dtype=None):
+    # ``torch.einsum`` of two DTensors as GSPMD partitions a dot: each
+    # device contracts its own shards, with no operand gathered.  On each
+    # mesh dim an operand's sharded letter splits the other operand where
+    # it holds it (locally); a letter kept in the output stays sharded, one
+    # summed leaves a partial sum (the caller reduces it, or DTensor at
+    # the next op that needs it).  An operand replicated on a mesh dim
+    # where the other is split takes its gradient as a partial sum there.
+    # ``dtype``: the local operands cast to it.  None where an operand is
+    # not a DTensor, a placement is not a plain shard or the two shard one
+    # mesh dim on two letters: DTensor has to move one first
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    _host_only(a)
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)) or any(
+            not (p.is_replicate() or type(p) is Shard)
+            for p in a.placements + b.placements):
+        return None
     (la, lb), lo = eq.split("->")[0].split(","), eq.split("->")[1]
     letters = [{la[pa.dim] if pa.is_shard() else None,
                 lb[pb.dim] if pb.is_shard() else None} - {None}
-               for pa, pb in zip(getattr(a, "placements", ()),
-                                 getattr(b, "placements", ()))]
-    if not (isinstance(a, DTensor) and isinstance(b, DTensor)) or any(
-            len(xs) > 1 for xs in letters) or any(
-            not (p.is_replicate() or type(p) is Shard)
-            for p in a.placements + b.placements):
-        # a plain tensor, or placements DTensor has to move first
-        return torch.einsum(eq, a.float(), b.float())
-    to_a, to_b, out = [], [], []
+               for pa, pb in zip(a.placements, b.placements)]
+    if any(len(xs) > 1 for xs in letters):
+        return None
+    to_a, to_b, ga, gb, out = [], [], [], [], []
     for xs in letters:
         x = min(xs, default=None)
         to_a.append(Shard(la.index(x)) if x and x in la else Replicate())
         to_b.append(Shard(lb.index(x)) if x and x in lb else Replicate())
+        ga.append(Partial() if x and x not in la else to_a[-1])
+        gb.append(Partial() if x and x not in lb else to_b[-1])
         out.append(Replicate() if x is None else
                    Shard(lo.index(x)) if x in lo else Partial())
-    a, b = (t.redistribute(t.device_mesh, pl) for t, pl in ((a, to_a),
-                                                            (b, to_b)))
+    a, b = (_split_locally(t, pl) for t, pl in ((a, to_a), (b, to_b)))
     size = dict(zip(la, a.shape)) | dict(zip(lb, b.shape))
     shape = tuple(size[c] for c in lo)
-    local = torch.einsum(eq, a.to_local().float(), b.to_local().float())
-    return _reduced(DTensor.from_local(
-        local, a.device_mesh, out, run_check=False, shape=shape,
-        stride=torch.empty(shape, device="meta").stride()))
+    al, bl = a.to_local(grad_placements=ga), b.to_local(grad_placements=gb)
+    if dtype is not None:
+        al, bl = al.to(dtype), bl.to(dtype)
+    return DTensor.from_local(
+        torch.einsum(eq, al, bl), a.device_mesh, out, run_check=False,
+        shape=shape, stride=_contiguous(shape))
+
+
+class _LocalSplit(torch.autograd.Function):
+    """A replicated DTensor split to shards where it is (no collective),
+    its gradient passed on sharded, as DTensor's own ops pass an
+    operand's on (a redistribution's backward would gather it)."""
+
+    @staticmethod
+    def forward(ctx, t, placements):
+        return t.redistribute(t.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _split_locally(t, placements):
+    """``t`` on ``placements``, each a shard where ``t`` is replicated or
+    the placement it has; the same placements: ``t`` itself (a
+    redistribution there would reduce a partial gradient whole)."""
+    if list(t.placements) == list(placements):
+        return t
+    return _LocalSplit.apply(t, tuple(placements))
+
+
+def _local_contract(eq, a, b):
+    # ``attention._cache_contract`` as GSPMD partitions a dot
+    # (``_local_einsum``), in f32, a partial sum reduced at once (the
+    # sequence of a sequence-sharded cache: p @ v).  DTensor's einsum
+    # would flatten the batch- and head-sharded dims (which torch 2.11
+    # refuses: the whole cache gathered) and gather a sequence-sharded p
+    _host_only(a)
+    out = _local_einsum(eq, a, b, dtype=torch.float32)
+    if out is None:
+        # a plain tensor, or placements DTensor has to move first
+        return torch.einsum(eq, a.float(), b.float())
+    _took("_cache_contract")
+    return _reduced(out)
 
 
 def _heads_sharded_ssd(ssm, dt, A, xs, Bv, Cv, D):
@@ -814,6 +1030,7 @@ def _heads_sharded_ssd(ssm, dt, A, xs, Bv, Cv, D):
     # uneven heads shard allows (the einsum would flatten the heads)
     from torch.distributed.tensor import DTensor, Shard
     _host_only(ssm)
+    _took("_ssd_decode")
 
     def heads(t):
         if not isinstance(t, DTensor):
@@ -832,6 +1049,164 @@ def _heads_sharded_ssd(ssm, dt, A, xs, Bv, Cv, D):
     return state, y
 
 
+def _sequence_mesh_dim(x, divisor: int = 1):
+    """The mesh dim that shards x's sequence (dim 1) where x is sharded
+    on its batch (dim 0) and on that one mesh dim only, in shards of a
+    multiple of ``divisor`` rows; else None."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(x, DTensor) or not all(
+            p.is_replicate() or (type(p) is Shard and p.dim < 2)
+            for p in x.placements):
+        return None
+    dims = [m for m, p in enumerate(x.placements) if p.is_shard(1)]
+    if len(dims) != 1 or x.shape[1] % (x.device_mesh.size(dims[0])
+                                       * divisor):
+        return None
+    return dims[0]
+
+
+def _grad_partial(t, x):
+    """The local tensor of ``t``, a DTensor replicated where x is sharded
+    (a weight), its gradient a partial sum on every mesh dim that shards
+    x; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Partial
+    if not isinstance(t, DTensor):
+        return t
+    return t.to_local(grad_placements=[
+        Partial() if _is_shard(px) else p
+        for p, px in zip(t.placements, x.placements, strict=True)])
+
+
+def _like(local, x, shape, dims=()):
+    """``local`` as a DTensor on x's mesh, sharded as x is on its batch
+    and on ``dims``, replicated elsewhere."""
+    from torch.distributed.tensor import DTensor, Replicate
+    pl = [p if _is_shard(p) and (p.dim == 0 or p.dim in dims) else
+          Replicate() for p in x.placements]
+    return DTensor.from_local(local, x.device_mesh, pl, run_check=False,
+                              shape=shape, stride=_contiguous(shape))
+
+
+def _gathered_on(local, x, m):
+    """The per-shard tensors ``local`` (b, n_local, ...) of every shard of
+    x's sequence along mesh dim ``m``, concatenated on dim 1 in sequence
+    order: one all-gather, its gradient reduce-scattered back."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    n = x.device_mesh.size(m)
+    pl = [Shard(1) if i == m else p for i, p in enumerate(x.placements)]
+    shape = (x.shape[0], local.shape[1] * n, *local.shape[2:])
+    t = _like(local, x, shape, dims=(1,))
+    t = t.redistribute(x.device_mesh, [Replicate() if i == m else p
+                                       for i, p in enumerate(pl)])
+    return t.to_local(grad_placements=[Partial() if i == m else p
+                                       for i, p in enumerate(t.placements)])
+
+
+def _sequence_sharded_ssd(orig):
+    # ``mamba.ssd_chunked`` on a sequence-sharded input as GSPMD runs it:
+    # each device the chunk terms of its own chunks
+    # (``mamba.ssd_chunk_terms``), no operand gathered (DTensor would
+    # gather the intra-chunk scores and select a chunk on a sharded dim at
+    # every step of the recurrence); the chunk states and decays
+    # all-gathered once, the recurrence (``mamba.ssd_chunk_output``) run
+    # on every device
+    from repro_torch.models import mamba
+
+    @functools.wraps(orig)
+    def run(x, dt, A, B, C, D, chunk: int = 256,
+            return_final_state: bool = False):
+        _host_only(x)
+        Q = min(chunk, x.shape[1])
+        m = _sequence_mesh_dim(x, Q)
+        if m is None:
+            return orig(x, dt, A, B, C, D, chunk=chunk,
+                        return_final_state=return_final_state)
+        _took("ssd_chunked")
+        mesh, n = x.device_mesh, x.device_mesh.size(m)
+        dt, B, C = (t.redistribute(mesh, x.placements) for t in (dt, B, C))
+        xl = x.to_local()
+        terms = mamba.ssd_chunk_terms(xl, dt.to_local(), _grad_partial(A, x),
+                                      B.to_local(), C.to_local(), Q)
+        y, state = mamba.ssd_chunk_output(
+            xl, _grad_partial(D, x), terms,
+            _gathered_on(terms.states, x, m), _gathered_on(terms.decays, x, m),
+            mesh.get_local_rank(m) * (x.shape[1] // n // Q))
+        y = _like(y, x, x.shape, dims=(1,))
+        if not return_final_state:
+            return y
+        return y, _like(state, x, (x.shape[0], *state.shape[1:]))
+    return run
+
+
+def _previous_rows(rows, x, m):
+    """Each shard of x's sequence along mesh dim ``m`` receives the
+    previous shard's ``rows`` (the first receives zeros): one
+    collective-permute (``all_to_all_single`` to one peer, from one),
+    differentiable."""
+    import torch.distributed._functional_collectives as funcol
+    mesh = x.device_mesh
+    n, r = mesh.size(m), mesh.get_local_rank(m)
+    send, recv = [0] * n, [0] * n
+    send[(r + 1) % n] = recv[(r - 1) % n] = rows.numel()
+    got = funcol.all_to_all_single_autograd(
+        rows.reshape(-1), recv, send, mesh.get_group(m)).reshape(rows.shape)
+    return got if r else got * 0
+
+
+def _halo_conv(orig):
+    # ``mamba._causal_conv`` on a sequence-sharded input: each shard
+    # convolves its own rows after the k - 1 rows before them, a halo
+    # moved by a collective-permute, as GSPMD moves it (DTensor would
+    # all-to-all the whole input)
+    @functools.wraps(orig)
+    def run(x, w, b):
+        _host_only(x)
+        k = w.shape[0]
+        m = _sequence_mesh_dim(x)
+        if m is None or x.shape[1] // x.device_mesh.size(m) < k - 1:
+            return orig(x, w, b)
+        _took("_causal_conv")
+        xl = x.to_local()
+        halo = _previous_rows(xl[:, xl.shape[1] - (k - 1):], x, m)
+        out = orig(xl, _grad_partial(w, x), _grad_partial(b, x), halo)
+        return _like(out, x, x.shape, dims=(1,))
+    return run
+
+
+def _last_shard_tail(orig):
+    # ``mamba._conv_tail`` on a sequence-sharded input: the last shard's
+    # last k - 1 rows, each shard's gathered (k - 1 rows a shard), where
+    # DTensor would gather the whole input
+    @functools.wraps(orig)
+    def run(conv_in, k, dtype):
+        _host_only(conv_in)
+        m = _sequence_mesh_dim(conv_in)
+        if m is None or conv_in.shape[1] // conv_in.device_mesh.size(m) \
+                < k - 1:
+            return orig(conv_in, k, dtype)
+        _took("_conv_tail")
+        local = conv_in.to_local()
+        rows = _gathered_on(local[:, local.shape[1] - (k - 1):].to(dtype),
+                            conv_in, m)
+        return _like(rows[:, rows.shape[1] - (k - 1):], conv_in,
+                     (conv_in.shape[0], k - 1, conv_in.shape[2]))
+    return run
+
+
+def _whole_channels(orig):
+    # ``mamba._split_proj`` and ``mamba._split_conv``: the in-projection's
+    # or the conv's output gathered on its channels once, where DTensor
+    # would gather it for each of the slices taken from it
+    @functools.wraps(orig)
+    def run(t, H, P, N):
+        _host_only(t)
+        whole = _replicate_dims(t, {t.ndim - 1})
+        if whole is not t:
+            _took(orig.__name__)
+        return orig(whole, H, P, N)
+    return run
+
+
 def _host_only(x):
     if x.device.type != "cpu":
         raise NotImplementedError(
@@ -840,30 +1215,39 @@ def _host_only(x):
 
 
 @contextlib.contextmanager
-def _sharded_model_paths(decode: bool = False):
+def _sharded_model_paths(mode: str = "train"):
     """The model functions DTensor cannot take as the card and CPU paths
     write them, replaced for the step's run by the dry-run's own
-    (listed in the module's docstring; ``decode``: the step is a decode
-    step); restored on exit."""
+    (listed in the module's docstring; ``mode``: the step's, ``train``,
+    ``prefill`` or ``decode``); restored on exit."""
     from repro_torch.kernels import ops
     from repro_torch.models import attention, encdec, layers, lm, mamba
     swaps = [(ops, "_dense_call", functools.partial(_plain_dense,
-                                                     decode=decode)),
+                                                     mode=mode)),
              (ops, "rmsnorm", _plain_rmsnorm),
              (attention, "write_kv", _one_hot_write_kv),
              (attention, "chunked_attention",
               _head_split_attention(attention.chunked_attention)),
              (attention, "_cache_contract", _local_contract),
-             (mamba, "_ssd_decode", _heads_sharded_ssd)]
+             (mamba, "_ssd_decode", _heads_sharded_ssd),
+             (mamba, "ssd_chunked", _sequence_sharded_ssd(mamba.ssd_chunked)),
+             (mamba, "_causal_conv", _halo_conv(mamba._causal_conv)),
+             (mamba, "_conv_tail", _last_shard_tail(mamba._conv_tail)),
+             (mamba, "_split_proj", _whole_channels(mamba._split_proj)),
+             (mamba, "_split_conv", _whole_channels(mamba._split_conv))]
     # the callers' own names: ``lm`` and ``encdec`` import ``embed``
     swaps += [(mod, "embed", _vocab_parallel_embed)
               for mod in (layers, lm, encdec)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
+    from torch.utils.weak import WeakIdKeyDictionary
+    run = _Run(memo=WeakIdKeyDictionary(), taken={})
+    _RUNS.append(run)
     try:
-        yield
+        yield run
     finally:
+        _RUNS.pop()
         for mod, name, fn in saved:
             setattr(mod, name, fn)
 
@@ -926,7 +1310,7 @@ class LoweredStep:
     args: tuple
     argument_bytes: int
     rules: dict
-    decode: bool = False
+    mode: str = "train"
 
     def compile(self) -> "CompiledStep":
         """Run the step once under the recorder (the counterpart of
@@ -938,7 +1322,7 @@ class LoweredStep:
         with shardlib.rules_scope(self.rules), implicit_replication(), \
                 _cpu_mesh_alltoall(), _strided_shard_shapes(), \
                 _mask_after_select(), _meta_propagation_unrecorded(), \
-                _sharded_model_paths(self.decode), rec:
+                _sharded_model_paths(self.mode) as run, rec:
             out = self.fn(*self.args)
             out_bytes = sum(_local(t).numel() * _local(t).element_size()
                             for t in _tensor_leaves(out))
@@ -949,7 +1333,7 @@ class LoweredStep:
                             block_skips=attention.BLOCK_SKIPS["skipped"],
                             view_replications=rec.view_replications,
                             retries=rec.retries, coll_sites=rec.coll.sites,
-                            flop_sites=rec.flop_sites)
+                            flop_sites=rec.flop_sites, swaps=run.taken)
 
 
 @dataclasses.dataclass
@@ -965,6 +1349,7 @@ class CompiledStep:
     retries: int = 0
     coll_sites: dict = dataclasses.field(default_factory=dict)
     flop_sites: dict = dataclasses.field(default_factory=dict)
+    swaps: dict = dataclasses.field(default_factory=dict)
 
     def memory_analysis(self) -> dict:
         return {"temp_size_in_bytes": self.temp,
@@ -1029,7 +1414,7 @@ def build_lowered(cfg, shape, mesh, dmesh, remat=True):
         fn = _replicated_logits(steps.make_decode_step(cfg))
     return LoweredStep(fn=fn, args=args, argument_bytes=stats["bytes"],
                        rules=sharding.logical_rules(mesh, cfg),
-                       decode=shape.mode == "decode")
+                       mode=shape.mode)
 
 
 def _replicated_logits(decode):
@@ -1209,6 +1594,7 @@ def lower_and_compile(arch: str, shape_name: str, mesh_name: str,
         "view_replications": {f"L{k}": runs[k].view_replications
                               for k in (1, 2)},
         "retries": {f"L{k}": runs[k].retries for k in (1, 2)},
+        "swaps": {f"L{k}": runs[k].swaps for k in (1, 2)},
         "coll_sites": {f"L{k}": runs[k].coll_sites for k in (1, 2)},
         "flop_sites": {f"L{k}": runs[k].flop_sites for k in (1, 2)},
     }

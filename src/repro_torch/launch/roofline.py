@@ -53,7 +53,10 @@ class HW:
 # dense bf16 tensor-core FLOP/s of the H100 SXM (data sheet, no sparsity)
 LM_HW = HW(peak_flops=989e12)
 
-# functional collective (``torch.ops._c10d_functional``) -> HLO kind
+# functional collective (``torch.ops._c10d_functional``) -> HLO kind.
+# ``permute_tensor`` (``_functional_collectives``) dispatches as an
+# ``all_to_all_single`` that sends to one peer and receives from one:
+# ``_kind`` names that one a collective-permute, as the HLO does
 COLLECTIVE_KINDS = {
     "all_gather_into_tensor": "all-gather",
     "all_gather_into_tensor_coalesced": "all-gather",
@@ -67,13 +70,25 @@ COLLECTIVE_KINDS = {
 }
 
 
-def _kind(func) -> Optional[str]:
-    """The HLO kind of a collective op, None for any other op.  The
-    in-place ``c10d`` ops (broadcast, scatter, ...) are process-group
-    set-up, never a step's; they raise, so none is counted silently."""
+def _one_peer(args) -> bool:
+    """Whether an ``all_to_all_single``'s (input, output splits, input
+    splits, group) move data to one peer and from one (a permute)."""
+    if len(args) < 3 or not all(isinstance(s, (list, tuple))
+                                for s in args[1:3]):
+        return False
+    return all(sum(1 for n in s if n) == 1 for s in args[1:3])
+
+
+def _kind(func, args=()) -> Optional[str]:
+    """The HLO kind of a collective op (its ``args`` tell a permute from
+    an all-to-all), None for any other op.  The in-place ``c10d`` ops
+    (broadcast, scatter, ...) are process-group set-up, never a step's;
+    they raise, so none is counted silently."""
     ns = getattr(func, "namespace", "")
     name = func._overloadpacket.__name__
     if ns in ("_c10d_functional", "_dtensor"):
+        if name == "all_to_all_single" and _one_peer(args):
+            return COLLECTIVE_KINDS["permute_tensor"]
         if name in COLLECTIVE_KINDS:
             return COLLECTIVE_KINDS[name]
         if "permute" in name:
@@ -94,9 +109,10 @@ def _nbytes(t) -> int:
 class CollectiveRecorder:
     """Sums what ``parse_hlo_collectives`` sums, from a step's dispatch.
 
-    ``add(func, out)`` is called by the dry-run's dispatch mode for every
-    local op; ``result()`` is the reference's dict: kind -> summed output
-    bytes on one device, and ``_counts``: kind -> number of collectives.
+    ``add(func, out, args)`` is called by the dry-run's dispatch mode for
+    every local op; ``result()`` is the reference's dict: kind -> summed
+    output bytes on one device, and ``_counts``: kind -> number of
+    collectives.
     ``sites`` keeps each collective's call site: "kind op dtype[shape] @
     file:line < caller" -> [count, bytes], the frames the port's
     innermost three outside the dry-run's and the sharding layer's own
@@ -108,8 +124,8 @@ class CollectiveRecorder:
         self.counts: dict[str, int] = {}
         self.sites: dict[str, list] = {}
 
-    def add(self, func, out) -> bool:
-        kind = _kind(func)
+    def add(self, func, out, args=()) -> bool:
+        kind = _kind(func, args)
         if kind is None:
             return False
         outs = out if isinstance(out, (list, tuple)) else [out]

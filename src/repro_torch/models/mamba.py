@@ -37,6 +37,8 @@ out-projection.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
@@ -44,7 +46,8 @@ from torch.profiler import record_function
 from .layers import _normal, dense, init_dense
 
 __all__ = ["init_mamba", "mamba_mixer", "mamba_decode_step",
-           "init_mamba_cache", "ssd_chunked", "ssd_reference", "SPANS"]
+           "init_mamba_cache", "ssd_chunked", "ssd_chunk_terms",
+           "ssd_chunk_output", "ChunkTerms", "ssd_reference", "SPANS"]
 
 SPANS = ("mamba.in_proj", "mamba.conv", "mamba.ssd", "mamba.gate_norm",
          "mamba.out_proj")
@@ -127,9 +130,29 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int = 256,
     No temporary is larger than (b, nc, Q, Q, H) or x's size: the
     reference's three-operand contraction for the chunk states is taken
     as x scaled by its decay first, then one product over the chunk."""
+    terms = ssd_chunk_terms(x, dt, A, B, C, min(chunk, x.shape[1]))
+    y, state = ssd_chunk_output(x, D, terms, terms.states, terms.decays)
+    if return_final_state:
+        return y, state
+    return y
+
+
+class ChunkTerms(NamedTuple):
+    """What the chunked SSD computes inside each chunk (``ssd_chunk_terms``),
+    nc chunks of Q: nothing in it crosses a chunk."""
+    y_intra: torch.Tensor       # (b, nc, Q, H, P) the intra-chunk output
+    C: torch.Tensor             # (b, nc, Q, N) f32
+    cum: torch.Tensor           # (b, nc, Q, H) within-chunk log-decay
+    states: torch.Tensor        # (b, nc, H, N, P) each chunk's own state
+    decays: torch.Tensor        # (b, nc, H) each chunk's whole decay
+
+
+def ssd_chunk_terms(x, dt, A, B, C, Q):
+    """The chunk-local terms of ``ssd_chunked`` over x (b, L, H, P), dt
+    (b, L, H), B and C (b, L, N) cut into chunks of Q, a ragged last one
+    padded with dt = 0."""
     b, L, H, P = x.shape
     N = B.shape[-1]
-    Q = min(chunk, L)
     nc = -(-L // Q)
     pad = nc * Q - L
     if pad:
@@ -161,39 +184,65 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int = 256,
     decay_to_end = torch.exp(total - cum)                  # (b, nc, Q, H)
     xw = xc * (decay_to_end * dtc)[..., None]              # (b, nc, Q, H, P)
     Sc = torch.einsum("bcjn,bcjhp->bchnp", Bc, xw)
+    return ChunkTerms(y_intra, Cc, cum, Sc, torch.exp(total[:, :, 0, :]))
 
-    # ---- inter-chunk recurrence over the nc chunks ----
-    chunk_decay = torch.exp(total[:, :, 0, :])             # (b, nc, H)
-    state = x.new_zeros((b, H, N, P), dtype=torch.float32)
+
+def ssd_chunk_output(x, D, terms, states, decays, first: int = 0):
+    """y (b, L, H, P) in x's dtype for the chunks of x (b, L, H, P) whose
+    ``terms`` these are, and the final state (b, H, P, N) f32.
+
+    ``states`` (b, n, H, N, P) and ``decays`` (b, n, H) are the chunk
+    states and decays of the whole sequence in order, x's own chunks
+    those from ``first`` on: ``terms.states`` from 0 in ``ssd_chunked``,
+    every shard's concatenated where the sequence is split into shards of
+    whole chunks.  The inter-chunk recurrence runs over all n."""
+    b, nc, Q, H, P = terms.y_intra.shape
+    state = x.new_zeros((b, H, states.shape[-2], P), dtype=torch.float32)
     prev = []
-    for c in range(nc):                 # the state *before* each chunk
+    for c in range(states.shape[1]):    # the state *before* each chunk
         prev.append(state)
-        state = state * chunk_decay[:, c, :, None, None] + Sc[:, c]
-    prev_states = torch.stack(prev, dim=1)                 # (b, nc, H, N, P)
+        state = state * decays[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev[first:first + nc], dim=1)
 
     # ---- inter-chunk contribution ----
-    decay_from_start = torch.exp(cum)                      # (b, nc, Q, H)
-    y_inter = torch.einsum("bcin,bchnp->bcihp", Cc, prev_states) \
+    decay_from_start = torch.exp(terms.cum)                # (b, nc, Q, H)
+    y_inter = torch.einsum("bcin,bchnp->bcihp", terms.C, prev_states) \
         * decay_from_start[..., None]
 
-    y = (y_intra + y_inter).reshape(b, nc * Q, H, P)[:, :L]
-    y = (y + x.reshape(b, nc * Q, H, P)[:, :L] * D[:, None]).float() \
-        .to(x.dtype)
-    if return_final_state:
-        return y, state.transpose(-1, -2)                  # (b, H, P, N)
-    return y
+    y = (terms.y_intra + y_inter).reshape(b, nc * Q, H, P)[:, :x.shape[1]]
+    y = (y + x * D[:, None]).float().to(x.dtype)
+    return y, state.transpose(-1, -2)                      # (b, H, P, N)
 
 
 # ----------------------------------------------------------------------
 # The mixer: projections, causal conv, SSD, gated norm
 # ----------------------------------------------------------------------
-def _causal_conv(x, w, b):
+def _causal_conv(x, w, b, halo=None):
     """x: (B, L, Cd); w: (k, Cd): the depthwise causal conv as a shifted
-    sum in tap order, then silu."""
+    sum in tap order, then silu.  ``halo`` (B, k - 1, Cd): the rows before
+    x, where x is a piece of a longer sequence; None: zeros, x its start."""
     k, L = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    xp = F.pad(x, (0, 0, k - 1, 0)) if halo is None else \
+        torch.cat([halo, x], dim=1)
     out = sum(xp[:, i:i + L, :] * w[i] for i in range(k))
     return F.silu(out + b)
+
+
+def _split_conv(conv_out, H, P, N):
+    """The conv's output split into its x, B and C channels."""
+    return (conv_out[..., :H * P], conv_out[..., H * P:H * P + N],
+            conv_out[..., H * P + N:])
+
+
+def _conv_tail(conv_in, k, dtype):
+    """The last ``k - 1`` rows of the conv's input (B, L, Cd) in
+    ``dtype``, the decode shift register after L steps: left-padded with
+    the zeros it starts from when L is short."""
+    L = conv_in.shape[1]
+    tail = conv_in[:, max(L - (k - 1), 0):, :].to(dtype)
+    if L < k - 1:
+        tail = F.pad(tail, (0, 0, k - 1 - L, 0))
+    return tail
 
 
 def mamba_mixer(params, x, cfg, chunk: int = 0, return_cache: bool = False,
@@ -215,9 +264,8 @@ def mamba_mixer(params, x, cfg, chunk: int = 0, return_cache: bool = False,
         conv_in = torch.cat([xs, Bv, Cv], dim=-1)
         conv_out = _causal_conv(conv_in, params["conv_w"].to(x.dtype),
                                 params["conv_b"].to(x.dtype))
-    xs = conv_out[..., :H * P].reshape(Bsz, L, H, P)
-    Bv = conv_out[..., H * P:H * P + N]
-    Cv = conv_out[..., H * P + N:]
+    xs, Bv, Cv = _split_conv(conv_out, H, P, N)
+    xs = xs.reshape(Bsz, L, H, P)
     with record_function("mamba.ssd"):
         dt = F.softplus(dt.float() + params["dt_bias"].float())
         A = -torch.exp(params["A_log"].float())
@@ -225,11 +273,9 @@ def mamba_mixer(params, x, cfg, chunk: int = 0, return_cache: bool = False,
                         return_final_state=return_cache)
     if return_cache:
         y, final_state = y
-        k = params["conv_w"].shape[0]
-        tail = conv_in[:, max(L - (k - 1), 0):, :].to(cache_dtype)
-        if L < k - 1:
-            tail = F.pad(tail, (0, 0, k - 1 - L, 0))
-        cache = {"ssm": final_state, "conv": tail}
+        cache = {"ssm": final_state,
+                 "conv": _conv_tail(conv_in, params["conv_w"].shape[0],
+                                    cache_dtype)}
     with record_function("mamba.gate_norm"):
         # mamba2's norm before the gate, in f32, then x's dtype
         y = y.reshape(Bsz, L, H * P)
@@ -292,9 +338,8 @@ def mamba_decode_step(params, x, cache, cfg):
         # the taps' dot product, each product exact in f32, rounded once
         acc = (hist.float() * w.float()).sum(dim=1).to(hist.dtype)
         conv_out = F.silu(acc + params["conv_b"].to(hist.dtype))
-    xs = conv_out[..., :H * P].reshape(Bsz, H, P).float()
-    Bv = conv_out[..., H * P:H * P + N].float()
-    Cv = conv_out[..., H * P + N:].float()
+    xs, Bv, Cv = _split_conv(conv_out, H, P, N)
+    xs, Bv, Cv = xs.reshape(Bsz, H, P).float(), Bv.float(), Cv.float()
     with record_function("mamba.ssd"):
         dt = F.softplus(dt.float() + params["dt_bias"].float())
         A = -torch.exp(params["A_log"].float())

@@ -242,9 +242,10 @@ def test_imports_start_no_process_group():
 def test_model_paths_swapped_only_for_the_run(monkeypatch):
     """The models and ``kernels/ops.py`` hold no DTensor branch: a DTensor
     takes ``ops.dense``'s row path as a plain CPU tensor does, and only
-    inside the dry-run's run (``_sharded_model_paths``) the plain version
-    on its leading dims; the swap is undone after it, and the dry-run's
-    versions refuse a tensor off the CPU."""
+    inside the dry-run's run (``_sharded_model_paths``) the dry-run's
+    shard-local product on its leading dims; the swap is undone after it,
+    the swapped mamba paths give the model's values on plain tensors, and
+    the dry-run's versions refuse a tensor off the CPU."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -252,13 +253,23 @@ def test_model_paths_swapped_only_for_the_run(monkeypatch):
     from repro_torch.models import attention, encdec, layers, lm, mamba
     names = ((ops, "_dense_call"), (ops, "rmsnorm"), (attention, "write_kv"),
              (attention, "chunked_attention"), (attention, "_cache_contract"),
-             (mamba, "_ssd_decode"), (layers, "embed"), (lm, "embed"),
-             (encdec, "embed"))
+             (mamba, "_ssd_decode"), (mamba, "ssd_chunked"),
+             (mamba, "_causal_conv"), (mamba, "_conv_tail"),
+             (mamba, "_split_proj"), (mamba, "_split_conv"),
+             (layers, "embed"), (lm, "embed"), (encdec, "embed"))
     before = [getattr(m, n) for m, n in names]
     seen = []
     dense_ref = ref.dense_ref
     monkeypatch.setattr(ref, "dense_ref", lambda x, *a, **k: (
         seen.append((type(x).__name__, x.ndim)), dense_ref(x, *a, **k))[1])
+    local_einsum = dryrun._local_einsum
+
+    def shard_local(eq, *args, **kwargs):
+        out = local_einsum(eq, *args, **kwargs)
+        if out is not None:                # it took the DTensor operands
+            seen.append(eq)
+        return out
+    monkeypatch.setattr(dryrun, "_local_einsum", shard_local)
 
     x = torch.randn(2, 6, 8, generator=torch.Generator().manual_seed(0))
     w = torch.randn(8, 4, generator=torch.Generator().manual_seed(1))
@@ -274,8 +285,19 @@ def test_model_paths_swapped_only_for_the_run(monkeypatch):
         for i, (eq, shapes) in enumerate((
             ("bhgd,bkhd->bhgk", ((2, 3, 2, 4), (2, 5, 3, 4))),
             ("bhgk,bkhd->bhgd", ((2, 3, 2, 5), (2, 5, 3, 4)))))]
+    # the prefill mixer's SSD (a ragged last chunk), conv, tail and split
+    g = torch.Generator().manual_seed(5)
+    chunked = [torch.randn(s, generator=g) for s in (
+        (2, 11, 3, 4), (2, 11, 3), (3,), (2, 11, 5), (2, 11, 5), (3,))]
+    chunked[1], chunked[2] = chunked[1].abs(), -chunked[2].abs()
+    conv = [torch.randn(s, generator=g) for s in ((2, 11, 6), (4, 6), (6,))]
     plain = (ops.dense(x, w), lm.embed(table, tokens),
-             mamba._ssd_decode(*ssd))
+             mamba._ssd_decode(*ssd),
+             mamba.ssd_chunked(*chunked, chunk=4, return_final_state=True),
+             mamba._causal_conv(*conv), mamba._conv_tail(conv[0], 4,
+                                                         torch.bfloat16),
+             mamba._split_conv(conv[0], 1, 2, 2),
+             mamba._split_proj(x, 1, 2, 1))
     with dryrun._sharded_model_paths():
         assert all(getattr(m, n) is not b
                    for (m, n), b in zip(names, before, strict=True))
@@ -287,6 +309,26 @@ def test_model_paths_swapped_only_for_the_run(monkeypatch):
         for eq, a, b in contract:
             assert torch.equal(attention._cache_contract(eq, a, b),
                                torch.einsum(eq, a.float(), b.float()))
+        for got, want in zip(
+                mamba.ssd_chunked(*chunked, chunk=4, return_final_state=True),
+                plain[3], strict=True):
+            assert torch.equal(got, want)
+        assert torch.equal(mamba._causal_conv(*conv), plain[4])
+        assert torch.equal(mamba._conv_tail(conv[0], 4, torch.bfloat16),
+                           plain[5])
+        assert all(torch.equal(a, b) for a, b in zip(
+            mamba._split_conv(conv[0], 1, 2, 2), plain[6], strict=True))
+        assert all(torch.equal(a, b) for a, b in zip(
+            mamba._split_proj(x, 1, 2, 1), plain[7], strict=True))
+        meta = [t.to("meta") for t in conv]
+        for call in (lambda: mamba.ssd_chunked(*(t.to("meta")
+                                                 for t in chunked)),
+                     lambda: mamba._causal_conv(*meta),
+                     lambda: mamba._conv_tail(meta[0], 4, torch.bfloat16),
+                     lambda: mamba._split_conv(meta[0], 1, 2, 2),
+                     lambda: mamba._split_proj(meta[0], 1, 2, 1)):
+            with pytest.raises(NotImplementedError):
+                call()
         with pytest.raises(NotImplementedError):
             ops.rmsnorm(torch.empty(2, 8, device="meta"),
                         torch.empty(8, device="meta"))
@@ -309,7 +351,7 @@ def test_model_paths_swapped_only_for_the_run(monkeypatch):
             inside = ops.dense(xd, wd)
     assert not torch.distributed.is_initialized()
     assert outside.shape == inside.shape == (2, 6, 4)
-    assert seen == [("DTensor", 2), ("DTensor", 3)]
+    assert seen == [("DTensor", 2), "aby,yz->abz"]
 
 
 def test_records_of_two_torch_versions_are_refused(tmp_path, capsys):
@@ -329,3 +371,35 @@ def test_records_of_two_torch_versions_are_refused(tmp_path, capsys):
     assert dryrun.torch_version_of([{"torch": "2.13.0"}] * 2) == "2.13.0"
     with pytest.raises(ValueError):
         dryrun.torch_version_of([{"torch": "2.13.0"}, {}])
+
+
+def test_flop_sites_splits_a_layer_into_forward_and_backward(tmp_path,
+                                                             capsys):
+    """``tools/flop_sites.py``: a site's per-layer FLOPs are its 2-layer
+    count less its 1-layer count; autograd's sites (innermost frame at
+    ``value_and_grad``'s ``torch.autograd.grad``) are the backward's;
+    two records list the sites whose FLOPs differ, the largest first."""
+    from tools import flop_sites
+    grad = flop_sites._grad_site()
+    fwd = "mm [[8, 4], [4, 2]] @ kernels/ops.py:61 < models/layers.py:56"
+    bwd = f"mm [[4, 8], [8, 2]] @ {grad} < launch/steps.py:107"
+    head = "mm [[8, 4], [4, 9]] @ models/lm.py:1"
+    records = [
+        {"L1": {fwd: [2, 128], bwd: [2, 256], head: [1, 576]},
+         "L2": {fwd: [4, 256], bwd: [4, 512], head: [1, 576]}},
+        {"L1": {fwd: [2, 128], bwd: [1, 128], head: [1, 576]},
+         "L2": {fwd: [4, 256], bwd: [2, 256], head: [1, 576]}}]
+    paths = []
+    for i, sites in enumerate(records):
+        paths.append(str(tmp_path / f"r{i}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump({"arch": "a", "shape": "s", "mesh": "m",
+                       "torch": "2.13.0", "flop_sites": sites}, f)
+    layer = flop_sites.per_layer({"flop_sites": records[0]})
+    assert layer == {fwd: (2, 128), bwd: (2, 256)}
+    assert flop_sites.split(layer) == (128, 256)
+    assert flop_sites.main(paths) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert "backward / forward 2.0000" in out[0]
+    assert "backward / forward 1.0000" in out[1]
+    assert len(out) == 4 and out[3].endswith(bwd)

@@ -21,7 +21,11 @@ For each pair:
   the SSM state moved exactly where the reference moves it (never for
   Mamba2, one all-gather into Hymba's replicated cache), and for decode
   attention's ``p @ v`` over the sequence-sharded cache an all-reduce
-  of the softmax max and of the partial o, never p.
+  of the softmax max and of the partial o, never p;
+- Mamba2's in-projection split on its output columns as the
+  reference's is, its output and the conv's each gathered once a layer
+  (not once for each of the slices taken from them), its per-layer bytes
+  at most 1.3x the reference's.
 
 Run as a script, it prints both packages' collectives for one pair on
 ``tiny``, at both widths, and each collective of the 1-layer run:
@@ -45,7 +49,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
-from repro_torch.models import attention  # noqa: E402
+from repro_torch.models import attention, mamba  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PAIRS = ("yi-6b", "phi3-mini-3.8b", "mamba2-370m", "hymba-1.5b",
@@ -218,6 +222,31 @@ def test_ssm_state_moves_where_the_reference_moves_it(runs, arch):
     assert [c[2] for c in ref_state] == [s[2] for s in state]
     # Mamba2's cache is heads-sharded, Hymba's 25 heads are not
     assert len(state) == (arch == "hymba-1.5b")
+
+
+def test_mamba2_conv_output_moves_once(runs):
+    """Mamba2's in-projection is split on its output columns, as the
+    reference's dot f32[64,2192] of its [1024,4384] weight is, with no
+    all-reduce; its output and the conv's are each gathered on their
+    channels once a layer (the conv's was gathered for each of its x, B
+    and C slices).  Its per-layer bytes are at most 1.3x the reference's:
+    the port gathers the projection's output whole where the reference
+    moves its slices by collective-permute."""
+    ref, port = runs["mamba2-370m"]
+    assert re.search(r"f32\[64,2192\]\{1,0\} dot\(", ref["hlo_L1"])
+
+    def at(fn, text):
+        line = f"models/mamba.py:{_line_of(fn, text)}"
+        return [(key.split(" ")[0], n) for key, (n, _) in
+                port["coll_sites"]["L1"].items() if key.split(" @ ")[1]
+                .split(" < ")[0] == line]
+    assert at(mamba.mamba_decode_step, "_split_conv(") == [("all-gather", 1)]
+    assert at(mamba.mamba_decode_step, "_split_proj(") == [("all-gather", 1)]
+    proj = _line_of(mamba.mamba_decode_step, 'dense(params["in_proj"]')
+    assert not [key for key in port["coll_sites"]["L1"]
+                if f"models/mamba.py:{proj}" in key]
+    r = reference_at_f32(ref, "mamba2-370m")
+    assert dryrun.collectives_at_f32(port)["per_layer"] <= 1.3 * r[1]
 
 
 def test_decode_attention_reduces_max_and_o_not_p(runs):
