@@ -317,7 +317,15 @@ from the root of a checkout.  Phases, each of which raises on failure
    ``tests/test_torch_dryrun_prefill_collectives.py`` holds (Mamba2-370M,
    Hymba-1.5B), each held here to the reference's numbers written into
    the script: ``outside`` not negative and the per-layer collective
-   bytes within 2x (both at f32 width);
+   bytes within 2x (both at f32 width); and four ``train_4k`` pairs cut
+   to 1024 tokens that ``tests/test_torch_dryrun_train_collectives.py``
+   and ``_moe_ssm.py`` hold (Yi-6B, StableLM-2-12B, InternVL2-26B,
+   Hymba-1.5B), held to the reference's at its band: the total and
+   per-layer bytes within 1.5x both ways, ``outside`` within 2x and not
+   negative.  The ``gemma2-27b train_4k pod`` row fails the phase if its
+   FLOPs or collective bytes are more than 1.1x those of the record this
+   torch 2.13 sweep wrote (DRYRUN_RECORD: the card host's torch 2.11
+   once counted 1.80x and 3.76x there);
 6. a JSON line with every ported kernel (device-clock times as the extra
    fields ``device_ms`` and ``library_device_ms``, "not measured" being
    null; K1 also its prefill sums as ``prefill_*`` and ``gemma_prefill_*``,
@@ -5354,8 +5362,24 @@ DRYRUN_REFERENCE = {
                                           470941696),
     ("mamba2-370m", "prefill_32k"): (26908688384, 543424512, 824311808),
     ("hymba-1.5b", "prefill_32k"): (57902465024, 1809426432, 819200),
+    # ``tests/test_torch_dryrun_train_collectives*.py``'s, cut to 1024
+    ("yi-6b", "train_4k"): (2854477758640, 87938039808, 40460484784),
+    ("stablelm-12b", "train_4k"): (4626089410736, 114127339520,
+                                   60995829936),
+    ("internvl2-26b", "train_4k"): (6742469017776, 138211098624,
+                                    108336283824),
+    ("hymba-1.5b", "train_4k"): (540265216160, 16427578720, 14582697120),
 }
-DRYRUN_CUT = {"prefill_32k": 2048}   # a held pair's sequence, cut
+DRYRUN_CUT = {"prefill_32k": 2048,   # a held pair's sequence, cut
+              "train_4k": 1024}
+# the band a held pair's total and per-layer bytes keep (both ways);
+# ``outside`` within 2x too where the shape is listed
+DRYRUN_BAND = {"train_4k": 1.5}
+# (calibrated FLOPs, collective bytes) of the torch 2.13.0+cpu record of
+# a DRYRUN_COMBOS row, which the card host's torch keeps within 1.1x
+DRYRUN_RECORD = {("gemma2-27b", "train_4k", "pod"): (2.413384042503209e17,
+                                                     85326262438912)}
+DRYRUN_RECORD_BAND = 1.1
 DRYRUN_HELD = tuple((arch, shape, "tiny") for arch, shape in DRYRUN_REFERENCE)
 # a dry-run of one pair with its shape's sequence cut (argv: arch, shape,
 # mesh, sequence), its record saved as the CLI's ``--tag smoke`` saves it
@@ -5434,15 +5458,37 @@ def finish_dryruns(procs):
             f"data-sheet estimate) {json.dumps(rec['roofline'])}")
         if (arch, shape, mesh) in DRYRUN_HELD:
             failed += held_to_reference(arch, shape, rec)
+        if (arch, shape, mesh) in DRYRUN_RECORD:
+            failed += held_to_record(arch, shape, mesh, rec)
     if failed:
         raise AssertionError(f"dry-runs failed: {failed}")
+
+
+def held_to_record(arch, shape, mesh, rec):
+    """A DRYRUN_RECORD row's calibrated FLOPs and collective bytes beside
+    the torch 2.13 record's; its faults: either past DRYRUN_RECORD_BAND
+    times the record's."""
+    cal = rec["calibrated"]
+    name = f"{arch} {shape} {mesh}"
+    faults = []
+    for what, got, want in zip(("FLOPs", "collective bytes"),
+                               (cal["flops"], cal["coll_bytes"]),
+                               DRYRUN_RECORD[arch, shape, mesh]):
+        log(f"[dryrun] {name} {what} (torch {rec['torch']}): {got:.6g}, "
+            f"x{got / want:.3f} the torch 2.13.0+cpu record's {want:.6g}")
+        if got > DRYRUN_RECORD_BAND * want:
+            faults.append(f"{name}: {what} x{got / want:.3f} the 2.13 "
+                          "record's")
+    return faults
 
 
 def held_to_reference(arch, shape, rec):
     """A DRYRUN_HELD record's collective bytes printed beside the
     reference's, its own and at f32 width (``dryrun.collectives_at_f32``);
     its faults: ``outside`` negative, or its per-layer bytes at f32 width
-    off the reference's by more than 2x either way."""
+    off the reference's by more than 2x either way (where DRYRUN_BAND
+    lists the shape: its total and per-layer bytes off by more than the
+    band, or its ``outside`` by more than 2x)."""
     from repro_torch.launch.dryrun import collectives_at_f32
     cal, wide = rec["calibrated"], collectives_at_f32(rec)
     true = (cal["coll_bytes"], cal["per_layer"]["coll_bytes"],
@@ -5460,9 +5506,17 @@ def held_to_reference(arch, shape, rec):
     faults = []
     if min(true[2], got[2]) < 0:
         faults.append(f"{name}: outside {true[2]:.0f} < 0")
-    if not 0.5 <= ratio <= 2.0:
-        faults.append(f"{name}: per-layer collective bytes x{ratio:.3f} the "
-                      "reference's")
+    band = DRYRUN_BAND.get(shape)
+    checks = [("per-layer", ratio, band or 2.0)]
+    if band:
+        checks += [("total", got[0] / want[0], band),
+                   ("outside", got[2] / want[2], 2.0)]
+        log(f"[dryrun] {name}: total x{checks[1][1]:.3f}, outside "
+            f"x{checks[2][1]:.3f} the reference's at f32 width")
+    for what, r, b in checks:
+        if not 1 / b <= r <= b:
+            faults.append(f"{name}: {what} collective bytes x{r:.3f} the "
+                          "reference's")
     return faults
 
 

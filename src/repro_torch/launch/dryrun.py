@@ -58,11 +58,18 @@ against GSPMD's, and the records count them (``view_replications``,
   - ``aten.searchsorted`` (``models/moe.py``'s dispatch): a registered
     rule computes it on replicated operands (the sorted expert ids are
     all-gathered);
+  - ``aten.scatter.src`` (the MoE dispatch's buffer): a registered rule,
+    torch 2.13's own, sharded on any dim but the scattered one where
+    every operand has the same size there (2.11's replicated every
+    operand: the dispatch's (B, S k, d) index and copies all-gathered);
   - a view that would split or flatten a sharded dim in a way DTensor
     cannot shard (Yi-6B's 4 kv heads over a 16-wide `model` axis; a head
     count the axis does not divide; older DTensor also refuses to
     flatten a batch- and sequence-sharded tensor) is taken after its
-    input is replicated on that mesh axis;
+    input is replicated on that mesh axis; a product
+    (``torch.einsum``, ``x @ w``) whose view DTensor replicates so
+    (2.11: attention's scores and p @ v, the MoE router) is taken again
+    shard by shard, the attempt's counts dropped (``_local_products``);
   - ``aten.bmm`` with both operands sharded on the batch dim only, a
     strided shard included (an einsum flattens a batch- and a
     head-sharded dim into it), runs shard by shard, where DTensor would
@@ -102,17 +109,44 @@ calls that took the dry-run's own path (``swaps``):
     leading dims (``_local_einsum``; no flatten into rows) after
     ``_dense_layout`` places the operands as GSPMD places them: the
     weight gathered where x is sharded on its batch or sequence (never
-    x, once per projection), its gradient reduce-scattered back; x
-    gathered (or reduced) once where its contraction is split and the
-    weight's output is sharded; in prefill a replicated x's sequence
-    sliced before a row-sharded weight; in decode a replicated weight
-    split on its output columns where it widens (the mamba mixer's
-    ``in_proj``), else on its contraction with x, as the reference's
-    HLO splits them.  Outside
-    training a partial product is all-reduced at once, as GSPMD reduces
-    a dot, where DTensor would carry it into the residual stream; in
-    training the block's constraint reduce-scatters it, and its
-    gradient comes back whole, as the transpose of GSPMD's all-reduce;
+    x, once per projection), its gradient reduce-scattered back, except
+    in training where the product goes straight to a constraint on the
+    weight's sharded columns (v's projection, ``attention.project_qkv``
+    below): there x is gathered over its sequence and the weight stays;
+    x gathered (or reduced) once where its contraction is split and the
+    weight's output is sharded; in prefill and training a replicated
+    x's sequence sliced before a row-sharded weight; in decode a
+    replicated weight split on its output columns where it widens (the
+    mamba mixer's ``in_proj``), else on its contraction with x, as the
+    reference's HLO splits them.  A partial product is all-reduced at
+    once, as GSPMD reduces a dot, where DTensor would carry it into the
+    residual stream (in training, reduce-scatter it at the block's
+    constraint); in training its gradient comes back whole, as the
+    transpose of GSPMD's all-reduce, and x's gradient, a partial sum
+    where the weight's columns are split, is all-reduced at once;
+  - ``attention.project_qkv`` (training): the model's own, with the
+    weights whose products go straight to their head constraint marked
+    for ``_dense_layout`` (v's; in cross-attention, which ropes
+    neither, q's and k's too, unless a qk norm comes between);
+  - ``lm._ce_chunk``: the model's own, with a head table the model axis
+    does not divide (left replicated by the specs: Hymba's 32001 rows,
+    InternVL2's 92553, Granite-MoE's 49155) split on its rows where it
+    lies, as GSPMD pads and splits it: the logits leave the product
+    vocab-sharded and their gradient stays so (DTensor sliced the
+    replicated logits at their constraint and gathered their gradient
+    whole, 8.4 GB a device for Hymba at 1024 tokens on ``tiny``);
+  - ``steps.value_and_grad`` (training): the model's own, each partial
+    gradient (a replicated weight's) all-reduced once as it leaves the
+    backward, as GSPMD reduces it, where DTensor reduced it again at
+    every optimizer op that needs it whole (twice, on 2.11 three times);
+  - ``shardlib._redistribute`` (training): a constraint whose gradient
+    is laid out as its forward (``_Constraint``), as the transpose of the
+    reference's ``with_sharding_constraint`` is; DTensor sends it back
+    to the input's placements, or, where the input already lies so,
+    leaves it as it comes, so the gradient entering a block differed
+    between the last layer (from the loss) and the others (Granite-MoE's
+    MoE backward all-to-all'ed it in every layer but the last, and its
+    ``outside`` came out negative);
   - ``ops.rmsnorm``: the plain version on x's leading dims;
   - ``layers.embed`` (and the names ``lm`` and ``encdec`` import it
     under), in every mode: a vocab-parallel lookup, each shard its own
@@ -171,7 +205,9 @@ Conventions against the reference's counts:
 
 The collectives depend on the torch version: DTensor 2.13 keeps a
 flattened batch- and sequence-sharded tensor as a strided shard, older
-versions replicate the sequence first.
+versions replicate the sequence first, and 2.11's ``scatter`` rule
+replicates every operand; the products and the scatter rule above take
+those sites as 2.13 does (every record names its torch).
 """
 from __future__ import annotations
 
@@ -179,6 +215,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -390,6 +427,20 @@ def _recorder_cls():
             self.view_replications = 0
             self.retries = 0
 
+        def snapshot(self):
+            """The counts so far, for ``restore`` to drop what a failed or
+            superseded attempt added."""
+            return (self.flops, self.bytes, dict(self.coll.bytes),
+                    dict(self.coll.counts),
+                    {k: list(v) for k, v in self.coll.sites.items()},
+                    {k: list(v) for k, v in self.flop_sites.items()},
+                    self.peak, self.view_replications)
+
+        def restore(self, saved):
+            (self.flops, self.bytes, self.coll.bytes, self.coll.counts,
+             self.coll.sites, self.flop_sites, self.peak,
+             self.view_replications) = saved
+
         def _pass_on(self, fn, *args, **kwargs):
             """``fn`` recorded, its DTensor ops left to DTensor."""
             self._nested = True
@@ -451,17 +502,12 @@ def _recorder_cls():
             failed attempt's counts are dropped.
             A replicated output that a version's rule gives fewer
             placements than the mesh has dims is given one a mesh dim."""
-            saved = (self.flops, self.bytes, dict(self.coll.bytes),
-                     dict(self.coll.counts),
-                     {k: list(v) for k, v in self.coll.sites.items()},
-                     {k: list(v) for k, v in self.flop_sites.items()},
-                     self.peak)
+            saved = self.snapshot()
             try:
                 return _every_mesh_dim(self._pass_on(func, *args, **kwargs))
             except (RuntimeError, IndexError):
                 pass
-            (self.flops, self.bytes, self.coll.bytes, self.coll.counts,
-             self.coll.sites, self.flop_sites, self.peak) = saved
+            self.restore(saved)
             self.retries += 1
             with self:
                 args = _RETRIED[func](args)
@@ -571,6 +617,62 @@ def _recorder_cls():
             return out
 
     return _StepRecorder
+
+
+@contextlib.contextmanager
+def _local_products(rec):
+    """``torch.einsum`` and ``x @ w`` (``w`` a matrix) of two DTensors
+    that DTensor takes only after replicating a view (torch 2.11 refuses
+    to flatten a batch- and a head- or sequence-sharded dim into one,
+    which 2.13 keeps as a strided shard: attention's scores and p @ v,
+    the MoE router's logits) taken again shard by shard (``_local_einsum``), the failed attempt's counts
+    dropped; a product DTensor takes without one (every one on 2.13) is
+    its own.  Patched on ``torch`` and ``torch.Tensor`` for the step's
+    run (the checkpoint's recomputation in the backward, too)."""
+    from torch.distributed.tensor import DTensor
+    natives = {(torch, "einsum"): torch.einsum,
+               (torch.Tensor, "__matmul__"): torch.Tensor.__matmul__}
+    own = {key: key[1] in vars(key[0]) for key in natives}
+
+    def equation(name, args):
+        if name == "einsum":
+            return args[0]
+        x, w = args
+        if w.ndim != 2 or x.ndim < 2:
+            return None
+        lead = "abcdefgh"[:x.ndim - 1]
+        return f"{lead}y,yz->{lead}z"
+
+    def retried(owner, name):
+        native = natives[owner, name]
+
+        def run(*args, **kwargs):
+            ops = args[1:] if name == "einsum" else args
+            if kwargs or len(ops) != 2 or not all(
+                    isinstance(t, DTensor) for t in ops):
+                return native(*args, **kwargs)
+            saved = rec.snapshot()
+            out = native(*args)
+            eq = equation(name, args)
+            if rec.view_replications == saved[-1] or eq is None:
+                return out
+            rec.restore(saved)
+            local = _local_einsum(eq, *ops)
+            if local is None:
+                return native(*args)
+            _took(name.strip("_"))
+            return local
+        return run
+    for owner, name in natives:
+        setattr(owner, name, retried(owner, name))
+    try:
+        yield
+    finally:
+        for (owner, name), fn in natives.items():
+            if own[owner, name]:
+                setattr(owner, name, fn)
+            else:
+                delattr(owner, name)
 
 
 @contextlib.contextmanager
@@ -721,22 +823,26 @@ def _plain_dense(x, w, b, activation, *, mode):
     from repro_torch.kernels import ref
     _host_only(x)
     out = None
-    placed = _dense_layout(x, w.to(x.dtype), mode) if isinstance(
+    placed = _dense_layout(x, w.to(x.dtype), mode, w) if isinstance(
         x, DTensor) and isinstance(w, DTensor) else None
     if placed is not None:
         lead = "abcdefgh"[:x.ndim - 1]
-        out = _local_einsum(f"{lead}y,yz->{lead}z", *placed)
+        xp, wp = placed
+        if mode == "train":
+            # x's gradient, a partial sum where the weight's columns are
+            # split, reduced at once, as GSPMD reduces the transposed dot
+            xp = _ReducedGrad.apply(xp)
+        out = _local_einsum(f"{lead}y,yz->{lead}z", xp, wp)
     if out is None:
         return ref.dense_ref(x, w, b, activation=activation)
     _took("_dense_call")
-    if mode != "train":
-        # a contraction over a sharded dim leaves each shard a partial
-        # sum.  In a decode or prefill step it is all-reduced at once, as
-        # GSPMD reduces it, where DTensor would carry it into the residual
-        # stream and reduce it again, in f32, at every later norm.
-        # Training leaves it to the block's constraint (an explicit
-        # reduction's backward would gather the gradient)
-        out = _reduced(out)
+    # a contraction over a sharded dim leaves each shard a partial sum,
+    # all-reduced at once, as GSPMD reduces it, where DTensor would carry
+    # it into the residual stream (and reduce it again, in f32, at every
+    # later norm, or reduce-scatter it at the block's constraint); in
+    # training its gradient is gathered whole, as the transpose of
+    # GSPMD's all-reduce gathers it
+    out = _reduced(out)
     if b is not None:
         out = out + b.to(out.dtype)
     if activation == "relu":
@@ -746,9 +852,21 @@ def _plain_dense(x, w, b, activation, *, mode):
     return out
 
 
-def _dense_layout(x, w, mode):
+def _dense_layout(x, w, mode, w_own=None):
     """x and w of a dense placed as GSPMD places a dot's operands, on
-    each mesh dim:
+    each mesh dim (``w_own``: the weight before its cast, which
+    ``_head_laid_products`` may have marked):
+      - in training, x sharded on its sequence and w on its columns, the
+        product laid out next on those columns with no op between (v's
+        projection into its head constraint; q's and k's are roped
+        first), as ``_head_laid_products`` marks it: x is gathered over
+        its sequence and w stays (GSPMD propagates the constraint back
+        into the dot), so the product leaves column-sharded; x's
+        gradient, a partial sum over the columns, is all-reduced at once
+        and sliced back, and w's stays on its shard.  The reference's
+        HLO gathers x there (its stack frames: ``dense(params["wv"]``)
+        for every arch whose kv heads the model axis divides, Phi-3's and
+        Gemma-2's included, and gathers the weights of q, k and the MLP;
       - x sharded on a leading dim (batch, sequence) and w sharded: the
         weight is gathered and x stays where it is (DTensor would gather
         x, once per projection and again in the remat); its gradient is
@@ -758,17 +876,18 @@ def _dense_layout(x, w, mode):
         no block constraint lays out): x is gathered or reduced, and the
         product runs column-parallel (DTensor would move the weight and
         reduce-scatter the product, the MLP's whole hidden);
-      - in prefill, x replicated on the model axis and w sharded on its
-        rows (the attention output of a head count the axis does not
-        divide, into ``wo``): x's sequence is sliced locally and the
-        weight gathered, so the output leaves sequence-sharded (DTensor
-        would slice the contraction, a partial sum all-reduced at the
-        next norm).  In training x's batch is sliced instead (DTensor's
-        own product where it does not divide: None), so x's gradient
-        reaches the attention's backward split over the batch, which
-        runs split; a sequence-sliced x's gradient would reach its
-        q-chunk loop sequence-sharded and make it run whole on every
-        device;
+      - in prefill and training, x replicated on the model axis and w
+        sharded on its rows (the attention output of a head count the
+        axis does not divide, into ``wo``): x's sequence is sliced
+        locally and the weight gathered, so the output leaves
+        sequence-sharded, as the residual stream and Hymba's mixer
+        branch lie (DTensor would slice the contraction, a partial sum
+        all-reduced at the next norm; a batch-sliced x left Hymba's
+        attention branch batch-sharded, all-to-all'ed against the
+        mixer's at ``blocks._hybrid_mix``, forward and backward).  In
+        training x's gradient, sequence-sharded, is gathered by the
+        attention's backward, which runs whole on every device, as the
+        reference's does;
       - in decode, x and the weight both replicated on the model axis
         (the mamba mixer's; DTensor would run it whole on every device),
         the product split as the reference's propagation splits it: a
@@ -780,27 +899,24 @@ def _dense_layout(x, w, mode):
         contraction, locally, and reduced, the reference's [64,1600] x
         [1600,1600] and all-reduce for Hymba.
     Gathers come first (x's once a step), then local slices, whose
-    gradients stay sliced (``_split_locally``): a sliced x's gradient
-    reaches the attention's backward split as the forward split x."""
+    gradients stay sliced (``_split_locally``)."""
     from torch.distributed.tensor import Replicate, Shard
     mesh = x.device_mesh
     rules = shardlib.get_rules() or {}
     tp = mesh.mesh_dim_names.index(rules["tp"]) if "tp" in rules else None
     xp, wp = list(x.placements), list(w.placements)
+    direct = bool(_RUNS) and id(w_own) in _RUNS[-1].direct
     for m, n in enumerate(mesh.shape):
-        if _is_shard(xp[m]) and xp[m].dim != x.ndim - 1:
+        if direct and xp[m].is_shard(x.ndim - 2) and wp[m].is_shard(1):
+            xp[m] = Replicate()
+        elif _is_shard(xp[m]) and xp[m].dim != x.ndim - 1:
             if not wp[m].is_replicate():
                 wp[m] = Replicate()
         elif not xp[m].is_replicate() and wp[m].is_shard(1):
             xp[m] = Replicate()
         elif m != tp or not xp[m].is_replicate():
             continue
-        elif mode == "train" and wp[m].is_shard(0):
-            if x.shape[0] % (n * math.prod(mesh.size(i) for i, p in
-                                           enumerate(xp) if p.is_shard(0))):
-                return None
-            xp[m], wp[m] = Shard(0), Replicate()
-        elif mode == "prefill" and wp[m].is_shard(0) and x.ndim >= 3 and \
+        elif mode != "decode" and wp[m].is_shard(0) and x.ndim >= 3 and \
                 x.shape[-2] % n == 0:
             xp[m], wp[m] = Shard(x.ndim - 2), Replicate()
         elif mode == "decode" and wp[m].is_replicate() and \
@@ -826,11 +942,14 @@ def _placed(t, placements):
 @dataclasses.dataclass
 class _Run:
     """The state of one step's run under ``_sharded_model_paths``: the
-    redistributions already made (``_redistributed_once``) and, for each
-    swapped name, how many calls took the dry-run's own path
-    (``_took``)."""
+    redistributions already made (``_redistributed_once``), for each
+    swapped name how many calls took the dry-run's own path (``_took``),
+    the step's mode and the weights whose product goes straight to its
+    head constraint (``direct``: ``_head_laid_products``)."""
     memo: object
     taken: dict
+    mode: str = "train"
+    direct: set = dataclasses.field(default_factory=set)
 
 
 _RUNS = []
@@ -1193,17 +1312,186 @@ def _last_shard_tail(orig):
     return run
 
 
-def _whole_channels(orig):
-    # ``mamba._split_proj`` and ``mamba._split_conv``: the in-projection's
-    # or the conv's output gathered on its channels once, where DTensor
-    # would gather it for each of the slices taken from it
+def _realigned(t, m, a, b):
+    """Columns [a, b) of ``t``, sharded on its last dim over mesh dim
+    ``m`` (``torch.chunk``'s layout), sharded evenly on their own last
+    dim over ``m``, as GSPMD partitions a slice: each device keeps the
+    columns of its new shard it holds and receives the rest, one
+    collective-permute for each peer offset that moves any (a one-peer
+    ``all_to_all_single``), its payload the largest any device receives
+    at that offset (a permute's buffer is one shape on every device)."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = t.device_mesh
+    n, r = mesh.size(m), mesh.get_local_rank(m)
+    W, L = t.shape[-1], b - a
+
+    def span(q, lo, size):
+        # device q's columns of [lo, lo + size) in ``torch.chunk``'s layout
+        step = -(-size // n)
+        return lo + min(q * step, size), lo + min((q + 1) * step, size)
+
+    def overlap(q, p):
+        # the columns device q's new shard takes from device p's old one
+        (lo, hi), (plo, phi) = span(q, a, L), span(p, 0, W)
+        lo = max(lo, plo)
+        return lo, max(min(hi, phi), lo)
+    local, got = t.to_local(), {}
+    start, rows = span(r, 0, W)[0], math.prod(local.shape[:-1])
+    for d in range(1, n):
+        size = max(hi - lo for lo, hi in (overlap(q, (q - d) % n)
+                                          for q in range(n)))
+        if not size:
+            continue
+        to, frm = (r + d) % n, (r - d) % n
+        lo, hi = overlap(to, r)
+        send = F.pad(local[..., lo - start:hi - start], (0, size - (hi - lo)))
+        send_n, recv_n = [0] * n, [0] * n
+        send_n[to] = recv_n[frm] = rows * size
+        buf = funcol.all_to_all_single(
+            send.movedim(-1, 0).reshape(-1), recv_n, send_n,
+            mesh.get_group(m)).reshape(size, *local.shape[:-1])
+        lo, hi = overlap(r, frm)
+        got[frm] = buf.movedim(0, -1)[..., :hi - lo]
+    lo, hi = overlap(r, r)
+    got[r] = local[..., lo - start:hi - start]
+    # the new shard's columns come from devices in increasing order
+    pieces = [got[p] for p in range(n) if p in got]
+    pl = [Shard(t.ndim - 1) if i == m else p
+          for i, p in enumerate(t.placements)]
+    shape = (*t.shape[:-1], L)
+    return DTensor.from_local(torch.cat(pieces, dim=-1), mesh, pl,
+                              run_check=False, shape=shape,
+                              stride=_contiguous(shape))
+
+
+def _realigned_slices(orig):
+    # ``mamba._split_proj`` and ``mamba._split_conv``: decode's
+    # column-split in-projection output and the conv's channel-sharded
+    # output, each slice realigned to an even shard of its own channels
+    # (``_realigned``), as the reference's HLO realigns them by
+    # collective-permutes, where DTensor would gather the whole tensor
+    # for each of the slices taken from it
     @functools.wraps(orig)
     def run(t, H, P, N):
         _host_only(t)
-        whole = _replicate_dims(t, {t.ndim - 1})
-        if whole is not t:
-            _took(orig.__name__)
-        return orig(whole, H, P, N)
+        m = next((i for i, p in enumerate(getattr(t, "placements", ()))
+                  if p.is_shard(t.ndim - 1)), None)
+        if m is None or any(_is_shard(p) and p.dim != 0 for i, p in
+                            enumerate(t.placements) if i != m):
+            return orig(t, H, P, N)
+        _took(orig.__name__)
+        ends = [0] + [int(x.shape[-1]) for x in orig(
+            torch.empty((0, t.shape[-1]), device="meta"), H, P, N)]
+        bounds = list(itertools.accumulate(ends))
+        return tuple(_realigned(t, m, lo, hi)
+                     for lo, hi in zip(bounds, bounds[1:]))
+    return run
+
+
+class _Constraint(torch.autograd.Function):
+    """``shardlib``'s constraint as the reference's
+    ``with_sharding_constraint`` is differentiated: x laid out on the
+    placements, and its gradient laid out on them too (the constraint's
+    transpose), where DTensor's redistribution would send the gradient
+    back to x's own placements, or leave it as it comes where x already
+    lies so."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        if tuple(x.placements) == placements:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) == ctx.placements:
+            return grad, None
+        return grad.redistribute(grad.device_mesh, ctx.placements), None
+
+
+def _transposed_constraint(x, spec):
+    # ``shardlib._redistribute`` through ``_Constraint`` (training only:
+    # its gradient); a plain tensor as it is
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    want = shardlib.placements(spec, x.device_mesh)
+    if not x.requires_grad:
+        return x if tuple(x.placements) == want else \
+            x.redistribute(x.device_mesh, want)
+    return _Constraint.apply(x, want)
+
+
+def _reduced_grads(orig):
+    # ``steps.value_and_grad``: the model's own, each gradient that is a
+    # partial sum (a replicated weight's, the batch split) all-reduced
+    # once as it leaves the backward, as GSPMD reduces it there; DTensor
+    # carries it into the optimizer and reduces it at each op that needs
+    # it whole (the global norm and the second moment, and on torch 2.11
+    # the first moment too)
+    from repro_torch.core.tree import tree_map
+
+    @functools.wraps(orig)
+    def run(loss_fn, params, batch):
+        out, grads = orig(loss_fn, params, batch)
+        return out, tree_map(_reduced, grads)
+    return run
+
+
+def _head_laid_products(orig):
+    # ``attention.project_qkv``: the projections whose products go
+    # straight to their head constraint, with no op between (v; in
+    # cross-attention, which ropes neither, q and k too, unless a qk norm
+    # comes first), are marked for ``_dense_layout``, which takes them
+    # column-parallel in training, as GSPMD propagates the constraint
+    # back into the dot: x gathered over its sequence, the weight kept on
+    # its columns.  q and k, roped first, keep the weight gathered
+    @functools.wraps(orig)
+    def run(params, x, positions, cfg, kv_source=None):
+        rules = shardlib.get_rules() or {}
+        if not _RUNS or _RUNS[-1].mode != "train" or cfg.attn_kv_gather \
+                or rules.get("tp") is None:
+            return orig(params, x, positions, cfg, kv_source)
+        names = [n for n, axis in (("wv", "kv_heads"), ("wk", "kv_heads"),
+                                   ("wq", "heads"))
+                 if rules.get(axis) == rules["tp"] and (n == "wv" or (
+                     kv_source is not None and not cfg.qk_norm))]
+        if names:
+            _took("project_qkv")
+        marks = {id(params[n]["w"]) for n in names}
+        direct = _RUNS[-1].direct
+        direct |= marks
+        try:
+            return orig(params, x, positions, cfg, kv_source)
+        finally:
+            direct -= marks
+    return run
+
+
+def _vocab_sharded_ce(orig):
+    # ``lm._ce_chunk`` with a head table the model axis does not divide
+    # (Hymba's 32001 rows, InternVL2's 92553; left replicated by the
+    # param specs): the table is split on its rows where it lies, as
+    # GSPMD pads and splits it, so the logits come out vocab-sharded from
+    # the product and stay so in the backward; the hidden's gradient is a
+    # partial sum, reduced once.  DTensor would slice the replicated
+    # logits at their vocab constraint and gather their gradient whole
+    @functools.wraps(orig)
+    def run(h, lbl, table, cap):
+        from torch.distributed.tensor import DTensor, Shard
+        _host_only(h)
+        rules = shardlib.get_rules() or {}
+        if not isinstance(table, DTensor) or rules.get("vocab") is None:
+            return orig(h, lbl, table, cap)
+        m = table.device_mesh.mesh_dim_names.index(rules["vocab"])
+        pl = list(table.placements)
+        if not pl[m].is_replicate():
+            return orig(h, lbl, table, cap)
+        _took("_ce_chunk")
+        pl[m] = Shard(0)
+        return orig(h, lbl, _split_locally(table, pl), cap)
     return run
 
 
@@ -1229,20 +1517,27 @@ def _sharded_model_paths(mode: str = "train"):
              (attention, "chunked_attention",
               _head_split_attention(attention.chunked_attention)),
              (attention, "_cache_contract", _local_contract),
+             (attention, "project_qkv",
+              _head_laid_products(attention.project_qkv)),
              (mamba, "_ssd_decode", _heads_sharded_ssd),
              (mamba, "ssd_chunked", _sequence_sharded_ssd(mamba.ssd_chunked)),
              (mamba, "_causal_conv", _halo_conv(mamba._causal_conv)),
              (mamba, "_conv_tail", _last_shard_tail(mamba._conv_tail)),
-             (mamba, "_split_proj", _whole_channels(mamba._split_proj)),
-             (mamba, "_split_conv", _whole_channels(mamba._split_conv))]
+             (mamba, "_split_proj", _realigned_slices(mamba._split_proj)),
+             (mamba, "_split_conv", _realigned_slices(mamba._split_conv)),
+             (lm, "_ce_chunk", _vocab_sharded_ce(lm._ce_chunk))]
     # the callers' own names: ``lm`` and ``encdec`` import ``embed``
     swaps += [(mod, "embed", _vocab_parallel_embed)
               for mod in (layers, lm, encdec)]
+    if mode == "train":
+        swaps += [(shardlib, "_redistribute", _transposed_constraint),
+                  (steps, "value_and_grad",
+                   _reduced_grads(steps.value_and_grad))]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
     from torch.utils.weak import WeakIdKeyDictionary
-    run = _Run(memo=WeakIdKeyDictionary(), taken={})
+    run = _Run(memo=WeakIdKeyDictionary(), taken={}, mode=mode)
     _RUNS.append(run)
     try:
         yield run
@@ -1268,6 +1563,20 @@ def _sharding_rules():
         # every operand replicated: the sorted expert ids are gathered
         return [([Replicate()], [Replicate(), Replicate(), None])]
     _RULES_REGISTERED.append(_searchsorted)
+
+    @register_sharding(torch.ops.aten.scatter.src)
+    def _scatter(x, dim, index, src):
+        # sharded on any dim but the scattered one where every operand
+        # has x's size (the MoE dispatch's buffer, sharded on its batch),
+        # or replicated: torch 2.13's own rule, which 2.11 lacks (it
+        # gathered the dispatch's index and copies whole)
+        d = dim % x.ndim
+        return [([Replicate()], [Replicate(), None, Replicate(),
+                                 Replicate()])] + [
+            ([Shard(i)], [Shard(i), None, Shard(i), Shard(i)])
+            for i in range(x.ndim) if i != d and index.ndim == x.ndim
+            and x.shape[i] == index.shape[i] == src.shape[i]]
+    _RULES_REGISTERED.append(_scatter)
 
     if _has_no_rule(torch.ops.aten.flip.default):
         @register_sharding(torch.ops.aten.flip.default)
@@ -1322,7 +1631,8 @@ class LoweredStep:
         with shardlib.rules_scope(self.rules), implicit_replication(), \
                 _cpu_mesh_alltoall(), _strided_shard_shapes(), \
                 _mask_after_select(), _meta_propagation_unrecorded(), \
-                _sharded_model_paths(self.mode) as run, rec:
+                _sharded_model_paths(self.mode) as run, rec, \
+                _local_products(rec):
             out = self.fn(*self.args)
             out_bytes = sum(_local(t).numel() * _local(t).element_size()
                             for t in _tensor_leaves(out))

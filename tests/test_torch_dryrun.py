@@ -403,3 +403,57 @@ def test_flop_sites_splits_a_layer_into_forward_and_backward(tmp_path,
     assert "backward / forward 2.0000" in out[0]
     assert "backward / forward 1.0000" in out[1]
     assert len(out) == 4 and out[3].endswith(bwd)
+
+
+def test_coll_sites_counts_a_layer_and_outside_at_f32_width(tmp_path,
+                                                            capsys):
+    """``tools/coll_sites.py``: a site's per-layer bytes are its 2-layer
+    bytes less its 1-layer bytes, its ``outside`` bytes twice the 1-layer
+    run's less the 2-layer run's, each floating payload at 4 bytes an
+    element; two records list the sites whose bytes differ."""
+    from tools import coll_sites
+    layer = "all-gather all_gather_into_tensor bfloat16[8,4] @ models/a.py:1"
+    head = "all-reduce all_reduce float32[8] @ models/lm.py:2"
+    ids = "all-gather all_gather_into_tensor int64[8] @ models/moe.py:3"
+    records = [
+        {"L1": {layer: [1, 64], head: [1, 32], ids: [1, 64]},
+         "L2": {layer: [2, 128], head: [1, 32], ids: [2, 128]}},
+        {"L1": {layer: [1, 64], head: [2, 64], ids: [1, 64]},
+         "L2": {layer: [2, 128], head: [2, 64], ids: [2, 128]}}]
+    assert coll_sites.f32_bytes(layer, 64) == 128
+    assert coll_sites.per_layer({"coll_sites": records[0]}) == {
+        layer: (1, 128), ids: (1, 64)}
+    assert coll_sites.per_layer({"coll_sites": records[0]},
+                                outside=True) == {head: (1, 32)}
+    paths = []
+    for i, sites in enumerate(records):
+        paths.append(str(tmp_path / f"r{i}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump({"arch": "a", "shape": "s", "mesh": "m",
+                       "torch": "2.13.0", "coll_sites": sites}, f)
+    assert coll_sites.main(paths + ["--outside"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].endswith("0.000 MB") and out[1].endswith("0.000 MB")
+    assert len(out) == 4 and out[3].endswith(head)
+    assert "1 x 0.000 -> 2 x 0.000" in out[3]
+
+
+def test_dryrun_probe_holds_a_record_to_the_reference():
+    """``tools/dryrun_probe.py``: a record's calibrated collective bytes
+    at f32 width over the reference's, in band within 1.5x (2x outside)
+    both ways."""
+    from tools import dryrun_probe
+    want = dryrun_probe.REFERENCE["mamba2-370m"]
+    L = configs.get_config("mamba2-370m").num_layers
+    # chips x (L1, L2) bytes: a layer d, outside o, total o + L d
+    d, o = want[1], want[2]
+    site = "all-reduce all_reduce float32[1] @ models/a.py:1"
+    record = {"arch": "mamba2-370m", "variant": "", "chips": 4,
+              "coll_sites": {"L1": {site: [1, (o + d) // 4]},
+                             "L2": {site: [2, (o + 2 * d) // 4]}}}
+    r = dryrun_probe.ratios(record, "mamba2-370m")
+    assert r[1:] == pytest.approx((1.0, 1.0), rel=1e-9)
+    assert r[0] == pytest.approx((o + L * d) / want[0], rel=1e-9)
+    assert dryrun_probe.in_band((1.4, 0.7, 1.9))
+    assert not dryrun_probe.in_band((1.6, 1.0, 1.0))
+    assert not dryrun_probe.in_band((1.0, 1.0, 0.4))

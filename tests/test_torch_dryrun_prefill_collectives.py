@@ -1,12 +1,13 @@
-"""The port's dry-run collectives on the prefill and training paths held
-against the JAX dry-run's, on ``tiny`` (2 x 2), as
-``tests/test_torch_dryrun_collectives.py`` holds the decode steps'.
+"""The port's dry-run collectives on the prefill path held against the
+JAX dry-run's, on ``tiny`` (2 x 2), as
+``tests/test_torch_dryrun_collectives.py`` holds the decode steps' (and
+``tests/test_torch_dryrun_train_collectives.py`` the training steps').
 
-Pairs: Mamba2, Hymba, SeamlessM4T and InternVL2 at ``prefill_32k`` and
-Phi-3-mini at ``train_4k``, their sequences cut to 2048 and 1024 tokens.
-The reference's dry-run runs in one subprocess a shape (8 forced host
-devices) while the port's runs here; both are read at one width, every
-floating payload at 4 bytes an element.  For each pair:
+Pairs: Mamba2, Hymba, SeamlessM4T and InternVL2 at ``prefill_32k``, their
+sequences cut to 2048 tokens.  The reference's dry-run runs in one
+subprocess a shape (8 forced host devices) while the port's runs here;
+both are read at one width, every floating payload at 4 bytes an
+element.  For each pair:
 
 - the calibrated total and per-layer collective bytes lie within a
   factor of 2 of the reference's both ways (Mamba2's and Hymba's were
@@ -49,8 +50,7 @@ from repro_torch.models import layers, mamba  # noqa: E402
 
 MESH = "tiny"
 SHAPES = {"prefill_32k": (2048, ("mamba2-370m", "hymba-1.5b",
-                                 "seamless-m4t-large-v2", "internvl2-26b")),
-          "train_4k": (1024, ("phi3-mini-3.8b",))}
+                                 "seamless-m4t-large-v2", "internvl2-26b"))}
 PAIRS = [a for _, archs in SHAPES.values() for a in archs]
 SSM = ("mamba2-370m", "hymba-1.5b")
 # the per-layer ratios before the dry-run's prefill layout, not exceeded
